@@ -1,0 +1,144 @@
+"""Logic-Aware Quantization (LAQ) — the paper's §IV-C in software, in torch.
+
+Pipeline (per weight matrix):
+  1. symmetric per-output-channel INT4 quantization (scale = amax/7),
+  2. zero-weight pruning: |w| below ``prune_threshold`` * full scale is forced
+     to zero, deleting the MAC entirely (§IV-C.3; paper threshold 2^-6),
+  3. logic-aware rounding: between the two nearest INT4 codes, prefer the
+     one whose CSD encoding needs fewer adders when the extra quantization
+     error stays within ``laq_slack`` of the scale.
+
+Activations are INT8 symmetric (§V-C), per row by default (the serving
+path's dynamic range) or per tensor (the paper's static calibrated range).
+
+Every function is elementwise torch on whatever device its input lies on,
+and rounds exactly as the JAX package does (``torch.round`` rounds half to
+even like ``jnp.round``), so codes and scales are bit-identical to it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core import csd
+
+__all__ = [
+    "QuantizedLinear",
+    "KV_DTYPES",
+    "KV_QMAX",
+    "quantize_weights",
+    "dequantize",
+    "quantize_activations_int8",
+    "w4a8_matmul_ref",
+]
+
+INT4_MIN, INT4_MAX = -7, 7  # symmetric grid keeps the CSD tables balanced
+DEFAULT_PRUNE_THRESHOLD = 2.0 ** -6  # §IV-C.3, fraction of full scale
+DEFAULT_LAQ_SLACK = 0.35  # extra quant error allowed (in units of scale) to buy a cheaper CSD code
+
+
+@dataclass
+class QuantizedLinear:
+    """An INT4 weight matrix plus per-channel scales — the 'hardwired' layer.
+
+    ``codes`` is int8 storage of INT4 values in [-7, 7], shape ``(..., K, N)``;
+    ``scales`` is float32 of shape ``(..., N)`` (per output channel).
+    """
+
+    codes: torch.Tensor
+    scales: torch.Tensor
+
+    def __getitem__(self, idx) -> "QuantizedLinear":
+        """Index leading (layer) axes of codes and scales together."""
+        return QuantizedLinear(self.codes[idx], self.scales[idx])
+
+
+# KV-cache page quantization formats (paged pools); fp8 is e4m3.
+KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+KV_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def quantize_weights(
+    w: torch.Tensor,
+    *,
+    prune_threshold: float = DEFAULT_PRUNE_THRESHOLD,
+    laq_slack: float = DEFAULT_LAQ_SLACK,
+    logic_aware: bool = True,
+) -> QuantizedLinear:
+    """Quantize a (in, out) weight matrix to LAQ INT4 (on ``w``'s device)."""
+    w = w.to(torch.float32)
+    scales = w.abs().amax(dim=0, keepdim=True) / INT4_MAX
+    scales = torch.clamp_min(scales, 1e-12)
+    x = w / scales
+
+    lo = torch.clamp(torch.floor(x), INT4_MIN, INT4_MAX)
+    hi = torch.clamp(lo + 1, INT4_MIN, INT4_MAX)
+    err_lo = (x - lo).abs()
+    err_hi = (x - hi).abs()
+    del x
+
+    if logic_aware:
+        cost = torch.as_tensor(csd.csd_cost_table(4), device=w.device)
+        cost_lo = cost[(lo + 8).to(torch.int64)]
+        cost_hi = cost[(hi + 8).to(torch.int64)]
+        # Nearest code, unless the other code is CSD-cheaper and the error
+        # penalty stays within the slack budget.
+        nearest_is_lo = err_lo <= err_hi
+        prefer_lo = (cost_lo < cost_hi) & (err_lo <= err_hi + laq_slack)
+        prefer_hi = (cost_hi < cost_lo) & (err_hi <= err_lo + laq_slack)
+        take_lo = torch.where(prefer_lo, True,
+                              torch.where(prefer_hi, False, nearest_is_lo))
+    else:
+        take_lo = err_lo <= err_hi
+    q = torch.where(take_lo, lo, hi).to(torch.int8)
+
+    # Zero-weight pruning: synthesis deletes the MAC (§IV-C.3).
+    full_scale = scales * INT4_MAX
+    q = torch.where(w.abs() < prune_threshold * full_scale,
+                    torch.zeros_like(q), q)
+    return QuantizedLinear(codes=q, scales=scales[0].to(torch.float32))
+
+
+def dequantize(ql: QuantizedLinear, dtype=torch.bfloat16) -> torch.Tensor:
+    return (ql.codes.to(torch.float32) * ql.scales).to(dtype)
+
+
+def quantize_activations_int8(x: torch.Tensor, *, per_tensor: bool = False):
+    """Symmetric INT8 activation quantization -> (codes int8, scale f32).
+
+    Default is per-row dynamic scaling (``amax(row)/127``, scale shape
+    ``x.shape[:-1] + (1,)``), which the W4A8 matmul consumes;
+    ``per_tensor=True`` uses one ``amax(x)/127`` for the whole tensor,
+    broadcast to the same shape.
+    """
+    x = x.to(torch.float32)
+    if per_tensor:
+        scale = (x.abs().amax() / 127.0).expand(x.shape[:-1] + (1,))
+        scale = scale.contiguous()
+    else:
+        scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp_min(scale, 1e-12)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int_matmul(qx: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 operands, on any device.
+
+    The product runs in float64: every partial sum is an integer far below
+    2^53 (|acc| <= 127 * 7 * K), so each float64 add is exact and the result
+    does not depend on summation order."""
+    acc = qx.to(torch.float64) @ codes.to(torch.float64)
+    return acc.to(torch.int32)
+
+
+def w4a8_matmul_ref(x: torch.Tensor, ql: QuantizedLinear,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """Reference W4A8 matmul: int8 activations x int4 weights, int32 accum,
+    rescaled by (act_scale * weight_scale)."""
+    qx, act_scale = quantize_activations_int8(x)
+    shape = qx.shape
+    acc = int_matmul(qx.reshape(-1, shape[-1]), ql.codes)
+    acc = acc.reshape(shape[:-1] + (ql.codes.shape[-1],))
+    return (acc.to(torch.float32) * act_scale * ql.scales).to(dtype)

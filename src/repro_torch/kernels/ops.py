@@ -1,0 +1,64 @@
+"""The kernel dispatcher: one entry per op, chosen by the tensors' device.
+
+A CUDA tensor goes to the hand-written kernel's wrapper, which launches it
+or raises; a CPU tensor goes to the plain PyTorch version in
+``kernels/ref.py``.  There is no switch that could pick the plain version
+for a tensor on the card, and no fallback when a kernel cannot be built.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import w4a8_matmul as _w4a8
+
+# the kernel wrappers whose launches the main path is held to
+KERNELS = {"w4a8_matmul": _w4a8.w4a8_matmul,
+           "paged_decode_attention": _pa.paged_decode_attention}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def w4a8_matmul(qx: torch.Tensor, x_scale: torch.Tensor, codes: torch.Tensor,
+                w_scale: torch.Tensor, *, out_dtype=torch.bfloat16
+                ) -> torch.Tensor:
+    if build.is_cuda(qx):
+        return _w4a8.w4a8_matmul(qx, x_scale, codes, w_scale, out_dtype)
+    return ref.w4a8_matmul(qx, x_scale, codes, w_scale, out_dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Dense single-position attention (prefill's token steps).  The JAX
+    package has no Pallas kernel for it either: plain PyTorch on every
+    device."""
+    return ref.decode_attention(q, k_cache, v_cache, cache_len,
+                                window=window, softcap=softcap, scale=scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, cache_len, *,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    if build.is_cuda(q):
+        return _pa.paged_decode_attention(
+            q, k_pool, v_pool, page_table, cache_len, window=window,
+            softcap=softcap, scale=scale, k_scale=k_scale, v_scale=v_scale)
+    return ref.paged_decode_attention(
+        q, k_pool, v_pool, page_table, cache_len, window=window,
+        softcap=softcap, scale=scale, k_scale=k_scale, v_scale=v_scale)

@@ -1,0 +1,346 @@
+"""Split-Brain serving engine — the paper's §IV-B protocol, in torch.
+
+Decoding is partitioned into:
+
+  device_phase  — the ITA ASIC: stateless, LAQ-quantized linear projections
+                  (QKV, wo, SwiGLU w1/w3/w2, LM head) through the W4A8 op.
+  host_phase    — KV-cache append, attention (the dynamic-state op), residual
+                  adds, norm statistics, sampling.
+
+As in the JAX package, both phases run in one program on one device (here
+the GPU): the labels survive as the TrafficMeter's accounting of every
+tensor that crosses the boundary, replayed per token so the measured
+interface bytes equal the analytical TrafficModel (eq. 7-10) to the byte.
+
+The port is eager PyTorch: a Python loop over the layers, tensors updated
+IN PLACE where the JAX package returned new arrays (K/V append into
+``pool[l]`` / ``cache[l]``; prefill loops over the true prompt length only),
+so no step copies a cache.  With ``page_size`` set, the slot cache is a page
+pool behind a host-owned page table and decode attends through the table
+with the paged flash-decode op (``paged_attn="inplace"``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import QuantizedLinear
+from repro_torch.core.splitbrain import TrafficMeter, TrafficModel
+from repro_torch.kernels import ops
+from repro_torch.models import api
+from repro_torch.models import layers as L
+from repro_torch.serve import pages as pages_mod
+from repro_torch.serve import slots as slots_mod
+
+
+def traffic_model_for(cfg: ModelConfig) -> TrafficModel:
+    return TrafficModel.for_config(cfg)
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device; a CUDA device without a card raises (nothing
+    carries on on the CPU unless the caller asks for it)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: the port serves on the GPU; pass "
+            "device='cpu' explicitly to run the plain versions on the CPU")
+    return dev
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, QuantizedLinear):
+        return QuantizedLinear(tree.codes.to(device), tree.scales.to(device))
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    return tree
+
+
+def _stack_layers(tree, num_layers: int):
+    """Collapse the (n_groups, group_size, ...) leading dims to (L, ...)."""
+    if isinstance(tree, dict):
+        return {k: _stack_layers(v, num_layers) for k, v in tree.items()}
+    if isinstance(tree, QuantizedLinear):
+        return QuantizedLinear(
+            tree.codes.reshape((num_layers,) + tree.codes.shape[2:]),
+            tree.scales.reshape((num_layers,) + tree.scales.shape[2:]))
+    return tree.reshape((num_layers,) + tree.shape[2:])
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _float_weights(tree, dtype):
+    """Float (quantize=False) device weights, cast once to the compute
+    dtype (the JAX package casts at every use; the values are the same)."""
+    if isinstance(tree, dict):
+        return {k: _float_weights(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+class SplitBrainEngine(pages_mod.PagedEngineMixin):
+    """Greedy decoding with an explicit host/device boundary."""
+
+    _SLOT_AXES = {"k": 1, "v": 1, "len": 0}
+    _SEQ_AXES = {"k": 3, "v": 3, "len": -1}
+
+    def __init__(self, cfg: ModelConfig, params, max_len: int = 256,
+                 quantize: bool = True, page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 paged_attn: str = "inplace", prefix_cache: str = "off",
+                 kv_dtype: str = "bf16", device="cuda"):
+        if cfg.family != "lm" or len(cfg.layer_pattern) != 1:
+            raise ValueError(
+                "split-brain engine covers the paper's LM configs")
+        if cfg.moe:
+            raise ValueError("split-brain engine covers dense FFNs")
+        if kv_dtype != "bf16":
+            raise NotImplementedError(
+                f"kv_dtype={kv_dtype!r} pools are not ported to the engine "
+                f"yet (the paged attention kernel takes them)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.meter = TrafficMeter()
+        self.max_len = max_len
+        self._hd = cfg.resolved_head_dim
+        self._dtype = getattr(torch, cfg.dtype)
+        self._n_layers = cfg.num_layers
+        params = _to(params, self.device)
+        # The "synthesis" step: weights become immutable INT4 codes.
+        blocks = params["blocks"]
+        dev = {"attn": blocks["attn"], "mlp": blocks["mlp"]}
+        head = params.get("lm_head")
+        if quantize:
+            dev = api.quantize_model(dev, cfg)
+            head = api.quantize_model({"lm_head": head}, cfg)["lm_head"]
+        else:
+            dev = _float_weights(dev, self._dtype)
+            head = head.to(self._dtype)
+        stacked = _stack_layers(
+            {**dev, "ln_attn": blocks["ln_attn"], "ln_mlp": blocks["ln_mlp"]},
+            cfg.num_layers)
+        # per-layer views, built once: the hot loop only indexes a list
+        self._layers = [_layer(stacked, i) for i in range(cfg.num_layers)]
+        self._embed = params["embed"]         # host-side float table
+        self._ln_final = params["ln_final"]
+        self._head = head
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self._pager = (pages_mod.HostPager(page_size, num_pages, max_len,
+                                           device=self.device)
+                       if page_size is not None else None)
+        self.check_paged_attn(paged_attn)
+        self.check_prefix_cache(prefix_cache)
+
+    # ------------------------------------------------------------ accounting
+    def _meter_token(self, batch: int) -> None:
+        """Replay one token's boundary crossings on the meter: per layer the
+        QKV input (h2d), K and V out (d2h) and the attention output in
+        (h2d); then the logits out (d2h).  Names, order and sizes are those
+        of the JAX package's meter, so its totals are eq. 7-10's."""
+        cfg = self.cfg
+        for _ in range(self._n_layers):
+            self.meter.h2d("x_qkv_in", (batch, 1, cfg.d_model))
+            self.meter.d2h("kv_out", (2, batch, cfg.num_kv_heads, 1, self._hd))
+            self.meter.h2d("attn_in", (batch, 1, cfg.num_heads * self._hd))
+        self.meter.d2h("logits", (batch, 1, cfg.vocab_size))
+
+    def meter_tokens(self, n: int) -> None:
+        """Replay ``n`` active tokens' boundary crossings (scheduler hook)."""
+        if int(n) > 0:
+            self._meter_token(int(n))
+
+    def measured_bytes_per_token(self, batch: int = 1,
+                                 count_q: bool = False) -> Dict[str, int]:
+        """Per-token boundary bytes from the meter (per sequence);
+        ``count_q=False`` is the paper's accounting."""
+        tot = self.meter.measured_bytes(count_q)
+        return {k: v // batch for k, v in tot.items()}
+
+    # --------------------------------------------------------------- hot path
+    def _layer_sweep(self, pos: torch.Tensor, token: torch.Tensor,
+                     kv_attend) -> torch.Tensor:
+        """The shared per-token body: embed, then per layer pre-norm ->
+        DEVICE QKV -> rope -> ``kv_attend`` (cache append + attention, the
+        ONLY point the dense and paged disciplines differ) -> DEVICE wo ->
+        residual -> norm -> DEVICE FFN -> residual; final norm, DEVICE head.
+        Returns the logits (B, V)."""
+        cfg = self.cfg
+        B = token.shape[0]
+        hd = self._hd
+        # HOST: embedding lookup in float32, then the compute dtype
+        x = self._embed[token.to(torch.int64)][:, None, :].to(self._dtype)
+        positions = pos[:, None]
+        for i, p in enumerate(self._layers):
+            xn = L.rmsnorm(x, p["ln_attn"], cfg.norm_eps)
+            q, k, v = L.qkv_project(p["attn"], xn, cfg.num_heads,
+                                    cfg.num_kv_heads, hd)
+            q = L.rope(q, positions, cfg.rope_theta)
+            k = L.rope(k, positions, cfg.rope_theta)
+            attn = kv_attend(i, q, k, v)
+            attn = attn.transpose(1, 2).reshape(B, 1, cfg.num_heads * hd)
+            x = x + L.linear(attn, p["attn"]["wo"])
+            y = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
+            x = x + L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
+        x = L.rmsnorm(x, self._ln_final, cfg.norm_eps)
+        return L.linear(x, self._head)[:, 0]
+
+    def _token_step(self, k_cache, v_cache, length, token) -> torch.Tensor:
+        """One token against the dense cache (L, B, Hkv, S, hd), appended in
+        place at ``length``.  Returns the logits; the caller advances
+        ``len``."""
+        pos = length
+        cache_len = pos + 1
+
+        def kv_attend(i, q, k, v):
+            kc, vc = k_cache[i], v_cache[i]
+            L.dense_cache_write(kc, k, pos)
+            L.dense_cache_write(vc, v, pos)
+            return ops.decode_attention(q, kc, vc, cache_len,
+                                        softcap=self.cfg.softcap)
+
+        return self._layer_sweep(pos, token, kv_attend)
+
+    def _paged_token_step(self, k_pool, v_pool, table, length, token,
+                          write: torch.Tensor) -> torch.Tensor:
+        """One token computed THROUGH the page pool
+        (L, num_pages, page_size, Hkv, hd): each active slot's K/V is
+        appended in place to its page (inactive slots land on scratch), and
+        attention walks the page table with the paged flash-decode op.
+        Returns the logits; the caller advances ``len``."""
+        pos = length
+        cache_len = (pos + 1).to(torch.int32)
+
+        def kv_attend(i, q, k, v):
+            kc, vc = k_pool[i], v_pool[i]
+            L.paged_cache_write(kc, k, table, pos, write)
+            L.paged_cache_write(vc, v, table, pos, write)
+            return ops.paged_decode_attention(q, kc, vc, table, cache_len,
+                                              softcap=self.cfg.softcap)
+
+        return self._layer_sweep(pos, token, kv_attend)
+
+    def _tokens(self, token) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(token, np.int32), device=self.device)
+
+    # --------------------------------------------------------------- decoding
+    def init_cache(self, batch: int) -> Dict[str, torch.Tensor]:
+        """Dense KV cache: (L, B, Hkv, S, hd) K and V, (B,) int32 lengths."""
+        like = self._cache_like(batch)
+        return {k: torch.zeros(t.shape, dtype=t.dtype, device=self.device)
+                for k, t in like.items()}
+
+    def decode_token(self, cache: Dict[str, torch.Tensor], token):
+        """One token through the split-brain loop on the dense cache, which
+        is updated in place.  token: (B,).  Returns
+        (next_tok, logits, cache)."""
+        token = self._tokens(token)
+        self._meter_token(token.shape[0])
+        logits = self._token_step(cache["k"], cache["v"], cache["len"], token)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        cache["len"] = cache["len"] + 1
+        return next_tok, logits, cache
+
+    def _cache_like(self, batch: int) -> Dict[str, torch.Tensor]:
+        """Shapes and dtypes of the dense (L, B, Hkv, S, hd) cache, as meta
+        tensors (no allocation)."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, self.max_len,
+                 self._hd)
+        meta = torch.device("meta")
+        return {"k": torch.empty(shape, dtype=self._dtype, device=meta),
+                "v": torch.empty(shape, dtype=self._dtype, device=meta),
+                "len": torch.empty((batch,), dtype=torch.int32, device=meta)}
+
+    # ---------------------------------------------------------- slot protocol
+    # Consumed by serve/scheduler.py: slot i is row i of the slot cache, at
+    # its own ragged position; its K/V live in a shared page pool behind a
+    # host-owned page table.
+    def init_slot_cache(self, n_slots: int) -> Dict[str, torch.Tensor]:
+        if self._pager is None:
+            raise NotImplementedError(
+                "the slot protocol serves a page pool: pass page_size (dense "
+                "slot caches are not ported yet)")
+        like = self._cache_like(n_slots)
+        ba, sa = self._SLOT_AXES, self._SEQ_AXES
+        self._note_slot_cache(like, ba, sa)
+        pool = self._pager.reset(n_slots)
+        return pages_mod.make_pool(like, ba, sa, pool.num_pages,
+                                   self.page_size, self.device)
+
+    def rebuild(self, n_slots: int) -> Dict[str, torch.Tensor]:
+        """Re-materialise the device-side KV state from host state after a
+        device fault: a fresh page pool and a reset host pager.  The weights are immutable and stay."""
+        return self.init_slot_cache(n_slots)
+
+    def prefill_slot(self, prompt: np.ndarray):
+        """Prefill ONE request into a fresh B=1 dense cache.
+
+        prompt (T0,) -> (cache with len = T0-1, input token of the first
+        decode step).  The loop runs over the true prompt length only, so
+        nothing past it is computed or written."""
+        prompt = np.asarray(prompt, np.int32)
+        T0 = prompt.shape[0]
+        cache = self.init_cache(1)
+        if T0 > 1:
+            body = self._tokens(prompt[:-1])
+            for t in range(T0 - 1):
+                self._token_step(cache["k"], cache["v"], cache["len"],
+                                 body[t:t + 1])
+                cache["len"] += 1
+        return cache, int(prompt[-1])
+
+    def insert_slot(self, batched_cache, slot_cache, slot: int):
+        """Write a prefilled B=1 request cache into slot ``slot``, in place:
+        the host allocates the slot's pages first and the K/V is scattered
+        page block by page block."""
+        n_tok = int(slot_cache["len"][0])
+        return self.paged_insert(batched_cache, slot_cache, slot,
+                                 self._SLOT_AXES, self._SEQ_AXES, n_tok)
+
+    def decode_slots(self, cache: Dict[str, torch.Tensor], tokens, active,
+                     corrupt=None):
+        """One masked batched split-brain token step: every slot computes,
+        only ``active`` slots append K/V and advance ``len``.  Returns
+        ``(next_tokens, ok, cache)`` as host arrays plus the cache (updated
+        in place): ``ok`` is the per-slot finite-logits sentinel, and
+        ``corrupt`` (optional ``(n,)`` bool) NaN-poisons the flagged slots'
+        logits before the argmax (the fault-injection hook).  The tokens and
+        the sentinel come back in ONE device-to-host copy, the step's only
+        sync."""
+        n = int(np.asarray(tokens).shape[0])
+        act = np.asarray(active, bool)
+        bad = (np.zeros((n,), bool) if corrupt is None
+               else np.asarray(corrupt, bool))
+        tok_d = self._tokens(tokens)
+        act_d = torch.as_tensor(act, device=self.device)
+        cache = self.paged_pre_step(cache, act)
+        logits = self._paged_token_step(cache["k"], cache["v"],
+                                        self._pager.table(), cache["len"],
+                                        tok_d, act_d)
+        self._pager.post_decode(act)
+        cache["len"] += act_d.to(torch.int32)
+        logits = slots_mod.corrupt_logits(
+            logits, torch.as_tensor(bad, device=self.device))
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        ok = slots_mod.finite_logits(logits).to(torch.int32)
+        host = torch.stack([nxt, ok]).cpu().numpy()
+        return host[0], host[1].astype(bool), cache
+
+    # ------------------------------------------- not ported in this slice yet
+    def new_request_cache(self):
+        raise NotImplementedError("chunked prefill is not ported yet")
+
+    def prefill_chunk_slot(self, cache, chunk, true_w):
+        raise NotImplementedError("chunked prefill is not ported yet")
+
+    def seed_request_cache(self, cache, slot, cached_len):
+        raise NotImplementedError("prefix sharing is not ported yet")

@@ -1,0 +1,100 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device: the fixture decides at run time and
+skips without one.  Run them on the H100 with
+``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports
+neither JAX nor the JAX package.
+
+Tolerances: W4A8 is bit-identical (exact int32 sums, the same two f32
+multiplies, one round-to-nearest-even to bf16).  Paged attention in f32 is
+held to atol 1e-5 (the same f32 math in another summation order), in bf16
+to one bf16 ulp (that order can flip the final rounding).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as kpa
+from repro_torch.kernels import w4a8_matmul as kw
+from repro_torch.models import api
+from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+from repro_torch.serve.splitbrain_engine import SplitBrainEngine
+from torch_cases import (assert_within_bf16_ulp, paged_case, run_paged,
+                         w4a8_case)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    """A CUDA device, or a skip: decided here, at run time, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run `python -m pytest -m gpu "
+                    "tests/test_torch_*.py` on the H100")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2048, 2048), (8, 2048, 256), (3, 100, 37),
+                                   (13, 5632, 130), (8, 64, 32000)])
+def test_w4a8_kernel_bit_identical_to_plain(cuda, M, K, N):
+    ts = [torch.from_numpy(a).to(cuda) for a in w4a8_case(M, K, N, seed=M)]
+    n0 = kw.w4a8_matmul.launches
+    out = ops.w4a8_matmul(*ts)
+    torch.cuda.synchronize()
+    assert kw.w4a8_matmul.launches == n0 + 1
+    torch.testing.assert_close(out, ref.w4a8_matmul(*ts), rtol=0, atol=0)
+
+
+GEOMS = [dict(ps=8), dict(ps=3, P=10), dict(ps=1, P=32, lens=(0, 1, 31)),
+         dict(ps=8, Hq=4, Hkv=4), dict(ps=8, Hq=8, Hkv=1),
+         dict(ps=16, Hq=32, Hkv=4, D=64, P=6, lens=(0, 17, 96))]
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("opts", [dict(), dict(window=6, softcap=5.0)])
+def test_paged_kernel_matches_plain_f32(cuda, kv, geom, opts):
+    case = {k: v.to(cuda) for k, v in paged_case(4, kv=kv, **geom).items()}
+    n0 = kpa.paged_decode_attention.launches
+    out = run_paged(case, ops.paged_decode_attention, **opts)
+    torch.cuda.synchronize()
+    assert kpa.paged_decode_attention.launches == n0 + 1
+    plain = run_paged(case, ref.paged_decode_attention, **opts)
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    assert not out[0].any()              # the empty slot returns zeros
+
+
+def test_paged_kernel_bf16_within_one_ulp(cuda):
+    case = {k: v.to(cuda) for k, v in paged_case(
+        5, dtype=torch.bfloat16, ps=16, Hq=32, Hkv=4, D=64, P=6,
+        lens=(0, 33, 96)).items()}
+    out = run_paged(case, ops.paged_decode_attention)
+    plain = run_paged(case, ref.paged_decode_attention)
+    assert out.dtype == torch.bfloat16
+    assert_within_bf16_ulp(out, plain.float().cpu().numpy())
+
+
+def test_engine_on_card_matches_cpu_and_counts_launches(cuda):
+    """Reduced tinyllama served on the card, through the CUDA kernels, and
+    on the CPU through the plain versions, from the same weights: the same
+    tokens, and every projection and every decode attention of the card's
+    run was a kernel launch."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    reqs = [Request(uid=i, prompt=np.arange(1, 6 + 2 * i, dtype=np.int32),
+                    max_new=5) for i in range(4)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = SplitBrainEngine(cfg, params, max_len=32, page_size=8, device=dev)
+        ops.reset_launch_counts()
+        runs[dev] = ContinuousBatchingScheduler(eng, max_slots=2).run(reqs)
+        counts = ops.launch_counts()
+    out = runs["cuda"]
+    L = cfg.num_layers
+    assert counts == {
+        "w4a8_matmul": (7 * L + 1) * (out["prefill_tokens"] + out["steps"]),
+        "paged_decode_attention": L * out["steps"]}
+    assert ([r.tokens.tolist() for r in out["results"]]
+            == [r.tokens.tolist() for r in runs["cpu"]["results"]])

@@ -1,0 +1,65 @@
+"""Seeded numpy inputs and tolerances shared by the ``test_torch_*`` files.
+
+Imports neither JAX nor the JAX package, so the ``gpu`` tests that use it
+also run on a machine with only PyTorch.
+"""
+import numpy as np
+import torch
+
+
+def w4a8_case(M, K, N, seed=0):
+    """int8 activations and scales, INT4 codes and scales of a W4A8 op."""
+    rng = np.random.default_rng(seed)
+    qx = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    xs = (rng.random((M, 1)) * 0.02 + 1e-3).astype(np.float32)
+    codes = rng.integers(-7, 8, (K, N)).astype(np.int8)
+    ws = (rng.random((N,)) * 0.05 + 1e-3).astype(np.float32)
+    return qx, xs, codes, ws
+
+
+def paged_case(seed, *, B=3, Hq=4, Hkv=2, D=16, ps=8, P=4, lens=(0, 5, 29),
+               dtype=torch.float32, kv=None):
+    """Random q, pools, a page table with distinct pages per slot (entries
+    past a slot's length point at the scratch page 0) and lengths, as CPU
+    tensors.  ``kv`` = "int8" / "fp8" makes quantized pools with
+    power-of-two per-(page, KV head) scales."""
+    rng = np.random.default_rng(seed)
+    N = B * P + 1
+    q = torch.from_numpy(rng.standard_normal((B, Hq, 1, D)).astype(np.float32))
+    kf = rng.standard_normal((N, ps, Hkv, D)).astype(np.float32)
+    vf = rng.standard_normal((N, ps, Hkv, D)).astype(np.float32)
+    pages = rng.permutation(np.arange(1, N)).reshape(B, P).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    for b in range(B):
+        pages[b, -(-int(lens[b]) // ps):] = 0
+    case = dict(q=q.to(dtype), table=torch.from_numpy(pages),
+                lens=torch.from_numpy(lens))
+    if kv is None:
+        case["k"] = torch.from_numpy(kf).to(dtype)
+        case["v"] = torch.from_numpy(vf).to(dtype)
+        return case
+    sk = np.exp2(rng.integers(-9, -5, (N, Hkv))).astype(np.float32)
+    sv = np.exp2(rng.integers(-9, -5, (N, Hkv))).astype(np.float32)
+    if kv == "int8":
+        k = torch.from_numpy(np.clip(np.round(kf * 40), -127, 127)).to(torch.int8)
+        v = torch.from_numpy(np.clip(np.round(vf * 40), -127, 127)).to(torch.int8)
+    else:
+        k = torch.from_numpy(np.clip(kf * 60, -440, 440)).to(torch.float8_e4m3fn)
+        v = torch.from_numpy(np.clip(vf * 60, -440, 440)).to(torch.float8_e4m3fn)
+    case.update(k=k, v=v, k_scale=torch.from_numpy(sk),
+                v_scale=torch.from_numpy(sv))
+    return case
+
+
+def run_paged(case, fn, **kw):
+    return fn(case["q"], case["k"], case["v"], case["table"], case["lens"],
+              k_scale=case.get("k_scale"), v_scale=case.get("v_scale"), **kw)
+
+
+def assert_within_bf16_ulp(ours: torch.Tensor, ref, ulps=1):
+    """|ours - ref| <= ulps * one bf16 ulp of ref (2^(e-7) for |ref| in
+    [2^e, 2^(e+1)); subnormal floor 2^-133)."""
+    ref = np.asarray(ref, np.float32)
+    e = np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
+    np.testing.assert_array_less(np.abs(ours.detach().float().cpu().numpy() - ref),
+                                 ulps * np.exp2(e - 7) + 2.0 ** -133)
