@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and hold every
-kernel of that path against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and hold every
+kernel of those paths against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -8,9 +8,12 @@ Phases, each printed as one JSON line; any failure raises and the script
 exits non-zero (without a card, or without the repository's ``src/``, it
 fails before printing any result):
 
-  device     the card's name and count, ``nvidia-smi`` name and power limit
-  build      both CUDA kernels compiled from ``src/repro_torch/csrc`` for
-             sm_90a, with the ``-Xptxas -v`` register / spill report
+  device     the card's name and count, ``nvidia-smi`` name and power limit,
+             and the matmul precision settings (TF32 off, no reduced-
+             precision bf16 reductions)
+  build      the three CUDA kernels compiled from ``src/repro_torch/csrc``
+             for sm_90a, one nvcc per source in parallel, with the
+             ``-Xptxas -v`` register / spill report
   w4a8       the W4A8 kernel against the plain version at every main-path
              (K, N) of tinyllama-1.1b for M in {1, 8} plus ragged shapes:
              bit-identical
@@ -18,8 +21,18 @@ fails before printing any result):
              tinyllama's and llama2-7b's attention shapes, with window,
              softcap, int8 and fp8 pools: bf16 within one bf16 ulp of the
              plain value, f32 within 1e-5
-  reference  reduced tinyllama served on the card (kernels) and on the CPU
-             (plain versions) from the same weights: identical tokens
+  flash      the flash-attention kernel against the plain version at
+             llama2-7b's prefill shapes (T in {1, 37, 512}), tinyllama's
+             (GQA 32/4, D 64, T 300), non-causal with kv_offset, window 64
+             with softcap 30, in f32 and bf16: f32 within 1e-5, bf16
+             within one bf16 ulp of the plain value plus that 1e-5 (an
+             output near zero has a bf16 ulp below the f32 sum-order error)
+  reference  reduced tinyllama split-brain engine served on the card
+             (kernels) and on the CPU (plain versions) from the same
+             weights: identical tokens
+  reference_serve  reduced llama2-7b and tinyllama ServeEngine on the card
+             and on the CPU, under the scheduler and generate(): identical
+             tokens
   main_path  full-width tinyllama-1.1b (22 layers, random seeded weights,
              LAQ W4A8 on the card), SplitBrainEngine(page_size=16,
              max_len=256) under the continuous-batching scheduler with 8
@@ -28,11 +41,21 @@ fails before printing any result):
              just before and read just after; every request DONE, launches
              = 155 W4A8 per token step and 22 paged attentions per decode
              step, eq. 7-10 meter exact, a second run token-identical
-  profile    torch.profiler over decode steps of the main path: device time
-             by kernel and the device's busy share
-  times      CUDA-event times of each kernel at the main path's shapes,
-             replayed from a CUDA graph so the host's launch overhead is out
-             (the eager time is kept beside it), with its bound, its plain
+  serve_path full-width llama2-7b (32 layers, d_model 4096, bf16 weights
+             from a seeded generator on the card), the float ServeEngine
+             (page_size=16, max_len=1024) under the scheduler with 8 slots:
+             a warm-up run, then 16 seeded requests (prompts of 64-512
+             tokens, 32 new tokens each), counts set to 0 just before and
+             read just after: every request DONE, 32 flash launches per
+             prefill, 32 paged launches per decode step, no W4A8 launch,
+             meter exact, a second run token-identical; then generate() on
+             4 prompts of 128 tokens (32 flash launches, the same tokens on a
+             second call)
+  profile    torch.profiler over decode steps of each path: device time by
+             kernel and the device's busy share
+  times      CUDA-event times of each kernel at its path's shapes, replayed
+             from a CUDA graph so the host's launch overhead is out (the
+             eager time is kept beside it), with its bound, its plain
              version and a library yardstick
 
 The line before the last two is ``{"kernels": [...]}``, then the
@@ -40,6 +63,7 @@ The line before the last two is ``{"kernels": [...]}``, then the
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -53,8 +77,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config
+from repro_torch.core.device import exact_matmuls
 from repro_torch.kernels import build, ops, ref
 from repro_torch.models import api
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import (
     ContinuousBatchingScheduler, Request)
 from repro_torch.serve.splitbrain_engine import (
@@ -64,10 +90,13 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet (dense peaks below too)
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 W4A8_SRC = ("src/repro_torch/csrc/w4a8_matmul.cu",
             "src/repro/kernels/w4a8_matmul.py:30")
 PAGED_SRC = ("src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:48")
+FLASH_SRC = ("src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:31")
 
 
 def emit(obj) -> None:
@@ -97,6 +126,11 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 # ----------------------------------------------------------------- phases
 def phase_device():
     check(torch.cuda.is_available(), "no CUDA device")
+    # full-precision float matmuls on the card, as on the CPU: no TF32, and
+    # no bf16 reduction inside cuBLAS's bf16 products (ServeEngine sets the
+    # same for a CUDA device); reported as torch reads them back
+    matmul = exact_matmuls()
+    check(not any(matmul.values()), f"reduced-precision matmuls on: {matmul}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -104,7 +138,8 @@ def phase_device():
     smi_line = smi.stdout.strip().splitlines()[0]
     info = {"phase": "device", "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
-            "torch": torch.__version__, "cuda": torch.version.cuda}
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "matmul": matmul}
     emit(info)
     return info
 
@@ -119,7 +154,8 @@ def phase_build():
             name = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            short = re.search(r"(w4a8_\w+?_kernel|paged_decode_kernel)I(.*?)EEv", name)
+            short = re.search(r"(w4a8_\w+?_kernel|paged_decode_kernel|"
+                              r"flash_attention_kernel)I(.*?)EEv", name)
             kernels.append({"kernel": (short.group(1) + "<" + short.group(2) + ">"
                                        if short else name),
                             "registers": int(m.group(1))})
@@ -131,7 +167,10 @@ def phase_build():
           "cached": info["cached"], "sources": [p.name for p in build.sources()],
           "ptxas": kernels, "spill_bytes": spills,
           "note": "shared memory is dynamic (sized per launch)"})
-    check(len(kernels) >= 10, "ptxas report lists too few kernels")
+    check(len(kernels) >= 22, "ptxas report lists too few kernels")
+    check(sum(k["kernel"].startswith("flash_attention_kernel")
+              for k in kernels) == 8,
+          "ptxas report lacks the 8 flash-attention instantiations")
 
 
 W4A8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
@@ -243,6 +282,52 @@ def phase_paged(dev):
     return worst
 
 
+def flash_inputs(gen, dev, B, Hq, Hkv, Tq, Tk, D, dtype):
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
+
+
+def phase_flash(dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bf, f32 = torch.bfloat16, torch.float32
+    llama = [("llama2-7b", (1, 32, 32, T, T, 128), dict(causal=True))
+             for T in (1, 37, 512)]
+    other = [("tinyllama", (1, 32, 4, 300, 300, 64), dict(causal=True)),
+             ("llama2-7b", (1, 32, 32, 64, 300, 128),
+              dict(causal=False, kv_offset=236)),
+             ("tinyllama", (1, 32, 4, 300, 300, 64),
+              dict(causal=True, window=64, softcap=30.0))]
+    worst, rows = 0.0, []
+    for name, shape, opts in llama + other:
+        for qd in (bf, f32):
+            q, k, v = flash_inputs(gen, dev, *shape, qd)
+            out = ops.attention(q, k, v, **opts)
+            plain = ref.flash_attention(q, k, v, **opts)
+            torch.cuda.synchronize()
+            diff = (out.float() - plain.float()).abs()
+            # bf16: one bf16 ulp of the plain value on top of the f32
+            # tolerance -- an output near zero after cancellation has a
+            # bf16 ulp below the f32 sum-order error of its 512 terms
+            tol = (bf16_ulp(plain.float()) + 1e-5 if qd == bf
+                   else torch.full_like(diff, 1e-5))
+            err = diff.max().item()
+            worst = max(worst, err)
+            rows.append({"shape": name, "B_Hq_Hkv_Tq_Tk_D": shape,
+                         "dtype": str(qd).split(".")[-1], **opts,
+                         "max_abs_err": err})
+            check(out.dtype == qd and out.shape == q.shape,
+                  f"flash attention {rows[-1]}: dtype or shape")
+            over = (diff - tol).flatten().argmax()
+            check(bool((diff <= tol).all()), f"flash attention {rows[-1]} "
+                  f"outside tolerance: kernel {out.flatten()[over].item()} "
+                  f"vs plain {plain.flatten()[over].item()}")
+    emit({"phase": "flash", "cases": rows,
+          "tolerance": "bf16: 1 bf16 ulp of the plain value + 1e-5; "
+                       "f32: 1e-5",
+          "max_abs_err": worst})
+    return worst
+
+
 def reduced_requests(vocab):
     return [Request(uid=i, prompt=np.arange(1, 6 + 2 * i, dtype=np.int32) % vocab,
                     max_new=6) for i in range(5)]
@@ -261,6 +346,34 @@ def phase_reference(dev):
           f"reduced tinyllama: card tokens {toks[str(dev)]} != CPU tokens "
           f"{toks['cpu']}")
     emit({"phase": "reference", "config": cfg.name, "requests": len(toks["cpu"]),
+          "tokens_identical_card_vs_cpu": True})
+
+
+def phase_reference_serve(dev):
+    """Reduced ServeEngine on the card (flash prefill, paged decode) and on
+    the CPU (plain versions) from the same weights: identical tokens under
+    the scheduler (paged pool) and generate()."""
+    rows = []
+    for arch in ("llama2-7b", "tinyllama-1.1b"):
+        cfg = get_config(arch).reduced()
+        params = api.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 "cpu")
+        prompts = np.stack([(np.arange(1, 10) * (3 + i)) % cfg.vocab_size
+                            for i in range(3)]).astype(np.int32)
+        toks = {}
+        for d in ("cpu", dev):
+            eng = ServeEngine(cfg, params, max_len=64, page_size=8, device=d)
+            out = ContinuousBatchingScheduler(eng, max_slots=2).run(
+                reduced_requests(cfg.vocab_size))
+            gen = eng.generate(prompts, max_new=6)
+            toks[str(d)] = ([r.tokens.tolist() for r in out["results"]],
+                            gen["tokens"].tolist())
+        check(toks["cpu"] == toks[str(dev)],
+              f"reduced {arch} ServeEngine: card tokens {toks[str(dev)]} != "
+              f"CPU tokens {toks['cpu']}")
+        rows.append({"config": cfg.name, "requests": len(toks["cpu"][0]),
+                     "generate_rows": len(toks["cpu"][1])})
+    emit({"phase": "reference_serve", "configs": rows,
           "tokens_identical_card_vs_cpu": True})
 
 
@@ -342,7 +455,7 @@ def phase_main_path(dev, smi_line):
     check(prefill == sum(len(r.prompt) - 1 for r in reqs), "prefill tokens")
     L = cfg.num_layers
     want = {"w4a8_matmul": (7 * L + 1) * (prefill + steps),
-            "paged_decode_attention": L * steps}
+            "paged_decode_attention": L * steps, "flash_attention": 0}
     check(counts == want, f"launch counts {counts} != {want}")
     tokens = prefill + out["decoded_tokens"]
     meter = eng.meter.measured_bytes()["total"]
@@ -369,9 +482,109 @@ def phase_main_path(dev, smi_line):
     return eng, info
 
 
-def phase_profile(eng, dev):
-    """Device time by kernel over decode steps of the main path with all 8
-    slots decoding, and the device's busy share of the host's wall time."""
+def serve_requests(vocab, n=16, max_new=32):
+    rng = np.random.default_rng(SEED + 4)
+    return [Request(uid=i,
+                    prompt=rng.integers(1, vocab, int(rng.integers(64, 513)))
+                    .astype(np.int32),
+                    max_new=max_new) for i in range(n)]
+
+
+def phase_serve_path(dev, smi_line):
+    """Full-width llama2-7b through the float ServeEngine: the scheduler
+    over a paged pool, then generate()."""
+    cfg = get_config("llama2-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    eng = ServeEngine(cfg, params, max_len=1024, page_size=16, device=dev)
+    del params                      # the f32 tree: the engine keeps bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    sched = ContinuousBatchingScheduler(eng, max_slots=8)
+    clock = PhaseClock(eng)
+    sched.warmup(prompt_len=64, max_new=4)
+    reqs = serve_requests(cfg.vocab_size)
+    clock.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = sched.run(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decode_s, admit_s = clock.decode_s, clock.admit_s
+    res = out["results"]
+    check(len(res) == len(reqs) and all(r.state == "DONE" for r in res),
+          f"not every request DONE: {out['by_state']}")
+    check(all(r.gen_len == 32 for r in res), "a request stopped short")
+    check(all(0 <= t < cfg.vocab_size for r in res for t in r.tokens),
+          "token out of range")
+    check(out["quarantines"] == 0 and out["failed"] == 0,
+          "the finite-logits sentinel flagged a step")
+    steps, prefill = out["steps"], out["prefill_tokens"]
+    check(prefill == sum(len(r.prompt) - 1 for r in reqs), "prefill tokens")
+    L = cfg.num_layers
+    want = {"w4a8_matmul": 0, "flash_attention": L * len(reqs),
+            "paged_decode_attention": L * steps}
+    check(counts == want, f"launch counts {counts} != {want}")
+    tokens = prefill + out["decoded_tokens"]
+    meter = eng.measured_bytes()["total"]
+    check(meter == traffic_model_for(cfg).bytes_per_token() * tokens,
+          f"meter {meter} != eq. 7-10 x {tokens} tokens")
+    first = [r.tokens.tolist() for r in res]
+    again = sched.run(reqs)
+    check([r.tokens.tolist() for r in again["results"]] == first,
+          "a second identical run gave other tokens")
+    # generate(): one block prefill of 4 x 127 tokens, then 16 lockstep steps
+    rng = np.random.default_rng(SEED + 5)
+    prompts = rng.integers(1, cfg.vocab_size, (4, 128)).astype(np.int32)
+    ops.reset_launch_counts()
+    g1 = eng.generate(prompts, max_new=16)
+    gen_counts = ops.launch_counts()
+    g2 = eng.generate(prompts, max_new=16)
+    check(gen_counts == {"w4a8_matmul": 0, "flash_attention": L,
+                         "paged_decode_attention": 0},
+          f"generate() launch counts {gen_counts}")
+    check(np.array_equal(g1["tokens"], g2["tokens"])
+          and g1["tokens"].shape == (4, 16)
+          and bool(((g1["tokens"] >= 0) & (g1["tokens"] < cfg.vocab_size)).all()),
+          "generate() tokens out of range or not repeatable")
+    info = {"phase": "serve_path", "config": cfg.name, "layers": L,
+            "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.resolved_head_dim, "dtype": cfg.dtype,
+            "max_slots": 8, "page_size": 16, "max_len": 1024,
+            "num_pages": eng._pager.pool.num_pages,
+            "requests": len(reqs), "all_done": True,
+            "setup_s": setup_s, "prefill_tokens": prefill,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "decode_steps": steps, "decoded_tokens": out["decoded_tokens"],
+            "launches": counts, "launches_expected": want,
+            "meter_bytes": meter, "second_run_identical": True,
+            "wall_s": out["wall_s"], "decode_s": decode_s,
+            "admit_s": admit_s,
+            "decode_steps_per_s": steps / decode_s,
+            "decode_tokens_per_s": out["decoded_tokens"] / decode_s,
+            "prefill_tokens_per_s": prefill / admit_s,
+            "tokens_per_s_wall": out["tokens_per_s"],
+            "generate": {"batch": 4, "prompt_len": 128, "max_new": 16,
+                         "launches": gen_counts, "repeatable": True,
+                         "prefill_s": g1["prefill_s"],
+                         "decode_s": g1["decode_s"],
+                         "decode_tokens_per_s": g1["tokens_per_s"]},
+            "peak_memory_bytes": peak, "setup_peak_memory_bytes": setup_peak,
+            "card": smi_line}
+    emit(info)
+    return eng, info
+
+
+def phase_profile(eng, dev, path):
+    """Device time by kernel over decode steps of a path with all 8 slots
+    decoding, and the device's busy share of the host's wall time."""
     from torch.profiler import ProfilerActivity, profile
     sched = ContinuousBatchingScheduler(eng, max_slots=8)
     sched.begin()
@@ -405,7 +618,8 @@ def phase_profile(eng, dev):
                    if not str(getattr(ev, "device_type", "")).endswith("CUDA")),
                   reverse=True)
     busy = dev_total / 1e6 / wall if wall else 0.0
-    emit({"phase": "profile", "decode_steps": n, "wall_ms_per_step": wall / n * 1e3,
+    emit({"phase": "profile", "path": path, "config": eng.cfg.name,
+          "decode_steps": n, "wall_ms_per_step": wall / n * 1e3,
           "device_ms_per_step": dev_total / 1e3 / n,
           "device_busy_share": busy if dev_total else "not measured",
           "top_kernels": [{"name": k[:80], "ms_per_step": t / 1e3 / n,
@@ -525,10 +739,30 @@ def phase_times(eng, dev, counts):
                     "eager_ms": eager_ms})
     # --- paged attention: one decode step's 22 launches (one per layer's
     #     pool slice) at 8 slots of the main path's lengths
-    L = eng.cfg.num_layers
     lens = [9, 24, 40, 47, 63, 70, 88, 95]
-    cases = [paged_inputs(gen, dev, qdtype=torch.bfloat16, B=8, Hq=32, Hkv=4,
-                          D=64, ps=16, P=16, lens=lens) for _ in range(L)]
+    t = paged_step_times(gen, dev, eng.cfg.num_layers, 32, 4, 64, 16, lens,
+                         detail, "paged_library")
+    kernels.append({"name": "paged_decode_attention", "route": "cuda",
+                    "source": PAGED_SRC[0], "replaces": PAGED_SRC[1],
+                    "launches": counts["paged_decode_attention"],
+                    "unit": "one decode step: 22 launches, 8 slots, lengths "
+                            f"{lens}, CUDA-graph replay",
+                    **t,
+                    "library_note": "scaled_dot_product_attention on an "
+                                    "already-gathered dense view (gather "
+                                    "excluded)"})
+    emit({"phase": "times", "detail": detail})
+    return kernels
+
+
+def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name):
+    """One decode step's L paged launches (one per layer's pool slice) at
+    8 slots of the given lengths: kernel (graph replay), eager and plain
+    times, the bound, and SDPA on an already-gathered dense view."""
+    ps, B = 16, len(lens)
+    cases = [paged_inputs(gen, dev, qdtype=torch.bfloat16, B=B, Hq=Hq,
+                          Hkv=Hkv, D=D, ps=ps, P=P, lens=lens)
+             for _ in range(L)]
 
     def paged_step(fn):
         return lambda: [run_paged(c, fn) for c in cases]
@@ -539,52 +773,125 @@ def phase_times(eng, dev, counts):
     toks = sum(lens)
     # bytes the function must move: the live tokens' K and V, q in, out,
     # the table and the lengths; operations: q.k and p.v in f32
-    nbytes = L * (2 * toks * 4 * 64 * 2 + 2 * 8 * 32 * 64 * 2 + 8 * 16 * 4 + 8 * 4)
-    flops = L * 2 * 2 * toks * 32 * 64
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    nbytes = L * (2 * toks * Hkv * D * 2 + 2 * B * Hq * D * 2 + B * P * 4
+                  + B * 4)
+    flops = L * 2 * 2 * toks * Hq * D
     dense = []
     for c in cases:
-        S = 256
-        kd = c["k"][c["table"].long()].reshape(8, S, 4, 64).transpose(1, 2)
-        vd = c["v"][c["table"].long()].reshape(8, S, 4, 64).transpose(1, 2)
+        S = P * ps
+        kd = c["k"][c["table"].long()].reshape(B, S, Hkv, D).transpose(1, 2)
+        vd = c["v"][c["table"].long()].reshape(B, S, Hkv, D).transpose(1, 2)
         mask = (torch.arange(S, device=dev)[None, :] < c["lens"][:, None])
         dense.append((c["q"], kd.contiguous(), vd.contiguous(),
                       mask[:, None, None, :]))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = yardstick_ms(lambda: [sdpa(q, k, v, attn_mask=m, enable_gqa=True)
-                                   for q, k, v, m in dense], 50, detail,
-                          "paged_library")
-    kernels.append({"name": "paged_decode_attention", "route": "cuda",
-                    "source": PAGED_SRC[0], "replaces": PAGED_SRC[1],
-                    "launches": counts["paged_decode_attention"],
-                    "unit": "one decode step: 22 launches, 8 slots, lengths "
-                            f"{lens}, CUDA-graph replay",
-                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                 >= flops / F32_FLOPS_PER_S else "operations"),
-                    "library_ms": lib_ms,
-                    "library_note": "scaled_dot_product_attention on an "
-                                    "already-gathered dense view (gather "
-                                    "excluded)",
-                    "eager_ms": eager_ms})
-    emit({"phase": "times", "detail": detail})
-    return kernels
+                                   for q, k, v, m in dense], 50, detail, name)
+    return {"ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / F32_FLOPS_PER_S) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / F32_FLOPS_PER_S else "operations"),
+            "library_ms": lib_ms, "eager_ms": eager_ms}
+
+
+def flash_bound(launches, causal=True):
+    """(ms, "bytes" or "operations"): max(bytes / HBM rate, flops / bf16
+    tensor peak) over the launches, with q, out, k and v each moved once
+    and 4 * D flops per visible q-k pair."""
+    nbytes = flops = 0
+    for q, k, _ in launches:
+        B, Hq, Tq, D = q.shape
+        Hkv, Tk = k.shape[1], k.shape[2]
+        nbytes += q.element_size() * (2 * B * Hq * Tq + 2 * B * Hkv * Tk) * D
+        pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+        flops += 4 * B * Hq * D * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def phase_times_serve(dev, serve_info):
+    """The serve path's kernels: the flash kernel over one 512-token
+    prefill's 32 launches at llama2-7b's shape, and the paged kernel over
+    one decode step's 32 launches at the serve path's lengths."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    detail = []
+    L, T = 32, 512
+    bf = torch.bfloat16
+    launches = [flash_inputs(gen, dev, 1, 32, 32, T, T, 128, bf)
+                for _ in range(L)]
+
+    def prefill(fn, ls):
+        return lambda: [fn(q, k, v, causal=True) for q, k, v in ls]
+
+    k_ms = graph_time_ms(prefill(ops.attention, launches), iters=10)
+    eager_ms = cuda_time_ms(prefill(ops.attention, launches), iters=3)
+    p_ms = graph_time_ms(prefill(ref.flash_attention, launches), iters=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = yardstick_ms(
+        lambda: [sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                 for q, k, v in launches], 10, detail, "flash_library")
+    for t in (64, 128, 256, 512):
+        one = [[x[:, :, :t].contiguous() for x in launches[0]]]
+        us = graph_time_ms(prefill(ops.attention, one), iters=20) * 1e3
+        detail.append({"flash_T": t, "kernel_us": us,
+                       "bound_us": flash_bound(one)[0] * 1e3})
+    counts = serve_info["launches"]
+    bound_ms, bound_by = flash_bound(launches)
+    flash = {"name": "flash_attention", "route": "cuda",
+             "source": FLASH_SRC[0], "replaces": FLASH_SRC[1],
+             "launches": counts["flash_attention"],
+             "unit": "one 512-token prefill of llama2-7b: 32 launches, "
+                     "B 1, 32/32 heads, D 128, causal, bf16, CUDA-graph "
+                     "replay",
+             "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": lib_ms,
+             "library_note": "scaled_dot_product_attention(is_causal=True, "
+                             "enable_gqa=True) on the same tensors",
+             "eager_ms": eager_ms}
+    # paged at llama2-7b's decode shape: 8 slots at the serve path's
+    # prompt lengths, 16 tokens into their decode
+    lens = [n - 1 + 16 for n in serve_info["prompt_lens"][:8]]
+    paged = paged_step_times(gen, dev, L, 32, 32, 128, 1024 // 16, lens,
+                             detail, "paged_llama2_library")
+    paged["unit"] = ("one decode step of llama2-7b: 32 launches, 8 slots, "
+                     f"32/32 heads, D 128, lengths {lens}, CUDA-graph replay")
+    emit({"phase": "times", "path": "serve_path", "flash": flash,
+          "paged_llama2": paged, "detail": detail})
+    return flash, paged
 
 
 def main() -> int:
     dev_info = phase_device()
     dev = torch.device("cuda", 0)
+    smi = dev_info["nvidia_smi"]
     phase_build()
-    w4a8_err = phase_w4a8(dev)
-    paged_err = phase_paged(dev)
+    errs = {"w4a8_matmul": phase_w4a8(dev),
+            "paged_decode_attention": phase_paged(dev),
+            "flash_attention": phase_flash(dev)}
     phase_reference(dev)
-    eng, main_info = phase_main_path(dev, dev_info["nvidia_smi"])
-    phase_profile(eng, dev)
+    phase_reference_serve(dev)
+    eng, main_info = phase_main_path(dev, smi)
+    phase_profile(eng, dev, "main_path")
     kernels = phase_times(eng, dev, main_info["launches"])
-    kernels[0]["max_abs_err"] = w4a8_err
-    kernels[1]["max_abs_err"] = paged_err
+    del eng                          # release tinyllama before llama2-7b
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, serve_info = phase_serve_path(dev, smi)
+    phase_profile(eng, dev, "serve_path")
+    flash, paged_llama2 = phase_times_serve(dev, serve_info)
+    kernels.append(flash)
+    for k in kernels:
+        k["max_abs_err"] = errs[k["name"]]
+        k["launches_by_path"] = {
+            "main_path": main_info["launches"][k["name"]],
+            "serve_path": serve_info["launches"][k["name"]]}
+        check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    kernels[1]["llama2_decode"] = paged_llama2
     emit({"kernels": kernels})
-    print(dev_info["nvidia_smi"], flush=True)
+    print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],
                                  "count": dev_info["count"]}})
     return 0

@@ -12,12 +12,14 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import w4a8_matmul as _w4a8
 
 # the kernel wrappers whose launches the main path is held to
 KERNELS = {"w4a8_matmul": _w4a8.w4a8_matmul,
-           "paged_decode_attention": _pa.paged_decode_attention}
+           "paged_decode_attention": _pa.paged_decode_attention,
+           "flash_attention": _fa.flash_attention}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -37,13 +39,27 @@ def w4a8_matmul(qx: torch.Tensor, x_scale: torch.Tensor, codes: torch.Tensor,
     return ref.w4a8_matmul(qx, x_scale, codes, w_scale, out_dtype)
 
 
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None, scale: Optional[float] = None,
+              kv_offset: int = 0) -> torch.Tensor:
+    """Prefill attention, (B, H, T, D) operands: the flash kernel for a
+    CUDA tensor (operands made contiguous for it), the plain version for a
+    CPU tensor."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              kv_offset=kv_offset)
+    if build.is_cuda(q):
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
+    return ref.flash_attention(q, k, v, **kw)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """Dense single-position attention (prefill's token steps).  The JAX
-    package has no Pallas kernel for it either: plain PyTorch on every
-    device."""
+    """Dense single-position attention (the dense decode step and the
+    split-brain engine's token steps).  The JAX package has no Pallas
+    kernel for it either: plain PyTorch on every device."""
     return ref.decode_attention(q, k_cache, v_cache, cache_len,
                                 window=window, softcap=softcap, scale=scale)
 

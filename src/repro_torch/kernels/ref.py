@@ -41,6 +41,48 @@ def _soft_cap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(logits / cap)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None,
+                    kv_offset: int = 0) -> torch.Tensor:
+    """Blocked-softmax attention as the TPU flash kernel computes it.
+
+    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D) with Hq % Hkv == 0; query head
+    h reads KV head ``h // group`` (no K/V repeat).  Logits ``q . k`` in
+    float32 times ``scale`` (default ``D ** -0.5``), then
+    ``softcap * tanh(x / softcap)``, then the mask ``kpos <= qpos`` (causal)
+    and ``kpos > qpos - window`` with ``qpos = i + kv_offset``.  The softmax
+    is taken in float32 as ``p = exp(x - max)``, ``acc = p . v``,
+    ``out = acc / max(sum p, 1e-30)`` -- one block of the Pallas kernel,
+    which equals ``repro.kernels.ref.mha`` -- and rounded once to q's dtype.
+
+    ``p`` stays float32 for the value product.  The JAX package's other
+    backend, ``ref.mha_chunked``, rounds ``p`` to the value dtype first and
+    so differs by up to 2^-7 on bf16 outputs; the port follows the Pallas
+    kernel, which is what the TPU computes.
+    """
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    s = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, Hkv, group, Tq, D).to(torch.float32)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32)) * s
+    logits = _soft_cap(logits, softcap)
+    qpos = torch.arange(Tq, device=q.device)[:, None] + kv_offset
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    out = acc / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    return out.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                      window: Optional[int] = None,

@@ -1,0 +1,169 @@
+"""The port's serving CLI: batched greedy decoding of an lm-family
+config with the float ``ServeEngine``, on the card unless asked otherwise.
+
+  # on a machine with the card: llama2-7b at full size, random weights
+  python -m repro_torch.launch.serve --arch llama2-7b --continuous \
+      --page-size 16 --requests 8 --slots 4 --prompt-len 64 --max-new 32
+
+  # on the CPU, reduced config (plain versions of the kernels)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --smoke --device cpu --continuous --page-size 8
+
+Without ``--continuous`` it runs ``ServeEngine.generate`` on ``--batch``
+prompts of ``--prompt-len`` tokens; with it, ``--requests`` ragged prompts
+go through the continuous-batching scheduler over ``--slots`` slots (a page
+pool with ``--page-size``, else a dense slot cache).  Weights come from
+``api.init_params`` with a ``torch.Generator`` seeded by ``--seed``.  Prints
+one JSON report, as the JAX package's ``repro.launch.serve`` does.  Flags
+of features the port does not have yet exit with "not ported yet".
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.registry import CONFIGS
+from repro_torch.core.device import matmul_settings, resolve_device
+from repro_torch.models import api
+from repro_torch.serve import pages
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+
+SERVED = ("lm",)       # families the float ServeEngine serves
+
+
+def _refuse_unported(args, ap: argparse.ArgumentParser) -> None:
+    unported = [("--tp", args.tp != 1),
+                ("--kv-dtype int8/fp8", args.kv_dtype != "bf16"),
+                ("--prefix-cache on", args.prefix_cache != "off"),
+                ("--prefill-chunk", args.prefill_chunk is not None),
+                ("--paged-attn gather", args.paged_attn != "inplace"),
+                ("--priority", args.priority is not None),
+                ("--deadline-s", args.deadline_s is not None),
+                ("--preemption on", args.preemption != "off"),
+                ("--chaos-plan", args.chaos_plan is not None),
+                ("--chaos-seed", args.chaos_seed is not None),
+                ("--recovery-log", args.recovery_log is not None)]
+    for flag, used in unported:
+        if used:
+            ap.error(f"{flag}: not ported yet")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the reduced config of --arch")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the kernels' plain "
+                         "versions (default: cuda, which needs a card)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve --requests ragged prompts via the "
+                         "slot-based continuous-batching scheduler")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="enable the paged KV cache with this page size "
+                         "(tokens per page; must divide max_len)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="page-pool capacity (default: dense-equivalent)")
+    # flags of the JAX package's CLI whose features are not ported yet
+    ap.add_argument("--priority", default=None)
+    ap.add_argument("--deadline-s", type=float, default=None)
+    ap.add_argument("--preemption", choices=("on", "off"), default="off")
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--kv-dtype", choices=("bf16", "int8", "fp8"),
+                    default="bf16")
+    ap.add_argument("--prefix-cache", choices=("on", "off"), default="off")
+    ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--paged-attn", choices=("inplace", "gather"),
+                    default="inplace")
+    ap.add_argument("--chaos-plan", default=None)
+    ap.add_argument("--chaos-seed", type=int, default=None)
+    ap.add_argument("--recovery-log", default=None)
+    args = ap.parse_args(argv)
+    _refuse_unported(args, ap)
+    if args.num_pages is not None and args.page_size is None:
+        ap.error("--num-pages requires --page-size (the paged KV cache)")
+    if not args.continuous and (args.page_size is not None
+                                or args.num_pages is not None):
+        ap.error("--page-size/--num-pages only apply to the --continuous "
+                 "serve loop")
+
+    if args.arch not in CONFIGS or CONFIGS[args.arch].family not in SERVED:
+        ap.error(f"--arch {args.arch}: not ported yet (the port serves "
+                 f"{', '.join(sorted(CONFIGS))})")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    device = resolve_device(args.device)
+    params = api.init_params(
+        cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    rng = np.random.default_rng(args.seed)
+
+    if args.continuous:
+        max_len = pages.round_len(args.prompt_len + args.max_new + 1,
+                                  args.page_size)
+        eng = ServeEngine(cfg, params, max_len=max_len,
+                          page_size=args.page_size, num_pages=args.num_pages,
+                          device=device)
+        del params
+        lo = min(2, args.prompt_len)
+        reqs = [Request(uid=i,
+                        prompt=rng.integers(
+                            1, cfg.vocab_size,
+                            (int(rng.integers(lo, args.prompt_len + 1)),)
+                        ).astype(np.int32),
+                        max_new=args.max_new)
+                for i in range(args.requests)]
+        sched = ContinuousBatchingScheduler(eng, max_slots=args.slots,
+                                            eos_id=args.eos_id)
+        out = sched.run(reqs)
+        report = {
+            "arch": cfg.name,
+            "device": str(device),
+            "matmul": matmul_settings(),
+            "requests": args.requests,
+            "slots": args.slots,
+            "steps": out["steps"],
+            "decoded_tokens": out["decoded_tokens"],
+            "tokens_per_s": round(out["tokens_per_s"], 2),
+            "requests_per_s": round(out["requests_per_s"], 2),
+            "gen_len": [r.gen_len for r in out["results"]],
+            "rejected": [(r.uid, r.reason) for r in out["rejected"]],
+            "by_state": out["by_state"],
+        }
+        if args.page_size:
+            report["cache"] = eng.cache_stats(sched.cache)
+        print(json.dumps(report))
+        return out
+
+    prompts = rng.integers(1, cfg.vocab_size,
+                           (args.batch, args.prompt_len)).astype(np.int32)
+    eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new + 1,
+                      device=device)
+    del params
+    out = eng.generate(prompts, max_new=args.max_new, eos_id=args.eos_id)
+    print(json.dumps({
+        "arch": cfg.name,
+        "device": str(device),
+        "matmul": matmul_settings(),
+        "batch": args.batch,
+        "generated": out["tokens"][:2, :8].tolist(),
+        "gen_len": out["gen_len"].tolist(),
+        "tokens_per_s": round(out["tokens_per_s"], 2),
+    }))
+    return out
+
+
+if __name__ == "__main__":
+    main()

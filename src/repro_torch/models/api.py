@@ -1,5 +1,6 @@
-"""Model API of the port: params, LAQ model quantization, and the bridge
-that turns the JAX package's params (as numpy) into the port's."""
+"""Model API of the port: params, the lm serve path (cache, prefill,
+decode), LAQ model quantization, and the bridge that turns the JAX
+package's params (as numpy) into the port's."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -15,6 +16,62 @@ from repro_torch.models import transformer
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Dict[str, Any]:
     return transformer.init_params(cfg, generator, device=device)
+
+
+# ----------------------------------------------------------------------------
+# Serve path (the lm block path; other families come with their slices)
+# ----------------------------------------------------------------------------
+def _family(cfg: ModelConfig):
+    if cfg.family != "lm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (lm only)")
+    return transformer
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    return _family(cfg).init_cache(cfg, batch, max_len, device=device)
+
+
+def decode_step(params, cache, tokens, cfg: ModelConfig, *, write=None):
+    return _family(cfg).decode_step(params, cache, tokens, cfg, write=write)
+
+
+def paged_decode_step(params, cache, table, tokens, cfg: ModelConfig, *,
+                      write=None, seq_axes=None):
+    """One decode step computed directly through the page pool (cache and
+    table as ``serve/pages.py::make_pool`` and the pager lay them out)."""
+    return _family(cfg).paged_decode_step(params, cache, table, tokens, cfg,
+                                          write=write, seq_axes=seq_axes)
+
+
+def _prefill_fits(cache, prompt_len: int) -> bool:
+    """True when every KV leaf can hold the whole prompt as one block."""
+    return all(a.shape[4] >= prompt_len for a in cache["k"])
+
+
+def _block_prefill(params, cache, tokens, cfg, true_len):
+    mod = _family(cfg)
+    if not _prefill_fits(cache, tokens.shape[1]):
+        raise NotImplementedError(
+            "the scan-of-decode prefill (a prompt longer than a windowed "
+            "cache slot) is not ported yet")
+    # the block prefill writes positions 0..T-1: a fresh cache only
+    assert int(cache["len"].max()) == 0, "prefill requires an empty cache"
+    return mod.prefill(params, cache, tokens, cfg, true_len=true_len)
+
+
+def prefill(params, cache, tokens, cfg: ModelConfig):
+    """Fill a fresh cache with a whole prompt: tokens (B, T) -> (last
+    position's logits (B, V), the cache with ``len += T``), in place."""
+    return _block_prefill(params, cache, tokens, cfg, None)
+
+
+def prefill_bucketed(params, cache, tokens, true_len, cfg: ModelConfig):
+    """Prefill a right-padded prompt whose first ``true_len`` positions are
+    real: (logits at ``true_len - 1``, the cache with ``len += true_len``).
+    The port's engine passes the true prompt (``true_len`` = width): eager
+    PyTorch compiles nothing per width, so it pads to no bucket."""
+    return _block_prefill(params, cache, tokens, cfg, true_len)
 
 
 # ----------------------------------------------------------------------------

@@ -8,6 +8,8 @@ Hkv, D)``, weights ``(in, out)`` and W4A8 codes ``(K, N)``.
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 
 from repro_torch.core import quant
@@ -144,10 +146,27 @@ def paged_cache_write(pool: torch.Tensor, new: torch.Tensor,
     return pool
 
 
-def dense_cache_write(cache: torch.Tensor, new: torch.Tensor,
-                      pos: torch.Tensor) -> torch.Tensor:
-    """Write one token per row into a dense cache (B, Hkv, S, D) IN PLACE at
-    per-row positions ``pos``.  new: (B, Hkv, 1, D)."""
+def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                aligned: bool = True,
+                write: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write one token's K or V into a dense cache IN PLACE.
+
+    cache: (B, Hkv, S, D); new: (B, Hkv, 1, D); pos: (B,) on the cache's
+    device.  ``aligned=True`` (lockstep decode, every row at ``pos[0]``):
+    one ``index_copy_`` along the sequence axis.  ``aligned=False`` (ragged
+    slot positions): one indexed write of B token rows; with ``write``
+    (B,) bool, a row where it is False writes back the token it already
+    holds, so a masked step freezes inactive rows without touching more
+    than one token per row (the in-place form of the JAX package's
+    ``select_slots`` over the new cache).  No host sync either way.
+    Returns ``cache``."""
+    if aligned:
+        return cache.index_copy_(2, pos[:1].to(torch.int64),
+                                 new.to(cache.dtype))
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, :, pos.to(torch.int64), :] = new[:, :, 0, :].to(cache.dtype)
+    idx = pos.to(torch.int64)
+    val = new[:, :, 0, :].to(cache.dtype)
+    if write is not None:
+        val = torch.where(write[:, None, None], val, cache[rows, :, idx, :])
+    cache[rows, :, idx, :] = val
     return cache

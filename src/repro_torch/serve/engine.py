@@ -1,0 +1,351 @@
+"""Production serving engine for the lm family: float weights, batched
+prefill and greedy decode, in torch.
+
+The JAX package's ``ServeEngine`` compiles each request into two programs
+(one bucketed block prefill, one scan-fused decode loop).  The port runs
+the same math eagerly:
+
+  generate()    one block prefill of the whole prompt body through
+                ``api.prefill_bucketed`` (its attention is the flash kernel
+                on the card, one launch per layer), then a Python loop of
+                ``api.decode_step`` on the dense cache in lockstep
+                (``fused=True``, one host sync at the end); ``fused=False``
+                feeds the prompt one ``decode_step`` per token and syncs
+                every token, as the reference's stepwise loop does.
+
+  slot protocol ``init_slot_cache`` / ``prefill_slot`` / ``insert_slot`` /
+                ``decode_slots`` / ``rebuild`` for the continuous-batching
+                scheduler: a B=1 block prefill per admitted request, written
+                into its slot, and ONE masked batched decode step per
+                token.  With ``page_size`` the slot cache is a page pool
+                behind a host-owned page table and decode attends through
+                the table with the paged kernel (``paged_attn="inplace"``);
+                without it, a dense ``(max_slots, ...)`` cache.
+
+Caches are updated IN PLACE where the JAX package returned new ones, and a
+prefill runs over the true prompt length: eager PyTorch compiles nothing
+per width, so nothing is padded to a power-of-two bucket (pool contents
+past a slot's ``len`` then differ from the reference's garbage, and nothing
+reads them).  The float weights are cast once to the compute dtype (the JAX
+package casts them at every use; the values are the same); the embedding
+stays float32 and is gathered, then cast.  The TrafficMeter replays eq.
+7-10 bytes per active token, as the reference does on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import exact_matmuls, resolve_device
+from repro_torch.core.splitbrain import TrafficMeter, TrafficModel
+from repro_torch.models import api
+from repro_torch.serve import pages as pages_mod
+from repro_torch.serve import slots as slots_mod
+from repro_torch.serve.errors import InvalidRequestError
+
+
+def _serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
+    """The engine's copy of the float params on ``device``: projections cast
+    once to the compute dtype, embedding and norm scales kept float32 (a
+    tensor already in place is not copied).  The LM head is rounded once to
+    the compute dtype and held in float32, the operand of the float32
+    logits product (``transformer._logits_head``)."""
+    dtype = getattr(torch, cfg.dtype)
+    blocks = params["blocks"]
+
+    def cast(tree):
+        return {k: w.to(device=device, dtype=dtype) for k, w in tree.items()}
+
+    out = {"embed": params["embed"].to(device),
+           "ln_final": params["ln_final"].to(device),
+           "blocks": {"ln_attn": blocks["ln_attn"].to(device),
+                      "ln_mlp": blocks["ln_mlp"].to(device),
+                      "attn": cast(blocks["attn"]),
+                      "mlp": cast(blocks["mlp"])}}
+    if "lm_head" in params:
+        out["lm_head"] = params["lm_head"].to(device=device, dtype=dtype).to(
+            torch.float32)
+    return out
+
+
+class ServeEngine(pages_mod.PagedEngineMixin):
+    """Greedy serving of a dense lm-family config with float weights."""
+
+    # batch and sequence axis of each slot-cache entry (the K/V lists share
+    # theirs): leaves (n_groups, gs // P, B, Hkv, S, hd), len (B,)
+    _BATCH_AXES = {"k": 2, "v": 2, "len": 0}
+    _SEQ_AXES = {"k": 4, "v": 4, "len": -1}
+
+    def __init__(self, cfg: ModelConfig, params, max_len: int = 128,
+                 fused: bool = True, page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 paged_attn: str = "inplace", prefix_cache: str = "off",
+                 kv_dtype: str = "bf16", device="cuda"):
+        if (cfg.family != "lm" or cfg.moe or cfg.cross_attn_every
+                or cfg.frontend_tokens):
+            raise NotImplementedError(
+                f"{cfg.name}: the port's ServeEngine serves the dense lm "
+                f"family so far")
+        if any(s.window and s.window < max_len for s in cfg.layer_pattern):
+            raise NotImplementedError(
+                "windowed ring-buffer cache slots (gemma2) are not ported yet")
+        if kv_dtype in ("int8", "fp8"):
+            raise NotImplementedError(
+                f"kv_dtype={kv_dtype!r} pools are not ported to the engine "
+                f"yet (the paged attention kernel takes them)")
+        if kv_dtype != "bf16":
+            raise ValueError(f"kv_dtype must be 'bf16', 'int8' or 'fp8', got "
+                             f"{kv_dtype!r}")
+        self.check_paged_attn(paged_attn)
+        self.check_prefix_cache(prefix_cache)
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the card's tokens equal the CPU's only under these settings
+            exact_matmuls()
+        self.cfg = cfg
+        # slot decode runs requests at ragged positions: the lockstep cache
+        # write of generate() is wrong there
+        self._ragged_cfg = dataclasses.replace(
+            cfg, parallel=dataclasses.replace(cfg.parallel,
+                                              aligned_decode=False))
+        self.params = _serve_params(params, cfg, self.device)
+        self.max_len = max_len
+        self.fused = fused
+        self.meter = TrafficMeter()
+        self._traffic = TrafficModel.for_config(cfg)
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self._pager = (pages_mod.HostPager(page_size, num_pages, max_len,
+                                           device=self.device)
+                       if page_size is not None else None)
+
+    # ----------------------------------------------------- traffic accounting
+    def meter_tokens(self, n: int) -> None:
+        """Replay ``n`` active tokens' boundary crossings on the meter, in
+        the reference's aggregate form for one model shard (same names, same
+        eq. 7-10 widths, bytes == n * TrafficModel.bytes_per_token())."""
+        n = int(n)
+        if n <= 0:
+            return
+        tm = self._traffic
+        self.meter.h2d("x_qkv_in", (n, tm.num_layers, tm.d_model))
+        self.meter.d2h("kv_out", (n, tm.num_layers, 2, tm.kv_dim))
+        self.meter.h2d("attn_in", (n, tm.num_layers, tm.d_model))
+        self.meter.d2h("logits", (n, tm.vocab_size))
+
+    def measured_bytes(self, count_q: bool = False) -> Dict[str, int]:
+        """Total metered boundary bytes (paper accounting: K/V + attention +
+        logits; ``count_q=True`` adds the QKV input activations)."""
+        return self.meter.measured_bytes(count_q)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens, np.int32),
+                               device=self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # --------------------------------------------------------------- generate
+    def generate(self, prompts: np.ndarray, max_new: int = 16,
+                 fused: Optional[bool] = None,
+                 eos_id: Optional[int] = None) -> Dict[str, Any]:
+        """Greedy-decode a batch. prompts: (B, T0) int32.
+
+        ``eos_id``: per-request stop token.  Output rows are padded with
+        ``eos_id`` past each request's stop, and ``gen_len`` reports the
+        exact generated length (EOS inclusive, capped at ``max_new``).
+        """
+        if fused is None:
+            fused = self.fused
+        cfg = self.cfg
+        prompts = np.asarray(prompts, np.int32)
+        B, T0 = prompts.shape
+        if T0 - 1 + max_new > self.max_len:
+            raise ValueError(
+                f"request does not fit the cache: prompt_len={T0} + "
+                f"max_new={max_new} needs {T0 - 1 + max_new} positions but "
+                f"max_len={self.max_len}")
+        cache = api.init_cache(cfg, B, self.max_len, device=self.device)
+        if not fused:
+            return self._generate_stepwise(cache, prompts, max_new, eos_id)
+        toks = self._tokens(prompts)
+        tp0 = time.perf_counter()
+        if T0 > 1:
+            # one block prefill fills the cache with the whole prompt body
+            _, cache = api.prefill_bucketed(self.params, cache,
+                                            toks[:, :-1], T0 - 1, cfg)
+        self._sync()
+        prefill_s = time.perf_counter() - tp0
+        tok = toks[:, -1]
+        alive = torch.ones((B,), dtype=torch.bool, device=self.device)
+        n = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(max_new):
+            logits, cache = api.decode_step(self.params, cache, tok, cfg)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            n += alive.to(torch.int32)
+            if eos_id is None:
+                tok = nxt
+            else:
+                tok = torch.where(alive, nxt, torch.full_like(nxt, eos_id))
+                alive &= tok != eos_id
+            out.append(tok)
+        tokens = (torch.stack(out, dim=1).cpu().numpy() if out
+                  else np.zeros((B, 0), np.int32))
+        dt = time.perf_counter() - t0
+        gen_len = np.minimum(n.cpu().numpy(), max_new)
+        self.meter_tokens(B * (T0 - 1) + int(gen_len.sum()))
+        return {"tokens": tokens, "gen_len": gen_len,
+                "tokens_per_s": int(gen_len.sum()) / dt if dt else 0.0,
+                "decode_s": dt, "prefill_s": prefill_s}
+
+    def _generate_stepwise(self, cache, prompts: np.ndarray, max_new: int,
+                           eos_id: Optional[int] = None):
+        """Reference loop: one decode step per token, prompt included, and a
+        host sync per generated token.  Finished rows keep stepping in
+        lockstep but emit (and are fed) ``eos_id``; the loop breaks once
+        every row has stopped, padding the remainder."""
+        cfg = self.cfg
+        B, T0 = prompts.shape
+        tp0 = time.perf_counter()
+        for t in range(1, T0):
+            _, cache = api.decode_step(self.params, cache,
+                                       self._tokens(prompts[:, t - 1]), cfg)
+        self._sync()
+        prefill_s = time.perf_counter() - tp0
+        tok = prompts[:, -1]
+        out = []
+        alive = np.ones((B,), bool)
+        gen_len = np.zeros((B,), np.int32)
+        t0 = time.perf_counter()
+        for _ in range(max_new):
+            logits, cache = api.decode_step(self.params, cache,
+                                            self._tokens(tok), cfg)
+            emitted = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            gen_len += alive
+            if eos_id is not None:
+                emitted = np.where(alive, emitted, eos_id).astype(np.int32)
+                alive &= emitted != eos_id
+            tok = emitted
+            out.append(emitted)
+            if eos_id is not None and not alive.any():
+                break
+        dt = time.perf_counter() - t0
+        while len(out) < max_new:
+            out.append(np.full((B,), eos_id, np.int32))
+        tokens = (np.stack(out, axis=1) if out
+                  else np.zeros((B, 0), np.int32))
+        self.meter_tokens(B * (T0 - 1) + int(gen_len.sum()))
+        return {"tokens": tokens, "gen_len": gen_len,
+                "tokens_per_s": int(gen_len.sum()) / dt if dt else 0.0,
+                "decode_s": dt, "prefill_s": prefill_s}
+
+    # ---------------------------------------------------------- slot protocol
+    # Consumed by serve/scheduler.py: slot i is row i of the slot cache, at
+    # its own ragged position.
+    def init_slot_cache(self, n_slots: int) -> Dict[str, Any]:
+        """A fresh slot cache for ``n_slots`` concurrent streams: a page pool
+        (and a reset host pager) with ``page_size``, else the dense
+        ``(n_slots, ...)`` cache."""
+        ba, sa = self._BATCH_AXES, self._SEQ_AXES
+        like = api.init_cache(self.cfg, n_slots, self.max_len,
+                              device=torch.device("meta"))
+        self._note_slot_cache(n_slots, like, ba, sa)
+        if not self._paging_active:
+            return api.init_cache(self.cfg, n_slots, self.max_len,
+                                  device=self.device)
+        pool = self._pager.reset(n_slots)
+        return pages_mod.make_pool(like, ba, sa, pool.num_pages,
+                                   self.page_size, self.device)
+
+    def rebuild(self, n_slots: int) -> Dict[str, Any]:
+        """Re-materialise the device-side KV state from host state after a
+        device fault: a fresh slot cache and a reset host pager.  The
+        weights are immutable and stay."""
+        return self.init_slot_cache(n_slots)
+
+    def prefill_slot(self, prompt: np.ndarray):
+        """Prefill ONE request into a fresh B=1 dense cache.
+
+        prompt (T0,) -> (cache with len = T0 - 1, input token of the first
+        decode step): one block prefill over the true prompt body.  On the
+        paged layout the cache holds just the body's pages (the insert
+        scatters those); the dense slot cache takes a ``max_len`` row."""
+        prompt = np.asarray(prompt, np.int32)
+        T0 = prompt.shape[0]
+        if T0 < 1:
+            raise InvalidRequestError(
+                "prefill_slot needs a non-empty prompt (the last token "
+                "seeds decoding)")
+        S = (pages_mod.round_len(T0 - 1, self.page_size)
+             if self._paging_active else self.max_len)
+        cache = api.init_cache(self.cfg, 1, S, device=self.device)
+        if T0 > 1:
+            _, cache = api.prefill_bucketed(
+                self.params, cache, self._tokens(prompt[None, :-1]), T0 - 1,
+                self.cfg)
+        return cache, int(prompt[-1])
+
+    def insert_slot(self, batched_cache, slot_cache, slot: int):
+        """Write a prefilled B=1 request cache into slot ``slot``, in place:
+        on the paged layout the host allocates the slot's pages first and
+        the K/V is scattered page block by page block; the dense layout
+        copies it into the slot's row."""
+        if not self._paging_active:
+            return slots_mod.insert_slot(batched_cache, slot_cache, slot,
+                                         self._BATCH_AXES)
+        n_tok = int(slot_cache["len"][0])
+        return self.paged_insert(batched_cache, slot_cache, slot,
+                                 self._BATCH_AXES, self._SEQ_AXES, n_tok)
+
+    def decode_slots(self, cache, tokens, active, corrupt=None):
+        """One masked batched decode step: every slot computes, only
+        ``active`` slots write K/V and advance ``len``.  Returns
+        ``(next_tokens, ok, cache)`` as host arrays plus the cache (updated
+        in place): ``ok`` is the per-slot finite-logits sentinel, and
+        ``corrupt`` (optional ``(n,)`` bool) NaN-poisons the flagged slots'
+        logits before the argmax (the fault-injection hook).  The tokens and
+        the sentinel come back in ONE device-to-host copy.
+
+        Paged layout: the host allocates any page the step writes into,
+        then each active slot appends its token to its page and attends
+        through the table (``api.paged_decode_step``)."""
+        n = int(np.asarray(tokens).shape[0])
+        act = np.asarray(active, bool)
+        bad = (np.zeros((n,), bool) if corrupt is None
+               else np.asarray(corrupt, bool))
+        tok_d = self._tokens(tokens)
+        act_d = torch.as_tensor(act, device=self.device)
+        if self._paging_active:
+            cache = self.paged_pre_step(cache, act)
+            logits, cache = api.paged_decode_step(
+                self.params, cache, self._pager.table(), tok_d,
+                self._ragged_cfg, write=act_d)
+            self._pager.post_decode(act)
+        else:
+            self._meter_kv_read(act)
+            logits, cache = api.decode_step(self.params, cache, tok_d,
+                                            self._ragged_cfg, write=act_d)
+        logits = slots_mod.corrupt_logits(
+            logits, torch.as_tensor(bad, device=self.device))
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        ok = slots_mod.finite_logits(logits).to(torch.int32)
+        host = torch.stack([nxt, ok]).cpu().numpy()
+        return host[0], host[1].astype(bool), cache
+
+    # ------------------------------------------------------ not ported yet
+    def new_request_cache(self):
+        raise NotImplementedError("chunked prefill is not ported yet")
+
+    def prefill_chunk_slot(self, cache, chunk, true_w):
+        raise NotImplementedError("chunked prefill is not ported yet")
+
+    def seed_request_cache(self, cache, slot, cached_len):
+        raise NotImplementedError("prefix sharing is not ported yet")

@@ -23,9 +23,12 @@ allocation and the writes of inactive slots land there, and attention
 never reads it for a valid position.
 
 ``PagePool`` and ``HostPager`` are a numpy copy of the JAX package's, radix
-prefix index and copy-on-write included (the engine keeps prefix sharing
-off in this slice).  The device-side helpers work on plain dicts of tensors
-and write the pool IN PLACE.
+prefix index and copy-on-write included (the engines keep prefix sharing
+off so far).  The device-side helpers work on plain dicts of tensors, or of
+lists of tensors (the lm cache's per-pattern-slot leaves
+``(n_groups, gs // P, B, Hkv, S, hd)`` page into
+``(n_groups, gs // P, num_pages, page_size, Hkv, hd)``), and write the pool
+IN PLACE.
 """
 from __future__ import annotations
 
@@ -49,8 +52,16 @@ __all__ = [
     "make_pool",
     "insert_tree",
     "kv_token_bytes",
+    "round_len",
     "SCRATCH_PAGE",
 ]
+
+
+def round_len(n: int, *quanta: Optional[int]) -> int:
+    """Round a cache length up so every given quantum (page size, prefill
+    chunk width) tiles it exactly -- a common multiple of them all."""
+    q = math.lcm(*(int(x) for x in quanta if x))
+    return -(-int(n) // q) * q
 
 
 # ----------------------------------------------------------------------------
@@ -512,9 +523,15 @@ class HostPager:
 
 
 # ----------------------------------------------------------------------------
-# Pool layout (dicts of tensors; ``ba`` / ``sa`` name each leaf's batch and
-# sequence axes, -1 where the leaf does not page)
+# Pool layout (dicts of tensors, or of lists of tensors such as the lm
+# cache's per-pattern-slot K/V leaves; ``ba`` / ``sa`` name each entry's
+# batch and sequence axes, shared by every tensor of a list, -1 where the
+# entry does not page)
 # ----------------------------------------------------------------------------
+def _leaves(entry):
+    return entry if isinstance(entry, list) else [entry]
+
+
 def page_axis(b_ax: int, s_ax: int) -> int:
     """Leading axis of the ``(num_pages, page_size)`` pair in a pool leaf:
     every non-(B, S) axis keeps its dense order and the page axes drop in
@@ -529,19 +546,22 @@ def pool_shape(shape: Sequence[int], b_ax: int, s_ax: int, num_pages: int,
     return rest[:pax] + (num_pages, page_size) + rest[pax:]
 
 
-def make_pool(cache_like: Dict[str, torch.Tensor], ba: Dict[str, int],
+def make_pool(cache_like: Dict[str, object], ba: Dict[str, int],
               sa: Dict[str, int], num_pages: int, page_size: int,
-              device) -> Dict[str, torch.Tensor]:
+              device) -> Dict[str, object]:
     """Allocate the paged slot cache: pool layout for paging leaves, dense
     ``(max_slots, ...)`` zeros for the rest.  ``cache_like`` holds tensors
-    (``meta`` ones are fine) with the dense cache's shapes and dtypes."""
-    out = {}
-    for name, like in cache_like.items():
+    (``meta`` ones are fine), or lists of them, with the dense cache's
+    shapes and dtypes."""
+    def alloc(name, like):
         shape = tuple(like.shape)
         if sa[name] >= 0:
             shape = pool_shape(shape, ba[name], sa[name], num_pages, page_size)
-        out[name] = torch.zeros(shape, dtype=like.dtype, device=device)
-    return out
+        return torch.zeros(shape, dtype=like.dtype, device=device)
+
+    return {name: ([alloc(name, t) for t in like] if isinstance(like, list)
+                   else alloc(name, like))
+            for name, like in cache_like.items()}
 
 
 def _pages_leading(pool: torch.Tensor, b_ax: int, s_ax: int) -> torch.Tensor:
@@ -550,35 +570,38 @@ def _pages_leading(pool: torch.Tensor, b_ax: int, s_ax: int) -> torch.Tensor:
     return torch.movedim(pool, (pax, pax + 1), (0, 1))
 
 
-def insert_tree(pcache: Dict[str, torch.Tensor],
-                single: Dict[str, torch.Tensor], table_row: torch.Tensor,
-                slot: int, ba: Dict[str, int], sa: Dict[str, int]) -> None:
+def insert_tree(pcache: Dict[str, object], single: Dict[str, object],
+                table_row: torch.Tensor, slot: int, ba: Dict[str, int],
+                sa: Dict[str, int]) -> None:
     """Admit one prefilled B=1 dense cache IN PLACE: paged leaves scatter
-    their page blocks to the slot's physical pages (``table_row``; excess
-    logical pages land on scratch), dense leaves take the slot's row."""
-    for name, p in pcache.items():
-        s = single[name]
+    their page blocks to the slot's physical pages (the first entries of
+    ``table_row``, as many as the B=1 cache holds pages; excess logical
+    pages land on scratch), dense leaves take the slot's row."""
+    rows = table_row.to(torch.int64)
+    for name, entry in pcache.items():
         b_ax, s_ax = ba[name], sa[name]
-        if s_ax < 0:
-            p.narrow(b_ax, slot, 1).copy_(s.to(p.dtype))
-            continue
-        pl = _pages_leading(p, b_ax, s_ax)                 # (N, ps, *rest)
-        ps = pl.shape[1]
-        x = torch.movedim(s, (b_ax, s_ax), (0, 1))[0]      # (S, *rest)
-        blocks = x.reshape((x.shape[0] // ps, ps) + tuple(x.shape[1:]))
-        pl[table_row.to(torch.int64)] = blocks.to(p.dtype)
+        for p, s in zip(_leaves(entry), _leaves(single[name])):
+            if s_ax < 0:
+                p.narrow(b_ax, slot, 1).copy_(s.to(p.dtype))
+                continue
+            pl = _pages_leading(p, b_ax, s_ax)             # (N, ps, *rest)
+            ps = pl.shape[1]
+            x = torch.movedim(s, (b_ax, s_ax), (0, 1))[0]  # (S, *rest)
+            blocks = x.reshape((x.shape[0] // ps, ps) + tuple(x.shape[1:]))
+            pl[rows[:blocks.shape[0]]] = blocks.to(p.dtype)
 
 
-def kv_token_bytes(cache_like: Dict[str, torch.Tensor], ba: Dict[str, int],
+def kv_token_bytes(cache_like: Dict[str, object], ba: Dict[str, int],
                    sa: Dict[str, int]) -> int:
     """Per-token-per-slot bytes of the sequence-scaling cache leaves, from
     the DENSE cache shapes (paged or not: the same KV bytes per token)."""
     total = 0
-    for name, like in cache_like.items():
+    for name, entry in cache_like.items():
         if sa[name] < 0:
             continue
-        n = like.numel() // (like.shape[ba[name]] * like.shape[sa[name]])
-        total += n * like.element_size()
+        for like in _leaves(entry):
+            n = like.numel() // (like.shape[ba[name]] * like.shape[sa[name]])
+            total += n * like.element_size()
     return total
 
 
@@ -586,17 +609,24 @@ def kv_token_bytes(cache_like: Dict[str, torch.Tensor], ba: Dict[str, int],
 # Engine hooks
 # ----------------------------------------------------------------------------
 class PagedEngineMixin:
-    """The slot-protocol paging hooks of the split-brain engine.
+    """The slot-protocol paging hooks the serving engines share.
 
-    The engine keeps ``_pager`` (a :class:`HostPager`) and calls
-    :meth:`_note_slot_cache` from its ``init_slot_cache``.  This slice
-    serves the in-place discipline only (attention through the page table);
-    the gather discipline and prefix sharing are not ported yet and refuse
-    to be selected.
+    An engine keeps ``_pager`` (a :class:`HostPager`, or None for a dense
+    slot cache) and calls :meth:`_note_slot_cache` from its
+    ``init_slot_cache``.  With no pager every hook takes the dense branch:
+    admission admits everything, and reserve, free and publish do nothing.
+    The in-place discipline is the one ported (attention through the page
+    table); the gather discipline and prefix sharing are not ported yet and
+    refuse to be selected.
     """
 
     _pager: Optional[HostPager] = None
     _kv_tok_bytes: int = 0       # per-token-per-slot seq-scaling cache bytes
+    _slot_count: int = 0
+
+    @property
+    def _paging_active(self) -> bool:
+        return self._pager is not None
 
     @staticmethod
     def check_paged_attn(paged_attn: str) -> str:
@@ -617,20 +647,29 @@ class PagedEngineMixin:
             raise ValueError(
                 f"prefix_cache must be 'on' or 'off', got {prefix_cache!r}")
 
-    def _note_slot_cache(self, cache_like, ba, sa) -> None:
+    def _note_slot_cache(self, n_slots: int, cache_like, ba, sa) -> None:
         """Record the slot-cache geometry the KV-read accounting needs."""
+        self._slot_count = int(n_slots)
         self._kv_tok_bytes = kv_token_bytes(cache_like, ba, sa)
 
     # ------------------------------------------------ host KV-read accounting
     def kv_read_bytes_step(self, active: np.ndarray) -> int:
-        """KV-cache bytes ONE decode step reads under the in-place paged
-        discipline's read MODEL (replayed on the host, not a hardware
-        counter): only the live pages, ``ceil((len + is_active) /
-        page_size)`` per occupied slot."""
+        """KV-cache bytes ONE decode step reads under the engine's read
+        MODEL (replayed on the host, not a hardware counter): through the
+        page table only the live pages, ``ceil((len + is_active) /
+        page_size)`` per occupied slot; a dense slot cache reads its whole
+        ``max_slots x max_len`` view."""
+        if not self._paging_active:
+            return self._slot_count * self.max_len * self._kv_tok_bytes
         ps = self._pager.page_size
         lens = self._pager.host_len + np.asarray(active, bool)
         pages_touched = int(-((lens[lens > 0]) // -ps).sum())
         return pages_touched * ps * self._kv_tok_bytes
+
+    def _meter_kv_read(self, active: np.ndarray) -> None:
+        n = self.kv_read_bytes_step(active)
+        if n:
+            self.meter.host_read("kv_cache_read", n)
 
     def paged_insert(self, batched_cache, single_cache, slot: int, ba, sa,
                      n_tokens: int):
@@ -647,13 +686,17 @@ class PagedEngineMixin:
 
     def admit_slot(self, slot: int, prompt: np.ndarray, max_new: int,
                    chunk: Optional[int] = None) -> Optional[int]:
-        """Admission control: 0 when admitted (no prefix reuse in this
-        slice), None when the pool cannot take the request right now and the
-        scheduler should wait for running requests to free pages."""
+        """Admission control: 0 when admitted (no prefix reuse in the port
+        yet; a dense slot cache always admits), None when the pool cannot
+        take the request right now and the scheduler should wait for
+        running requests to free pages."""
+        if not self._paging_active:
+            return 0
         return self._pager.admit(slot, prompt, max_new, None)
 
     def publish_prefix(self, slot: int, prompt: np.ndarray) -> None:
-        self._pager.publish(slot, prompt)
+        if self._paging_active:
+            self._pager.publish(slot, prompt)
 
     def paged_pre_step(self, cache, active: np.ndarray):
         """Host work before one paged decode step: allocate every active
@@ -663,16 +706,38 @@ class PagedEngineMixin:
             raise NotImplementedError(
                 "copy-on-write page copies need prefix sharing, which is not "
                 "ported yet")
-        n = self.kv_read_bytes_step(active)
-        if n:
-            self.meter.host_read("kv_cache_read", n)
+        self._meter_kv_read(active)
         return cache
 
     def reserve_slot(self, slot: int, prompt_len: int, max_new: int) -> bool:
+        if not self._paging_active:
+            return True
         return self._pager.try_reserve(slot, prompt_len, max_new)
 
     def can_ever_admit(self, prompt_len: int, max_new: int) -> bool:
+        if not self._paging_active:
+            return True
         return self._pager.can_ever_admit(prompt_len, max_new)
 
     def free_slot(self, slot: int) -> None:
-        self._pager.free(slot)
+        if self._paging_active:
+            self._pager.free(slot)
+
+    def cache_stats(self, cache) -> Dict[str, int]:
+        """Resident-cache accounting: ``cache_bytes`` backs the slot cache;
+        ``peak_kv_bytes_in_use`` is what its pages held at peak (the whole
+        allocation for the dense layout)."""
+        tensors = [t for e in cache.values() for t in _leaves(e)]
+        total = sum(t.numel() * t.element_size() for t in tensors)
+        if not self._paging_active:
+            return {"cache_bytes": total, "peak_kv_bytes_in_use": total}
+        pool = self._pager.pool
+        page_bytes = self._kv_tok_bytes * pool.page_size
+        pool_bytes = page_bytes * pool.num_pages
+        return {"cache_bytes": total, "page_size": pool.page_size,
+                "num_pages": pool.num_pages, "pool_bytes": pool_bytes,
+                "page_bytes": page_bytes, "pages_in_use": pool.pages_in_use,
+                "peak_pages_in_use": pool.peak_pages_in_use,
+                "pages_allocated": pool.pages_allocated,
+                "peak_kv_bytes_in_use": (total - pool_bytes
+                                         + pool.peak_pages_in_use * page_bytes)}

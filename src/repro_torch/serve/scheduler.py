@@ -239,6 +239,7 @@ class ContinuousBatchingScheduler:
         lazily on first use — call it explicitly to drop leftover state."""
         eng = self.engine
         n = self.max_slots
+        self.cache = None       # free the old slot cache before the new one
         self.cache = eng.init_slot_cache(n)
         self._tokens = np.zeros((n,), np.int32)
         self._active = np.zeros((n,), bool)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import resolve_device
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.core.splitbrain import TrafficMeter, TrafficModel
 from repro_torch.kernels import ops
@@ -38,17 +39,6 @@ from repro_torch.serve import slots as slots_mod
 
 def traffic_model_for(cfg: ModelConfig) -> TrafficModel:
     return TrafficModel.for_config(cfg)
-
-
-def resolve_device(device) -> torch.device:
-    """The engine's device; a CUDA device without a card raises (nothing
-    carries on on the CPU unless the caller asks for it)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available: the port serves on the GPU; pass "
-            "device='cpu' explicitly to run the plain versions on the CPU")
-    return dev
 
 
 def _to(tree, device):
@@ -202,8 +192,8 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
 
         def kv_attend(i, q, k, v):
             kc, vc = k_cache[i], v_cache[i]
-            L.dense_cache_write(kc, k, pos)
-            L.dense_cache_write(vc, v, pos)
+            L.cache_write(kc, k, pos, aligned=False)
+            L.cache_write(vc, v, pos, aligned=False)
             return ops.decode_attention(q, kc, vc, cache_len,
                                         softcap=self.cfg.softcap)
 
@@ -271,7 +261,7 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
                 "slot caches are not ported yet)")
         like = self._cache_like(n_slots)
         ba, sa = self._SLOT_AXES, self._SEQ_AXES
-        self._note_slot_cache(like, ba, sa)
+        self._note_slot_cache(n_slots, like, ba, sa)
         pool = self._pager.reset(n_slots)
         return pages_mod.make_pool(like, ba, sa, pool.num_pages,
                                    self.page_size, self.device)

@@ -6,19 +6,24 @@ skips without one.  Run them on the H100 with
 neither JAX nor the JAX package.
 
 Tolerances: W4A8 is bit-identical (exact int32 sums, the same two f32
-multiplies, one round-to-nearest-even to bf16).  Paged attention in f32 is
-held to atol 1e-5 (the same f32 math in another summation order), in bf16
-to one bf16 ulp (that order can flip the final rounding).
+multiplies, one round-to-nearest-even to bf16).  Paged and flash attention
+in f32 are held to atol 1e-5 (the same f32 math in another summation
+order), in bf16 to one bf16 ulp (that order can flip the final rounding);
+flash attention's bf16 bound adds the f32 one, since an output near zero
+after cancellation has a bf16 ulp below the f32 sum-order error.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.device import exact_matmuls
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import w4a8_matmul as kw
 from repro_torch.models import api
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 from repro_torch.serve.splitbrain_engine import SplitBrainEngine
 from torch_cases import (assert_within_bf16_ulp, paged_case, run_paged,
@@ -33,6 +38,8 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run `python -m pytest -m gpu "
                     "tests/test_torch_*.py` on the H100")
+    # cuBLAS may reduce bf16 products in bf16 by default; the CPU does not
+    exact_matmuls()
     return torch.device("cuda")
 
 
@@ -95,6 +102,72 @@ def test_engine_on_card_matches_cpu_and_counts_launches(cuda):
     L = cfg.num_layers
     assert counts == {
         "w4a8_matmul": (7 * L + 1) * (out["prefill_tokens"] + out["steps"]),
-        "paged_decode_attention": L * out["steps"]}
+        "paged_decode_attention": L * out["steps"],
+        "flash_attention": 0}
     assert ([r.tokens.tolist() for r in out["results"]]
             == [r.tokens.tolist() for r in runs["cpu"]["results"]])
+
+
+FLASH = [  # (B, Hq, Hkv, Tq, Tk, D, options)
+    (2, 4, 2, 37, 37, 16, dict(causal=True)),
+    (1, 4, 4, 130, 130, 64, dict(causal=True, window=20, softcap=30.0)),
+    (1, 8, 2, 5, 77, 128, dict(causal=True, kv_offset=72)),
+    (2, 4, 2, 9, 70, 128, dict(causal=False, kv_offset=3, scale=0.2)),
+    (1, 2, 1, 1, 1, 256, dict(causal=True)),
+    (1, 4, 2, 65, 65, 48, dict(causal=True)),
+]
+
+
+def _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
+
+
+@pytest.mark.parametrize("case", range(len(FLASH)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    *shape, opts = FLASH[case]
+    q, k, v = _flash_inputs(*shape, dtype, cuda, seed=case)
+    n0 = kfa.flash_attention.launches
+    out = ops.attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == n0 + 1
+    plain = ref.flash_attention(q, k, v, **opts)
+    assert out.dtype == dtype and out.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    else:   # + the f32 bound: a near-zero output's ulp is below it
+        assert_within_bf16_ulp(out, plain.float().cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "tinyllama-1.1b"])
+def test_serve_engine_on_card_matches_cpu_and_counts_launches(cuda, arch):
+    """Reduced ServeEngine on the card (flash prefill, paged decode) and on
+    the CPU (plain versions) from the same weights: the same tokens under
+    the scheduler and generate(), one flash launch per layer per prefill
+    and one paged launch per layer per decode step."""
+    cfg = get_config(arch).reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    reqs = [Request(uid=i, prompt=(np.arange(1, 6 + 4 * i) * 7 % 256)
+                    .astype(np.int32), max_new=6) for i in range(4)]
+    prompts = np.stack([(np.arange(1, 10) * (3 + i)) % 256
+                        for i in range(3)]).astype(np.int32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params, max_len=64, page_size=8, device=dev)
+        ops.reset_launch_counts()
+        out = ContinuousBatchingScheduler(eng, max_slots=2).run(reqs)
+        counts = ops.launch_counts()
+        gen = eng.generate(prompts, max_new=6)
+        gen_counts = ops.launch_counts()
+        runs[dev] = ([r.tokens.tolist() for r in out["results"]],
+                     gen["tokens"].tolist())
+    L = cfg.num_layers
+    assert counts == {"w4a8_matmul": 0, "flash_attention": L * len(reqs),
+                      "paged_decode_attention": L * out["steps"]}
+    assert gen_counts["flash_attention"] == counts["flash_attention"] + L
+    assert gen_counts["paged_decode_attention"] == counts[
+        "paged_decode_attention"]
+    assert runs["cuda"] == runs["cpu"]

@@ -12,10 +12,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import device
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import w4a8_matmul as kw
 from repro_torch.models import api
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.splitbrain_engine import SplitBrainEngine
 from torch_cases import paged_case, run_paged, w4a8_case
 
@@ -60,6 +63,32 @@ def test_engine_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     SplitBrainEngine(cfg, params, page_size=8, max_len=32, device="cpu")
 
 
+def test_serve_engine_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("llama2-7b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for kw in (dict(), dict(device="cuda"), dict(page_size=8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServeEngine(cfg, params, max_len=32, **kw)
+    ServeEngine(cfg, params, max_len=32, page_size=8, device="cpu")
+
+
+def test_exact_matmuls_turns_reduced_precision_off_and_reads_it_back():
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_tf32, torch.backends.cudnn.allow_tf32,
+             m.allow_bf16_reduced_precision_reduction)
+    try:
+        m.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        m.allow_bf16_reduced_precision_reduction = True
+        assert device.exact_matmuls() == {
+            "allow_tf32": False, "cudnn_allow_tf32": False,
+            "allow_bf16_reduced_precision_reduction": False}
+        assert device.matmul_settings() == device.exact_matmuls()
+    finally:
+        (m.allow_tf32, torch.backends.cudnn.allow_tf32,
+         m.allow_bf16_reduced_precision_reduction) = saved
+
+
 @pytest.fixture
 def no_library(monkeypatch, tmp_path):
     """Pretend every tensor lies on the card while no kernel library exists
@@ -77,6 +106,13 @@ def no_library(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "find_nvcc", no_nvcc)
     monkeypatch.setattr(ref, "w4a8_matmul", plain)
     monkeypatch.setattr(ref, "paged_decode_attention", plain)
+    monkeypatch.setattr(ref, "flash_attention", plain)
+
+
+def _flash_case(dtype=torch.bfloat16, D=16):
+    rng = np.random.default_rng(0)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)
+            for s in ((1, 4, 5, D), (1, 2, 5, D), (1, 2, 5, D))]
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(no_library):
@@ -86,8 +122,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(no_library):
         ops.w4a8_matmul(*ts)
     with pytest.raises(RuntimeError, match="nvcc"):
         run_paged(paged_case(0), ops.paged_decode_attention)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.attention(*_flash_case(), causal=True)
     assert ops.launch_counts() == {"w4a8_matmul": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "flash_attention": 0}
 
 
 def test_cuda_wrappers_check_operands(no_library):
@@ -106,6 +145,18 @@ def test_cuda_wrappers_check_operands(no_library):
         kpa.paged_decode_attention(case["q"], case["k"], case["v"],
                                    case["table"], case["lens"],
                                    k_scale=torch.ones(13, 2))
+    q, k, v = _flash_case()
+    with pytest.raises(ValueError, match="kv_offset"):
+        kfa.flash_attention(q, k, v, kv_offset=-1)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        kfa.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kfa.flash_attention(*_flash_case(D=24))
+    with pytest.raises(ValueError, match="contiguous"):
+        kfa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                            k, v)
+    with pytest.raises(ValueError, match="multiple of"):
+        kfa.flash_attention(q[:, :3].contiguous(), k, v)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 2048, 2048), (8, 2048, 256),
@@ -119,7 +170,8 @@ def test_w4a8_launch_shape_covers_k(M, K, N):
 
 
 def test_build_targets_sm90a_without_fast_math():
-    assert [p.name for p in build.sources()] == ["paged_attention.cu",
+    assert [p.name for p in build.sources()] == ["flash_attention.cu",
+                                                 "paged_attention.cu",
                                                  "w4a8_matmul.cu"]
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
