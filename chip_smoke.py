@@ -11,7 +11,7 @@ fails before printing any result):
   device     the card's name and count, ``nvidia-smi`` name and power limit,
              and the matmul precision settings (TF32 off, no reduced-
              precision bf16 reductions)
-  build      the three CUDA kernels compiled from ``src/repro_torch/csrc``
+  build      the four CUDA kernels compiled from ``src/repro_torch/csrc``
              for sm_90a, one nvcc per source in parallel, with the
              ``-Xptxas -v`` register / spill report
   w4a8       the W4A8 kernel against the plain version at every main-path
@@ -27,12 +27,25 @@ fails before printing any result):
              with softcap 30, in f32 and bf16: f32 within 1e-5, bf16
              within one bf16 ulp of the plain value plus that 1e-5 (an
              output near zero has a bf16 ulp below the f32 sum-order error)
+  rwkv       the RWKV6 WKV-scan kernel against the plain version at
+             rwkv6-7b's forward shape (B 4, H 64, D 64, bf16, T in {1, 37,
+             512}), at the JAX kernel tests' shapes in f32 and at a bf16
+             H 64 case with B 1: the final state and f32 outputs within
+             1e-4, bf16 outputs within one bf16 ulp of the plain value plus
+             the f32 bound of two orders of out's D-term sum (its terms
+             reach hundreds at T = 512)
   reference  reduced tinyllama split-brain engine served on the card
              (kernels) and on the CPU (plain versions) from the same
              weights: identical tokens
   reference_serve  reduced llama2-7b and tinyllama ServeEngine on the card
              and on the CPU, under the scheduler and generate(): identical
              tokens
+  reference_rwkv  reduced rwkv6-7b on the card and on the CPU from the
+             same weights, over four weight seeds: forward logits within one
+             bf16 ulp of the largest; the tokens the card's ServeEngine chose
+             under the scheduler and generate(), fed back teacher-forced
+             through the decode steps on both devices, give logits within
+             two ulps, and any token the CPU would not choose is a near-tie
   main_path  full-width tinyllama-1.1b (22 layers, random seeded weights,
              LAQ W4A8 on the card), SplitBrainEngine(page_size=16,
              max_len=256) under the continuous-batching scheduler with 8
@@ -51,6 +64,18 @@ fails before printing any result):
              meter exact, a second run token-identical; then generate() on
              4 prompts of 128 tokens (32 flash launches, the same tokens on a
              second call)
+  rwkv_path  full-width rwkv6-7b (32 layers, d_model 4096, 64 heads of 64,
+             d_ff 14336, vocab 65536; bf16 weights from a seeded generator
+             on the card): api.forward on 4 x 512 tokens twice, counts set
+             to 0 just before and read just after (32 scan launches per
+             call, finite logits, the second call bit-identical); then the
+             float ServeEngine (max_len 128, dense slot cache) under the
+             scheduler with 8 slots: a warm-up run, then 8 seeded requests
+             (prompts of 16-64 tokens, 32 new tokens each), counts set to 0
+             just before and read just after: every request DONE, no kernel
+             launch (each decode step carries the WKV state, which the
+             kernel does not take, as in the JAX package), meter exact, a
+             second run token-identical
   profile    torch.profiler over decode steps of each path: device time by
              kernel and the device's busy share
   times      CUDA-event times of each kernel at its path's shapes, replayed
@@ -74,7 +99,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import exact_matmuls
@@ -85,6 +111,7 @@ from repro_torch.serve.scheduler import (
     ContinuousBatchingScheduler, Request)
 from repro_torch.serve.splitbrain_engine import (
     SplitBrainEngine, traffic_model_for)
+from torch_cases import bf16_ulp_of, pick_report, teacher_forced_logits
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet (dense peaks below too)
@@ -97,6 +124,8 @@ PAGED_SRC = ("src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:48")
 FLASH_SRC = ("src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:31")
+RWKV_SRC = ("src/repro_torch/csrc/rwkv_scan.cu",
+            "src/repro/kernels/rwkv_scan.py:25")
 
 
 def emit(obj) -> None:
@@ -155,7 +184,8 @@ def phase_build():
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             short = re.search(r"(w4a8_\w+?_kernel|paged_decode_kernel|"
-                              r"flash_attention_kernel)I(.*?)EEv", name)
+                              r"flash_attention_kernel|rwkv6_scan_kernel)"
+                              r"I(.*?)EEv", name)
             kernels.append({"kernel": (short.group(1) + "<" + short.group(2) + ">"
                                        if short else name),
                             "registers": int(m.group(1))})
@@ -167,10 +197,13 @@ def phase_build():
           "cached": info["cached"], "sources": [p.name for p in build.sources()],
           "ptxas": kernels, "spill_bytes": spills,
           "note": "shared memory is dynamic (sized per launch)"})
-    check(len(kernels) >= 22, "ptxas report lists too few kernels")
+    check(len(kernels) >= 28, "ptxas report lists too few kernels")
     check(sum(k["kernel"].startswith("flash_attention_kernel")
               for k in kernels) == 8,
           "ptxas report lacks the 8 flash-attention instantiations")
+    check(sum(k["kernel"].startswith("rwkv6_scan_kernel")
+              for k in kernels) == 6,
+          "ptxas report lacks the 6 rwkv-scan instantiations")
 
 
 W4A8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
@@ -328,6 +361,65 @@ def phase_flash(dev):
     return worst
 
 
+def rwkv_inputs(gen, dev, B, H, T, D, dtype, decay):
+    """r, k, v standard normal and u (H, D) N(0, 1) * 0.3; decays w as
+    rwkv6-7b's init makes them, exp(-exp(U(-8, -5))) (``"model"``), or
+    U(0.8, 0.999) as the JAX kernel tests draw them (``"jax"``)."""
+    r, k, v = (torch.randn((B, H, T, D), generator=gen, device=dev)
+               for _ in range(3))
+    w = torch.empty((B, H, T, D), device=dev)
+    if decay == "model":
+        w = torch.exp(-torch.exp(w.uniform_(-8.0, -5.0, generator=gen)))
+    else:
+        w.uniform_(0.8, 0.999, generator=gen)
+    u = torch.randn((H, D), generator=gen, device=dev) * 0.3
+    return [t.to(dtype) for t in (r, k, v, w)] + [u]
+
+
+RWKV_FWD = (4, 64, 512, 64)        # rwkv6-7b's forward: B 4, H 64, T 512, D 64
+
+
+def phase_rwkv(dev):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf, f32 = torch.bfloat16, torch.float32
+    B, H, _, D = RWKV_FWD
+    cases = ([("rwkv6-7b forward", (B, H, T, D), bf, "model")
+              for T in (1, 37, 512)]
+             + [("jax kernel test", shape, f32, "jax")
+                for shape in ((2, 3, 64, 16), (1, 2, 128, 32), (1, 1, 32, 64))]
+             + [("rwkv6-7b, B 1", (1, H, 100, D), bf, "model")])
+    worst, rows = 0.0, []
+    for name, shape, dt, decay in cases:
+        r, k, v, w, u = rwkv_inputs(gen, dev, *shape, dt, decay)
+        out, state = ops.rwkv6(r, k, v, w, u)
+        p_out, p_state = ref.rwkv6_scan(r, k, v, w, u)
+        torch.cuda.synchronize()
+        diff = (out.float() - p_out.float()).abs()
+        # bf16: one bf16 ulp of the plain value on top of the f32 sum-order
+        # bound (the flash phase's rule, with its 1e-5 computed here)
+        tol = (bf16_ulp(p_out.float())
+               + ref.rwkv6_scan_order_bound(r, k, v, w, u).float()
+               if dt == bf else torch.full_like(diff, 1e-4))
+        s_err = (state - p_state).abs().max().item()
+        err = diff.max().item()
+        worst = max(worst, err, s_err)
+        rows.append({"shape": name, "B_H_T_D": shape,
+                     "dtype": str(dt).split(".")[-1], "decay": decay,
+                     "max_abs_err": err, "state_max_abs_err": s_err,
+                     "state_bit_identical": bool(torch.equal(state, p_state))})
+        check(out.dtype == dt and out.shape == r.shape
+              and state.shape == (shape[0], shape[1], shape[3], shape[3]),
+              f"rwkv scan {rows[-1]}: dtype or shape")
+        check(bool((diff <= tol).all()) and s_err <= 1e-4,
+              f"rwkv scan {rows[-1]} outside tolerance")
+    emit({"phase": "rwkv", "cases": rows,
+          "tolerance": "state and f32 out: 1e-4; bf16 out: 1 bf16 ulp of "
+                       "the plain value + 2 D 2^-24 sum_i |r_i (S_ij + u_i "
+                       "k_i v_j)| (two f32 orders of the D-term sum)",
+          "max_abs_err": worst})
+    return worst
+
+
 def reduced_requests(vocab):
     return [Request(uid=i, prompt=np.arange(1, 6 + 2 * i, dtype=np.int32) % vocab,
                     max_new=6) for i in range(5)]
@@ -375,6 +467,70 @@ def phase_reference_serve(dev):
                      "generate_rows": len(toks["cpu"][1])})
     emit({"phase": "reference_serve", "configs": rows,
           "tokens_identical_card_vs_cpu": True})
+
+
+RWKV_SEEDS = (0, 1, 2, 3)   # weight seeds of reduced rwkv6-7b, card vs CPU
+RWKV_FWD_ULPS = 1           # forward logits: bf16 ulps of the largest |logit|
+RWKV_SERVE_ULPS = 2         # the serve path's float32 decode logits
+
+
+def phase_reference_rwkv(dev):
+    """Reduced rwkv6-7b on the card (the scan kernel in forward) and on the
+    CPU (plain versions) from the same weights, over RWKV_SEEDS.
+
+    forward: logits within RWKV_FWD_ULPS bf16 ulps of the largest |logit|
+    (the logits are rounded to bf16, and one changed rounding moves a logit
+    by one ulp at its magnitude).  ServeEngine: the tokens the card chose
+    under the scheduler and generate() are fed back, teacher-forced, through
+    the serve path's decode steps on both devices; those float32 logits
+    agree within RWKV_SERVE_ULPS ulps (the decays near 1 carry last-bit
+    GEMM and exp differences along the sequence), and wherever the CPU
+    would choose another token, the card's is a near-tie: its CPU logit
+    falls short of the CPU's largest by at most twice the tolerance.  Exact
+    cross-device token identity holds only where no such tie falls, so it
+    is reported, not required."""
+    cfg = get_config("rwkv6-7b").reduced()
+    prompts = np.stack([(np.arange(1, 10) * (3 + i)) % cfg.vocab_size
+                        for i in range(3)]).astype(np.int32)
+    reqs = reduced_requests(cfg.vocab_size)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32))
+    rows = []
+    for seed in RWKV_SEEDS:
+        params = api.init_params(cfg, torch.Generator().manual_seed(seed),
+                                 "cpu")
+        engs = {d: ServeEngine(cfg, params, max_len=64, device=d)
+                for d in ("cpu", dev)}
+        out = ContinuousBatchingScheduler(engs[dev], max_slots=2).run(reqs)
+        gen = engs[dev].generate(prompts, max_new=6)
+        check([r.state for r in out["results"]] == ["DONE"] * len(reqs)
+              and all(len(r.tokens) == q.max_new
+                      for q, r in zip(reqs, out["results"])),
+              f"reduced rwkv6-7b seed {seed}: a request did not finish")
+        seqs = ([(q.prompt, r.tokens) for q, r in zip(reqs, out["results"])]
+                + [(p, t) for p, t in zip(prompts, gen["tokens"])])
+        tf = {d: torch.cat([teacher_forced_logits(engs[d].params, cfg, p, t, d)
+                            for p, t in seqs]) for d in engs}
+        picks = np.concatenate([t for _, t in seqs])
+        serve = pick_report(tf["cpu"], tf[dev], picks)
+        fwd = {d: api.forward(engs[d].params, toks.to(d), cfg)[0]
+               .reshape(-1, cfg.vocab_size).cpu() for d in engs}
+        fwd_rep = pick_report(fwd["cpu"], fwd[dev], fwd[dev].argmax(-1))
+        for name, rep, ulps in (("forward", fwd_rep, RWKV_FWD_ULPS),
+                                ("serve", serve, RWKV_SERVE_ULPS)):
+            rep["tolerance"] = ulps * bf16_ulp_of(rep["max_abs_logit"])
+            check(rep["max_abs_err"] <= rep["tolerance"]
+                  and rep["shortfall"] <= 2 * rep["tolerance"],
+                  f"reduced rwkv6-7b seed {seed} {name}: card vs CPU {rep}")
+        rows.append({"seed": seed, "forward": fwd_rep, "serve": serve})
+    emit({"phase": "reference_rwkv", "config": cfg.name,
+          "requests": len(reqs), "generate_rows": len(prompts),
+          "forward_tokens": list(toks.shape),
+          "tolerance": f"forward: {RWKV_FWD_ULPS} bf16 ulp of the largest "
+                       f"|logit|; serve, teacher-forced: {RWKV_SERVE_ULPS}; "
+                       "a pick the CPU would not make falls short of the "
+                       "CPU's largest logit by at most twice the tolerance",
+          "seeds": rows})
 
 
 def main_requests(vocab, n=16, max_new=32):
@@ -455,7 +611,8 @@ def phase_main_path(dev, smi_line):
     check(prefill == sum(len(r.prompt) - 1 for r in reqs), "prefill tokens")
     L = cfg.num_layers
     want = {"w4a8_matmul": (7 * L + 1) * (prefill + steps),
-            "paged_decode_attention": L * steps, "flash_attention": 0}
+            "paged_decode_attention": L * steps, "flash_attention": 0,
+            "rwkv6_scan": 0}
     check(counts == want, f"launch counts {counts} != {want}")
     tokens = prefill + out["decoded_tokens"]
     meter = eng.meter.measured_bytes()["total"]
@@ -530,7 +687,7 @@ def phase_serve_path(dev, smi_line):
     check(prefill == sum(len(r.prompt) - 1 for r in reqs), "prefill tokens")
     L = cfg.num_layers
     want = {"w4a8_matmul": 0, "flash_attention": L * len(reqs),
-            "paged_decode_attention": L * steps}
+            "paged_decode_attention": L * steps, "rwkv6_scan": 0}
     check(counts == want, f"launch counts {counts} != {want}")
     tokens = prefill + out["decoded_tokens"]
     meter = eng.measured_bytes()["total"]
@@ -548,7 +705,7 @@ def phase_serve_path(dev, smi_line):
     gen_counts = ops.launch_counts()
     g2 = eng.generate(prompts, max_new=16)
     check(gen_counts == {"w4a8_matmul": 0, "flash_attention": L,
-                         "paged_decode_attention": 0},
+                         "paged_decode_attention": 0, "rwkv6_scan": 0},
           f"generate() launch counts {gen_counts}")
     check(np.array_equal(g1["tokens"], g2["tokens"])
           and g1["tokens"].shape == (4, 16)
@@ -577,6 +734,117 @@ def phase_serve_path(dev, smi_line):
                          "decode_s": g1["decode_s"],
                          "decode_tokens_per_s": g1["tokens_per_s"]},
             "peak_memory_bytes": peak, "setup_peak_memory_bytes": setup_peak,
+            "card": smi_line}
+    emit(info)
+    return eng, info
+
+
+def rwkv_requests(vocab, n=8, max_new=32):
+    rng = np.random.default_rng(SEED + 8)
+    return [Request(uid=i,
+                    prompt=rng.integers(1, vocab, int(rng.integers(16, 65)))
+                    .astype(np.int32),
+                    max_new=max_new) for i in range(n)]
+
+
+def phase_rwkv_path(dev, smi_line):
+    """Full-width rwkv6-7b: the whole-sequence forward (the scan kernel, one
+    launch per layer), then the float ServeEngine under the scheduler."""
+    cfg = get_config("rwkv6-7b")
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    eng = ServeEngine(cfg, params, max_len=128, device=dev)
+    del params                      # the f32 tree: the engine keeps bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    # --- forward on 4 x 512 tokens, twice
+    toks = torch.randint(0, cfg.vocab_size, (4, 512), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(SEED + 9))
+    torch.cuda.reset_peak_memory_stats()
+    zero = {name: 0 for name in ops.KERNELS}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    runs = []
+    for _ in range(2):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        logits, _ = api.forward(eng.params, toks, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = ops.launch_counts()
+        check({k: after[k] - before[k] for k in after} == {**zero, "rwkv6_scan": L},
+              f"forward launch counts {before} -> {after}: not {L} scans")
+        runs.append((logits, dt))
+    fwd_counts = ops.launch_counts()
+    fwd_peak = torch.cuda.max_memory_allocated()
+    (l1, dt1), (l2, dt2) = runs
+    check(l1.shape == (4, 512, cfg.vocab_size) and l1.dtype == torch.float32
+          and bool(torch.isfinite(l1).all()), "forward logits not finite or "
+          "of the wrong shape")
+    check(torch.equal(l1, l2), "a second forward gave other logits")
+    fwd_max = l1.abs().max().item()
+    del runs, l1, l2, logits
+    # --- serving: 8 requests over 8 slots, dense recurrent-state slot cache
+    sched = ContinuousBatchingScheduler(eng, max_slots=8)
+    clock = PhaseClock(eng)
+    sched.warmup(prompt_len=16, max_new=4)
+    reqs = rwkv_requests(cfg.vocab_size)
+    clock.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = sched.run(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decode_s, admit_s = clock.decode_s, clock.admit_s
+    res = out["results"]
+    check(len(res) == len(reqs) and all(r.state == "DONE" for r in res),
+          f"not every request DONE: {out['by_state']}")
+    check(all(r.gen_len == 32 for r in res), "a request stopped short")
+    check(all(0 <= t < cfg.vocab_size for r in res for t in r.tokens),
+          "token out of range")
+    check(out["quarantines"] == 0 and out["failed"] == 0,
+          "the finite-logits sentinel flagged a step")
+    steps, prefill = out["steps"], out["prefill_tokens"]
+    check(prefill == sum(len(r.prompt) - 1 for r in reqs), "prefill tokens")
+    check(counts == zero, f"serve launch counts {counts}: the rwkv serve path "
+          "launches no kernel")
+    tokens = prefill + out["decoded_tokens"]
+    meter = eng.measured_bytes()["total"]
+    check(meter == traffic_model_for(cfg).bytes_per_token() * tokens,
+          f"meter {meter} != eq. 7-10 x {tokens} tokens")
+    first = [r.tokens.tolist() for r in res]
+    again = sched.run(reqs)
+    check([r.tokens.tolist() for r in again["results"]] == first,
+          "a second identical run gave other tokens")
+    info = {"phase": "rwkv_path", "config": cfg.name, "layers": L,
+            "d_model": cfg.d_model, "heads": cfg.d_model // 64, "head_dim": 64,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+            "setup_s": setup_s, "setup_peak_memory_bytes": setup_peak,
+            "forward": {"batch": 4, "tokens": 512, "launches": fwd_counts,
+                        "seconds": [dt1, dt2], "tokens_per_s": 2048 / dt2,
+                        "max_abs_logit": fwd_max, "second_identical": True,
+                        "peak_memory_bytes": fwd_peak},
+            "max_slots": 8, "max_len": 128, "requests": len(reqs),
+            "all_done": True, "prefill_tokens": prefill,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "decode_steps": steps, "decoded_tokens": out["decoded_tokens"],
+            "serve_launches": counts, "meter_bytes": meter,
+            "second_run_identical": True,
+            "wall_s": out["wall_s"], "decode_s": decode_s,
+            "admit_s": admit_s,
+            "decode_steps_per_s": steps / decode_s,
+            "decode_tokens_per_s": out["decoded_tokens"] / decode_s,
+            "prefill_tokens_per_s": prefill / admit_s,
+            "tokens_per_s_wall": out["tokens_per_s"],
+            "peak_memory_bytes": peak, "launches": fwd_counts,
             "card": smi_line}
     emit(info)
     return eng, info
@@ -863,6 +1131,58 @@ def phase_times_serve(dev, serve_info):
     return flash, paged
 
 
+def rwkv_bound(B, H, T, D, itemsize, launches=1):
+    """(ms, "bytes" or "operations"): max(bytes / HBM rate, flops / f32
+    peak) with r, k, v, w read once, out written once, the f32 final state
+    written once, and the 5 D^2 f32 operations per (b, h, t) that the
+    function needs: 3 D^2 for the update w S + k v, 2 D^2 for sum_i r_i
+    S_ij (the bonus term v_j sum_i r_i u_i k_i is O(D), left out)."""
+    nbytes = launches * (5 * B * H * T * D * itemsize + 4 * B * H * D * D)
+    flops = launches * 5 * D * D * B * H * T
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def phase_times_rwkv(dev, rwkv_info):
+    """The scan kernel over one full-width forward's 32 launches at the
+    path's shape (B 4, H 64, T 512, D 64, bf16), each on its own inputs."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf = torch.bfloat16
+    L = 32
+    launches = [rwkv_inputs(gen, dev, *RWKV_FWD, bf, "model") for _ in range(L)]
+
+    def fwd(fn, ls):
+        return lambda: [fn(*a) for a in ls]
+
+    k_ms = graph_time_ms(fwd(ops.rwkv6, launches), iters=10)
+    eager_ms = cuda_time_ms(fwd(ops.rwkv6, launches), iters=3)
+    p_ms = cuda_time_ms(fwd(ref.rwkv6_scan, launches), iters=1, warmup=1)
+    detail = []
+    for B, T in ((1, 512), (4, 37), (4, 1)):
+        one = [[a[:B, :, :T].contiguous() if a.dim() == 4 else a
+                for a in launches[0]]]
+        detail.append({"rwkv_B": B, "T": T,
+                       "kernel_us": graph_time_ms(fwd(ops.rwkv6, one),
+                                                  iters=20) * 1e3,
+                       "bound_us": rwkv_bound(B, 64, T, 64, 2)[0] * 1e3})
+    bound_ms, bound_by = rwkv_bound(*RWKV_FWD, 2, launches=L)
+    kern = {"name": "rwkv6_scan", "route": "cuda", "source": RWKV_SRC[0],
+            "replaces": RWKV_SRC[1],
+            "launches": rwkv_info["launches"]["rwkv6_scan"],
+            "unit": "one rwkv6-7b forward of 4 x 512 tokens: 32 launches, "
+                    "B 4, H 64, T 512, D 64, bf16, CUDA-graph replay; plain "
+                    "timed eagerly (one call of 32 launches)",
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "library_note": "none: no single PyTorch call computes the WKV "
+                            "recurrence",
+            "eager_ms": eager_ms}
+    emit({"phase": "times", "path": "rwkv_path", "rwkv6_scan": kern,
+          "detail": detail})
+    return kern
+
+
 def main() -> int:
     dev_info = phase_device()
     dev = torch.device("cuda", 0)
@@ -870,9 +1190,11 @@ def main() -> int:
     phase_build()
     errs = {"w4a8_matmul": phase_w4a8(dev),
             "paged_decode_attention": phase_paged(dev),
-            "flash_attention": phase_flash(dev)}
+            "flash_attention": phase_flash(dev),
+            "rwkv6_scan": phase_rwkv(dev)}
     phase_reference(dev)
     phase_reference_serve(dev)
+    phase_reference_rwkv(dev)
     eng, main_info = phase_main_path(dev, smi)
     phase_profile(eng, dev, "main_path")
     kernels = phase_times(eng, dev, main_info["launches"])
@@ -883,11 +1205,21 @@ def main() -> int:
     phase_profile(eng, dev, "serve_path")
     flash, paged_llama2 = phase_times_serve(dev, serve_info)
     kernels.append(flash)
+    del eng                          # release llama2-7b before rwkv6-7b
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, rwkv_info = phase_rwkv_path(dev, smi)
+    phase_profile(eng, dev, "rwkv_path")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.append(phase_times_rwkv(dev, rwkv_info))
     for k in kernels:
         k["max_abs_err"] = errs[k["name"]]
         k["launches_by_path"] = {
             "main_path": main_info["launches"][k["name"]],
-            "serve_path": serve_info["launches"][k["name"]]}
+            "serve_path": serve_info["launches"][k["name"]],
+            "rwkv_path": rwkv_info["launches"][k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
     emit({"kernels": kernels})

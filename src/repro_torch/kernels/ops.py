@@ -14,12 +14,14 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rwkv_scan as _rwkv
 from repro_torch.kernels import w4a8_matmul as _w4a8
 
 # the kernel wrappers whose launches the main path is held to
 KERNELS = {"w4a8_matmul": _w4a8.w4a8_matmul,
            "paged_decode_attention": _pa.paged_decode_attention,
-           "flash_attention": _fa.flash_attention}
+           "flash_attention": _fa.flash_attention,
+           "rwkv6_scan": _rwkv.rwkv6_scan}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -78,3 +80,24 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, cache_len, *,
     return ref.paged_decode_attention(
         q, k_pool, v_pool, page_table, cache_len, window=window,
         softcap=softcap, scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None):
+    """The RWKV6 WKV recurrence, (B, H, T, D) operands: the CUDA kernel for a
+    CUDA tensor with no carried state (the whole-sequence ``forward``,
+    operands made contiguous for it), the plain version otherwise.  Taking
+    the plain version when a state is carried (each ``decode_step``) is the
+    JAX package's own dispatch (``repro/kernels/ops.py::rwkv6``): its kernel
+    starts from a zero state only."""
+    if state is None and build.is_cuda(r):
+        return _rwkv.rwkv6_scan(r.contiguous(), k.contiguous(),
+                                v.contiguous(), w.contiguous(),
+                                u.contiguous())
+    return ref.rwkv6_scan(r, k, v, w, u, state)
+
+
+def rwkv6_chunked(r, k, v, w, u, state: Optional[torch.Tensor] = None, *,
+                  chunk: int = 64):
+    """The chunked (matmul-form) WKV recurrence.  The JAX package has no
+    Pallas kernel for it either: plain PyTorch on every device."""
+    return ref.rwkv6_scan_chunked(r, k, v, w, u, state, chunk=chunk)

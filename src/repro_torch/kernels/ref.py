@@ -179,3 +179,118 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------
+# RWKV6 (Finch) WKV recurrence with data-dependent decay
+# ----------------------------------------------------------------------------
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               state: Optional[torch.Tensor] = None):
+    """RWKV6 recurrence, one time step at a time in float32.
+
+    r, k, v: (B, H, T, D); w: (B, H, T, D) data-dependent decay in (0, 1);
+    u: (H, D) bonus; state: (B, H, D, D) mapping k-dim -> v-dim (zeros when
+    None).
+
+      S_t   = diag(w_t) S_{t-1} + k_t v_t^T
+      out_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
+
+    Returns (out (B, H, T, D) in r's dtype, final state (B, H, D, D) f32).
+    Each elementwise op rounds once in float32, as the CUDA kernel's do, so
+    the two carry the same state; only the sum over k in ``out_t`` takes
+    another order there.
+    """
+    B, H, T, D = r.shape
+    f32 = torch.float32
+    S = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    rs, ks, vs, ws = (a.to(f32) for a in (r, k, v, w))
+    uu = u.to(f32)[..., :, None]                            # (H, D, 1)
+    outs = []
+    for t in range(T):
+        kv = ks[:, :, t, :, None] * vs[:, :, t, None, :]    # (B, H, D, D)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rs[:, :, t], S + uu * kv))
+        S = ws[:, :, t, :, None] * S + kv
+    return torch.stack(outs, dim=2).to(r.dtype), S
+
+
+def rwkv6_scan_order_bound(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Per output of :func:`rwkv6_scan` from a zero state, what two float32
+    sums of out_t's D terms r_i (S_ij + u_i k_i v_j), taken in different
+    orders, can differ by: 2 * D * 2^-24 * sum_i |r_i (S_ij + u_i k_i v_j)|,
+    (B, H, T, D) float64 on the inputs' device.  The CUDA kernel sums in
+    another order than this plain version, and the terms grow with the
+    state (hundreds at T = 512 with rwkv6-7b's decays near 1), so an output
+    near zero after cancellation can differ by many of its own bf16 ulps
+    while the state stays bit-identical: the kernel's bf16 outputs are held
+    to one bf16 ulp plus this bound."""
+    D = r.shape[-1]
+    f64 = torch.float64
+    rs, ks, vs, ws = (a.to(f64) for a in (r, k, v, w))
+    uu = u.to(f64)[..., :, None]
+    S = torch.zeros(r.shape[:2] + (D, D), dtype=f64, device=r.device)
+    scale = []
+    for t in range(r.shape[2]):
+        kv = ks[:, :, t, :, None] * vs[:, :, t, None, :]
+        scale.append(torch.einsum("bhk,bhkv->bhv", rs[:, :, t].abs(),
+                                  (S + uu * kv).abs()))
+        S = ws[:, :, t, :, None] * S + kv
+    return 2 * D * 2.0 ** -24 * torch.stack(scale, dim=2)
+
+
+def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor,
+                       state: Optional[torch.Tensor] = None, chunk: int = 64):
+    """Chunked (matmul-form) RWKV6: the state is formed once per chunk of
+    C steps and the work inside a chunk is (C, C) / (C, D) products.
+
+      with A_t = sum_{j<=t} log w_j (inclusive cumsum within the chunk):
+        inter_t = (r_t * e^{A_{t-1}}) . S_0
+        intra_t = sum_{s<t} [(r_t e^{A_{t-1}}) . (k_s e^{-A_s})] v_s
+                  + (r_t . (u * k_t)) v_t
+        S_end   = diag(e^{A_C}) S_0 + sum_s (k_s e^{A_C - A_s}) v_s^T
+
+    Algebraically the recurrence of :func:`rwkv6_scan`; float differences
+    come from the exp/cumsum reassociation.  T must be a multiple of
+    ``min(chunk, T)``.  The JAX package has no kernel for this form, so it
+    is plain on every device.
+    """
+    B, H, T, D = r.shape
+    C = min(chunk, T)
+    assert T % C == 0, (T, C)
+    n = T // C
+    f32 = torch.float32
+    S = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+
+    def chunks(a):                                   # (n, B, H, C, D)
+        return a.reshape(B, H, n, C, D).permute(2, 0, 1, 3, 4).to(f32)
+
+    rs, ks, vs = chunks(r), chunks(k), chunks(v)
+    logw = torch.log(torch.clamp_min(w.to(f32), 1e-30))
+    As = torch.cumsum(logw.reshape(B, H, n, C, D), dim=3).permute(2, 0, 1, 3, 4)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
+                      -1)                            # strict lower: s < t
+    uk = u.to(f32)[None, :, None, :]
+    outs = []
+    for i in range(n):
+        rc, kc, vc, Ac = rs[i], ks[i], vs[i], As[i]  # (B, H, C, D)
+        # per-step log w from the inclusive cumsum: logw_t = A_t - A_{t-1}
+        logw_c = torch.cat([Ac[:, :, :1], torch.diff(Ac, dim=2)], dim=2)
+        q_t = rc * torch.exp(Ac - logw_c)            # exclusive prefix
+        k_s = kc * torch.exp(-Ac)
+        inter = torch.einsum("bhtd,bhdv->bhtv", q_t, S)
+        scores = torch.einsum("bhtd,bhsd->bhts", q_t, k_s)
+        scores = torch.where(mask, scores, torch.zeros((), dtype=f32,
+                                                       device=r.device))
+        diag = torch.einsum("bhtd,bhtd->bht", rc, uk * kc)
+        intra = (torch.einsum("bhts,bhsv->bhtv", scores, vc)
+                 + diag[..., None] * vc)
+        A_last = Ac[:, :, -1:, :]                    # (B, H, 1, D)
+        S = (torch.exp(A_last[:, :, 0, :, None]) * S
+             + torch.einsum("bhsd,bhsv->bhdv", kc * torch.exp(A_last - Ac), vc))
+        outs.append(inter + intra)
+    out = torch.stack(outs, dim=0).permute(1, 2, 0, 3, 4).reshape(B, H, T, D)
+    return out.to(r.dtype), S

@@ -1,5 +1,6 @@
-"""The port's serving CLI: batched greedy decoding of an lm-family
-config with the float ``ServeEngine``, on the card unless asked otherwise.
+"""The port's serving CLI: batched greedy decoding of an lm-family or an
+rwkv config with the float ``ServeEngine``, on the card unless asked
+otherwise.
 
   # on a machine with the card: llama2-7b at full size, random weights
   python -m repro_torch.launch.serve --arch llama2-7b --continuous \
@@ -8,11 +9,14 @@ config with the float ``ServeEngine``, on the card unless asked otherwise.
   # on the CPU, reduced config (plain versions of the kernels)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --smoke --device cpu --continuous --page-size 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --smoke --device cpu --continuous
 
 Without ``--continuous`` it runs ``ServeEngine.generate`` on ``--batch``
 prompts of ``--prompt-len`` tokens; with it, ``--requests`` ragged prompts
 go through the continuous-batching scheduler over ``--slots`` slots (a page
-pool with ``--page-size``, else a dense slot cache).  Weights come from
+pool with ``--page-size`` for lm, else a dense slot cache; rwkv's recurrent
+state is always dense).  Weights come from
 ``api.init_params`` with a ``torch.Generator`` seeded by ``--seed``.  Prints
 one JSON report, as the JAX package's ``repro.launch.serve`` does.  Flags
 of features the port does not have yet exit with "not ported yet".
@@ -33,7 +37,7 @@ from repro_torch.serve import pages
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 
-SERVED = ("lm",)       # families the float ServeEngine serves
+SERVED = ("lm", "rwkv")   # families the float ServeEngine serves
 
 
 def _refuse_unported(args, ap: argparse.ArgumentParser) -> None:

@@ -1,4 +1,5 @@
-"""Model API of the port: params, the lm serve path (cache, prefill,
+"""Model API of the port: family dispatch (the lm and rwkv families),
+params, the whole-sequence forward, the serve path (cache, prefill,
 decode), LAQ model quantization, and the bridge that turns the JAX
 package's params (as numpy) into the port's."""
 from __future__ import annotations
@@ -10,68 +11,91 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
+
+
+_FAMILIES = {"lm": transformer, "rwkv": rwkv6}
+
+
+def family_module(cfg: ModelConfig):
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (the port has "
+            f"{', '.join(sorted(_FAMILIES))})")
+    return _FAMILIES[cfg.family]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Dict[str, Any]:
-    return transformer.init_params(cfg, generator, device=device)
+    return family_module(cfg).init_params(cfg, generator, device=device)
 
 
-# ----------------------------------------------------------------------------
-# Serve path (the lm block path; other families come with their slices)
-# ----------------------------------------------------------------------------
-def _family(cfg: ModelConfig):
-    if cfg.family != "lm":
+def forward(params, tokens, cfg: ModelConfig):
+    """Whole-sequence logits: tokens (B, T) -> (logits (B, T, V) float32,
+    aux)."""
+    mod = family_module(cfg)
+    if not hasattr(mod, "forward"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (lm only)")
-    return transformer
+            f"family {cfg.family!r}: the whole-sequence forward is not "
+            f"ported yet")
+    return mod.forward(params, tokens, cfg)
 
 
+# ----------------------------------------------------------------------------
+# Serve path
+# ----------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    return _family(cfg).init_cache(cfg, batch, max_len, device=device)
+    return family_module(cfg).init_cache(cfg, batch, max_len, device=device)
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, *, write=None):
-    return _family(cfg).decode_step(params, cache, tokens, cfg, write=write)
+    return family_module(cfg).decode_step(params, cache, tokens, cfg,
+                                          write=write)
 
 
 def paged_decode_step(params, cache, table, tokens, cfg: ModelConfig, *,
                       write=None, seq_axes=None):
     """One decode step computed directly through the page pool (cache and
-    table as ``serve/pages.py::make_pool`` and the pager lay them out)."""
-    return _family(cfg).paged_decode_step(params, cache, table, tokens, cfg,
-                                          write=write, seq_axes=seq_axes)
-
-
-def _prefill_fits(cache, prompt_len: int) -> bool:
-    """True when every KV leaf can hold the whole prompt as one block."""
-    return all(a.shape[4] >= prompt_len for a in cache["k"])
-
-
-def _block_prefill(params, cache, tokens, cfg, true_len):
-    mod = _family(cfg)
-    if not _prefill_fits(cache, tokens.shape[1]):
+    table as ``serve/pages.py::make_pool`` and the pager lay them out).
+    Families whose caches never page (rwkv) take the dense slot layout and
+    never reach here."""
+    mod = family_module(cfg)
+    if not hasattr(mod, "paged_decode_step"):
         raise NotImplementedError(
-            "the scan-of-decode prefill (a prompt longer than a windowed "
-            "cache slot) is not ported yet")
-    # the block prefill writes positions 0..T-1: a fresh cache only
-    assert int(cache["len"].max()) == 0, "prefill requires an empty cache"
-    return mod.prefill(params, cache, tokens, cfg, true_len=true_len)
+            f"family {cfg.family!r} has no paged decode entry point; its "
+            "caches should have fallen back to the dense slot layout")
+    return mod.paged_decode_step(params, cache, table, tokens, cfg,
+                                 write=write, seq_axes=seq_axes)
+
+
+def prefill_bucketed(params, cache, tokens, true_len, cfg: ModelConfig):
+    """Fill a fresh cache with the first ``true_len`` positions of a prompt:
+    (logits at ``true_len - 1`` (B, V), the cache with ``len += true_len``),
+    in place.  The port's engine passes the true prompt (``true_len`` =
+    width): eager PyTorch compiles nothing per width, so it pads to no
+    bucket.
+
+    The lm family takes its block prefill when every cache leaf holds the
+    prompt (one flash-attention launch per layer on the card).  Otherwise,
+    as in the JAX package, the prompt goes through ``decode_step`` one token
+    at a time -- the recurrent families' prefill -- over the true length
+    only, so padding never reaches the state."""
+    mod = family_module(cfg)
+    n = int(true_len)
+    if hasattr(mod, "prefill") and mod.prefill_fits(cache, tokens.shape[1]):
+        # the block prefill writes positions 0..T-1: a fresh cache only
+        assert int(cache["len"].max()) == 0, "prefill requires an empty cache"
+        return mod.prefill(params, cache, tokens, cfg, true_len=n)
+    logits = None
+    for t in range(n):
+        logits, cache = mod.decode_step(params, cache, tokens[:, t], cfg)
+    return logits, cache
 
 
 def prefill(params, cache, tokens, cfg: ModelConfig):
     """Fill a fresh cache with a whole prompt: tokens (B, T) -> (last
     position's logits (B, V), the cache with ``len += T``), in place."""
-    return _block_prefill(params, cache, tokens, cfg, None)
-
-
-def prefill_bucketed(params, cache, tokens, true_len, cfg: ModelConfig):
-    """Prefill a right-padded prompt whose first ``true_len`` positions are
-    real: (logits at ``true_len - 1``, the cache with ``len += true_len``).
-    The port's engine passes the true prompt (``true_len`` = width): eager
-    PyTorch compiles nothing per width, so it pads to no bucket."""
-    return _block_prefill(params, cache, tokens, cfg, true_len)
+    return prefill_bucketed(params, cache, tokens, tokens.shape[1], cfg)
 
 
 # ----------------------------------------------------------------------------

@@ -73,6 +73,41 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ----------------------------------------------------------------------------
 # KV cache, prefill and decode (lm block path)
 # ----------------------------------------------------------------------------
+# Batch and sequence axis of each serve-cache entry (the K/V lists share
+# theirs): leaves (n_groups, gs // P, B, Hkv, S, hd), len (B,)
+CACHE_AXES = ({"k": 2, "v": 2, "len": 0}, {"k": 4, "v": 4, "len": -1})
+
+
+def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
+    """The serving engine's copy of the float params on ``device``:
+    attention and MLP projections cast once to the compute dtype, embedding
+    and norm scales kept float32 (a tensor already in place is not copied).
+    An untied LM head is rounded once to the compute dtype and held in
+    float32, the operand of :func:`_logits_head`'s float32 product."""
+    dtype = getattr(torch, cfg.dtype)
+    blocks = params["blocks"]
+
+    def cast(tree):
+        return {k: w.to(device=device, dtype=dtype) for k, w in tree.items()}
+
+    out = {"embed": params["embed"].to(device),
+           "ln_final": params["ln_final"].to(device),
+           "blocks": {"ln_attn": blocks["ln_attn"].to(device),
+                      "ln_mlp": blocks["ln_mlp"].to(device),
+                      "attn": cast(blocks["attn"]),
+                      "mlp": cast(blocks["mlp"])}}
+    if "lm_head" in params:
+        out["lm_head"] = params["lm_head"].to(device=device, dtype=dtype).to(
+            torch.float32)
+    return out
+
+
+def prefill_fits(cache, prompt_len: int) -> bool:
+    """True when every KV leaf can hold the whole prompt, so that the block
+    :func:`prefill` can take it in one pass."""
+    return all(a.shape[4] >= prompt_len for a in cache["k"])
+
+
 def _check_block_path(cfg: ModelConfig) -> None:
     if cfg.family != "lm" or cfg.moe or cfg.cross_attn_every:
         raise NotImplementedError(

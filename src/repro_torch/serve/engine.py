@@ -1,13 +1,15 @@
-"""Production serving engine for the lm family: float weights, batched
-prefill and greedy decode, in torch.
+"""Production serving engine for the dense lm and the rwkv families: float
+weights, batched prefill and greedy decode, in torch.
 
 The JAX package's ``ServeEngine`` compiles each request into two programs
 (one bucketed block prefill, one scan-fused decode loop).  The port runs
 the same math eagerly:
 
-  generate()    one block prefill of the whole prompt body through
-                ``api.prefill_bucketed`` (its attention is the flash kernel
-                on the card, one launch per layer), then a Python loop of
+  generate()    one prefill of the whole prompt body through
+                ``api.prefill_bucketed`` (for lm a block prefill whose
+                attention is the flash kernel on the card, one launch per
+                layer; for rwkv one ``decode_step`` per prompt token, as in
+                the JAX package), then a Python loop of
                 ``api.decode_step`` on the dense cache in lockstep
                 (``fused=True``, one host sync at the end); ``fused=False``
                 feeds the prompt one ``decode_step`` per token and syncs
@@ -15,12 +17,14 @@ the same math eagerly:
 
   slot protocol ``init_slot_cache`` / ``prefill_slot`` / ``insert_slot`` /
                 ``decode_slots`` / ``rebuild`` for the continuous-batching
-                scheduler: a B=1 block prefill per admitted request, written
-                into its slot, and ONE masked batched decode step per
-                token.  With ``page_size`` the slot cache is a page pool
-                behind a host-owned page table and decode attends through
-                the table with the paged kernel (``paged_attn="inplace"``);
-                without it, a dense ``(max_slots, ...)`` cache.
+                scheduler: a B=1 prefill per admitted request, written into
+                its slot, and ONE masked batched decode step per token.
+                With ``page_size`` the lm slot cache is a page pool behind a
+                host-owned page table and decode attends through the table
+                with the paged kernel (``paged_attn="inplace"``); without
+                it, and for rwkv, whose recurrent state has nothing that
+                grows with the sequence, a dense ``(max_slots, ...)`` cache
+                (the JAX package's dense fallback).
 
 Caches are updated IN PLACE where the JAX package returned new ones, and a
 prefill runs over the true prompt length: eager PyTorch compiles nothing
@@ -49,48 +53,20 @@ from repro_torch.serve import slots as slots_mod
 from repro_torch.serve.errors import InvalidRequestError
 
 
-def _serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
-    """The engine's copy of the float params on ``device``: projections cast
-    once to the compute dtype, embedding and norm scales kept float32 (a
-    tensor already in place is not copied).  The LM head is rounded once to
-    the compute dtype and held in float32, the operand of the float32
-    logits product (``transformer._logits_head``)."""
-    dtype = getattr(torch, cfg.dtype)
-    blocks = params["blocks"]
-
-    def cast(tree):
-        return {k: w.to(device=device, dtype=dtype) for k, w in tree.items()}
-
-    out = {"embed": params["embed"].to(device),
-           "ln_final": params["ln_final"].to(device),
-           "blocks": {"ln_attn": blocks["ln_attn"].to(device),
-                      "ln_mlp": blocks["ln_mlp"].to(device),
-                      "attn": cast(blocks["attn"]),
-                      "mlp": cast(blocks["mlp"])}}
-    if "lm_head" in params:
-        out["lm_head"] = params["lm_head"].to(device=device, dtype=dtype).to(
-            torch.float32)
-    return out
-
-
 class ServeEngine(pages_mod.PagedEngineMixin):
-    """Greedy serving of a dense lm-family config with float weights."""
-
-    # batch and sequence axis of each slot-cache entry (the K/V lists share
-    # theirs): leaves (n_groups, gs // P, B, Hkv, S, hd), len (B,)
-    _BATCH_AXES = {"k": 2, "v": 2, "len": 0}
-    _SEQ_AXES = {"k": 4, "v": 4, "len": -1}
+    """Greedy serving of a dense lm-family or an rwkv config with float
+    weights."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 128,
                  fused: bool = True, page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  paged_attn: str = "inplace", prefix_cache: str = "off",
                  kv_dtype: str = "bf16", device="cuda"):
-        if (cfg.family != "lm" or cfg.moe or cfg.cross_attn_every
-                or cfg.frontend_tokens):
+        family = api.family_module(cfg)     # raises for an unported family
+        if cfg.moe or cfg.cross_attn_every or cfg.frontend_tokens:
             raise NotImplementedError(
-                f"{cfg.name}: the port's ServeEngine serves the dense lm "
-                f"family so far")
+                f"{cfg.name}: MoE, cross-attention and frontend configs "
+                f"are not ported to the ServeEngine yet")
         if any(s.window and s.window < max_len for s in cfg.layer_pattern):
             raise NotImplementedError(
                 "windowed ring-buffer cache slots (gemma2) are not ported yet")
@@ -113,16 +89,21 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         self._ragged_cfg = dataclasses.replace(
             cfg, parallel=dataclasses.replace(cfg.parallel,
                                               aligned_decode=False))
-        self.params = _serve_params(params, cfg, self.device)
+        self.params = family.serve_params(params, cfg, self.device)
         self.max_len = max_len
         self.fused = fused
         self.meter = TrafficMeter()
         self._traffic = TrafficModel.for_config(cfg)
+        self._ba, self._sa = family.CACHE_AXES
         self.page_size = page_size
         self.num_pages = num_pages
+        # a page pool only where some cache leaf grows with the sequence:
+        # rwkv keeps the dense slot layout with page_size set, as the JAX
+        # package's engine does
+        pages_any = any(ax >= 0 for ax in self._sa.values())
         self._pager = (pages_mod.HostPager(page_size, num_pages, max_len,
                                            device=self.device)
-                       if page_size is not None else None)
+                       if page_size is not None and pages_any else None)
 
     # ----------------------------------------------------- traffic accounting
     def meter_tokens(self, n: int) -> None:
@@ -177,7 +158,7 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         toks = self._tokens(prompts)
         tp0 = time.perf_counter()
         if T0 > 1:
-            # one block prefill fills the cache with the whole prompt body
+            # one prefill fills the cache with the whole prompt body
             _, cache = api.prefill_bucketed(self.params, cache,
                                             toks[:, :-1], T0 - 1, cfg)
         self._sync()
@@ -254,7 +235,7 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         """A fresh slot cache for ``n_slots`` concurrent streams: a page pool
         (and a reset host pager) with ``page_size``, else the dense
         ``(n_slots, ...)`` cache."""
-        ba, sa = self._BATCH_AXES, self._SEQ_AXES
+        ba, sa = self._ba, self._sa
         like = api.init_cache(self.cfg, n_slots, self.max_len,
                               device=torch.device("meta"))
         self._note_slot_cache(n_slots, like, ba, sa)
@@ -275,7 +256,7 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         """Prefill ONE request into a fresh B=1 dense cache.
 
         prompt (T0,) -> (cache with len = T0 - 1, input token of the first
-        decode step): one block prefill over the true prompt body.  On the
+        decode step): one prefill over the true prompt body.  On the
         paged layout the cache holds just the body's pages (the insert
         scatters those); the dense slot cache takes a ``max_len`` row."""
         prompt = np.asarray(prompt, np.int32)
@@ -300,10 +281,10 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         copies it into the slot's row."""
         if not self._paging_active:
             return slots_mod.insert_slot(batched_cache, slot_cache, slot,
-                                         self._BATCH_AXES)
+                                         self._ba)
         n_tok = int(slot_cache["len"][0])
         return self.paged_insert(batched_cache, slot_cache, slot,
-                                 self._BATCH_AXES, self._SEQ_AXES, n_tok)
+                                 self._ba, self._sa, n_tok)
 
     def decode_slots(self, cache, tokens, active, corrupt=None):
         """One masked batched decode step: every slot computes, only

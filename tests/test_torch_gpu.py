@@ -10,7 +10,11 @@ multiplies, one round-to-nearest-even to bf16).  Paged and flash attention
 in f32 are held to atol 1e-5 (the same f32 math in another summation
 order), in bf16 to one bf16 ulp (that order can flip the final rounding);
 flash attention's bf16 bound adds the f32 one, since an output near zero
-after cancellation has a bf16 ulp below the f32 sum-order error.
+after cancellation has a bf16 ulp below the f32 sum-order error.  The RWKV6
+scan's state is the plain version's bit for bit (the same rounded f32 ops
+in the same order); its f32 output is held to atol 1e-4 (the JAX kernel
+test's), its bf16 output to one bf16 ulp plus the f32 bound of two orders
+of its D-term sum over the k-dim (``ref.rwkv6_scan_order_bound``).
 """
 import numpy as np
 import pytest
@@ -21,13 +25,15 @@ from repro_torch.core.device import exact_matmuls
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import paged_attention as kpa
+from repro_torch.kernels import rwkv_scan as krw
 from repro_torch.kernels import w4a8_matmul as kw
 from repro_torch.models import api
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 from repro_torch.serve.splitbrain_engine import SplitBrainEngine
-from torch_cases import (assert_within_bf16_ulp, paged_case, run_paged,
-                         w4a8_case)
+from torch_cases import (assert_within_bf16_ulp, bf16_ulp_of, paged_case,
+                         pick_report, run_paged, rwkv_case,
+                         teacher_forced_logits, w4a8_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -103,7 +109,7 @@ def test_engine_on_card_matches_cpu_and_counts_launches(cuda):
     assert counts == {
         "w4a8_matmul": (7 * L + 1) * (out["prefill_tokens"] + out["steps"]),
         "paged_decode_attention": L * out["steps"],
-        "flash_attention": 0}
+        "flash_attention": 0, "rwkv6_scan": 0}
     assert ([r.tokens.tolist() for r in out["results"]]
             == [r.tokens.tolist() for r in runs["cpu"]["results"]])
 
@@ -166,8 +172,78 @@ def test_serve_engine_on_card_matches_cpu_and_counts_launches(cuda, arch):
                      gen["tokens"].tolist())
     L = cfg.num_layers
     assert counts == {"w4a8_matmul": 0, "flash_attention": L * len(reqs),
-                      "paged_decode_attention": L * out["steps"]}
+                      "paged_decode_attention": L * out["steps"],
+                      "rwkv6_scan": 0}
     assert gen_counts["flash_attention"] == counts["flash_attention"] + L
     assert gen_counts["paged_decode_attention"] == counts[
         "paged_decode_attention"]
     assert runs["cuda"] == runs["cpu"]
+
+
+RWKV = [  # (B, H, T, D): the JAX kernel tests' shapes, ragged T, H > 1
+    (2, 3, 64, 16), (1, 2, 128, 32), (1, 1, 32, 64), (2, 4, 37, 64),
+    (3, 5, 1, 32)]
+
+
+@pytest.mark.parametrize("case", range(len(RWKV)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rwkv_kernel_matches_plain(cuda, case, dtype):
+    r, k, v, w, u = (torch.from_numpy(a).to(cuda)
+                     for a in rwkv_case(*RWKV[case], seed=case))
+    r, k, v, w = (t.to(dtype) for t in (r, k, v, w))
+    n0 = krw.rwkv6_scan.launches
+    out, state = ops.rwkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert krw.rwkv6_scan.launches == n0 + 1
+    p_out, p_state = ref.rwkv6_scan(r, k, v, w, u)
+    assert out.dtype == dtype and state.dtype == torch.float32
+    torch.testing.assert_close(state, p_state, rtol=0, atol=1e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, p_out, rtol=0, atol=1e-4)
+    else:   # + the f32 bound of two orders of out's D-term sum
+        assert_within_bf16_ulp(out, p_out.float().cpu().numpy(),
+                               atol=ref.rwkv6_scan_order_bound(
+                                   r, k, v, w, u).cpu().numpy())
+
+
+def test_rwkv_engine_and_forward_on_card_match_cpu(cuda):
+    """Reduced rwkv6-7b on the card and on the CPU from the same weights,
+    over four weight seeds.  The serve path launches no kernel (every decode
+    step carries the state); the tokens the card chose under the scheduler
+    and generate(), fed back teacher-forced through the decode steps on both
+    devices, give float32 logits within two bf16 ulps of the largest, and a
+    token the CPU would not choose is a near-tie (its CPU logit short of the
+    largest by at most twice that).  forward's bf16-rounded logits agree
+    within one ulp of the largest, with one scan launch per layer."""
+    cfg = get_config("rwkv6-7b").reduced()
+    reqs = [Request(uid=i, prompt=(np.arange(1, 6 + 4 * i) * 7 % 256)
+                    .astype(np.int32), max_new=6) for i in range(4)]
+    prompts = np.stack([(np.arange(1, 10) * (3 + i)) % 256
+                        for i in range(3)]).astype(np.int32)
+    toks = torch.from_numpy(prompts)
+    for seed in range(4):
+        params = api.init_params(cfg, torch.Generator().manual_seed(seed),
+                                 "cpu")
+        engs = {dev: ServeEngine(cfg, params, max_len=64, page_size=8,
+                                 device=dev) for dev in ("cpu", "cuda")}
+        ops.reset_launch_counts()
+        out = ContinuousBatchingScheduler(engs["cuda"], max_slots=2).run(reqs)
+        gen = engs["cuda"].generate(prompts, max_new=6)
+        assert sum(ops.launch_counts().values()) == 0
+        seqs = ([(q.prompt, r.tokens) for q, r in zip(reqs, out["results"])]
+                + list(zip(prompts, gen["tokens"])))
+        assert all(len(t) == 6 for _, t in seqs)
+        tf = {dev: torch.cat([teacher_forced_logits(engs[dev].params, cfg,
+                                                    p, t, dev)
+                              for p, t in seqs]) for dev in engs}
+        rep = pick_report(tf["cpu"], tf["cuda"],
+                          np.concatenate([t for _, t in seqs]))
+        tol = 2 * bf16_ulp_of(rep["max_abs_logit"])
+        assert rep["max_abs_err"] <= tol and rep["shortfall"] <= 2 * tol, rep
+        fwd = {dev: api.forward(engs[dev].params, toks.to(dev), cfg)[0]
+               .reshape(-1, cfg.vocab_size).cpu() for dev in engs}
+        assert ops.launch_counts()["rwkv6_scan"] == cfg.num_layers
+        rep = pick_report(fwd["cpu"], fwd["cuda"], fwd["cuda"].argmax(-1))
+        tol = bf16_ulp_of(rep["max_abs_logit"])
+        assert rep["max_abs_err"] <= tol and rep["shortfall"] <= 2 * tol, rep

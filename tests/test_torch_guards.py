@@ -16,11 +16,12 @@ from repro_torch.core import device
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import paged_attention as kpa
+from repro_torch.kernels import rwkv_scan as krw
 from repro_torch.kernels import w4a8_matmul as kw
 from repro_torch.models import api
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.splitbrain_engine import SplitBrainEngine
-from torch_cases import paged_case, run_paged, w4a8_case
+from torch_cases import paged_case, run_paged, rwkv_case, w4a8_case
 
 PKG = Path(__file__).resolve().parent.parent / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|repro)(?:[.\s,]|$)")
@@ -107,6 +108,7 @@ def no_library(monkeypatch, tmp_path):
     monkeypatch.setattr(ref, "w4a8_matmul", plain)
     monkeypatch.setattr(ref, "paged_decode_attention", plain)
     monkeypatch.setattr(ref, "flash_attention", plain)
+    monkeypatch.setattr(ref, "rwkv6_scan", plain)
 
 
 def _flash_case(dtype=torch.bfloat16, D=16):
@@ -124,9 +126,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(no_library):
         run_paged(paged_case(0), ops.paged_decode_attention)
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.attention(*_flash_case(), causal=True)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.rwkv6(*(torch.from_numpy(a) for a in rwkv_case(1, 2, 5, 16)))
     assert ops.launch_counts() == {"w4a8_matmul": 0,
                                    "paged_decode_attention": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "rwkv6_scan": 0}
 
 
 def test_cuda_wrappers_check_operands(no_library):
@@ -157,6 +161,32 @@ def test_cuda_wrappers_check_operands(no_library):
                             k, v)
     with pytest.raises(ValueError, match="multiple of"):
         kfa.flash_attention(q[:, :3].contiguous(), k, v)
+    r, k, v, w, u = (torch.from_numpy(a) for a in rwkv_case(1, 2, 5, 16))
+    with pytest.raises(ValueError, match="head dim"):
+        krw.rwkv6_scan(*(torch.from_numpy(a) for a in rwkv_case(1, 2, 5, 8)))
+    with pytest.raises(ValueError, match="does not match"):
+        krw.rwkv6_scan(r, k.to(torch.bfloat16), v, w, u)
+    with pytest.raises(ValueError, match="u must be float32"):
+        krw.rwkv6_scan(r, k, v, w, u.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        krw.rwkv6_scan(r.transpose(2, 3), k, v, w, u)
+    with pytest.raises(ValueError, match="empty"):
+        krw.rwkv6_scan(*(t[:, :, :0] for t in (r, k, v, w)), u)
+
+
+def test_rwkv_with_a_carried_state_takes_the_plain_version(monkeypatch):
+    """The JAX package's own dispatch: its scan kernel starts from a zero
+    state only, so a call that carries one (each decode step) is plain on
+    every device -- and builds nothing."""
+    monkeypatch.setattr(build, "is_cuda", lambda t: True)
+    monkeypatch.setattr(build, "find_nvcc", lambda: 1 / 0)
+    r, k, v, w, u = (torch.from_numpy(a) for a in rwkv_case(1, 2, 5, 16))
+    state = torch.ones((1, 2, 16, 16))
+    n0 = krw.rwkv6_scan.launches
+    out, s = ops.rwkv6(r, k, v, w, u, state)
+    want = ref.rwkv6_scan(r, k, v, w, u, state)
+    assert torch.equal(out, want[0]) and torch.equal(s, want[1])
+    assert krw.rwkv6_scan.launches == n0
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 2048, 2048), (8, 2048, 256),
@@ -172,6 +202,7 @@ def test_w4a8_launch_shape_covers_k(M, K, N):
 def test_build_targets_sm90a_without_fast_math():
     assert [p.name for p in build.sources()] == ["flash_attention.cu",
                                                  "paged_attention.cu",
+                                                 "rwkv_scan.cu",
                                                  "w4a8_matmul.cu"]
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags

@@ -57,7 +57,7 @@ def test_unported_flags_exit(flags, capsys):
 
 def test_unported_arch_exits(capsys):
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "rwkv6-7b", *SMOKE])
+        serve.main(["--arch", "hymba-1.5b", *SMOKE])
     assert "not ported yet" in capsys.readouterr().err
 
 

@@ -1,10 +1,13 @@
-"""Seeded numpy inputs and tolerances shared by the ``test_torch_*`` files.
+"""Seeded numpy inputs, tolerances and the teacher-forced card-vs-CPU logit
+check shared by the ``test_torch_*`` files and ``chip_smoke.py``.
 
 Imports neither JAX nor the JAX package, so the ``gpu`` tests that use it
 also run on a machine with only PyTorch.
 """
 import numpy as np
 import torch
+
+from repro_torch.models import api
 
 
 def w4a8_case(M, K, N, seed=0):
@@ -69,3 +72,53 @@ def assert_within_bf16_ulp(ours: torch.Tensor, ref, ulps=1, atol=0.0):
     assert not bad.any(), (
         f"{int(bad.sum())} of {bad.size} outside {ulps} bf16 ulp; worst "
         f"|diff| {diff[bad].max()} at |ref| {np.abs(ref[bad]).max()}")
+
+
+def rwkv_case(B, H, T, D, seed=0):
+    """r, k, v (B, H, T, D) standard normal, decays w in (0.8, 0.999) and
+    the bonus u (H, D), float32 numpy (the JAX kernel tests' distributions)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(B, H, T, D)).astype(np.float32)
+               for _ in range(3))
+    w = rng.uniform(0.8, 0.999, (B, H, T, D)).astype(np.float32)
+    u = rng.normal(size=(H, D)).astype(np.float32)
+    return r, k, v, w, u
+
+
+def bf16_ulp_of(x: float) -> float:
+    """One bf16 ulp at magnitude |x|: 2^(e-7) for |x| in [2^e, 2^(e+1))."""
+    return float(2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7))
+
+
+def teacher_forced_logits(params, cfg, prompt, tokens, device):
+    """The serve path's logits at the positions that chose ``tokens`` after
+    ``prompt``, fed prompt + tokens one ``api.decode_step`` at a time from a
+    fresh B=1 cache, as the rwkv family's prefill and decode run: (len(tokens),
+    V) float32 on the CPU."""
+    seq = np.concatenate([prompt, tokens[:-1]]).astype(np.int32)
+    cache = api.init_cache(cfg, 1, len(seq), device=device)
+    out = []
+    for t, tok in enumerate(seq):
+        logits, cache = api.decode_step(
+            params, cache, torch.tensor([int(tok)], dtype=torch.int32,
+                                        device=device), cfg)
+        if t >= len(prompt) - 1:
+            out.append(logits[0].float().cpu())
+    return torch.stack(out)
+
+
+def pick_report(cpu, dev, picks):
+    """Logits of the same positions on the CPU and on a device, (n, V), and
+    the tokens the device chose there, (n,): the largest |dev - cpu|, the
+    largest |cpu|, the largest shortfall max(cpu) - cpu[pick] of a chosen
+    token (0 where the CPU would choose it too), and how many of the ``n``
+    picks are the CPU's argmax.  A pick the CPU would not make is sound when
+    its shortfall is at most twice the logits' gap: a near-tie."""
+    cpu, dev = cpu.double(), dev.double()
+    picks = torch.as_tensor(np.asarray(picks), dtype=torch.int64)
+    chosen = cpu.gather(1, picks[:, None])[:, 0]
+    return {"max_abs_err": (dev - cpu).abs().max().item(),
+            "max_abs_logit": cpu.abs().max().item(),
+            "shortfall": (cpu.max(dim=1).values - chosen).max().item(),
+            "argmax_agree": int((cpu.argmax(dim=1) == picks).sum()),
+            "n": int(picks.numel())}
