@@ -8,6 +8,12 @@ the float ``ServeEngine``: one launch per layer per prompt.  The kernel
 masks ragged Tq and Tk itself and skips the K/V tiles that causality or the
 window mask wholly; see the source for its design and bound.
 
+The source has two bodies, and :func:`body` picks one from dtype and head
+dim: bf16 at D in ``TENSOR_CORE_HEAD_DIMS`` runs on the tensor cores
+(mma.sync, p split into two bf16 halves so that it stays f32-accurate), f32
+at any multiple of 16 up to 256 on the CUDA cores; bf16 at another D is
+refused.
+
 This wrapper takes CUDA tensors only and launches the kernel or raises;
 ``kernels/ops.py`` routes a CPU tensor to the plain version.
 """
@@ -23,14 +29,31 @@ from repro_torch.kernels import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+             _P]
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+TENSOR_CORE_HEAD_DIMS = (16, 32, 48, 64, 128)
+BODIES = {"cuda-core": 0, "tensor-core": 1}   # csrc/flash_attention.cu Body
 
 
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"flash_attention kernel: {msg}")
+
+
+def body(dtype: torch.dtype, D: int) -> str:
+    """The kernel body that takes (dtype, head dim): "tensor-core" for bf16
+    at D in ``TENSOR_CORE_HEAD_DIMS``, "cuda-core" for f32 at any multiple of
+    16 up to ``MAX_HEAD_DIM``; raises for anything else."""
+    _require(dtype in DTYPES, f"q dtype {dtype} not in bf16/f32")
+    _require(D % 16 == 0 and 0 < D <= MAX_HEAD_DIM,
+             f"head dim {D} is not a multiple of 16 up to {MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16:
+        _require(D in TENSOR_CORE_HEAD_DIMS, f"bf16 head dim {D} not in "
+                 f"{TENSOR_CORE_HEAD_DIMS} (the CUDA-core body takes f32 only)")
+        return "tensor-core"
+    return "cuda-core"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,8 +62,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None,
                     kv_offset: int = 0) -> torch.Tensor:
     """q (B, Hq, Tq, D), k and v (B, Hkv, Tk, D), one dtype (bf16 or f32),
-    contiguous on one CUDA device; Hq % Hkv == 0; D a multiple of 16 up to
-    256; ``kv_offset >= 0``.  Returns (B, Hq, Tq, D) in q's dtype."""
+    contiguous on one CUDA device; Hq % Hkv == 0; D in
+    ``TENSOR_CORE_HEAD_DIMS`` for bf16, a multiple of 16 up to 256 for f32;
+    ``kv_offset >= 0``.  Returns (B, Hq, Tq, D) in q's dtype."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _require(build.is_cuda(t), f"{name} must be a CUDA tensor, got "
                  f"{t.device} (CPU tensors take the plain version in ops)")
@@ -49,6 +73,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  f"{q.device}")
         _require(t.dim() == 4, f"{name} must be 4-D (B, H, T, D), got "
                  f"{tuple(t.shape)}")
+        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned "
+                 "(the kernel copies 16-byte chunks)")
     _require(q.dtype in DTYPES, f"q dtype {q.dtype} not in bf16/f32")
     _require(k.dtype == q.dtype and v.dtype == q.dtype,
              f"q, k, v dtypes differ: {q.dtype}/{k.dtype}/{v.dtype}")
@@ -60,8 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              f"q {tuple(q.shape)}")
     _require(Hkv > 0 and Hq % Hkv == 0, f"Hq={Hq} not a multiple of "
              f"Hkv={Hkv}")
-    _require(D % 16 == 0 and 0 < D <= MAX_HEAD_DIM,
-             f"head dim {D} is not a multiple of 16 up to {MAX_HEAD_DIM}")
+    which = body(q.dtype, D)
     _require(B > 0 and Tq > 0 and Tk > 0, f"empty operand {tuple(q.shape)} "
              f"x {tuple(k.shape)}")
     _require(int(kv_offset) >= 0, f"kv_offset={kv_offset} < 0 leaves rows "
@@ -73,7 +98,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             -1 if window is None else int(window), int(kv_offset),
             float(scale if scale is not None else D ** -0.5),
             0.0 if softcap is None else float(softcap),
-            DTYPES[q.dtype], build.stream_handle(q.device))
+            DTYPES[q.dtype], BODIES[which], build.stream_handle(q.device))
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

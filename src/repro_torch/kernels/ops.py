@@ -71,15 +71,18 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, cache_len, *,
                            softcap: Optional[float] = None,
                            scale: Optional[float] = None,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           v_scale: Optional[torch.Tensor] = None,
+                           return_lse: bool = False):
+    """Decode attention through the page table: the paged kernel for a CUDA
+    tensor, the plain version for a CPU tensor.  With ``return_lse`` it
+    returns ``(out, lse)``, lse the (B, Hkv, group) f32 log-sum-exp."""
+    kw = dict(window=window, softcap=softcap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale, return_lse=return_lse)
     if build.is_cuda(q):
-        return _pa.paged_decode_attention(
-            q, k_pool, v_pool, page_table, cache_len, window=window,
-            softcap=softcap, scale=scale, k_scale=k_scale, v_scale=v_scale)
-    return ref.paged_decode_attention(
-        q, k_pool, v_pool, page_table, cache_len, window=window,
-        softcap=softcap, scale=scale, k_scale=k_scale, v_scale=v_scale)
+        return _pa.paged_decode_attention(q, k_pool, v_pool, page_table,
+                                          cache_len, **kw)
+    return ref.paged_decode_attention(q, k_pool, v_pool, page_table,
+                                      cache_len, **kw)
 
 
 def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None):

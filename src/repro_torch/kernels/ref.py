@@ -126,8 +126,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            softcap: Optional[float] = None,
                            scale: Optional[float] = None,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           v_scale: Optional[torch.Tensor] = None,
+                           return_lse: bool = False):
     """Single-position attention computed THROUGH the page table.
 
     q: (B, Hq, 1, D); pools: (num_pages, page_size, Hkv, D) in bf16, f32,
@@ -138,6 +138,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     A loop over the P table columns with an online softmax in float32; a
     slot whose every position is masked (``cache_len == 0``) returns zeros.
+    With ``return_lse`` it also returns the (B, Hkv, group) float32
+    log-sum-exp of the live logits, ``m + log(max(l, 1e-30))`` as the
+    Pallas kernel writes it (about -1e30 for a slot with none).
     """
     B, Hq, _, D = q.shape
     ps, Hkv = k_pool.shape[1], k_pool.shape[2]
@@ -177,8 +180,30 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhgs,bshd->bhgd", p, vb)
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(B, Hq, 1, D).to(q.dtype)
+    l = torch.clamp_min(l, 1e-30)
+    out = (acc / l[..., None]).reshape(B, Hq, 1, D).to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
+
+
+def paged_decode_order_bound(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, page_table: torch.Tensor,
+                             cache_len: torch.Tensor, **kw) -> torch.Tensor:
+    """Per output of :func:`paged_decode_attention` (same arguments, no
+    ``return_lse``), what two float32 evaluations that sum the p_i v_i in
+    different orders differ by: 8 * 2^-24 * sum_i p_i |v_i| / l, (B, Hq, 1,
+    D) float32.  The CUDA kernel splits the positions over lanes, warps and
+    page chunks merged by log-sum-exp; this version walks the pages in turn.
+    Each order's partial sums grow like sqrt(k) over k random-signed terms
+    while l grows like k, so its rounding error over l stays near one
+    2^-24 * sum_i p_i |v_i| / l at any length (8 of them cover two orders
+    with a wide margin; n of them would be the worst case).  It matters only
+    where an output is near zero after cancellation and its bf16 ulp falls
+    below that: the kernel's bf16 outputs are held to one bf16 ulp of this
+    version's plus this bound."""
+    v_abs = v_pool.to(torch.float32).abs()
+    mean_abs_v = paged_decode_attention(q.to(torch.float32), k_pool, v_abs,
+                                        page_table, cache_len, **kw)
+    return 8 * 2.0 ** -24 * mean_abs_v
 
 
 # ----------------------------------------------------------------------------

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from repro.kernels import flash_attention as jfa
 from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops, ref
 from torch_cases import assert_within_bf16_ulp
 
@@ -105,3 +106,55 @@ def test_documented_difference_from_mha_chunked():
                   - 7)
     assert (diff > ulp).any()
     assert diff.max() <= 2.0 ** -6
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 16, "tensor-core"), (torch.bfloat16, 32, "tensor-core"),
+    (torch.bfloat16, 48, "tensor-core"), (torch.bfloat16, 64, "tensor-core"),
+    (torch.bfloat16, 128, "tensor-core"), (torch.bfloat16, 96, None),
+    (torch.bfloat16, 256, None), (torch.float32, 64, "cuda-core"),
+    (torch.float32, 128, "cuda-core"), (torch.float32, 256, "cuda-core"),
+    (torch.bfloat16, 24, None), (torch.float32, 272, None),
+    (torch.float16, 64, None)])
+def test_kernel_body_is_chosen_by_dtype_and_head_dim(dtype, D, want):
+    """The wrapper picks the CUDA source's body: bf16 at every configured
+    head dim on the tensor cores, f32 on the CUDA cores; anything neither
+    takes, bf16 at another head dim included, raises (no fallback between
+    them)."""
+    if want is None:
+        with pytest.raises(ValueError):
+            kfa.body(dtype, D)
+    else:
+        assert kfa.body(dtype, D) == want
+
+
+def _split_p_attention(q, k, v):
+    """Causal attention with the tensor-core body's value product: p in f32
+    as two bf16 halves, p_hi = bf16(p) and p_lo = bf16(p - p_hi), each
+    multiplied by bf16 V and summed in f32."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    T = q.shape[2]
+    x = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * q.shape[-1] ** -0.5
+    x = x.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1), -1e30)
+    p = torch.exp(x - x.amax(-1, keepdim=True))
+    p_hi = p.to(torch.bfloat16).float()
+    p_lo = (p - p_hi).to(torch.bfloat16).float()
+    acc = p_hi @ vf + p_lo @ vf
+    return (acc / p.sum(-1, keepdim=True)).to(q.dtype), p, p_hi + p_lo
+
+
+def test_tensor_core_value_product_keeps_p_float32_accurate():
+    """The numerics of the tensor-core body's p.V, in plain PyTorch: the
+    two-half split of p leaves at most ~2^-18 of relative error per weight
+    (one bf16 rounding leaves 2^-9), and its bf16 outputs are within one
+    bf16 ulp (plus the f32 sum-order 1e-5) of the Pallas kernel's."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(2, 4, 4, 64, 64, 16, jnp.bfloat16,
+                                         torch.bfloat16, seed=7)
+    out, p, p_split = _split_p_attention(tq, tk, tv)
+    live = p > 0
+    rel = ((p_split - p).abs()[live] / p[live]).max().item()
+    one = ((p.to(torch.bfloat16).float() - p).abs()[live] / p[live]).max()
+    assert rel <= 2.0 ** -17 and one.item() > 2.0 ** -10
+    pallas = np.asarray(jfa.flash_attention(jq, jk, jv, interpret=True)
+                        .astype(jnp.float32))
+    assert_within_bf16_ulp(out, pallas, atol=1e-5)

@@ -9,8 +9,14 @@ Tolerances: W4A8 is bit-identical (exact int32 sums, the same two f32
 multiplies, one round-to-nearest-even to bf16).  Paged and flash attention
 in f32 are held to atol 1e-5 (the same f32 math in another summation
 order), in bf16 to one bf16 ulp (that order can flip the final rounding);
-flash attention's bf16 bound adds the f32 one, since an output near zero
-after cancellation has a bf16 ulp below the f32 sum-order error.  The RWKV6
+flash attention's bf16 bound adds the f32 one, and the paged split-K
+cases add the per-element f32 bound of two sum orders
+(``ref.paged_decode_order_bound``), since an output near zero after
+cancellation has a bf16 ulp below the f32 sum-order error.  The paged
+kernel splits a slot's pages across blocks and merges them by log-sum-exp,
+in a fixed order: a second call is bit-identical.  Its LSE
+(``return_lse=True``) is held to the plain version's at atol 1e-5 for a
+live slot and to at most -1e29 for an empty one.  The RWKV6
 scan's state is the plain version's bit for bit (the same rounded f32 ops
 in the same order); its f32 output is held to atol 1e-4 (the JAX kernel
 test's), its bf16 output to one bf16 ulp plus the f32 bound of two orders
@@ -89,6 +95,105 @@ def test_paged_kernel_bf16_within_one_ulp(cuda):
     assert_within_bf16_ulp(out, plain.float().cpu().numpy())
 
 
+# where the split of a slot's pages across blocks matters: a slot of 1,000
+# positions beside slots of 1 and 0 (63 live chunks to merge), windows that
+# cross chunk boundaries, GQA with a group of 8 and of 16 (two row slices),
+# and llama2-7b's serve-path decode geometry (8 slots, 32/32 heads, P 64:
+# split_plan's 16-page chunks)
+SPLIT = [dict(B=3, Hq=4, Hkv=4, D=128, ps=16, P=64, lens=(0, 1000, 1)),
+         dict(B=3, Hq=8, Hkv=1, D=64, ps=16, P=64, lens=(1, 0, 777)),
+         dict(B=4, Hq=32, Hkv=2, D=64, ps=8, P=20, lens=(160, 0, 9, 100)),
+         dict(B=2, Hq=2, Hkv=2, D=256, ps=16, P=12, lens=(0, 190)),
+         dict(B=8, Hq=32, Hkv=32, D=128, ps=16, P=64,
+              lens=(143, 527, 208, 0, 300, 79, 431, 1024))]
+
+
+@pytest.mark.parametrize("geom", range(len(SPLIT)))
+@pytest.mark.parametrize("opts", [dict(), dict(window=37),
+                                  dict(window=250, softcap=30.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_kernel_split_and_lse_match_plain(cuda, geom, opts, dtype):
+    case = {k: v.to(cuda) for k, v in paged_case(
+        9 + geom, dtype=dtype, **SPLIT[geom]).items()}
+    n0 = kpa.paged_decode_attention.launches
+    out, lse = run_paged(case, ops.paged_decode_attention, return_lse=True,
+                         **opts)
+    again = run_paged(case, ops.paged_decode_attention, **opts)
+    torch.cuda.synchronize()
+    assert kpa.paged_decode_attention.launches == n0 + 2
+    assert torch.equal(out, again)        # the merge order is fixed
+    plain, p_lse = run_paged(case, ref.paged_decode_attention,
+                             return_lse=True, **opts)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    else:
+        assert_within_bf16_ulp(out, plain.float().cpu().numpy(),
+                               atol=_order_bound(case, **opts))
+    live = case["lens"] > 0
+    torch.testing.assert_close(lse[live], p_lse[live], rtol=0, atol=1e-5)
+    assert bool((lse[~live] <= -1e29).all())
+    assert not out[~live].any()           # an empty slot returns zeros
+
+
+def _order_bound(case, **opts):
+    """ref.paged_decode_order_bound for the case, as a numpy allowance."""
+    return run_paged(case, ref.paged_decode_order_bound,
+                     **opts).cpu().numpy().astype(np.float64)
+
+
+def test_paged_merge_counters_hold_across_graph_replay_and_streams(cuda):
+    """The merge counters are the call's own and zeroed by its launch: a
+    captured call replays right after a larger call and after its memory
+    pool was dirtied, and two streams run calls at once."""
+    small = {k: v.to(cuda) for k, v in paged_case(
+        21, dtype=torch.bfloat16, B=3, Hq=8, Hkv=2, D=64, ps=16, P=64,
+        lens=(700, 0, 1000)).items()}
+    large = {k: v.to(cuda) for k, v in paged_case(
+        22, dtype=torch.bfloat16, B=8, Hq=32, Hkv=32, D=128, ps=16, P=64,
+        lens=(1024,) * 8).items()}
+    plain = {n: run_paged(c, ref.paged_decode_attention)
+             for n, c in (("small", small), ("large", large))}
+    run_paged(small, ops.paged_decode_attention)         # warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run_paged(small, ops.paged_decode_attention)
+    for _ in range(2):
+        assert torch.equal(run_paged(large, ops.paged_decode_attention),
+                           run_paged(large, ops.paged_decode_attention))
+        torch.empty(1 << 24, dtype=torch.int32, device=cuda).fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert_within_bf16_ulp(captured, plain["small"].float().cpu().numpy(),
+                               atol=_order_bound(small))
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    torch.cuda.synchronize()
+    for st, c in zip(streams, (large, small)):
+        with torch.cuda.stream(st):
+            outs.append(run_paged(c, ops.paged_decode_attention))
+    torch.cuda.synchronize()
+    for out, (n, c) in zip(outs, (("large", large), ("small", small))):
+        assert_within_bf16_ulp(out, plain[n].float().cpu().numpy(),
+                               atol=_order_bound(c))
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_paged_kernel_lse_matches_plain(cuda, kv, geom):
+    case = {k: v.to(cuda) for k, v in paged_case(4, kv=kv, **geom).items()}
+    out, lse = run_paged(case, ops.paged_decode_attention, return_lse=True,
+                         window=6, softcap=5.0)
+    plain, p_lse = run_paged(case, ref.paged_decode_attention,
+                             return_lse=True, window=6, softcap=5.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    live = case["lens"] > 0
+    torch.testing.assert_close(lse[live], p_lse[live], rtol=0, atol=1e-5)
+    assert bool((lse[~live] <= -1e29).all())
+
+
 def test_engine_on_card_matches_cpu_and_counts_launches(cuda):
     """Reduced tinyllama served on the card, through the CUDA kernels, and
     on the CPU through the plain versions, from the same weights: the same
@@ -114,13 +219,19 @@ def test_engine_on_card_matches_cpu_and_counts_launches(cuda):
             == [r.tokens.tolist() for r in runs["cpu"]["results"]])
 
 
-FLASH = [  # (B, Hq, Hkv, Tq, Tk, D, options)
+FLASH = [  # (B, Hq, Hkv, Tq, Tk, D, options); bf16 at D 256 and 96 is refused
     (2, 4, 2, 37, 37, 16, dict(causal=True)),
     (1, 4, 4, 130, 130, 64, dict(causal=True, window=20, softcap=30.0)),
     (1, 8, 2, 5, 77, 128, dict(causal=True, kv_offset=72)),
     (2, 4, 2, 9, 70, 128, dict(causal=False, kv_offset=3, scale=0.2)),
     (1, 2, 1, 1, 1, 256, dict(causal=True)),
     (1, 4, 2, 65, 65, 48, dict(causal=True)),
+    (1, 8, 2, 512, 512, 128, dict(causal=True)),
+    (2, 4, 2, 200, 200, 48, dict(causal=True, window=70, softcap=20.0)),
+    (1, 4, 1, 130, 300, 16, dict(causal=True, kv_offset=170)),
+    (1, 2, 2, 70, 70, 96, dict(causal=True)),
+    (1, 4, 4, 2048, 2048, 128, dict(causal=True)),
+    (8, 4, 4, 512, 512, 64, dict(causal=False)),
 ]
 
 
@@ -137,6 +248,11 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     *shape, opts = FLASH[case]
     q, k, v = _flash_inputs(*shape, dtype, cuda, seed=case)
     n0 = kfa.flash_attention.launches
+    if dtype == torch.bfloat16 and shape[-1] not in kfa.TENSOR_CORE_HEAD_DIMS:
+        with pytest.raises(ValueError, match="bf16 head dim"):
+            ops.attention(q, k, v, **opts)      # no body takes it
+        assert kfa.flash_attention.launches == n0
+        return
     out = ops.attention(q, k, v, **opts)
     torch.cuda.synchronize()
     assert kfa.flash_attention.launches == n0 + 1

@@ -149,6 +149,10 @@ def test_cuda_wrappers_check_operands(no_library):
         kpa.paged_decode_attention(case["q"], case["k"], case["v"],
                                    case["table"], case["lens"],
                                    k_scale=torch.ones(13, 2))
+    case = paged_case(0, D=48)
+    with pytest.raises(ValueError, match="head dim 48"):
+        kpa.paged_decode_attention(case["q"], case["k"], case["v"],
+                                   case["table"], case["lens"])
     q, k, v = _flash_case()
     with pytest.raises(ValueError, match="kv_offset"):
         kfa.flash_attention(q, k, v, kv_offset=-1)

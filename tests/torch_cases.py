@@ -59,6 +59,22 @@ def run_paged(case, fn, **kw):
               k_scale=case.get("k_scale"), v_scale=case.get("v_scale"), **kw)
 
 
+def merge_by_lse(parts):
+    """Merge paged-attention results over disjoint position ranges, each an
+    (out (B, Hq, 1, D), lse (B, Hkv, group)) pair, by their log-sum-exps:
+    sum_r e^(lse_r - M) out_r / max(sum_r e^(lse_r - M), 1e-30), M the
+    largest lse (the tensor-parallel merge of the JAX package's
+    ``collectives.tp_paged_decode_attention_merge``).  float32, on the
+    parts' device."""
+    outs = torch.stack([o[:, :, 0].float() for o, _ in parts])   # (R, B, Hq, D)
+    lses = torch.stack([l.reshape(l.shape[0], -1) for _, l in parts])
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - m)                                      # (R, B, Hq)
+    num = (outs * w[..., None]).sum(dim=0)
+    den = torch.clamp_min(w.sum(dim=0), 1e-30)
+    return (num / den[..., None])[:, :, None]
+
+
 def assert_within_bf16_ulp(ours: torch.Tensor, ref, ulps=1, atol=0.0):
     """|ours - ref| <= ulps * one bf16 ulp of ref (2^(e-7) for |ref| in
     [2^e, 2^(e+1)); subnormal floor 2^-133) + atol.  The bound is taken in
