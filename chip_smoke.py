@@ -14,12 +14,16 @@ fails before printing any result):
   build      the four CUDA kernels compiled from ``src/repro_torch/csrc``
              for sm_90a, one nvcc per source in parallel, with the
              ``-Xptxas -v`` register / spill report; the instantiations of
-             each kernel counted, and the tensor-core MMAs (HMMA / HGMMA)
-             of each bf16 flash instantiation counted in ``cuobjdump
-             -sass``: none is a failure
-  w4a8       the W4A8 kernel against the plain version at every main-path
-             (K, N) of tinyllama-1.1b for M in {1, 8} plus ragged shapes:
-             bit-identical
+             each kernel counted, and in ``cuobjdump -sass`` the tensor-core
+             MMAs of each bf16 flash instantiation (HMMA / HGMMA) and of
+             each W4A8 instantiation (IMMA): none is a failure; the scan's
+             FMUL / FADD / FFMA counts are reported (its state update has
+             no FFMA: the card phase checks the state bit for bit)
+  w4a8       the W4A8 kernel on the codes packed two per byte
+             (``pack_codes``) against the plain version on the int8 codes
+             at every main-path (K, N) of tinyllama-1.1b for M in {1, 8},
+             llama2-7b's shapes and ragged shapes: bit-identical; one call
+             is one device kernel (torch.profiler over single calls)
   paged      the paged flash-decode kernel against the plain version at
              tinyllama's and llama2-7b's attention shapes, with window,
              softcap, int8 and fp8 pools, with return_lse: bf16 within one
@@ -33,11 +37,12 @@ fails before printing any result):
              output near zero has a bf16 ulp below the f32 sum-order error)
   rwkv       the RWKV6 WKV-scan kernel against the plain version at
              rwkv6-7b's forward shape (B 4, H 64, D 64, bf16, T in {1, 37,
-             512}), at the JAX kernel tests' shapes in f32 and at a bf16
-             H 64 case with B 1: the final state and f32 outputs within
-             1e-4, bf16 outputs within one bf16 ulp of the plain value plus
-             the f32 bound of two orders of out's D-term sum (its terms
-             reach hundreds at T = 512)
+             512}), at the JAX kernel tests' shapes in f32 and at bf16
+             cases with B 1 (H 64, and H 3 / 5 at D 16 / 32): the final
+             state bit-identical, f32 outputs within 1e-4, bf16 outputs
+             within one bf16 ulp of the plain value plus the f32 bound of
+             two orders of out's D-term sum (its terms reach hundreds at
+             T = 512)
   reference  reduced tinyllama split-brain engine served on the card
              (kernels) and on the CPU (plain versions) from the same
              weights: identical tokens
@@ -81,11 +86,14 @@ fails before printing any result):
              kernel does not take, as in the JAX package), meter exact, a
              second run token-identical
   profile    torch.profiler over decode steps of each path: device time by
-             kernel and the device's busy share
+             kernel and the device's busy share; on main_path the device
+             kernels per W4A8 call (must be 1)
   times      CUDA-event times of each kernel at its path's shapes, replayed
              from a CUDA graph so the host's launch overhead is out (the
              eager time is kept beside it), with its bound, its plain
-             version and a library yardstick; the paged kernel's outputs
+             version and a library yardstick (W4A8's bound at the packed
+             half byte per code, and at one byte beside it); the paged
+             kernel's outputs
              at each timed step's own geometry are first held against the
              plain version's
 
@@ -110,9 +118,11 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import exact_matmuls
+from repro_torch.core.quant import QuantizedLinear
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import paged_attention as kpa
+from repro_torch.kernels import w4a8_matmul as kw
 from repro_torch.models import api
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import (
@@ -135,14 +145,12 @@ FLASH_SRC = ("src/repro_torch/csrc/flash_attention.cu",
 RWKV_SRC = ("src/repro_torch/csrc/rwkv_scan.cu",
             "src/repro/kernels/rwkv_scan.py:25")
 # For the reader only, printed on a labelled line of their own that no check
-# reads and kept out of the kernels line: the two redesigned kernels' times
-# at the times phases' units before the redesign, as PERF.md records them
+# reads and kept out of the kernels line: the two kernels redesigned last,
+# at the times phases' units before that redesign, as PERF.md records them
 # (CUDA-graph replay on an H100 80GB HBM3 at 700.00 W).  Not measured by
 # this run.
-BEFORE_REDESIGN = {"paged_tinyllama_step_ms": 0.531,
-                   "paged_llama2_step_ms": 5.519,
-                   "flash_512_prefill_ms": 6.943,
-                   "flash_T_us": {64: 23.4, 128: 39.8, 256: 69.5, 512: 210.8}}
+BEFORE_REDESIGN = {"w4a8_decode_step_ms": 3.108,
+                   "rwkv6_scan_forward_ms": 11.10}
 
 
 def emit(obj) -> None:
@@ -190,7 +198,7 @@ def phase_device():
     return info
 
 
-KERNEL_NAME = re.compile(r"(w4a8_\w+?_kernel|paged_decode_kernel|"
+KERNEL_NAME = re.compile(r"(w4a8_mma_kernel|paged_decode_kernel|"
                          r"flash_attention_tc_kernel|flash_attention_core_kernel|"
                          r"rwkv6_scan_kernel)I(.*?)EEv")
 
@@ -200,7 +208,8 @@ def short_name(mangled: str) -> str:
     return m.group(1) + "<" + m.group(2) + ">" if m else mangled
 
 
-def sass_counts(lib_path: str, opcodes=("HMMA", "HGMMA")):
+def sass_counts(lib_path: str,
+                opcodes=("HMMA", "HGMMA", "IMMA", "FFMA", "FMUL", "FADD")):
     """{kernel: {opcode: count}} from ``cuobjdump -sass`` of the built
     library, with the cuobjdump of the toolkit whose nvcc built it."""
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
@@ -215,7 +224,7 @@ def sass_counts(lib_path: str, opcodes=("HMMA", "HGMMA")):
             counts[name] = {op: 0 for op in opcodes}
         elif name:
             for op in opcodes:
-                if re.search(rf"\b{op}\.", line):
+                if re.search(rf"\b{op}\b", line):
                     counts[name][op] += 1
     return counts
 
@@ -239,17 +248,21 @@ def phase_build():
     sass = sass_counts(info["path"])
     tc = {k: c for k, c in sass.items()
           if k.startswith("flash_attention_tc_kernel")}
+    imma = {k: c["IMMA"] for k, c in sass.items() if k.startswith("w4a8_")}
+    scan_ops = {k: {op: c[op] for op in ("FMUL", "FADD", "FFMA")}
+                for k, c in sass.items() if k.startswith("rwkv6_scan_kernel")}
     redesigned = [dict(k, **sass.get(k["kernel"], {})) for k in kernels
-                  if k["kernel"].startswith(("flash_attention_tc_kernel",
-                                             "paged_decode_kernel"))]
+                  if k["kernel"].startswith(("w4a8_", "rwkv6_scan_kernel"))]
     emit({"phase": "build", "seconds": round(info["seconds"], 3),
           "cached": info["cached"], "sources": [p.name for p in build.sources()],
           "ptxas": kernels, "spill_bytes": spills,
           "redesigned": redesigned,
           "flash_tensor_core_mma": {k: c["HMMA"] + c["HGMMA"]
                                     for k, c in tc.items()},
+          "w4a8_int8_mma": imma, "rwkv_scan_f32_ops": scan_ops,
           "note": "shared memory is dynamic (sized per launch); HMMA = "
-                  "mma.sync, HGMMA = wgmma, counted in cuobjdump -sass"})
+                  "bf16 mma.sync, HGMMA = wgmma, IMMA = int8 mma.sync, "
+                  "counted in cuobjdump -sass"})
 
     def count(prefix):
         return sum(k["kernel"].startswith(prefix) for k in kernels)
@@ -261,13 +274,17 @@ def phase_build():
           "ptxas report lacks the 18 paged-decode instantiations")
     check(count("rwkv6_scan_kernel") == 6,
           "ptxas report lacks the 6 rwkv-scan instantiations")
-    check(count("w4a8_") >= 5, "ptxas report lacks the W4A8 kernels")
+    check(count("w4a8_mma_kernel") == 2,
+          "ptxas report lacks the 2 W4A8 instantiations (bf16, f32 out)")
+    check(len(imma) == 2 and all(n > 0 for n in imma.values()),
+          f"a W4A8 instantiation runs no int8 tensor-core MMA: {imma}")
     check(len(tc) == 5 and all(c["HMMA"] + c["HGMMA"] > 0 for c in tc.values()),
           f"a bf16 flash instantiation runs no tensor-core MMA: {tc}")
 
 
 W4A8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
                (2048, 32000)]
+W4A8_LLAMA2 = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 
 
 def w4a8_inputs(M, K, N, gen, dev):
@@ -280,22 +297,53 @@ def w4a8_inputs(M, K, N, gen, dev):
     return qx, xs, codes, ws
 
 
+def device_kernels(fn, attempts=3):
+    """The names of the device kernels (and memsets) that one ``fn()``
+    runs, from torch.profiler's device activity.  A profiler session early
+    in a process can come back with no device activity at all (seen on an
+    H100 with torch 2.11); such a session recorded nothing, so the call is
+    profiled again, up to ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages() for _ in range(ev.count)
+                 if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+        if names:
+            break
+    return names
+
+
 def phase_w4a8(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cases = [(M, K, N) for (K, N) in W4A8_SHAPES for M in (1, 8)]
+    cases += [(M, K, N) for (K, N) in W4A8_LLAMA2 for M in (1, 8)]
     cases += [(5, 2048, 1003), (3, 100, 37), (13, 5632, 130)]
-    worst = 0.0
+    worst, per_call = 0.0, {}
     for M, K, N in cases:
         args = w4a8_inputs(M, K, N, gen, dev)
-        out = ops.w4a8_matmul(*args)
-        plain = ref.w4a8_matmul(*args)
-        torch.cuda.synchronize()
-        err = (out.float() - plain.float()).abs().max().item()
-        worst = max(worst, err)
-        check(torch.equal(out, plain), f"W4A8 {M}x{K}x{N} differs from the "
-              f"plain version (max abs err {err})")
-    emit({"phase": "w4a8", "cases": len(cases), "tolerance": "bit-identical",
-          "max_abs_err": worst})
+        packed = kw.pack_codes(args[2])
+        for dt in (torch.bfloat16, torch.float32):
+            out = ops.w4a8_matmul(*args, out_dtype=dt, packed=packed)
+            plain = ref.w4a8_matmul(*args, dt)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            worst = max(worst, err)
+            check(torch.equal(out, plain), f"W4A8 {M}x{K}x{N} {dt} differs "
+                  f"from the plain version (max abs err {err})")
+        if M == 8 and (K, N) in W4A8_SHAPES + W4A8_LLAMA2[:1]:
+            names = device_kernels(
+                lambda: ops.w4a8_matmul(*args, packed=packed))
+            per_call[f"{K}x{N}"] = names
+            check(len(names) == 1 and "w4a8" in names[0],
+                  f"W4A8 {M}x{K}x{N}: one call ran {names}")
+    emit({"phase": "w4a8", "cases": len(cases), "out_dtypes": ["bf16", "f32"],
+          "tolerance": "bit-identical", "max_abs_err": worst,
+          "plans": {f"{M}x{K}x{N}": kw.launch_plan(M, N, K, kw._sm_count(0))
+                    ._asdict() for M, K, N in cases if M == 8},
+          "device_kernels_per_call": per_call})
     return worst
 
 
@@ -477,7 +525,9 @@ def phase_rwkv(dev):
               for T in (1, 37, 512)]
              + [("jax kernel test", shape, f32, "jax")
                 for shape in ((2, 3, 64, 16), (1, 2, 128, 32), (1, 1, 32, 64))]
-             + [("rwkv6-7b, B 1", (1, H, 100, D), bf, "model")])
+             + [("rwkv6-7b, B 1", (1, H, 100, D), bf, "model")]
+             + [("B 1, odd H", shape, bf, "model")
+                for shape in ((1, 3, 37, 16), (1, 5, 512, 32))])
     worst, rows = 0.0, []
     for name, shape, dt, decay in cases:
         r, k, v, w, u = rwkv_inputs(gen, dev, *shape, dt, decay)
@@ -500,10 +550,11 @@ def phase_rwkv(dev):
         check(out.dtype == dt and out.shape == r.shape
               and state.shape == (shape[0], shape[1], shape[3], shape[3]),
               f"rwkv scan {rows[-1]}: dtype or shape")
-        check(bool((diff <= tol).all()) and s_err <= 1e-4,
+        check(bool((diff <= tol).all()) and torch.equal(state, p_state),
               f"rwkv scan {rows[-1]} outside tolerance")
     emit({"phase": "rwkv", "cases": rows,
-          "tolerance": "state and f32 out: 1e-4; bf16 out: 1 bf16 ulp of "
+          "tolerance": "state: bit-identical; f32 out: 1e-4; bf16 out: 1 "
+                       "bf16 ulp of "
                        "the plain value + 2 D 2^-24 sum_i |r_i (S_ij + u_i "
                        "k_i v_j)| (two f32 orders of the D-term sum)",
           "max_abs_err": worst})
@@ -676,6 +727,12 @@ def phase_main_path(dev, smi_line):
     del params
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    mats = [w for p in eng._layers for part in ("attn", "mlp")
+            for w in p[part].values()] + [eng._head]
+    check(all(w.packed is not None and w.packed.is_cuda for w in mats),
+          "a quantized matrix lacks its packed codes on the card")
+    weight_bytes = {"codes_int8": sum(w.codes.numel() for w in mats),
+                    "packed": sum(w.packed.numel() for w in mats)}
     sched = ContinuousBatchingScheduler(eng, max_slots=8)
     clock = PhaseClock(eng)
     sched.warmup(prompt_len=8, max_new=4)
@@ -724,7 +781,8 @@ def phase_main_path(dev, smi_line):
             "decode_steps_per_s": steps / decode_s,
             "decode_tokens_per_s": out["decoded_tokens"] / decode_s,
             "tokens_per_s_wall": out["tokens_per_s"],
-            "peak_memory_bytes": peak, "card": smi_line}
+            "peak_memory_bytes": peak, "weight_bytes": weight_bytes,
+            "card": smi_line}
     emit(info)
     return eng, info
 
@@ -954,22 +1012,29 @@ def phase_profile(eng, dev, path):
         sched.step()
     torch.cuda.synchronize()
     n = 5
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             sched.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    w4a8_calls = ops.launch_counts()["w4a8_matmul"]
     rows = []
-    dev_total = 0.0
+    dev_total, w4a8_kernels = 0.0, 0
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue                   # host-side ops (their kernels count below)
+        if "w4a8" in ev.key:
+            w4a8_kernels += ev.count
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0.0))
         if t > 0:
             dev_total += t
             rows.append((t, ev.key, ev.count))
+    if w4a8_calls and dev_total:     # a session with no device activity
+        check(w4a8_kernels == w4a8_calls, f"{path}: {w4a8_kernels} W4A8 device "
+              f"kernels for {w4a8_calls} calls")
     rows.sort(reverse=True)
     host = sorted(((getattr(ev, "self_cpu_time_total", 0.0), ev.key, ev.count)
                    for ev in prof.key_averages()
@@ -980,6 +1045,10 @@ def phase_profile(eng, dev, path):
           "decode_steps": n, "wall_ms_per_step": wall / n * 1e3,
           "device_ms_per_step": dev_total / 1e3 / n,
           "device_busy_share": busy if dev_total else "not measured",
+          "w4a8_calls": w4a8_calls,
+          "w4a8_device_kernels_per_call": (w4a8_kernels / w4a8_calls
+                                           if w4a8_calls and dev_total
+                                           else None),
           "top_kernels": [{"name": k[:80], "ms_per_step": t / 1e3 / n,
                            "calls_per_step": c / n} for t, k, c in rows[:12]],
           "host_ops_per_step": sum(c for _, _, c in host) / n,
@@ -1006,11 +1075,15 @@ def w4a8_step_launches(eng, M, gen, dev):
     return [(acts[w.codes.shape[0]], w) for w in mats]
 
 
-def w4a8_bound_ms(launches) -> float:
+def w4a8_bound_ms(launches, code_bytes=0.5) -> float:
+    """max(bytes / HBM rate, int8 operations / tensor peak) over the
+    launches, the codes at ``code_bytes`` each (0.5: two per byte, as the
+    kernel reads them; 1: one int8 per code, the bound before the packed
+    layout)."""
     nbytes = ops_ = 0
     for (qx, xs), w in launches:
         (M, K), N = qx.shape, w.codes.shape[1]
-        nbytes += K * N + 4 * N + M * K + 4 * M + 2 * M * N
+        nbytes += code_bytes * K * N + 4 * N + M * K + 4 * M + 2 * M * N
         ops_ += 2 * M * K * N
     return max(nbytes / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S) * 1e3
 
@@ -1069,21 +1142,40 @@ def phase_times(eng, dev, counts):
     launches = w4a8_step_launches(eng, 8, gen, dev)
 
     def w4a8_step(fn, ls):
-        return lambda: [fn(qx, xs, w.codes, w.scales) for (qx, xs), w in ls]
+        return lambda: [fn(qx, xs, w.codes, w.scales, packed=w.packed)
+                        for (qx, xs), w in ls]
+
+    def plain_step(ls):
+        return lambda: [ref.w4a8_matmul(qx, xs, w.codes, w.scales)
+                        for (qx, xs), w in ls]
 
     k_ms = graph_time_ms(w4a8_step(ops.w4a8_matmul, launches), iters=20)
     eager_ms = cuda_time_ms(w4a8_step(ops.w4a8_matmul, launches), iters=5)
-    p_ms = graph_time_ms(w4a8_step(ref.w4a8_matmul, launches), iters=3)
+    p_ms = graph_time_ms(plain_step(launches), iters=3)
     lib_ms = yardstick_ms(int_mm_yardstick(launches), 20, detail, "w4a8_library")
+    # the head is one matrix: seven more of its shape (seeded random codes)
+    # make a graph of eight launches, as the layers' shapes have 22-44, so
+    # that no per-shape time is one replay's fixed cost
+    K, N = eng._head.codes.shape
+    heads = [eng._head] + [
+        QuantizedLinear(c, eng._head.scales, kw.pack_codes(c))
+        for c in (torch.randint(-7, 8, (K, N), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(7))]
     for M in (1, 8):
         per = w4a8_step_launches(eng, M, gen, dev)
         for (K, N) in W4A8_SHAPES:
-            # the 22 layers' distinct matrices of this shape (1 for the head)
+            # the 22 layers' distinct matrices of this shape (the 8 heads)
             same = [x for x in per if tuple(x[1].codes.shape) == (K, N)]
+            if len(same) == 1:
+                same = [(same[0][0], h) for h in heads]
             t = graph_time_ms(w4a8_step(ops.w4a8_matmul, same), iters=10)
             detail.append({"w4a8_M": M, "K": K, "N": N,
+                           "plan": kw.launch_plan(M, N, K, kw._sm_count(0))
+                           ._asdict(),
                            "kernel_us": t * 1e3 / len(same),
-                           "bound_us": w4a8_bound_ms(same[:1]) * 1e3})
+                           "bound_us": w4a8_bound_ms(same[:1]) * 1e3,
+                           "bound_us_int8_codes":
+                               w4a8_bound_ms(same[:1], code_bytes=1) * 1e3})
     kernels.append({"name": "w4a8_matmul", "route": "cuda", "source": W4A8_SRC[0],
                     "replaces": W4A8_SRC[1],
                     "launches": counts["w4a8_matmul"],
@@ -1091,6 +1183,10 @@ def phase_times(eng, dev, counts):
                             "model's codes, CUDA-graph replay",
                     "ms": k_ms, "plain_ms": p_ms,
                     "bound_ms": w4a8_bound_ms(launches), "bound_by": "bytes",
+                    "bound_ms_int8_codes": w4a8_bound_ms(launches, code_bytes=1),
+                    "bound_note": "bound_ms reads the codes packed two per "
+                                  "byte, as the kernel does; "
+                                  "bound_ms_int8_codes one byte per code",
                     "library_ms": lib_ms,
                     "library_note": "torch._int_mm, M padded to 17, plus the "
                                     "same scale epilogue",

@@ -18,10 +18,12 @@ even like ``jnp.round``), so codes and scales are bit-identical to it.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from repro_torch.core import csd
+from repro_torch.kernels.w4a8_matmul import pack_codes
 
 __all__ = [
     "QuantizedLinear",
@@ -44,14 +46,32 @@ class QuantizedLinear:
 
     ``codes`` is int8 storage of INT4 values in [-7, 7], shape ``(..., K, N)``;
     ``scales`` is float32 of shape ``(..., N)`` (per output channel).
+    ``packed`` is the same codes in the CUDA kernel's layout, two per byte
+    (``kernels/w4a8_matmul.py::pack_codes``), made once with the device
+    weights (:meth:`with_packed`): the kernel reads only it, the plain
+    version and the CPU path only ``codes``.
     """
 
     codes: torch.Tensor
     scales: torch.Tensor
+    packed: Optional[torch.Tensor] = None
 
     def __getitem__(self, idx) -> "QuantizedLinear":
-        """Index leading (layer) axes of codes and scales together."""
-        return QuantizedLinear(self.codes[idx], self.scales[idx])
+        """Index leading (layer) axes of codes, scales and packed together."""
+        return QuantizedLinear(
+            self.codes[idx], self.scales[idx],
+            None if self.packed is None else self.packed[idx])
+
+    def to(self, device) -> "QuantizedLinear":
+        return QuantizedLinear(
+            self.codes.to(device), self.scales.to(device),
+            None if self.packed is None else self.packed.to(device))
+
+    def with_packed(self) -> "QuantizedLinear":
+        """This layer with its packed codes, packing them if it has none."""
+        if self.packed is not None:
+            return self
+        return QuantizedLinear(self.codes, self.scales, pack_codes(self.codes))
 
 
 # KV-cache page quantization formats (paged pools); fp8 is e4m3.

@@ -34,10 +34,14 @@ def reset_launch_counts() -> None:
 
 
 def w4a8_matmul(qx: torch.Tensor, x_scale: torch.Tensor, codes: torch.Tensor,
-                w_scale: torch.Tensor, *, out_dtype=torch.bfloat16
-                ) -> torch.Tensor:
+                w_scale: torch.Tensor, *, out_dtype=torch.bfloat16,
+                packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The W4A8 product: the kernel on ``packed`` (the codes in its layout,
+    required) for a CUDA tensor, the plain version on ``codes`` for a CPU
+    tensor."""
     if build.is_cuda(qx):
-        return _w4a8.w4a8_matmul(qx, x_scale, codes, w_scale, out_dtype)
+        return _w4a8.w4a8_matmul(qx, x_scale, codes, w_scale, out_dtype,
+                                 packed)
     return ref.w4a8_matmul(qx, x_scale, codes, w_scale, out_dtype)
 
 

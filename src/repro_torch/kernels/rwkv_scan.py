@@ -6,7 +6,13 @@ RWKV6 recurrence ``S_t = diag(w_t) S_{t-1} + k_t v_t^T``, ``out_t = r_t
 float32 state held on chip across the whole sequence.  It is the WKV step of
 the rwkv family's whole-sequence ``forward``: one launch per layer.  The
 kernel takes any T >= 1 (the TPU kernel needed a multiple of its time
-block); see the source for its design and bound.
+block).  It is bound by its f32 operations (5 D^2 per (b, h, t)); to give
+the card enough warps it splits each head's state by columns over blocks,
+32 per block (grid (B * H, D / 32); one block per head at D < 32), and
+each block's k-dim rows over groups of 16 threads holding 8 rows x 2
+columns each, whose partial outputs meet in shared memory once per staged
+chunk of steps; see the source.  The final state is the plain version's bit
+for bit.
 
 This wrapper takes CUDA tensors only and launches the kernel or raises;
 ``kernels/ops.py`` routes a CPU tensor, or a call that carries a state, to
@@ -34,9 +40,10 @@ def _require(cond: bool, msg: str) -> None:
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor):
-    """r, k, v, w (B, H, T, D) in one dtype (bf16 or f32), u (H, D) f32, all
-    contiguous on one CUDA device; D in {16, 32, 64}; T >= 1.  Returns
-    (out (B, H, T, D) in r's dtype, final state (B, H, D, D) f32)."""
+    """r, k, v, w (B, H, T, D) in one dtype (bf16 or f32), 16-byte aligned,
+    u (H, D) f32, all contiguous on one CUDA device; D in {16, 32, 64};
+    T >= 1.  Returns (out (B, H, T, D) in r's dtype, final state (B, H, D,
+    D) f32)."""
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
         _require(build.is_cuda(t), f"{name} must be a CUDA tensor, got "
                  f"{t.device} (CPU tensors take the plain version in ops)")
@@ -56,6 +63,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(u.dtype == torch.float32 and tuple(u.shape) == (H, D),
              f"u must be float32 ({H}, {D}), got {u.dtype} "
              f"{tuple(u.shape)}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned "
+                 "(the kernel stages it with 16-byte copies)")
     fn = build.function("rwkv6_scan_launch", _ARGTYPES)
     out = torch.empty_like(r)
     state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)

@@ -173,8 +173,11 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     if hasattr(tree, "codes") and hasattr(tree, "scales"):
-        return quant.QuantizedLinear(codes=_tensor(tree.codes, device),
-                                     scales=_tensor(tree.scales, device))
+        packed = getattr(tree, "packed", None)      # the port's own, if any
+        return quant.QuantizedLinear(
+            codes=_tensor(tree.codes, device),
+            scales=_tensor(tree.scales, device),
+            packed=None if packed is None else _tensor(packed, device))
     if isinstance(tree, (np.ndarray, np.generic)) or hasattr(tree, "__array__"):
         return _tensor(tree, device)
     return tree

@@ -29,12 +29,14 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     """Apply a linear map; ``w`` is a raw (in, out) tensor or a
     QuantizedLinear.  The quantized branch is the ITA device datapath: per-row
     INT8 activations times the hardwired INT4 codes through the W4A8 op
-    (the CUDA kernel for a CUDA tensor, the plain version on the CPU)."""
+    (the CUDA kernel on the packed codes for a CUDA tensor, the plain
+    version on the codes on the CPU)."""
     if isinstance(w, quant.QuantizedLinear):
         shape = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         qx, xs = quant.quantize_activations_int8(x2)
-        y = ops.w4a8_matmul(qx, xs, w.codes, w.scales, out_dtype=x.dtype)
+        y = ops.w4a8_matmul(qx, xs, w.codes, w.scales, out_dtype=x.dtype,
+                            packed=w.packed)
         return y.reshape(*shape, w.codes.shape[-1])
     return x @ w.to(x.dtype)
 

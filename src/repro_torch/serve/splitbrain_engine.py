@@ -45,7 +45,7 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, QuantizedLinear):
-        return QuantizedLinear(tree.codes.to(device), tree.scales.to(device))
+        return tree.to(device)
     if torch.is_tensor(tree):
         return tree.to(device)
     return tree
@@ -56,10 +56,20 @@ def _stack_layers(tree, num_layers: int):
     if isinstance(tree, dict):
         return {k: _stack_layers(v, num_layers) for k, v in tree.items()}
     if isinstance(tree, QuantizedLinear):
-        return QuantizedLinear(
-            tree.codes.reshape((num_layers,) + tree.codes.shape[2:]),
-            tree.scales.reshape((num_layers,) + tree.scales.shape[2:]))
+        return QuantizedLinear(*(
+            None if t is None else t.reshape((num_layers,) + t.shape[2:])
+            for t in (tree.codes, tree.scales, tree.packed)))
     return tree.reshape((num_layers,) + tree.shape[2:])
+
+
+def _pack(tree):
+    """Every QuantizedLinear of the tree with its codes also packed for the
+    W4A8 kernel (once, at construction; stacked layers in one call)."""
+    if isinstance(tree, dict):
+        return {k: _pack(v) for k, v in tree.items()}
+    if isinstance(tree, QuantizedLinear):
+        return tree.with_packed()
+    return tree
 
 
 def _layer(tree, i: int):
@@ -114,9 +124,10 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         else:
             dev = _float_weights(dev, self._dtype)
             head = head.to(self._dtype)
-        stacked = _stack_layers(
+        stacked = _pack(_stack_layers(
             {**dev, "ln_attn": blocks["ln_attn"], "ln_mlp": blocks["ln_mlp"]},
-            cfg.num_layers)
+            cfg.num_layers))
+        head = _pack(head)
         # per-layer views, built once: the hot loop only indexes a list
         self._layers = [_layer(stacked, i) for i in range(cfg.num_layers)]
         self._embed = params["embed"]         # host-side float table

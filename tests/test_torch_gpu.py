@@ -6,7 +6,8 @@ skips without one.  Run them on the H100 with
 neither JAX nor the JAX package.
 
 Tolerances: W4A8 is bit-identical (exact int32 sums, the same two f32
-multiplies, one round-to-nearest-even to bf16).  Paged and flash attention
+multiplies, one round-to-nearest-even to bf16), and one call is one device
+kernel.  Paged and flash attention
 in f32 are held to atol 1e-5 (the same f32 math in another summation
 order), in bf16 to one bf16 ulp (that order can flip the final rounding);
 flash attention's bf16 bound adds the f32 one, and the paged split-K
@@ -18,7 +19,7 @@ in a fixed order: a second call is bit-identical.  Its LSE
 (``return_lse=True``) is held to the plain version's at atol 1e-5 for a
 live slot and to at most -1e29 for an empty one.  The RWKV6
 scan's state is the plain version's bit for bit (the same rounded f32 ops
-in the same order); its f32 output is held to atol 1e-4 (the JAX kernel
+in the same order), checked with ``torch.equal``; its f32 output is held to atol 1e-4 (the JAX kernel
 test's), its bf16 output to one bf16 ulp plus the f32 bound of two orders
 of its D-term sum over the k-dim (``ref.rwkv6_scan_order_bound``).
 """
@@ -55,15 +56,72 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 2048, 2048), (8, 2048, 256), (3, 100, 37),
-                                   (13, 5632, 130), (8, 64, 32000)])
+# every projection shape of tinyllama-1.1b (the main path) at M 1-8, ragged
+# shapes, and llama2-7b's shapes (K, N)
+TINYLLAMA_W4A8 = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+                  (2048, 32000)]
+LLAMA2_W4A8 = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+RAGGED_W4A8 = [(1, 2048, 2048), (8, 2048, 256), (3, 100, 37), (13, 5632, 130),
+               (8, 64, 32000)]
+W4A8 = RAGGED_W4A8 + [
+    c for c in ([(M, K, N) for K, N in TINYLLAMA_W4A8 for M in range(1, 9)]
+                + [(M, K, N) for K, N in LLAMA2_W4A8 for M in (1, 5, 8)]
+                + [(17, 4096, 4096), (40, 300, 1000)])
+    if c not in RAGGED_W4A8]
+
+
+def _w4a8_on_card(M, K, N, dev, seed):
+    """The operands of w4a8_case, drawn on the card (llama2-7b's matrices
+    are large), with the codes' packed layout."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qx = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                       dtype=torch.int8)
+    xs = torch.rand((M, 1), generator=gen, device=dev) * 0.02 + 1e-3
+    codes = torch.randint(-7, 8, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+    ws = torch.rand((N,), generator=gen, device=dev) * 0.05 + 1e-3
+    return (qx, xs, codes, ws), kw.pack_codes(codes)
+
+
+@pytest.mark.parametrize("M,K,N", W4A8)
 def test_w4a8_kernel_bit_identical_to_plain(cuda, M, K, N):
-    ts = [torch.from_numpy(a).to(cuda) for a in w4a8_case(M, K, N, seed=M)]
-    n0 = kw.w4a8_matmul.launches
-    out = ops.w4a8_matmul(*ts)
-    torch.cuda.synchronize()
-    assert kw.w4a8_matmul.launches == n0 + 1
-    torch.testing.assert_close(out, ref.w4a8_matmul(*ts), rtol=0, atol=0)
+    if (M, K, N) in RAGGED_W4A8:
+        ts = [torch.from_numpy(a).to(cuda) for a in w4a8_case(M, K, N, seed=M)]
+        packed = kw.pack_codes(ts[2])
+    else:
+        ts, packed = _w4a8_on_card(M, K, N, cuda, seed=M * 7 + N)
+    for dt in (torch.bfloat16, torch.float32):
+        n0 = kw.w4a8_matmul.launches
+        out = ops.w4a8_matmul(*ts, out_dtype=dt, packed=packed)
+        torch.cuda.synchronize()
+        assert kw.w4a8_matmul.launches == n0 + 1
+        torch.testing.assert_close(out, ref.w4a8_matmul(*ts, dt), rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 256), (1, 2048, 2048),
+                                   (8, 2048, 32000), (13, 5632, 130),
+                                   (8, 11008, 4096)])
+def test_w4a8_call_is_one_device_kernel(cuda, M, K, N):
+    """One call is one kernel on the card: no workspace memset, no second
+    epilogue kernel (torch.profiler's device activity over one call)."""
+    from torch.profiler import ProfilerActivity, profile
+    ts, packed = _w4a8_on_card(M, K, N, cuda, seed=3)
+    ops.w4a8_matmul(*ts, packed=packed)             # built and warm
+    # a profiler session early in a process can record no device activity
+    # at all: such a session is taken again (as chip_smoke.device_kernels)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = ops.w4a8_matmul(*ts, packed=packed)
+            torch.cuda.synchronize()
+        names = [ev.key for ev in prof.key_averages()
+                 for _ in range(ev.count)
+                 if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+        if names:
+            break
+    assert len(names) == 1 and "w4a8" in names[0], names
+    assert torch.equal(out, ref.w4a8_matmul(*ts))
 
 
 GEOMS = [dict(ps=8), dict(ps=3, P=10), dict(ps=1, P=32, lens=(0, 1, 31)),
@@ -298,7 +356,11 @@ def test_serve_engine_on_card_matches_cpu_and_counts_launches(cuda, arch):
 
 RWKV = [  # (B, H, T, D): the JAX kernel tests' shapes, ragged T, H > 1
     (2, 3, 64, 16), (1, 2, 128, 32), (1, 1, 32, 64), (2, 4, 37, 64),
-    (3, 5, 1, 32)]
+    (3, 5, 1, 32),
+    # the column-split grid's edges: B 1, T 1 / 37 / 512 (chunk tails and
+    # many chunks), every D, odd H; rwkv6-7b's heads at B 1
+    (1, 3, 1, 16), (1, 5, 37, 16), (1, 3, 512, 16), (1, 5, 512, 32),
+    (1, 3, 37, 64), (1, 5, 512, 64), (1, 3, 1, 64), (1, 64, 512, 64)]
 
 
 @pytest.mark.parametrize("case", range(len(RWKV)))
@@ -310,11 +372,13 @@ def test_rwkv_kernel_matches_plain(cuda, case, dtype):
     r, k, v, w = (t.to(dtype) for t in (r, k, v, w))
     n0 = krw.rwkv6_scan.launches
     out, state = ops.rwkv6(r, k, v, w, u)
+    again = ops.rwkv6(r, k, v, w, u)
     torch.cuda.synchronize()
-    assert krw.rwkv6_scan.launches == n0 + 1
+    assert krw.rwkv6_scan.launches == n0 + 2
+    assert torch.equal(out, again[0]) and torch.equal(state, again[1])
     p_out, p_state = ref.rwkv6_scan(r, k, v, w, u)
     assert out.dtype == dtype and state.dtype == torch.float32
-    torch.testing.assert_close(state, p_state, rtol=0, atol=1e-4)
+    assert torch.equal(state, p_state)     # the update's order is the plain one
     if dtype == torch.float32:
         torch.testing.assert_close(out, p_out, rtol=0, atol=1e-4)
     else:   # + the f32 bound of two orders of out's D-term sum

@@ -121,7 +121,7 @@ def test_cuda_wrappers_raise_instead_of_falling_back(no_library):
     ops.reset_launch_counts()
     ts = [torch.from_numpy(a) for a in w4a8_case(2, 64, 32)]
     with pytest.raises(RuntimeError, match="nvcc"):
-        ops.w4a8_matmul(*ts)
+        ops.w4a8_matmul(*ts, packed=kw.pack_codes(ts[2]))
     with pytest.raises(RuntimeError, match="nvcc"):
         run_paged(paged_case(0), ops.paged_decode_attention)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -141,6 +141,15 @@ def test_cuda_wrappers_check_operands(no_library):
         kw.w4a8_matmul(qx, xs, codes.t().contiguous().t(), ws)
     with pytest.raises(ValueError, match="contraction"):
         kw.w4a8_matmul(qx[:, :32].contiguous(), xs, codes, ws)
+    # the kernel reads the packed codes, made once with the weights: a call
+    # without them, or with another matrix's, raises (it never packs)
+    n0 = kw.pack_codes.calls
+    with pytest.raises(ValueError, match="packed codes"):
+        ops.w4a8_matmul(qx, xs, codes, ws)
+    assert kw.pack_codes.calls == n0
+    with pytest.raises(ValueError, match="packed must be uint8"):
+        kw.w4a8_matmul(qx, xs, codes, ws,
+                       packed=kw.pack_codes(codes[:, :16].contiguous()))
     case = paged_case(0)
     with pytest.raises(ValueError, match="int32"):
         kpa.paged_decode_attention(case["q"], case["k"], case["v"],
@@ -195,12 +204,35 @@ def test_rwkv_with_a_carried_state_takes_the_plain_version(monkeypatch):
 
 @pytest.mark.parametrize("M,K,N", [(1, 2048, 2048), (8, 2048, 256),
                                    (8, 5632, 2048), (3, 2048, 32000),
-                                   (13, 100, 37), (8, 11008, 4096)])
+                                   (13, 100, 37), (8, 11008, 4096),
+                                   (8, 2048, 5632), (1, 4096, 4096),
+                                   (8, 4096, 11008), (8, 4096, 32000),
+                                   (5, 65536, 40), (1, 1, 1)])
 def test_w4a8_launch_shape_covers_k(M, K, N):
-    m_tile, kslice, ksplit = kw.launch_shape(M, N, K, sm_count=132)
-    assert m_tile in (1, 2, 4, 8) and m_tile >= min(M, 8)
-    assert kslice % 16 == 0 and kslice <= kw.MAX_KSLICE
-    assert (ksplit - 1) * kslice < K <= ksplit * kslice
+    """The launch plan (from shapes only) gives every (n tile, k tile) to
+    exactly one warp, in balanced K ranges, and every activation row to one
+    block, within the card's limits."""
+    plan = kw.launch_plan(M, N, K, sm_count=132)
+    n_tiles, k_tiles = kw.packed_shape(K, N)[:2]
+    assert plan.wn * plan.wk == 8 and plan.wk in (1, 2, 4, 8)
+    assert 1 <= plan.ck <= kw.MAX_CLUSTER and plan.grid[1] == plan.ck
+    assert (plan.grid[0] - 1) * plan.wn < n_tiles <= plan.grid[0] * plan.wn
+    assert (plan.grid[2] - 1) * 8 < M <= plan.grid[2] * 8
+    # each warp's K range in k tiles, in split order (rank * wk + the
+    # warp's K index), as csrc/w4a8_matmul.cu::split_begin computes them
+    splits = plan.wk * plan.ck
+    ranges = [(i * k_tiles // splits, (i + 1) * k_tiles // splits)
+              for i in range(splits)]
+    assert len(ranges) == plan.wk * plan.ck
+    assert ranges[0][0] == 0 and ranges[-1][1] == k_tiles
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(b - a <= -(-k_tiles // len(ranges)) for a, b in ranges)
+    assert plan.grid[0] * plan.ck >= min(132, n_tiles * plan.ck // plan.wn)
+
+
+def test_w4a8_launch_plan_refuses_k_the_int32_sum_cannot_hold():
+    with pytest.raises(ValueError, match="K 65537"):
+        kw.launch_plan(1, 16, 65537, sm_count=132)
 
 
 def test_build_targets_sm90a_without_fast_math():
