@@ -19,22 +19,31 @@ fails before printing any result):
              each W4A8 instantiation (IMMA): none is a failure; the scan's
              FMUL / FADD / FFMA counts are reported (its state update has
              no FFMA: the card phase checks the state bit for bit)
+  sanitizer  compute-sanitizer memcheck and racecheck over one card test
+             of each kernel: a reported error, a failed test or a timeout
+             fails the run; the tool is reported as not run only where its
+             first message is "Error: Device not supported" and no test
+             under it passed
   w4a8       the W4A8 kernel on the codes packed two per byte
              (``pack_codes``) against the plain version on the int8 codes
              at every main-path (K, N) of tinyllama-1.1b for M in {1, 8},
              llama2-7b's shapes and ragged shapes: bit-identical; one call
              is one device kernel (torch.profiler over single calls)
   paged      the paged flash-decode kernel against the plain version at
-             tinyllama's and llama2-7b's attention shapes, with window,
-             softcap, int8 and fp8 pools, with return_lse: bf16 within one
-             bf16 ulp of the plain value, f32 within 1e-5, the LSE within
-             1e-5 (at most -1e29 for an empty slot)
+             tinyllama's, llama2-7b's and gemma2-27b's attention shapes
+             (32/16 heads of 128, softcap 50, window 4096, lengths crossing
+             4096), with window, softcap, int8 and fp8 pools, with
+             return_lse: bf16 within one bf16 ulp of the plain value plus
+             the order bound, f32 within 1e-5, the LSE within 1e-5 (at most
+             -1e29 for an empty slot)
   flash      the flash-attention kernel against the plain version at
              llama2-7b's prefill shapes (T in {1, 37, 512}), tinyllama's
              (GQA 32/4, D 64, T 300), non-causal with kv_offset, window 64
-             with softcap 30, in f32 and bf16: f32 within 1e-5, bf16
-             within one bf16 ulp of the plain value plus that 1e-5 (an
-             output near zero has a bf16 ulp below the f32 sum-order error)
+             with softcap 30, gemma2-27b's (32/16 heads of 128, softcap 50,
+             window 4096, T 4,084 and 4,200), in f32 and bf16: f32 within
+             1e-5, bf16 within one bf16 ulp of the plain value plus that
+             1e-5 (an output near zero has a bf16 ulp below the f32
+             sum-order error)
   rwkv       the RWKV6 WKV-scan kernel against the plain version at
              rwkv6-7b's forward shape (B 4, H 64, D 64, bf16, T in {1, 37,
              512}), at the JAX kernel tests' shapes in f32 and at bf16
@@ -45,16 +54,23 @@ fails before printing any result):
              T = 512)
   reference  reduced tinyllama split-brain engine served on the card
              (kernels) and on the CPU (plain versions) from the same
-             weights: identical tokens
-  reference_serve  reduced llama2-7b and tinyllama ServeEngine on the card
-             and on the CPU, under the scheduler and generate(): identical
-             tokens
+             weights, and its generate() (fused and stepwise, with a stop
+             token): identical tokens
+  reference_serve  reduced llama2-7b, tinyllama, gemma2-27b, stablelm-1.6b,
+             granite-8b and minitron-8b ServeEngine on the card and on the
+             CPU, under the scheduler and generate() (gemma2's 16-token
+             ring wrapped in decode, and prompts past it on the per-token
+             prefill): identical tokens
   reference_rwkv  reduced rwkv6-7b on the card and on the CPU from the
              same weights, over four weight seeds: forward logits within one
              bf16 ulp of the largest; the tokens the card's ServeEngine chose
              under the scheduler and generate(), fed back teacher-forced
              through the decode steps on both devices, give logits within
              two ulps, and any token the CPU would not choose is a near-tie
+             (the bf16 GEMMs' sum orders differ between the devices); each
+             op of the decay path run on both devices from the same inputs
+             is reported, and the decay (float64 exps) must match bit for
+             bit
   main_path  full-width tinyllama-1.1b (22 layers, random seeded weights,
              LAQ W4A8 on the card), SplitBrainEngine(page_size=16,
              max_len=256) under the continuous-batching scheduler with 8
@@ -62,7 +78,9 @@ fails before printing any result):
              tokens, 32 new tokens each) with the launch counts set to 0
              just before and read just after; every request DONE, launches
              = 155 W4A8 per token step and 22 paged attentions per decode
-             step, eq. 7-10 meter exact, a second run token-identical
+             step, eq. 7-10 meter exact, a second run token-identical;
+             then generate() on 4 prompts of 64 tokens with 32 new tokens:
+             155 W4A8 launches per token step, its tokens/s
   serve_path full-width llama2-7b (32 layers, d_model 4096, bf16 weights
              from a seeded generator on the card), the float ServeEngine
              (page_size=16, max_len=1024) under the scheduler with 8 slots:
@@ -85,6 +103,21 @@ fails before printing any result):
              launch (each decode step carries the WKV state, which the
              kernel does not take, as in the JAX package), meter exact, a
              second run token-identical
+  gemma2_path  full-width gemma2-27b (46 layers, d_model 4608, 32/16 heads
+             of 128, d_ff 36864, vocab 256000, tied embeddings, softcap 50
+             and final softcap 30; bf16 weights drawn per layer slice from a
+             seeded generator on the card), the float ServeEngine
+             (page_size=16, max_len=8192: the 23 global layers page, the 23
+             local layers keep slot-private 4096-token rings) under the
+             scheduler with 4 slots, after the other paths have freed their
+             memory: a warm-up run, then 8 requests (prompts of 4,070 and
+             4,085 tokens and six of 256-1,024, 32 new tokens each), counts
+             set to 0 just before and read just after: every request DONE,
+             46 flash launches per prefill, 23 paged launches per decode
+             step, both long requests past position 4096 (the rings wrap),
+             meter exact, a second run token-identical; generate() on 2 x
+             2,048 tokens (46 flash launches); rates, the busy share and
+             peak memory printed beside the card's name and power limit
   profile    torch.profiler over decode steps of each path: device time by
              kernel and the device's busy share; on main_path the device
              kernels per W4A8 call (must be 1)
@@ -95,7 +128,13 @@ fails before printing any result):
              half byte per code, and at one byte beside it); the paged
              kernel's outputs
              at each timed step's own geometry are first held against the
-             plain version's
+             plain version's; flash and paged also at gemma2-27b's shapes
+             (a 4,084-token prefill's 46 launches, whose bound counts only
+             the q-k pairs the window leaves visible, and a decode step's
+             23 launches), where the library call is flex_attention
+             compiled with the softcap as its score_mod (held against the
+             plain version on the record) and SDPA without the softcap is
+             timed beside it
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
@@ -104,6 +143,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -129,7 +169,8 @@ from repro_torch.serve.scheduler import (
     ContinuousBatchingScheduler, Request)
 from repro_torch.serve.splitbrain_engine import (
     SplitBrainEngine, traffic_model_for)
-from torch_cases import bf16_ulp_of, pick_report, teacher_forced_logits
+from torch_cases import (bf16_ulp_of, pick_report, rwkv_decay_bits_report,
+                         teacher_forced_logits)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet (dense peaks below too)
@@ -196,6 +237,62 @@ def phase_device():
             "matmul": matmul}
     emit(info)
     return info
+
+
+# one card test of each kernel, run under compute-sanitizer where it works
+SANITIZER_TIMEOUT_S = 300
+SANITIZED_TESTS = ("test_w4a8_kernel_bit_identical_to_plain[8-2048-256]",
+                   "test_paged_kernel_split_and_lse_match_plain[bf16-opts2-0]",
+                   "test_flash_kernel_matches_plain[bf16-1]",
+                   "test_rwkv_kernel_matches_plain[bf16-0]")
+
+
+def phase_sanitizer():
+    """compute-sanitizer's memcheck and racecheck over one card test of
+    each kernel, with the toolkit that builds the kernels.  The run fails
+    unless the four tests pass under the tool with no error reported, or
+    the tool refuses the device: its first message says "Device not
+    supported" and no test passed (every CUDA call under it fails then).
+    A timeout fails the run."""
+    tool = Path(build.find_nvcc()).parent / "compute-sanitizer"
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT / 'tests'}")
+    rows = {}
+    for check_tool in ("memcheck", "racecheck"):
+        if not tool.exists():
+            rows[check_tool] = {"ran": False, "why": f"no {tool}"}
+            continue
+        cmd = [str(tool), "--tool", check_tool, "--error-exitcode", "86",
+               sys.executable, "-m", "pytest", "--noconftest", "-q",
+               "-p", "no:cacheprovider"] + [
+               f"{ROOT / 'tests' / 'test_torch_gpu.py'}::{t}"
+               for t in SANITIZED_TESTS]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=SANITIZER_TIMEOUT_S, env=env,
+                                 cwd=ROOT)
+        except subprocess.TimeoutExpired:
+            check(False, f"compute-sanitizer {check_tool} timed out after "
+                         f"{SANITIZER_TIMEOUT_S} s")
+        out = res.stdout + res.stderr
+        tool_lines = [ln for ln in out.splitlines()
+                      if ln.startswith("=========")]
+        messages = [ln.strip("= ").strip() for ln in tool_lines]
+        messages = [m for m in messages if m and m != "COMPUTE-SANITIZER"]
+        passed = re.search(r"(\d+) passed", out)
+        n_passed = int(passed.group(1)) if passed else 0
+        unsupported = (bool(messages)
+                       and messages[0].startswith("Error: Device not supported")
+                       and n_passed == 0)
+        rows[check_tool] = {"ran": not unsupported, "rc": res.returncode,
+                            "passed": n_passed,
+                            "first_message": messages[:1],
+                            "summary": [ln for ln in tool_lines
+                                        if "SUMMARY" in ln]}
+        check(unsupported or (res.returncode == 0
+                              and n_passed == len(SANITIZED_TESTS)),
+              f"compute-sanitizer {check_tool}: rc {res.returncode}, "
+              f"{n_passed} passed, {tool_lines[:20]}")
+    emit({"phase": "sanitizer", "tests": SANITIZED_TESTS, "tools": rows})
 
 
 KERNEL_NAME = re.compile(r"(w4a8_mma_kernel|paged_decode_kernel|"
@@ -406,6 +503,10 @@ LLAMA2 = dict(B=8, Hq=32, Hkv=32, D=128, ps=16, P=16,
               lens=[0, 3, 16, 40, 64, 100, 200, 255])
 # the serve path's table (max_len 1024): split_plan's 16-page chunks
 LLAMA2_SERVE = dict(LLAMA2, P=64, lens=[0, 1, 143, 208, 300, 431, 527, 1024])
+# gemma2-27b's global layers on gemma2_path's table (4 slots, max_len 8192),
+# at lengths that cross the local layers' 4096-token window
+GEMMA2 = dict(B=4, Hq=32, Hkv=16, D=128, ps=16, P=512,
+              lens=[0, 1000, 4096, 4117])
 
 
 def phase_paged(dev):
@@ -421,7 +522,11 @@ def phase_paged(dev):
              ("llama2-7b", LLAMA2, bf, "fp8", dict(window=7)),
              ("llama2-7b serve", LLAMA2_SERVE, bf, None, {}),
              ("llama2-7b serve", LLAMA2_SERVE, bf, None,
-              dict(window=300, softcap=30.0))]
+              dict(window=300, softcap=30.0)),
+             ("gemma2-27b", GEMMA2, bf, None, dict(softcap=50.0)),
+             ("gemma2-27b", GEMMA2, bf, None, dict(window=4096,
+                                                   softcap=50.0)),
+             ("gemma2-27b", GEMMA2, f32, None, dict(softcap=50.0))]
     worst, rows = 0.0, []
     for name, geom, qd, kv, opts in cases:
         case = paged_inputs(gen, dev, qdtype=qd, kv=kv, **geom)
@@ -466,7 +571,13 @@ def phase_flash(dev):
              ("llama2-7b", (1, 32, 32, 64, 300, 128),
               dict(causal=False, kv_offset=236)),
              ("tinyllama", (1, 32, 4, 300, 300, 64),
-              dict(causal=True, window=64, softcap=30.0))]
+              dict(causal=True, window=64, softcap=30.0)),
+             # gemma2-27b's prefill: a 4,084-token prompt body on a local
+             # layer, and 4,200 tokens, where the 4096-token window binds
+             ("gemma2-27b", (1, 32, 16, 4084, 4084, 128),
+              dict(causal=True, window=4096, softcap=50.0)),
+             ("gemma2-27b", (1, 32, 16, 4200, 4200, 128),
+              dict(causal=True, window=4096, softcap=50.0))]
     worst, rows = 0.0, []
     for name, shape, opts in llama + other:
         for qd in (bf, f32):
@@ -578,7 +689,27 @@ def phase_reference(dev):
     check(toks["cpu"] == toks[str(dev)],
           f"reduced tinyllama: card tokens {toks[str(dev)]} != CPU tokens "
           f"{toks['cpu']}")
+    # generate(): prompt forcing and greedy decode on the dense cache, the
+    # fused loop and the stepwise one, with a stop token one row emits
+    prompts = np.stack([(np.arange(1, 7) * (5 + 2 * i) + i) % cfg.vocab_size
+                        for i in range(3)]).astype(np.int32)
+    gens = {}
+    for fused in (True, False):
+        eos = None
+        for d in ("cpu", dev):
+            eng = SplitBrainEngine(cfg, params, max_len=32, fused=fused,
+                                   device=d)
+            if eos is None:
+                eos = int(eng.generate(prompts, max_new=8)["tokens"][1, 2])
+            g = eng.generate(prompts, max_new=8, eos_id=eos)
+            gens[(fused, str(d))] = (g["tokens"].tolist(),
+                                     g["gen_len"].tolist())
+        check(gens[(fused, "cpu")] == gens[(fused, str(dev))],
+              f"reduced tinyllama generate(fused={fused}): card "
+              f"{gens[(fused, str(dev))]} != CPU {gens[(fused, 'cpu')]}")
     emit({"phase": "reference", "config": cfg.name, "requests": len(toks["cpu"]),
+          "generate": {"batch": 3, "prompt_len": 6, "max_new": 8,
+                       "loops": ["fused", "stepwise"], "eos": True},
           "tokens_identical_card_vs_cpu": True})
 
 
@@ -587,12 +718,16 @@ def phase_reference_serve(dev):
     the CPU (plain versions) from the same weights: identical tokens under
     the scheduler (paged pool) and generate()."""
     rows = []
-    for arch in ("llama2-7b", "tinyllama-1.1b"):
+    for arch in ("llama2-7b", "tinyllama-1.1b", "gemma2-27b",
+                 "stablelm-1.6b", "granite-8b", "minitron-8b"):
         cfg = get_config(arch).reduced()
         params = api.init_params(cfg, torch.Generator().manual_seed(SEED),
                                  "cpu")
         prompts = np.stack([(np.arange(1, 10) * (3 + i)) % cfg.vocab_size
                             for i in range(3)]).astype(np.int32)
+        # past reduced gemma2's 16-token window: the per-token prefill
+        long = np.stack([(np.arange(1, 25) * (5 + i)) % cfg.vocab_size
+                         for i in range(2)]).astype(np.int32)
         toks = {}
         for d in ("cpu", dev):
             eng = ServeEngine(cfg, params, max_len=64, page_size=8, device=d)
@@ -600,12 +735,13 @@ def phase_reference_serve(dev):
                 reduced_requests(cfg.vocab_size))
             gen = eng.generate(prompts, max_new=6)
             toks[str(d)] = ([r.tokens.tolist() for r in out["results"]],
-                            gen["tokens"].tolist())
+                            gen["tokens"].tolist(),
+                            eng.generate(long, max_new=6)["tokens"].tolist())
         check(toks["cpu"] == toks[str(dev)],
               f"reduced {arch} ServeEngine: card tokens {toks[str(dev)]} != "
               f"CPU tokens {toks['cpu']}")
         rows.append({"config": cfg.name, "requests": len(toks["cpu"][0]),
-                     "generate_rows": len(toks["cpu"][1])})
+                     "generate_rows": len(toks["cpu"][1]) + len(long)})
     emit({"phase": "reference_serve", "configs": rows,
           "tokens_identical_card_vs_cpu": True})
 
@@ -664,7 +800,17 @@ def phase_reference_rwkv(dev):
                   and rep["shortfall"] <= 2 * rep["tolerance"],
                   f"reduced rwkv6-7b seed {seed} {name}: card vs CPU {rep}")
         rows.append({"seed": seed, "forward": fwd_rep, "serve": serve})
+    # which ops of the decay path differ between the card and the CPU on
+    # the same inputs (layer 0 of the last seed's serving weights)
+    from repro_torch.models import rwkv6
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(SEED + 1)).to(torch.bfloat16)
+    bits = rwkv_decay_bits_report(next(rwkv6._layers(engs["cpu"].params))[1],
+                                  x, dev)
+    check(bits["decay"]["differ"] == 0,
+          f"rwkv6.decay differs between the card and the CPU: {bits}")
     emit({"phase": "reference_rwkv", "config": cfg.name,
+          "decay_path_ops_card_vs_cpu": bits,
           "requests": len(reqs), "generate_rows": len(prompts),
           "forward_tokens": list(toks.shape),
           "tolerance": f"forward: {RWKV_FWD_ULPS} bf16 ulp of the largest "
@@ -769,6 +915,22 @@ def phase_main_path(dev, smi_line):
     again = sched.run(reqs)
     check([r.tokens.tolist() for r in again["results"]] == first,
           "a second identical run gave other tokens")
+    # generate(): 4 prompts of 64 tokens forced through the token step on
+    # the dense cache, then 32 greedy tokens; every projection a W4A8 launch
+    prompts = np.random.default_rng(SEED + 12).integers(
+        1, cfg.vocab_size, (4, 64)).astype(np.int32)
+    ops.reset_launch_counts()
+    g = eng.generate(prompts, max_new=32)
+    gen_counts = ops.launch_counts()
+    token_steps = 63 + 32
+    check(gen_counts == {"w4a8_matmul": (7 * L + 1) * token_steps,
+                         "paged_decode_attention": 0, "flash_attention": 0,
+                         "rwkv6_scan": 0},
+          f"generate() launch counts {gen_counts}: not {7 * L + 1} W4A8 per "
+          f"token step over {token_steps} steps")
+    check(g["tokens"].shape == (4, 32) and g["gen_len"].tolist() == [32] * 4
+          and bool(((g["tokens"] >= 0) & (g["tokens"] < cfg.vocab_size)).all()),
+          "generate() tokens out of range or short")
     info = {"phase": "main_path", "config": cfg.name, "layers": L,
             "d_model": cfg.d_model, "max_slots": 8, "page_size": 16,
             "max_len": 256, "requests": len(reqs), "all_done": True,
@@ -782,6 +944,12 @@ def phase_main_path(dev, smi_line):
             "decode_tokens_per_s": out["decoded_tokens"] / decode_s,
             "tokens_per_s_wall": out["tokens_per_s"],
             "peak_memory_bytes": peak, "weight_bytes": weight_bytes,
+            "generate": {"batch": 4, "prompt_len": 64, "max_new": 32,
+                         "token_steps": token_steps, "launches": gen_counts,
+                         "w4a8_per_token_step":
+                             gen_counts["w4a8_matmul"] / token_steps,
+                         "seconds": g["decode_s"],
+                         "tokens_per_s": g["tokens_per_s"]},
             "card": smi_line}
     emit(info)
     return eng, info
@@ -998,15 +1166,155 @@ def phase_rwkv_path(dev, smi_line):
     return eng, info
 
 
-def phase_profile(eng, dev, path):
-    """Device time by kernel over decode steps of a path with all 8 slots
-    decoding, and the device's busy share of the host's wall time."""
+GEMMA2_SLOTS, GEMMA2_MAX_LEN, GEMMA2_NEW = 4, 8192, 32
+GEMMA2_GENERATE = (2, 2048, 16)      # generate(): batch, prompt, new tokens
+
+
+def gemma2_requests(vocab, max_new=GEMMA2_NEW):
+    """Two long prompts (4,070 and 4,085 tokens: they fit the 4096-token
+    ring, and their decode crosses position 4096) and six of 256-1,024."""
+    rng = np.random.default_rng(SEED + 11)
+    lens = [4070, 4085] + [int(n) for n in rng.integers(256, 1025, 6)]
+    return [Request(uid=i, prompt=rng.integers(1, vocab, n).astype(np.int32),
+                    max_new=max_new) for i, n in enumerate(lens)]
+
+
+def phase_gemma2_path(dev, smi_line):
+    """Full-width gemma2-27b (46 layers, local 4096-token windows beside
+    global layers, softcap 50 and final softcap 30, tied embeddings) on the
+    float ServeEngine: the scheduler over a page pool for the global layers
+    and slot-private rings for the local ones, then generate()."""
+    cfg = get_config("gemma2-27b")
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev, dtype=torch.bfloat16)
+    eng = ServeEngine(cfg, params, max_len=GEMMA2_MAX_LEN, page_size=16,
+                      device=dev)
+    del params                      # the float32 embedding: the engine
+    gc.collect()                    # keeps its rounded copy
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       [eng.params["embed"], eng.params["ln_final"]]
+                       + [w for part in eng.params["blocks"].values()
+                          for w in (part.values() if isinstance(part, dict)
+                                    else [part])])
+    check(eng._sa["k"] == [-1, 4] and eng._sa["v"] == [-1, 4],
+          f"gemma2 seq axes {eng._sa}: the local ring pages or the global "
+          f"layer does not")
+    crossed = []                     # slots past position 4096, per step
+    decode = eng.decode_slots
+
+    def tracked(cache, *a, **k):
+        out = decode(cache, *a, **k)
+        crossed.append(int((out[2]["len"] > 4096).sum()))
+        return out
+    eng.decode_slots = tracked
+    sched = ContinuousBatchingScheduler(eng, max_slots=GEMMA2_SLOTS)
+    clock = PhaseClock(eng)
+    sched.warmup(prompt_len=64, max_new=4)
+    reqs = gemma2_requests(cfg.vocab_size)
+    clock.reset()
+    crossed.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = sched.run(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decode_s, admit_s = clock.decode_s, clock.admit_s
+    res = out["results"]
+    check(len(res) == len(reqs) and all(r.state == "DONE" for r in res),
+          f"not every request DONE: {out['by_state']}")
+    check(all(r.gen_len == GEMMA2_NEW for r in res), "a request stopped short")
+    check(all(0 <= t < cfg.vocab_size for r in res for t in r.tokens),
+          "token out of range")
+    check(out["quarantines"] == 0 and out["failed"] == 0,
+          "the finite-logits sentinel flagged a step")
+    steps, prefill = out["steps"], out["prefill_tokens"]
+    check(prefill == sum(len(r.prompt) - 1 for r in reqs), "prefill tokens")
+    # every prompt fits the ring: one block prefill, a flash launch per
+    # layer; a decode step pages the 23 global layers only
+    want = {"w4a8_matmul": 0, "flash_attention": L * len(reqs),
+            "paged_decode_attention": (L // 2) * steps, "rwkv6_scan": 0}
+    check(counts == want, f"launch counts {counts} != {want}")
+    check(max(crossed) >= 2, f"the two long requests never decoded past "
+          f"position 4096 together: {max(crossed)} slots did")
+    tokens = prefill + out["decoded_tokens"]
+    meter = eng.measured_bytes()["total"]
+    check(meter == traffic_model_for(cfg).bytes_per_token() * tokens,
+          f"meter {meter} != eq. 7-10 x {tokens} tokens")
+    stats = eng.cache_stats(sched.cache)
+    first = [r.tokens.tolist() for r in res]
+    again = sched.run(reqs)
+    check([r.tokens.tolist() for r in again["results"]] == first,
+          "a second identical run gave other tokens")
+    # generate(): one block prefill of 2 x 2,047 tokens, then 16 steps on
+    # the dense cache (rings included), no paged launch
+    gb, gt, gn = GEMMA2_GENERATE
+    prompts = np.random.default_rng(SEED + 13).integers(
+        1, cfg.vocab_size, (gb, gt)).astype(np.int32)
+    ops.reset_launch_counts()
+    g = eng.generate(prompts, max_new=gn)
+    gen_counts = ops.launch_counts()
+    check(gen_counts == {"w4a8_matmul": 0, "flash_attention": L,
+                         "paged_decode_attention": 0, "rwkv6_scan": 0},
+          f"generate() launch counts {gen_counts}")
+    check(g["tokens"].shape == (gb, gn)
+          and bool(((g["tokens"] >= 0) & (g["tokens"] < cfg.vocab_size)).all()),
+          "generate() tokens out of range")
+    info = {"phase": "gemma2_path", "config": cfg.name, "layers": L,
+            "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+            "window": cfg.layer_pattern[0].window, "softcap": cfg.softcap,
+            "final_softcap": cfg.final_softcap,
+            "max_slots": GEMMA2_SLOTS, "page_size": 16,
+            "max_len": GEMMA2_MAX_LEN, "num_pages": eng._pager.pool.num_pages,
+            "seq_axes": eng._sa, "requests": len(reqs), "all_done": True,
+            "setup_s": setup_s, "weight_bytes": weight_bytes,
+            "prefill_tokens": prefill,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "decode_steps": steps, "decoded_tokens": out["decoded_tokens"],
+            "launches": counts, "launches_expected": want,
+            "flash_per_prefill": counts["flash_attention"] / len(reqs),
+            "paged_per_decode_step": counts["paged_decode_attention"] / steps,
+            "most_slots_past_4096": max(crossed),
+            "meter_bytes": meter, "second_run_identical": True,
+            "cache": stats,
+            "wall_s": out["wall_s"], "decode_s": decode_s,
+            "admit_s": admit_s,
+            "decode_steps_per_s": steps / decode_s,
+            "decode_tokens_per_s": out["decoded_tokens"] / decode_s,
+            "prefill_tokens_per_s": prefill / admit_s,
+            "tokens_per_s_wall": out["tokens_per_s"],
+            "generate": {"batch": gb, "prompt_len": gt, "max_new": gn,
+                         "launches": gen_counts,
+                         "prefill_s": g["prefill_s"],
+                         "decode_s": g["decode_s"],
+                         "decode_tokens_per_s": g["tokens_per_s"]},
+            "peak_memory_bytes": peak, "setup_peak_memory_bytes": setup_peak,
+            "card": smi_line}
+    emit(info)
+    return eng, info
+
+
+def phase_profile(eng, dev, path, slots=8):
+    """Device time by kernel over decode steps of a path with all its
+    slots decoding, and the device's busy share of the host's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    sched = ContinuousBatchingScheduler(eng, max_slots=8)
+    sched = ContinuousBatchingScheduler(eng, max_slots=slots)
     sched.begin()
-    for r in main_requests(eng.cfg.vocab_size, n=8, max_new=40):
+    for r in main_requests(eng.cfg.vocab_size, n=slots, max_new=40):
         sched.submit(r)
-    while len(sched.decoding_uids()) < 8:
+    while len(sched.decoding_uids()) < slots:
         sched.step()
     for _ in range(2):
         sched.step()
@@ -1041,19 +1349,22 @@ def phase_profile(eng, dev, path):
                    if not str(getattr(ev, "device_type", "")).endswith("CUDA")),
                   reverse=True)
     busy = dev_total / 1e6 / wall if wall else 0.0
-    emit({"phase": "profile", "path": path, "config": eng.cfg.name,
-          "decode_steps": n, "wall_ms_per_step": wall / n * 1e3,
-          "device_ms_per_step": dev_total / 1e3 / n,
-          "device_busy_share": busy if dev_total else "not measured",
-          "w4a8_calls": w4a8_calls,
-          "w4a8_device_kernels_per_call": (w4a8_kernels / w4a8_calls
-                                           if w4a8_calls and dev_total
-                                           else None),
-          "top_kernels": [{"name": k[:80], "ms_per_step": t / 1e3 / n,
-                           "calls_per_step": c / n} for t, k, c in rows[:12]],
-          "host_ops_per_step": sum(c for _, _, c in host) / n,
-          "top_host_ops": [{"name": k[:60], "self_cpu_ms_per_step": t / 1e3 / n,
-                            "calls_per_step": c / n} for t, k, c in host[:12]]})
+    prof_info = {
+        "phase": "profile", "path": path, "config": eng.cfg.name,
+        "slots": slots, "decode_steps": n, "wall_ms_per_step": wall / n * 1e3,
+        "device_ms_per_step": dev_total / 1e3 / n,
+        "device_busy_share": busy if dev_total else "not measured",
+        "w4a8_calls": w4a8_calls,
+        "w4a8_device_kernels_per_call": (w4a8_kernels / w4a8_calls
+                                         if w4a8_calls and dev_total
+                                         else None),
+        "top_kernels": [{"name": k[:80], "ms_per_step": t / 1e3 / n,
+                         "calls_per_step": c / n} for t, k, c in rows[:12]],
+        "host_ops_per_step": sum(c for _, _, c in host) / n,
+        "top_host_ops": [{"name": k[:60], "self_cpu_ms_per_step": t / 1e3 / n,
+                          "calls_per_step": c / n} for t, k, c in host[:12]]}
+    emit(prof_info)
+    return prof_info
 
 
 def w4a8_step_launches(eng, M, gen, dev):
@@ -1134,6 +1445,37 @@ def yardstick_ms(fn, iters, detail, name):
         return None
 
 
+def flex_softcap(softcap):
+    """The one PyTorch call that computes softcapped attention:
+    ``flex_attention`` compiled, as it is meant to run, with the score_mod
+    ``softcap * tanh(s / softcap)`` on the scaled scores and GQA.  Returns
+    ``fn(q, k, v, block_mask)``."""
+    from torch.nn.attention.flex_attention import flex_attention
+    compiled = torch.compile(flex_attention, dynamic=False)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    return lambda q, k, v, mask: compiled(q, k, v, score_mod=score_mod,
+                                          block_mask=mask, enable_gqa=True)
+
+
+def flex_mask(mask_mod, B, Tq, Tk, dev):
+    from torch.nn.attention.flex_attention import create_block_mask
+    return create_block_mask(mask_mod, B, None, Tq, Tk, device=dev)
+
+
+def causal_mask_mod(window):
+    """Query i sees key j when j <= i and, with a window, j > i - window
+    (``ref.flash_attention``'s mask)."""
+    def mask_mod(b, h, q_idx, kv_idx):
+        ok = kv_idx <= q_idx
+        if window is not None:
+            ok = ok & (kv_idx > q_idx - window)
+        return ok
+    return mask_mod
+
+
 def phase_times(eng, dev, counts):
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     kernels, detail = [], []
@@ -1208,21 +1550,25 @@ def phase_times(eng, dev, counts):
     return kernels
 
 
-def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name):
+def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name,
+                     **opts):
     """One decode step's L paged launches (one per layer's pool slice) at
-    8 slots of the given lengths: kernel (graph replay), eager and plain
-    times, the bound, and SDPA on an already-gathered dense view."""
+    slots of the given lengths, with the kernel's ``opts`` (softcap):
+    kernel (graph replay), eager and plain times, the bound, and SDPA on an
+    already-gathered dense view as the library call.  SDPA takes no
+    softcap: with one, the library call is flex_attention on that view and
+    SDPA's time stays beside it as ``sdpa_without_softcap_ms``."""
     ps, B = 16, len(lens)
     cases = [paged_inputs(gen, dev, qdtype=torch.bfloat16, B=B, Hq=Hq,
                           Hkv=Hkv, D=D, ps=ps, P=P, lens=lens)
              for _ in range(L)]
 
     def paged_step(fn):
-        return lambda: [run_paged(c, fn) for c in cases]
+        return lambda: [run_paged(c, fn, **opts) for c in cases]
 
     # the timed launches' own geometry (split_plan's chunks at this P and
     # B * Hkv) against the plain version, before any timing
-    errs = [paged_error(c, out) for c, out in
+    errs = [paged_error(c, out, **opts) for c, out in
             zip(cases, paged_step(ops.paged_decode_attention)())]
     detail.append({name.replace("_library", "") + "_vs_plain": {
         "chunk_pages_chunks": kpa.split_plan(ps, P, B * Hkv, D),
@@ -1248,26 +1594,50 @@ def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name):
         dense.append((c["q"], kd.contiguous(), vd.contiguous(),
                       mask[:, None, None, :]))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = yardstick_ms(lambda: [sdpa(q, k, v, attn_mask=m, enable_gqa=True)
-                                   for q, k, v, m in dense], 50, detail, name)
-    return {"ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                            flops / F32_FLOPS_PER_S) * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                         >= flops / F32_FLOPS_PER_S else "operations"),
-            "library_ms": lib_ms, "eager_ms": eager_ms}
+    sdpa_ms = yardstick_ms(lambda: [sdpa(q, k, v, attn_mask=m,
+                                         enable_gqa=True)
+                                    for q, k, v, m in dense], 50, detail, name)
+    out = {"ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                           flops / F32_FLOPS_PER_S) * 1e3,
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / F32_FLOPS_PER_S else "operations"),
+           "library_ms": sdpa_ms, "eager_ms": eager_ms}
+    if opts.get("softcap"):
+        # SDPA takes no softcap: the library call is flex_attention on the
+        # same dense view, masked to each slot's live length
+        lens_t = cases[0]["lens"]
+        mask = flex_mask(lambda b, h, q_idx, kv_idx: kv_idx < lens_t[b],
+                         B, 1, P * ps, dev)
+        flex = flex_softcap(opts["softcap"])
+        q, kd, vd, _ = dense[0]
+        detail.append({name.replace("_library", "") + "_flex_vs_plain": float(
+            (flex(q, kd, vd, mask).float() - ref.paged_decode_attention(
+                q, cases[0]["k"], cases[0]["v"], cases[0]["table"], lens_t,
+                **opts).float()).abs().max())})
+        out["library_ms"] = yardstick_ms(
+            lambda: [flex(q, k, v, mask) for q, k, v, _ in dense], 50,
+            detail, name)
+        out["sdpa_without_softcap_ms"] = sdpa_ms
+    return out
 
 
-def flash_bound(launches, causal=True):
+def flash_bound(launches, causal=True, windows=None):
     """(ms, "bytes" or "operations"): max(bytes / HBM rate, flops / bf16
     tensor peak) over the launches, with q, out, k and v each moved once
-    and 4 * D flops per visible q-k pair."""
+    and 4 * D flops per visible q-k pair: causal, query i sees
+    min(i + 1, window) keys (``windows``: each launch's window or None)."""
     nbytes = flops = 0
-    for q, k, _ in launches:
+    for (q, k, _), w in zip(launches, windows or [None] * len(launches)):
         B, Hq, Tq, D = q.shape
         Hkv, Tk = k.shape[1], k.shape[2]
         nbytes += q.element_size() * (2 * B * Hq * Tq + 2 * B * Hkv * Tk) * D
-        pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+        if not causal:
+            pairs = Tq * Tk
+        elif w is None or w >= Tq:
+            pairs = Tq * (Tq + 1) // 2
+        else:
+            pairs = w * (w + 1) // 2 + (Tq - w) * w
         flops += 4 * B * Hq * D * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -1328,6 +1698,80 @@ def phase_times_serve(dev, serve_info):
     return flash, paged
 
 
+FLEX_NOTE = ("torch.nn.attention.flex_attention under torch.compile, "
+             "score_mod 50 * tanh(s / 50), enable_gqa, CUDA-graph replay, "
+             "{}; sdpa_without_softcap_ms is scaled_dot_product_attention "
+             "without the softcap, another function of the same shape")
+
+
+def phase_times_gemma2(dev, info):
+    """gemma2-27b's kernels at gemma2_path's shapes: the flash kernel over
+    one 4,084-token prefill's 46 launches (23 local layers with the
+    4096-token window, 23 global; softcap 50), and the paged kernel over
+    one decode step's 23 global-layer launches at 4 slots of the path's
+    lengths, 16 tokens into their decode."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    detail = []
+    cfg = get_config("gemma2-27b")
+    L, T = cfg.num_layers, max(info["prompt_lens"]) - 1
+    bf = torch.bfloat16
+    windows = [cfg.layer_pattern[j % 2].window for j in range(L)]
+    launches = [flash_inputs(gen, dev, 1, 32, 16, T, T, 128, bf)
+                for _ in range(L)]
+
+    def prefill(fn, ls):
+        return lambda: [fn(q, k, v, causal=True, window=w, softcap=50.0)
+                        for (q, k, v), w in zip(ls, windows)]
+
+    k_ms = graph_time_ms(prefill(ops.attention, launches), iters=5)
+    eager_ms = cuda_time_ms(prefill(ops.attention, launches), iters=2)
+    p_ms = cuda_time_ms(prefill(ref.flash_attention, launches), iters=1,
+                        warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_ms = yardstick_ms(
+        lambda: [sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                 for q, k, v in launches], 5, detail, "flash_gemma2_sdpa")
+    flex = flex_softcap(50.0)
+    masks = {w: flex_mask(causal_mask_mod(w), None, T, T, dev)
+             for w in set(windows)}
+    for (q, k, v), w in list(zip(launches, windows))[:2]:   # local, global
+        detail.append({"flash_gemma2_flex_vs_plain": float(
+            (flex(q, k, v, masks[w]).float() - ref.flash_attention(
+                q, k, v, causal=True, window=w, softcap=50.0).float())
+            .abs().max()), "window": w})
+    lib_ms = yardstick_ms(
+        lambda: [flex(q, k, v, masks[w])
+                 for (q, k, v), w in zip(launches, windows)], 5, detail,
+        "flash_gemma2_library")
+    bound_ms, bound_by = flash_bound(launches, windows=windows)
+    flash = {"unit": f"one {T}-token prefill of gemma2-27b: {L} launches, "
+                     "B 1, 32/16 heads, D 128, causal, softcap 50, window "
+                     "4096 on every other layer, bf16, CUDA-graph replay; "
+                     "plain timed eagerly",
+             "launches_per_prefill": info["flash_per_prefill"],
+             "ms": k_ms, "eager_ms": eager_ms, "plain_ms": p_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": lib_ms, "sdpa_without_softcap_ms": sdpa_ms,
+             "library_note": FLEX_NOTE.format(
+                 "block mask causal with the 4096 window on the local "
+                 "layers")}
+    lens = [n - 1 + 16 for n in info["prompt_lens"][:GEMMA2_SLOTS]]
+    paged = paged_step_times(gen, dev, L // 2, 32, 16, 128,
+                             GEMMA2_MAX_LEN // 16, lens, detail,
+                             "paged_gemma2_library", softcap=50.0)
+    paged["unit"] = (f"one decode step of gemma2-27b: {L // 2} launches "
+                     f"(the global layers), {GEMMA2_SLOTS} slots, 32/16 "
+                     f"heads, D 128, softcap 50, lengths {lens}, CUDA-graph "
+                     "replay")
+    paged["launches_per_step"] = info["paged_per_decode_step"]
+    paged["library_note"] = FLEX_NOTE.format(
+        "on the already-gathered dense view (gather excluded), block mask "
+        "each slot's length")
+    emit({"phase": "times", "path": "gemma2_path", "flash_gemma2": flash,
+          "paged_gemma2": paged, "detail": detail})
+    return flash, paged
+
+
 def rwkv_bound(B, H, T, D, itemsize, launches=1):
     """(ms, "bytes" or "operations"): max(bytes / HBM rate, flops / f32
     peak) with r, k, v, w read once, out written once, the f32 final state
@@ -1381,10 +1825,15 @@ def phase_times_rwkv(dev, rwkv_info):
 
 
 def main() -> int:
+    # flex_attention's compiled kernels cache inside the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(build.BUILD_DIR / sub))
     dev_info = phase_device()
     dev = torch.device("cuda", 0)
     smi = dev_info["nvidia_smi"]
     phase_build()
+    phase_sanitizer()
     errs = {"w4a8_matmul": phase_w4a8(dev),
             "paged_decode_attention": phase_paged(dev),
             "flash_attention": phase_flash(dev),
@@ -1411,14 +1860,30 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase_times_rwkv(dev, rwkv_info))
+    eng, gemma2_info = phase_gemma2_path(dev, smi)   # after the others: 69 GB
+    prof = phase_profile(eng, dev, "gemma2_path", slots=GEMMA2_SLOTS)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_g, paged_g = phase_times_gemma2(dev, gemma2_info)
+    emit({"gemma2_path_summary": {
+        key: gemma2_info[key] for key in (
+            "decode_steps_per_s", "decode_tokens_per_s",
+            "prefill_tokens_per_s", "tokens_per_s_wall",
+            "setup_peak_memory_bytes", "peak_memory_bytes")},
+        "device_busy_share": prof["device_busy_share"],
+        "card": smi})
     for k in kernels:
         k["max_abs_err"] = errs[k["name"]]
         k["launches_by_path"] = {
             "main_path": main_info["launches"][k["name"]],
             "serve_path": serve_info["launches"][k["name"]],
-            "rwkv_path": rwkv_info["launches"][k["name"]]}
+            "rwkv_path": rwkv_info["launches"][k["name"]],
+            "gemma2_path": gemma2_info["launches"][k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
+    kernels[1]["gemma2_decode"] = paged_g
+    kernels[2]["gemma2_prefill"] = flash_g
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

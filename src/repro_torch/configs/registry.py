@@ -1,21 +1,31 @@
 """Config registry of the port: the configurations its slices serve so far.
 
 The split-brain main path runs the paper's own two models (Table IV):
-TinyLlama-1.1B and Llama-2-7B; the float ServeEngine also serves the
-attention-free RWKV6 family (rwkv6-7b).  The other families' configs join
-as their slices are ported.
+TinyLlama-1.1B and Llama-2-7B.  The float ServeEngine also serves the other
+dense lm configs (stablelm-1.6b, granite-8b, minitron-8b), gemma2-27b with
+its alternating windowed and global layers, and the attention-free RWKV6
+family (rwkv6-7b).  The other families' configs join as their slices are
+ported.
 """
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import gemma2_27b as _gemma2_27b
+from repro_torch.configs import granite_8b as _granite_8b
 from repro_torch.configs import llama2_7b as _llama2_7b
+from repro_torch.configs import minitron_8b as _minitron_8b
 from repro_torch.configs import rwkv6_7b as _rwkv6_7b
+from repro_torch.configs import stablelm_1_6b as _stablelm_1_6b
 from repro_torch.configs import tinyllama_1_1b as _tinyllama_1_1b
 
 CONFIGS: Dict[str, ModelConfig] = {
     "tinyllama-1.1b": _tinyllama_1_1b.CONFIG,
     "llama2-7b": _llama2_7b.CONFIG,
     "rwkv6-7b": _rwkv6_7b.CONFIG,
+    "stablelm-1.6b": _stablelm_1_6b.CONFIG,
+    "minitron-8b": _minitron_8b.CONFIG,
+    "gemma2-27b": _gemma2_27b.CONFIG,
+    "granite-8b": _granite_8b.CONFIG,
 }
 
 

@@ -124,20 +124,23 @@ def dequantize(ql: QuantizedLinear, dtype=torch.bfloat16) -> torch.Tensor:
     return (ql.codes.to(torch.float32) * ql.scales).to(dtype)
 
 
-def quantize_activations_int8(x: torch.Tensor, *, per_tensor: bool = False):
+def quantize_activations_int8(x: torch.Tensor, *, per_tensor: bool = False,
+                              reciprocal: bool = False):
     """Symmetric INT8 activation quantization -> (codes int8, scale f32).
 
     Default is per-row dynamic scaling (``amax(row)/127``, scale shape
     ``x.shape[:-1] + (1,)``), which the W4A8 matmul consumes;
     ``per_tensor=True`` uses one ``amax(x)/127`` for the whole tensor,
-    broadcast to the same shape.
+    broadcast to the same shape.  ``reciprocal=True`` takes the scale as
+    ``amax * float32(1/127)``, as the JAX package's compiled programs do
+    (XLA rewrites the division by a constant; its eager ops divide): the
+    two differ in the last bit on some rows.
     """
     x = x.to(torch.float32)
+    amax = x.abs().amax() if per_tensor else x.abs().amax(dim=-1, keepdim=True)
+    scale = amax * (1.0 / 127.0) if reciprocal else amax / 127.0
     if per_tensor:
-        scale = (x.abs().amax() / 127.0).expand(x.shape[:-1] + (1,))
-        scale = scale.contiguous()
-    else:
-        scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+        scale = scale.expand(x.shape[:-1] + (1,)).contiguous()
     scale = torch.clamp_min(scale, 1e-12)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale

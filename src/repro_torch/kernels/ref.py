@@ -35,10 +35,42 @@ def w4a8_matmul(qx: torch.Tensor, x_scale: torch.Tensor, codes: torch.Tensor,
 # ----------------------------------------------------------------------------
 # Attention
 # ----------------------------------------------------------------------------
+# tanh(x) = x * P(x^2) / Q(x^2) on [-c, c], the rational form XLA evaluates
+# on the CPU (Eigen's ``ptanh_float``): P's and Q's coefficients, highest
+# power first, and the clamp c at which it reaches +-1 with fused
+# multiply-adds
+_TANH_P = (-2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+           5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+           4.89352455891786e-03)
+_TANH_Q = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+           4.89352518554385e-03)
+_TANH_CLAMP = 7.99881172180175781
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """float32 tanh as the JAX package's compiled programs compute it on
+    the CPU: XLA's rational approximation, Horner steps as fused
+    multiply-adds (``addcmul``), one IEEE division, and x itself where
+    |x| < 0.0004.  Bit-identical to ``jax.jit(jnp.tanh)`` on the CPU, where
+    ``torch.tanh`` differs in the last bit of most values; the same op
+    sequence on the card."""
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+
+    def horner(coeffs):
+        acc = torch.full_like(x2, coeffs[0])
+        for c in coeffs[1:]:
+            acc = torch.addcmul(torch.full_like(x2, c), x2, acc)
+        return acc
+
+    r = xc * horner(_TANH_P) / horner(_TANH_Q)
+    return torch.where(x.abs() < 0.0004, x, r)
+
+
 def _soft_cap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return logits
-    return cap * torch.tanh(logits / cap)
+    return cap * tanh(logits / cap)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

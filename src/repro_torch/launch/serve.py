@@ -110,8 +110,13 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
+    # the lm family's projections are drawn straight into the compute dtype
+    # the engine serves them in (full-width gemma2-27b would not fit the
+    # card in float32)
+    kw = {"dtype": getattr(torch, cfg.dtype)} if cfg.family == "lm" else {}
     params = api.init_params(
-        cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+        cfg, torch.Generator(device=device).manual_seed(args.seed), device,
+        **kw)
     rng = np.random.default_rng(args.seed)
 
     if args.continuous:

@@ -26,8 +26,11 @@ def family_module(cfg: ModelConfig):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Dict[str, Any]:
-    return family_module(cfg).init_params(cfg, generator, device=device)
+                device="cuda", **kw) -> Dict[str, Any]:
+    """The family's random params; ``kw`` goes to its ``init_params`` (the
+    lm family's ``dtype`` of the projections)."""
+    return family_module(cfg).init_params(cfg, generator, device=device,
+                                          **kw)
 
 
 def forward(params, tokens, cfg: ModelConfig):

@@ -17,24 +17,29 @@ from repro_torch.kernels import ops
 
 
 def dense_init(in_dim: int, out_dim: int, generator: torch.Generator, *,
-               lead=(), device=None, dtype=torch.float32) -> torch.Tensor:
-    """Uniform(-1/sqrt(in), 1/sqrt(in)) weights of shape ``lead + (in, out)``
-    (the JAX package's ``dense_init`` bound), drawn from ``generator``."""
+               lead=(), device=None) -> torch.Tensor:
+    """Uniform(-1/sqrt(in), 1/sqrt(in)) float32 weights of shape
+    ``lead + (in, out)`` (the JAX package's ``dense_init`` bound), drawn
+    from ``generator``."""
     scale = 1.0 / math.sqrt(in_dim)
-    w = torch.empty(tuple(lead) + (in_dim, out_dim), dtype=dtype, device=device)
+    w = torch.empty(tuple(lead) + (in_dim, out_dim), dtype=torch.float32,
+                    device=device)
     return w.uniform_(-scale, scale, generator=generator)
 
 
-def linear(x: torch.Tensor, w) -> torch.Tensor:
+def linear(x: torch.Tensor, w, reciprocal_scale: bool = False
+           ) -> torch.Tensor:
     """Apply a linear map; ``w`` is a raw (in, out) tensor or a
     QuantizedLinear.  The quantized branch is the ITA device datapath: per-row
     INT8 activations times the hardwired INT4 codes through the W4A8 op
     (the CUDA kernel on the packed codes for a CUDA tensor, the plain
-    version on the codes on the CPU)."""
+    version on the codes on the CPU); ``reciprocal_scale`` goes to the
+    activation quantizer (``quantize_activations_int8(reciprocal=)``)."""
     if isinstance(w, quant.QuantizedLinear):
         shape = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        qx, xs = quant.quantize_activations_int8(x2)
+        qx, xs = quant.quantize_activations_int8(x2,
+                                                 reciprocal=reciprocal_scale)
         y = ops.w4a8_matmul(qx, xs, w.codes, w.scales, out_dtype=x.dtype,
                             packed=w.packed)
         return y.reshape(*shape, w.codes.shape[-1])
@@ -79,36 +84,29 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def swiglu(x: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+def swiglu(x: torch.Tensor, w1, w3, w2, reciprocal_scale: bool = False
+           ) -> torch.Tensor:
     """FFN(x) = W2 . (silu(W1 x) * (W3 x)) — eq. (4)/(5) of the paper."""
-    h = silu(linear(x, w1)) * linear(x, w3)
-    return linear(h, w2)
+    r = reciprocal_scale
+    h = silu(linear(x, w1, r)) * linear(x, w3, r)
+    return linear(h, w2, r)
 
 
 # ----------------------------------------------------------------------------
 # GQA attention projections
 # ----------------------------------------------------------------------------
-def attn_init(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int,
-              generator: torch.Generator, *, lead=(), device=None,
-              dtype=torch.float32) -> dict:
-    kw = dict(lead=lead, device=device, dtype=dtype)
-    return {
-        "wq": dense_init(d_model, num_heads * head_dim, generator, **kw),
-        "wk": dense_init(d_model, num_kv_heads * head_dim, generator, **kw),
-        "wv": dense_init(d_model, num_kv_heads * head_dim, generator, **kw),
-        "wo": dense_init(num_heads * head_dim, d_model, generator, **kw),
-    }
-
-
 def qkv_project(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
-                head_dim: int):
+                head_dim: int, reciprocal_scale: bool = False):
     """The ITA device phase of attention: static linear maps only.
     x (B, T, d) -> q (B, Hq, T, hd), k and v (B, Hkv, T, hd)."""
     B, T, _ = x.shape
-    q = linear(x, p["wq"]).reshape(B, T, num_heads, head_dim).transpose(1, 2)
-    k = linear(x, p["wk"]).reshape(B, T, num_kv_heads, head_dim).transpose(1, 2)
-    v = linear(x, p["wv"]).reshape(B, T, num_kv_heads, head_dim).transpose(1, 2)
-    return q, k, v
+
+    def heads(w, n):
+        return linear(x, w, reciprocal_scale).reshape(
+            B, T, n, head_dim).transpose(1, 2)
+
+    return (heads(p["wq"], num_heads), heads(p["wk"], num_kv_heads),
+            heads(p["wv"], num_kv_heads))
 
 
 # ----------------------------------------------------------------------------

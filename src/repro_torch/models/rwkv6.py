@@ -105,6 +105,17 @@ def _heads(a: torch.Tensor, B: int, T: int, H: int) -> torch.Tensor:
     return a.reshape(B, T, H, HEAD_DIM).transpose(1, 2)
 
 
+def decay(w0: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """The data-dependent decay exp(-exp(w0 + dw)) in float32, each exp
+    evaluated in float64 and rounded to float32: the correctly rounded
+    float32 exp (bar a float64 result within 2^-29 of a float32 rounding
+    boundary), so the CPU and the card give the same bits where their
+    float32 exps differ in the last place."""
+    a = w0.to(torch.float32) + dw.to(torch.float32)
+    inner = torch.exp(a.to(torch.float64)).to(torch.float32)
+    return torch.exp(-inner.to(torch.float64)).to(torch.float32)
+
+
 def _time_mix(p, x, cfg: ModelConfig, state=None, x_prev=None):
     """x (B, T, d), the pre-normed input -> (output (B, T, d), new WKV state,
     x's last position: the next step's token-shift carry)."""
@@ -118,9 +129,7 @@ def _time_mix(p, x, cfg: ModelConfig, state=None, x_prev=None):
     v = _heads(linear(xv, p["wv"]), B, T, H)
     g = silu(linear(xg, p["wg"]))
     dw = linear(torch.tanh(linear(xw, p["w_lora_a"])), p["w_lora_b"])
-    w = torch.exp(-torch.exp(p["w0"].to(torch.float32)
-                             + dw.to(torch.float32)))
-    w = _heads(w, B, T, H).to(r.dtype)
+    w = _heads(decay(p["w0"], dw), B, T, H).to(r.dtype)
     u = p["u"].to(torch.float32)
     if cfg.rwkv_chunk and T > 1:
         out, new_state = ops.rwkv6_chunked(r, k, v, w, u, state,
@@ -202,11 +211,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0,
     }
 
 
-# Batch and sequence axis of each serve-cache entry: wkv (L, B, H, 64, 64),
-# x_tm and x_cm (L, B, d), len (B,); no entry grows with the sequence (-1),
-# so the serving engine keeps the dense slot layout
-CACHE_AXES = ({"wkv": 1, "x_tm": 1, "x_cm": 1, "len": 0},
-              {"wkv": -1, "x_tm": -1, "x_cm": -1, "len": -1})
+# Batch axis of each serve-cache entry: wkv (L, B, H, 64, 64), x_tm and x_cm
+# (L, B, d), len (B,); no entry grows with the sequence, so the serving
+# engine finds no leaf that pages and keeps the dense slot layout
+BATCH_AXES = {"wkv": 1, "x_tm": 1, "x_cm": 1, "len": 0}
 # block params cast once to the compute dtype for serving; the decay base
 # w0, the bonus u and the norm scales stay float32
 _SERVE_CAST = ("mix", "wr", "wk", "wv", "wg", "wo", "w_lora_a", "w_lora_b",

@@ -6,11 +6,15 @@ per-layer array has leading dims ``(n_groups, group_size, ...)`` from
 (``models/api.py::params_from_numpy``) and one made here have the same
 structure.  The float serve path is here: ``init_cache``, the block
 ``prefill`` (flash attention over the prompt), the dense ``decode_step``
-and the ``paged_decode_step`` through the page pool, all updating the
-cache IN PLACE where the JAX package returned a new one.  The split-brain
-slice's token loop lives in ``serve/splitbrain_engine.py``; the
-full-sequence ``forward``, MoE, cross attention and the other families come
-with their slices.
+and the ``paged_decode_step`` through the page pool (a windowed layer's
+ring buffer, gemma2's local layers, stays dense beside the paged global
+layers), all updating the cache IN PLACE where the JAX package returned a
+new one.  Numerics follow the JAX package's compiled programs (XLA's
+excess precision, its tanh and its dot order; see ``_block_tail``,
+``_norm_input`` and ``_logits_head``): logits are bit-identical on the
+CPU.  The split-brain slice's token loop lives in
+``serve/splitbrain_engine.py``; the full-sequence ``forward``, MoE, cross
+attention and the other families come with their slices.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 
 
@@ -33,64 +37,86 @@ def group_layout(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Dict[str, Any]:
-    """Random float32 params drawn from ``generator`` on ``device``:
-    normal(0, 0.02) embeddings, zero norm scales and uniform
-    ``dense_init`` projections, as in the JAX package (whose random bits
-    differ; tests convert the JAX package's params instead)."""
+                device="cuda", dtype=torch.float32) -> Dict[str, Any]:
+    """Random params drawn from ``generator`` on ``device``: normal(0, 0.02)
+    float32 embeddings, zero float32 norm scales and uniform ``dense_init``
+    projections stored in ``dtype``, as in the JAX package (whose random
+    bits differ; tests convert the JAX package's params instead).
+
+    Each projection is drawn one (layer, matrix) slice at a time in float32
+    and rounded into its leaf, so no more than one matrix's float32 draw
+    exists at once: with ``dtype=torch.bfloat16`` full-width gemma2-27b
+    takes 52 GB of projections where a float32 tree would take 104 GB."""
     if cfg.family != "lm" or cfg.moe or cfg.cross_attn_every:
         raise NotImplementedError(
             f"{cfg.name}: only the dense lm family is ported so far")
     n_groups, group_size = group_layout(cfg)
-    lead = (n_groups, group_size)
     hd = cfg.resolved_head_dim
     d, f = cfg.d_model, cfg.d_ff
-    kw = dict(lead=lead, device=device)
     f32 = torch.float32
+
+    def dense(in_dim, out_dim):
+        w = torch.empty((n_groups, group_size, in_dim, out_dim), dtype=dtype,
+                        device=device)
+        for g in range(n_groups):
+            for j in range(group_size):
+                w[g, j] = L.dense_init(in_dim, out_dim, generator,
+                                       device=device)
+        return w
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=f32, device=device)
+
     embed = torch.empty((cfg.vocab_size, d), dtype=f32, device=device)
     embed.normal_(0.0, 1.0, generator=generator).mul_(0.02)
     params: Dict[str, Any] = {
         "embed": embed,
         "blocks": {
-            "ln_attn": torch.zeros(lead + (d,), dtype=f32, device=device),
-            "ln_mlp": torch.zeros(lead + (d,), dtype=f32, device=device),
-            "attn": L.attn_init(d, cfg.num_heads, cfg.num_kv_heads, hd,
-                                generator, **kw),
-            "mlp": {
-                "w1": L.dense_init(d, f, generator, **kw),
-                "w3": L.dense_init(d, f, generator, **kw),
-                "w2": L.dense_init(f, d, generator, **kw),
-            },
+            "ln_attn": zeros(n_groups, group_size, d),
+            "ln_mlp": zeros(n_groups, group_size, d),
+            "attn": {"wq": dense(d, cfg.num_heads * hd),
+                     "wk": dense(d, cfg.num_kv_heads * hd),
+                     "wv": dense(d, cfg.num_kv_heads * hd),
+                     "wo": dense(cfg.num_heads * hd, d)},
+            "mlp": {"w1": dense(d, f), "w3": dense(d, f), "w2": dense(f, d)},
         },
-        "ln_final": torch.zeros((d,), dtype=f32, device=device),
+        "ln_final": zeros(d),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(d, cfg.vocab_size, generator,
-                                         device=device)
+                                         device=device).to(dtype)
     return params
 
 
 # ----------------------------------------------------------------------------
 # KV cache, prefill and decode (lm block path)
 # ----------------------------------------------------------------------------
-# Batch and sequence axis of each serve-cache entry (the K/V lists share
-# theirs): leaves (n_groups, gs // P, B, Hkv, S, hd), len (B,)
-CACHE_AXES = ({"k": 2, "v": 2, "len": 0}, {"k": 4, "v": 4, "len": -1})
+# Batch axis of each serve-cache entry (the K/V lists share theirs): leaves
+# (n_groups, gs // P, B, Hkv, S, hd), len (B,).  Which leaves page is found
+# by the engine from two cache builds (``serve/pages.py::seq_axes``): every
+# K/V leaf but a windowed ring (gemma2's local layers).
+BATCH_AXES = {"k": 2, "v": 2, "len": 0}
 
 
 def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
     """The serving engine's copy of the float params on ``device``:
     attention and MLP projections cast once to the compute dtype, embedding
     and norm scales kept float32 (a tensor already in place is not copied).
-    An untied LM head is rounded once to the compute dtype and held in
-    float32, the operand of :func:`_logits_head`'s float32 product."""
+    The LM head -- an untied ``lm_head``, or the embedding of a tied one --
+    is rounded once to the compute dtype and held in float32, the operand
+    of :func:`_logits_head`'s float32 product, so no step copies or casts
+    it; rounding is idempotent, so the embedding's gather-then-cast gives
+    the same bits as from the unrounded table."""
     dtype = getattr(torch, cfg.dtype)
     blocks = params["blocks"]
 
     def cast(tree):
         return {k: w.to(device=device, dtype=dtype) for k, w in tree.items()}
 
-    out = {"embed": params["embed"].to(device),
+    embed = params["embed"].to(device)
+    if cfg.tie_embeddings:
+        embed = embed.to(dtype).to(torch.float32)
+    out = {"embed": embed,
            "ln_final": params["ln_final"].to(device),
            "blocks": {"ln_attn": blocks["ln_attn"].to(device),
                       "ln_mlp": blocks["ln_mlp"].to(device),
@@ -134,9 +160,23 @@ def _layers(params, cfg: ModelConfig):
                    pick(params["blocks"], g, j))
 
 
+def _norm_input(x, h, at, slot):
+    """What a layer's pre-attention norm reads: the residual stream ``x``
+    at the first layer of a group, else the previous layer's output sum
+    ``h`` before its rounding.  The JAX package's compiled programs scan
+    over groups, and inside one group's body XLA's excess-precision rule
+    drops the round trip between that bf16 add and the next norm's float32
+    convert (gemma2's local/global pairs); the group's output is the scan
+    carry and is rounded."""
+    return x if at[1] == 0 and slot == 0 else h
+
+
 def _block_qkv(pj, x, positions, cfg: ModelConfig):
-    """Shared block head for prefill/decode: pre-norm, QKV projection, rope."""
-    xn = L.rmsnorm(x, pj["ln_attn"], cfg.norm_eps)
+    """Shared block head for prefill/decode: pre-norm, QKV projection, rope.
+    ``x`` is the norm's input (:func:`_norm_input`), in the compute dtype
+    or float32."""
+    xn = L.rmsnorm(x, pj["ln_attn"], cfg.norm_eps).to(getattr(torch,
+                                                              cfg.dtype))
     q, k, v = L.qkv_project(pj["attn"], xn, cfg.num_heads, cfg.num_kv_heads,
                             cfg.resolved_head_dim)
     q = L.rope(q, positions, cfg.rope_theta)
@@ -152,13 +192,16 @@ def _block_tail(pj, x, o, cfg: ModelConfig):
     rounded to the compute dtype, as the JAX package's compiled programs
     do: XLA's excess-precision rule drops the round trip between that
     bf16 add and the norm's float32 convert.  The residual stream itself
-    is rounded."""
+    is rounded.  Returns the new residual stream and its float32 sum
+    before rounding (the next layer's norm input inside a group)."""
     B, T = x.shape[:2]
     o = o.transpose(1, 2).reshape(B, T, cfg.num_heads * cfg.resolved_head_dim)
     s = x.to(torch.float32) + L.linear(o, pj["attn"]["wo"]).to(torch.float32)
     x = s.to(x.dtype)
     y = L.rmsnorm(s, pj["ln_mlp"], cfg.norm_eps).to(x.dtype)
-    return x + L.swiglu(y, pj["mlp"]["w1"], pj["mlp"]["w3"], pj["mlp"]["w2"])
+    h = x.to(torch.float32) + L.swiglu(y, pj["mlp"]["w1"], pj["mlp"]["w3"],
+                                       pj["mlp"]["w2"]).to(torch.float32)
+    return h.to(x.dtype), h
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -182,15 +225,23 @@ def _logits_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     product that is NOT rounded to the compute dtype first: the JAX
     package's compiled programs fold that rounding into the float32
     convert, and a bf16 rounding here would make argmax ties the reference
-    does not see.  An untied ``lm_head`` must already hold compute-dtype
-    values, as the serving engine's copy does (rounded once, kept float32,
-    so no step copies it); a tied embedding is rounded here."""
-    x = L.rmsnorm(x, params["ln_final"], cfg.norm_eps)
-    head = (params["embed"].T.to(x.dtype) if cfg.tie_embeddings
-            else params["lm_head"])
-    logits = x.to(torch.float32) @ head.to(torch.float32)
+    does not see.  The head -- ``lm_head``, or the embedding's transpose
+    when tied -- must already hold compute-dtype values in float32, as the
+    serving engine's copy does (:func:`serve_params`), so no step copies
+    it.  The tied product is taken as ``(embed @ x^T)^T``: it reads the
+    (V, d) table where it lies and sums each logit in the order of the
+    reference's dot (``x @ embed^T`` on a transposed view sums in another
+    order on the CPU, a float32 ulp off on many of the logits)."""
+    x = L.rmsnorm(x, params["ln_final"], cfg.norm_eps).to(torch.float32)
+    if cfg.tie_embeddings:
+        logits = (params["embed"] @ x.T).T
+    else:
+        logits = x @ params["lm_head"]
     if cfg.final_softcap:
-        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+        # the compiled programs multiply by the cap's reciprocal (XLA
+        # rewrites the division by a constant), then take XLA's tanh
+        logits = cfg.final_softcap * ref.tanh(
+            logits * (1.0 / cfg.final_softcap))
     return logits
 
 
@@ -232,13 +283,15 @@ def prefill(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
     B, T = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(T, device=x.device)
+    h = None
     for spec, slot, at, pj in _layers(params, cfg):
-        q, k, v = _block_qkv(pj, x, positions, cfg)
+        q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
+                             cfg)
         cache["k"][slot][at][:, :, :T] = k
         cache["v"][slot][at][:, :, :T] = v
         o = ops.attention(q, k, v, causal=True, window=spec.window,
                           softcap=cfg.softcap)
-        x = _block_tail(pj, x, o, cfg)
+        x, h = _block_tail(pj, x, o, cfg)
     n = T if true_len is None else int(true_len)
     logits = _logits_head(params, x[:, n - 1], cfg)
     cache["len"] += n
@@ -261,9 +314,11 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     pos = cache["len"]
     positions = pos[:, None]
     aligned = cfg.parallel.aligned_decode
+    h = None
     for spec, slot, at, pj in _layers(params, cfg):
         kc, vc = cache["k"][slot][at], cache["v"][slot][at]
-        q, k, v = _block_qkv(pj, x, positions, cfg)
+        q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
+                             cfg)
         S = kc.shape[2]
         ring = bool(spec.window) and spec.window <= S
         idx = pos % S if ring else torch.clamp(pos, max=S - 1)
@@ -275,7 +330,7 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
         else:
             o = ops.decode_attention(q, kc, vc, pos + 1, window=spec.window,
                                      softcap=cfg.softcap)
-        x = _block_tail(pj, x, o, cfg)
+        x, h = _block_tail(pj, x, o, cfg)
     logits = _logits_head(params, x[:, 0], cfg)
     cache["len"] += 1 if write is None else write.to(torch.int32)
     return logits, cache
@@ -286,36 +341,49 @@ def paged_decode_step(params, cache, table: torch.Tensor,
                       write: Optional[torch.Tensor] = None, seq_axes=None):
     """One decode step straight through the page pool, updated IN PLACE.
 
-    cache: the paged slot cache, whose K/V leaves are pools
-    ``(n_groups, group_size // P, num_pages, page_size, Hkv, hd)``; table:
-    (B, P) int32 physical page ids; tokens (B,); write: (B,) bool, where a
-    False row appends to the scratch page and keeps its ``len``.  Each layer
-    appends its token to its page (one indexed write of B token rows) and
-    attends through the table with ``ops.paged_decode_attention`` -- the
-    paged kernel on the card.  ``seq_axes`` marks the leaves that page
-    (>= 0); a windowed ring slot (< 0) is gemma2's and not ported yet."""
+    cache: the paged slot cache.  A pattern slot whose ``seq_axes["k"]``
+    entry is >= 0 holds pool leaves ``(n_groups, group_size // P,
+    num_pages, page_size, Hkv, hd)``: each layer appends its token to its
+    page (one indexed write of B token rows) and attends through the table
+    with ``ops.paged_decode_attention`` -- the paged kernel on the card.  A
+    slot whose entry is < 0 is a windowed ring buffer that stays dense and
+    slot-private, ``(n_groups, group_size // P, n_slots, Hkv, S, hd)``:
+    the token goes to ``pos % S`` and attention is ``ops.decode_attention``
+    over the first ``min(pos + 1, S)`` entries, as in ``decode_step``
+    (gemma2's local layers).  ``seq_axes`` None pages every K/V leaf.
+    table: (B, P) int32 physical page ids; tokens (B,); write: (B,) bool,
+    where a False row appends to the scratch page, keeps its ring entries
+    and its ``len``, and gives logits to be ignored."""
     _check_block_path(cfg)
     B = tokens.shape[0]
     if write is None:
         write = torch.ones((B,), dtype=torch.bool, device=tokens.device)
-    if seq_axes is not None and min(seq_axes["k"]) < 0:
-        raise NotImplementedError(
-            "ring-buffer (windowed) slots in the paged decode step are not "
-            "ported yet")
+    paged = ([True] * len(cfg.layer_pattern) if seq_axes is None
+             else [ax >= 0 for ax in seq_axes["k"]])
     x = _embed_decode(params, tokens, cfg)
     pos = cache["len"]
     positions = pos[:, None]
-    page, off = L.page_offsets(table, pos, write, cache["k"][0].shape[3])
+    page, off = L.page_offsets(table, pos, write,
+                               cache["k"][paged.index(True)].shape[3])
     cache_len = (pos + 1).to(torch.int32)
+    h = None
     for spec, slot, at, pj in _layers(params, cfg):
         kc, vc = cache["k"][slot][at], cache["v"][slot][at]
-        q, k, v = _block_qkv(pj, x, positions, cfg)
-        kc[page, off] = k[:, :, 0, :].to(kc.dtype)
-        vc[page, off] = v[:, :, 0, :].to(vc.dtype)
-        o = ops.paged_decode_attention(q, kc, vc, table, cache_len,
-                                       window=spec.window,
-                                       softcap=cfg.softcap)
-        x = _block_tail(pj, x, o, cfg)
+        q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
+                             cfg)
+        if paged[slot]:
+            kc[page, off] = k[:, :, 0, :].to(kc.dtype)
+            vc[page, off] = v[:, :, 0, :].to(vc.dtype)
+            o = ops.paged_decode_attention(q, kc, vc, table, cache_len,
+                                           window=spec.window,
+                                           softcap=cfg.softcap)
+        else:
+            S = kc.shape[2]
+            L.cache_write(kc, k, pos % S, aligned=False, write=write)
+            L.cache_write(vc, v, pos % S, aligned=False, write=write)
+            o = ops.decode_attention(q, kc, vc, torch.clamp(pos + 1, max=S),
+                                     softcap=cfg.softcap)
+        x, h = _block_tail(pj, x, o, cfg)
     logits = _logits_head(params, x[:, 0], cfg)
     cache["len"] += write.to(torch.int32)
     return logits, cache

@@ -1,5 +1,6 @@
-"""Production serving engine for the dense lm and the rwkv families: float
-weights, batched prefill and greedy decode, in torch.
+"""Production serving engine for the dense lm family (gemma2's windowed
+layers and softcaps included) and the rwkv family: float weights, batched
+prefill and greedy decode, in torch.
 
 The JAX package's ``ServeEngine`` compiles each request into two programs
 (one bucketed block prefill, one scan-fused decode loop).  The port runs
@@ -24,7 +25,12 @@ the same math eagerly:
                 with the paged kernel (``paged_attn="inplace"``); without
                 it, and for rwkv, whose recurrent state has nothing that
                 grows with the sequence, a dense ``(max_slots, ...)`` cache
-                (the JAX package's dense fallback).
+                (the JAX package's dense fallback).  Which cache leaves
+                page is found by diffing two ``max_len`` builds: a windowed
+                layer's ring (gemma2's local layers, ``window < max_len``)
+                stays dense and slot-private beside the paged global
+                layers, and a prompt longer than the ring takes the
+                per-token prefill.
 
 Caches are updated IN PLACE where the JAX package returned new ones, and a
 prefill runs over the true prompt length: eager PyTorch compiles nothing
@@ -67,9 +73,6 @@ class ServeEngine(pages_mod.PagedEngineMixin):
             raise NotImplementedError(
                 f"{cfg.name}: MoE, cross-attention and frontend configs "
                 f"are not ported to the ServeEngine yet")
-        if any(s.window and s.window < max_len for s in cfg.layer_pattern):
-            raise NotImplementedError(
-                "windowed ring-buffer cache slots (gemma2) are not ported yet")
         if kv_dtype in ("int8", "fp8"):
             raise NotImplementedError(
                 f"kv_dtype={kv_dtype!r} pools are not ported to the engine "
@@ -94,16 +97,28 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         self.fused = fused
         self.meter = TrafficMeter()
         self._traffic = TrafficModel.for_config(cfg)
-        self._ba, self._sa = family.CACHE_AXES
+        self._ba = family.BATCH_AXES
+        self._sa = self._slot_seq_axes(page_size or 8)
         self.page_size = page_size
         self.num_pages = num_pages
         # a page pool only where some cache leaf grows with the sequence:
         # rwkv keeps the dense slot layout with page_size set, as the JAX
         # package's engine does
-        pages_any = any(ax >= 0 for ax in self._sa.values())
+        pages_any = any(ax >= 0 for e in self._sa.values()
+                        for ax in (e if isinstance(e, list) else [e]))
         self._pager = (pages_mod.HostPager(page_size, num_pages, max_len,
                                            device=self.device)
                        if page_size is not None and pages_any else None)
+
+    def _slot_seq_axes(self, delta: int):
+        """Per-leaf sequence axis (-1 = does not page), by diffing the
+        shapes of two cache builds ``delta`` apart in ``max_len``: every
+        K/V leaf of the lm family but a ring capped at its window (gemma2's
+        local layers), no rwkv leaf."""
+        meta = torch.device("meta")
+        a = api.init_cache(self.cfg, 2, self.max_len, device=meta)
+        b = api.init_cache(self.cfg, 2, self.max_len + delta, device=meta)
+        return pages_mod.seq_axes(a, b, delta)
 
     # ----------------------------------------------------- traffic accounting
     def meter_tokens(self, n: int) -> None:
@@ -308,7 +323,7 @@ class ServeEngine(pages_mod.PagedEngineMixin):
             cache = self.paged_pre_step(cache, act)
             logits, cache = api.paged_decode_step(
                 self.params, cache, self._pager.table(), tok_d,
-                self._ragged_cfg, write=act_d)
+                self._ragged_cfg, write=act_d, seq_axes=self._sa)
             self._pager.post_decode(act)
         else:
             self._meter_kv_read(act)

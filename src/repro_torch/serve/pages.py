@@ -47,6 +47,7 @@ __all__ = [
     "PagePool",
     "HostPager",
     "PagedEngineMixin",
+    "seq_axes",
     "page_axis",
     "pool_shape",
     "make_pool",
@@ -524,12 +525,38 @@ class HostPager:
 
 # ----------------------------------------------------------------------------
 # Pool layout (dicts of tensors, or of lists of tensors such as the lm
-# cache's per-pattern-slot K/V leaves; ``ba`` / ``sa`` name each entry's
-# batch and sequence axes, shared by every tensor of a list, -1 where the
-# entry does not page)
+# cache's per-pattern-slot K/V leaves).  ``ba`` names each entry's batch
+# axis, shared by every tensor of a list; ``sa`` each leaf's sequence axis,
+# -1 where the leaf does not page: an int for a tensor entry, a list of
+# ints for a list entry (an int there applies to every tensor of the list).
 # ----------------------------------------------------------------------------
 def _leaves(entry):
     return entry if isinstance(entry, list) else [entry]
+
+
+def _leaf_axes(ax, entry):
+    """The sequence axis of each tensor of ``entry``."""
+    return list(ax) if isinstance(ax, list) else [ax] * len(_leaves(entry))
+
+
+def seq_axes(cache_a: Dict[str, object], cache_b: Dict[str, object],
+             delta: int) -> Dict[str, object]:
+    """Per-leaf sequence axes, -1 where a leaf does not page, found by
+    diffing the same family cache built with two ``max_len`` values
+    ``delta`` apart (``meta`` tensors are fine): a leaf pages only if
+    exactly one axis grew, by exactly ``delta``.  A ring buffer capped at
+    its window, recurrent state and ``len`` stay dense (-1).  A list entry
+    gets a list."""
+    def axis(a, b):
+        diffs = [i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                 if x != y]
+        if len(diffs) == 1 and b.shape[diffs[0]] - a.shape[diffs[0]] == delta:
+            return diffs[0]
+        return -1
+
+    return {name: ([axis(a, b) for a, b in zip(ea, cache_b[name])]
+                   if isinstance(ea, list) else axis(ea, cache_b[name]))
+            for name, ea in cache_a.items()}
 
 
 def page_axis(b_ax: int, s_ax: int) -> int:
@@ -547,21 +574,24 @@ def pool_shape(shape: Sequence[int], b_ax: int, s_ax: int, num_pages: int,
 
 
 def make_pool(cache_like: Dict[str, object], ba: Dict[str, int],
-              sa: Dict[str, int], num_pages: int, page_size: int,
+              sa: Dict[str, object], num_pages: int, page_size: int,
               device) -> Dict[str, object]:
     """Allocate the paged slot cache: pool layout for paging leaves, dense
-    ``(max_slots, ...)`` zeros for the rest.  ``cache_like`` holds tensors
-    (``meta`` ones are fine), or lists of them, with the dense cache's
-    shapes and dtypes."""
-    def alloc(name, like):
+    ``(max_slots, ...)`` zeros for the rest (a ring slot's K/V stays
+    slot-private).  ``cache_like`` holds tensors (``meta`` ones are fine),
+    or lists of them, with the dense cache's shapes and dtypes."""
+    def alloc(like, b_ax, s_ax):
         shape = tuple(like.shape)
-        if sa[name] >= 0:
-            shape = pool_shape(shape, ba[name], sa[name], num_pages, page_size)
+        if s_ax >= 0:
+            shape = pool_shape(shape, b_ax, s_ax, num_pages, page_size)
         return torch.zeros(shape, dtype=like.dtype, device=device)
 
-    return {name: ([alloc(name, t) for t in like] if isinstance(like, list)
-                   else alloc(name, like))
-            for name, like in cache_like.items()}
+    out = {}
+    for name, like in cache_like.items():
+        leaves = [alloc(t, ba[name], s_ax) for t, s_ax in
+                  zip(_leaves(like), _leaf_axes(sa[name], like))]
+        out[name] = leaves if isinstance(like, list) else leaves[0]
+    return out
 
 
 def _pages_leading(pool: torch.Tensor, b_ax: int, s_ax: int) -> torch.Tensor:
@@ -572,17 +602,23 @@ def _pages_leading(pool: torch.Tensor, b_ax: int, s_ax: int) -> torch.Tensor:
 
 def insert_tree(pcache: Dict[str, object], single: Dict[str, object],
                 table_row: torch.Tensor, slot: int, ba: Dict[str, int],
-                sa: Dict[str, int]) -> None:
+                sa: Dict[str, object]) -> None:
     """Admit one prefilled B=1 dense cache IN PLACE: paged leaves scatter
     their page blocks to the slot's physical pages (the first entries of
     ``table_row``, as many as the B=1 cache holds pages; excess logical
-    pages land on scratch), dense leaves take the slot's row."""
+    pages land on scratch), dense leaves take the slot's row.  A B=1 ring
+    sized to a prompt shorter than the slot's ring fills the ring's first
+    positions; the rest is written by decode before anything reads it."""
     rows = table_row.to(torch.int64)
     for name, entry in pcache.items():
-        b_ax, s_ax = ba[name], sa[name]
-        for p, s in zip(_leaves(entry), _leaves(single[name])):
+        b_ax = ba[name]
+        for p, s, s_ax in zip(_leaves(entry), _leaves(single[name]),
+                              _leaf_axes(sa[name], entry)):
             if s_ax < 0:
-                p.narrow(b_ax, slot, 1).copy_(s.to(p.dtype))
+                dst = p.narrow(b_ax, slot, 1)
+                for ax, n in enumerate(s.shape):
+                    dst = dst.narrow(ax, 0, n)
+                dst.copy_(s.to(p.dtype))
                 continue
             pl = _pages_leading(p, b_ax, s_ax)             # (N, ps, *rest)
             ps = pl.shape[1]
@@ -592,16 +628,16 @@ def insert_tree(pcache: Dict[str, object], single: Dict[str, object],
 
 
 def kv_token_bytes(cache_like: Dict[str, object], ba: Dict[str, int],
-                   sa: Dict[str, int]) -> int:
+                   sa: Dict[str, object]) -> int:
     """Per-token-per-slot bytes of the sequence-scaling cache leaves, from
-    the DENSE cache shapes (paged or not: the same KV bytes per token)."""
+    the DENSE cache shapes (paged or not: the same KV bytes per token).  A
+    ring slot's K/V does not grow with the sequence and counts nothing."""
     total = 0
     for name, entry in cache_like.items():
-        if sa[name] < 0:
-            continue
-        for like in _leaves(entry):
-            n = like.numel() // (like.shape[ba[name]] * like.shape[sa[name]])
-            total += n * like.element_size()
+        for like, s_ax in zip(_leaves(entry), _leaf_axes(sa[name], entry)):
+            if s_ax >= 0:
+                n = like.numel() // (like.shape[ba[name]] * like.shape[s_ax])
+                total += n * like.element_size()
     return total
 
 

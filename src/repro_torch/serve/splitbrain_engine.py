@@ -18,10 +18,22 @@ IN PLACE where the JAX package returned new arrays (K/V append into
 so no step copies a cache.  With ``page_size`` set, the slot cache is a page
 pool behind a host-owned page table and decode attends through the table
 with the paged flash-decode op (``paged_attn="inplace"``).
+
+``generate()`` is the paper's own entry point: prompt forcing plus greedy
+decode through the same per-token step on a dense cache.  The JAX package
+runs it as one jitted ``lax.scan`` (``jit=True``) or as its eager
+reference loop (``jit=False``); the port compiles nothing, and ``fused``
+picks between the same two behaviours: one Python loop with a single host
+sync and the meter replayed per active token, or the stepwise loop that
+syncs every token and meters every executed step for the whole batch.
+The scheduler's steps (``prefill_slot``, ``decode_slots``) always follow
+the numerics of the reference's compiled programs, which the JAX package
+jits whatever ``jit`` says; ``decode_token`` is always the eager loop.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -96,7 +108,7 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
                  quantize: bool = True, page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  paged_attn: str = "inplace", prefix_cache: str = "off",
-                 kv_dtype: str = "bf16", device="cuda"):
+                 kv_dtype: str = "bf16", fused: bool = True, device="cuda"):
         if cfg.family != "lm" or len(cfg.layer_pattern) != 1:
             raise ValueError(
                 "split-brain engine covers the paper's LM configs")
@@ -110,6 +122,7 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         self.cfg = cfg
         self.meter = TrafficMeter()
         self.max_len = max_len
+        self.fused = fused
         self._hd = cfg.resolved_head_dim
         self._dtype = getattr(torch, cfg.dtype)
         self._n_layers = cfg.num_layers
@@ -168,12 +181,20 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
 
     # --------------------------------------------------------------- hot path
     def _layer_sweep(self, pos: torch.Tensor, token: torch.Tensor,
-                     kv_attend) -> torch.Tensor:
+                     kv_attend, compiled: bool = False) -> torch.Tensor:
         """The shared per-token body: embed, then per layer pre-norm ->
         DEVICE QKV -> rope -> ``kv_attend`` (cache append + attention, the
         ONLY point the dense and paged disciplines differ) -> DEVICE wo ->
         residual -> norm -> DEVICE FFN -> residual; final norm, DEVICE head.
-        Returns the logits (B, V)."""
+        Returns the logits (B, V).
+
+        ``compiled=True`` follows the JAX package's jitted programs (the
+        generate scan, the scheduler's prefill and decode steps) rather
+        than its eager loop: XLA's excess-precision rule keeps the
+        attention residual sum in float32 into the FFN's pre-norm (the
+        residual stream itself is rounded), as in the ServeEngine's
+        ``transformer._block_tail``, and the activation quantizer's scale
+        is ``amax`` times the reciprocal of 127."""
         cfg = self.cfg
         B = token.shape[0]
         hd = self._hd
@@ -183,21 +204,29 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         for i, p in enumerate(self._layers):
             xn = L.rmsnorm(x, p["ln_attn"], cfg.norm_eps)
             q, k, v = L.qkv_project(p["attn"], xn, cfg.num_heads,
-                                    cfg.num_kv_heads, hd)
+                                    cfg.num_kv_heads, hd, compiled)
             q = L.rope(q, positions, cfg.rope_theta)
             k = L.rope(k, positions, cfg.rope_theta)
             attn = kv_attend(i, q, k, v)
             attn = attn.transpose(1, 2).reshape(B, 1, cfg.num_heads * hd)
-            x = x + L.linear(attn, p["attn"]["wo"])
-            y = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
-            x = x + L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
+            o = L.linear(attn, p["attn"]["wo"], compiled)
+            if compiled:
+                s = x.to(torch.float32) + o.to(torch.float32)
+                x = s.to(x.dtype)
+                y = L.rmsnorm(s, p["ln_mlp"], cfg.norm_eps).to(x.dtype)
+            else:
+                x = x + o
+                y = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
+            x = x + L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"],
+                             compiled)
         x = L.rmsnorm(x, self._ln_final, cfg.norm_eps)
-        return L.linear(x, self._head)[:, 0]
+        return L.linear(x, self._head, compiled)[:, 0]
 
-    def _token_step(self, k_cache, v_cache, length, token) -> torch.Tensor:
+    def _token_step(self, k_cache, v_cache, length, token,
+                    compiled: bool = False) -> torch.Tensor:
         """One token against the dense cache (L, B, Hkv, S, hd), appended in
         place at ``length``.  Returns the logits; the caller advances
-        ``len``."""
+        ``len``.  ``compiled``: as in :meth:`_layer_sweep`."""
         pos = length
         cache_len = pos + 1
 
@@ -208,7 +237,7 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
             return ops.decode_attention(q, kc, vc, cache_len,
                                         softcap=self.cfg.softcap)
 
-        return self._layer_sweep(pos, token, kv_attend)
+        return self._layer_sweep(pos, token, kv_attend, compiled)
 
     def _paged_token_step(self, k_pool, v_pool, table, length, token,
                           write: torch.Tensor) -> torch.Tensor:
@@ -227,7 +256,7 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
             return ops.paged_decode_attention(q, kc, vc, table, cache_len,
                                               softcap=self.cfg.softcap)
 
-        return self._layer_sweep(pos, token, kv_attend)
+        return self._layer_sweep(pos, token, kv_attend, compiled=True)
 
     def _tokens(self, token) -> torch.Tensor:
         return torch.as_tensor(np.asarray(token, np.int32), device=self.device)
@@ -239,9 +268,10 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         return {k: torch.zeros(t.shape, dtype=t.dtype, device=self.device)
                 for k, t in like.items()}
 
-    def decode_token(self, cache: Dict[str, torch.Tensor], token):
+    def decode_token_eager(self, cache: Dict[str, torch.Tensor], token):
         """One token through the split-brain loop on the dense cache, which
-        is updated in place.  token: (B,).  Returns
+        is updated in place: the per-layer loop with the meter logging
+        every boundary crossing.  token: (B,).  Returns
         (next_tok, logits, cache)."""
         token = self._tokens(token)
         self._meter_token(token.shape[0])
@@ -249,6 +279,109 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         cache["len"] = cache["len"] + 1
         return next_tok, logits, cache
+
+    # ``decode_token_eager`` is the JAX package's name for this step;
+    # ``decode_token`` is the port's name for it since the first slice,
+    # which its callers and tests use.  The JAX package's ``decode_token``
+    # with ``jit=True`` is the same step compiled; the port compiles
+    # nothing, so both names hold the eager step.
+    decode_token = decode_token_eager
+
+    def generate(self, prompts, max_new: int = 16,
+                 eos_id: Optional[int] = None) -> Dict[str, Any]:
+        """Greedy-decode a batch. prompts: (B, T0) int32.
+
+        The prompt is teacher-forced through the per-token step (filling
+        the dense cache), then ``max_new`` tokens free-run, in one Python
+        loop with one host sync at its end, with the numerics of the JAX
+        package's jitted scan (``_layer_sweep(compiled=True)``);
+        ``fused=False`` runs :meth:`_generate_stepwise`, its eager loop.
+        ``eos_id`` enables per-request stop
+        tokens: rows pad with ``eos_id`` past each stop, ``gen_len``
+        reports exact generated lengths, and the meter replays boundary
+        bytes per ACTIVE token only (every prompt-forcing step for the
+        whole batch).  ``decode_s`` / ``tokens_per_s`` cover prompt and
+        decode, as in the JAX package."""
+        prompts = np.asarray(prompts, np.int32)
+        B, T0 = prompts.shape
+        if T0 - 1 + max_new > self.max_len:
+            raise ValueError(
+                f"request does not fit the cache: prompt_len={T0} + "
+                f"max_new={max_new} needs {T0 - 1 + max_new} positions but "
+                f"max_len={self.max_len}")
+        if not self.fused:
+            return self._generate_stepwise(prompts, max_new, eos_id)
+        cache = self.init_cache(B)
+        toks = self._tokens(prompts)
+        tok = toks[:, 0]
+        alive = torch.ones((B,), dtype=torch.bool, device=self.device)
+        n = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        out = []
+        t0 = time.perf_counter()
+        for t in range(T0 - 1 + max_new):
+            logits = self._token_step(cache["k"], cache["v"], cache["len"],
+                                      tok, compiled=True)
+            cache["len"] += 1
+            if t + 1 < T0:               # teacher-force the prompt
+                tok = toks[:, t + 1]
+                continue
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            n += alive.to(torch.int32)
+            if eos_id is None:
+                tok = nxt
+            else:
+                tok = torch.where(alive, nxt, torch.full_like(nxt, eos_id))
+                alive &= tok != eos_id
+            out.append(tok)
+        tokens = (torch.stack(out, dim=1).cpu().numpy() if out
+                  else np.zeros((B, 0), np.int32))
+        dt = time.perf_counter() - t0
+        gen_len = np.minimum(n.cpu().numpy(), max_new)
+        for _ in range(T0 - 1):
+            self._meter_token(B)
+        for t in range(max_new):
+            a = int((gen_len > t).sum())
+            if a:
+                self._meter_token(a)
+        return {"tokens": tokens, "gen_len": gen_len, "cache": cache,
+                "tokens_per_s": int(gen_len.sum()) / dt if dt else 0.0,
+                "decode_s": dt}
+
+    def _generate_stepwise(self, prompts: np.ndarray, max_new: int,
+                           eos_id: Optional[int] = None) -> Dict[str, Any]:
+        """Token-at-a-time reference generation: :meth:`decode_token_eager`
+        per token with a host sync per generated token.  Finished rows emit
+        and are fed ``eos_id``; the loop breaks once every row has stopped
+        and pads the rest.  The meter logs every executed step for the
+        whole batch, as the JAX package's eager loop does."""
+        B, T0 = prompts.shape
+        cache = self.init_cache(B)
+        tok = prompts[:, 0]
+        outs = []
+        alive = np.ones((B,), bool)
+        gen_len = np.zeros((B,), np.int32)
+        t0 = time.perf_counter()
+        for t in range(1, T0):
+            _, _, cache = self.decode_token_eager(cache, tok)
+            tok = prompts[:, t]
+        for _ in range(max_new):
+            nxt, _, cache = self.decode_token_eager(cache, tok)
+            emitted = nxt.cpu().numpy()
+            gen_len += alive
+            if eos_id is not None:
+                emitted = np.where(alive, emitted, eos_id).astype(np.int32)
+                alive &= emitted != eos_id
+            tok = emitted
+            outs.append(emitted)
+            if eos_id is not None and not alive.any():
+                break
+        dt = time.perf_counter() - t0
+        while len(outs) < max_new:
+            outs.append(np.full((B,), eos_id, np.int32))
+        tokens = np.stack(outs, 1) if outs else np.zeros((B, 0), np.int32)
+        return {"tokens": tokens, "cache": cache, "gen_len": gen_len,
+                "tokens_per_s": int(gen_len.sum()) / dt if dt else 0.0,
+                "decode_s": dt}
 
     def _cache_like(self, batch: int) -> Dict[str, torch.Tensor]:
         """Shapes and dtypes of the dense (L, B, Hkv, S, hd) cache, as meta
@@ -295,7 +428,7 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
             body = self._tokens(prompt[:-1])
             for t in range(T0 - 1):
                 self._token_step(cache["k"], cache["v"], cache["len"],
-                                 body[t:t + 1])
+                                 body[t:t + 1], compiled=True)
                 cache["len"] += 1
         return cache, int(prompt[-1])
 

@@ -34,13 +34,14 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import rwkv_scan as krw
 from repro_torch.kernels import w4a8_matmul as kw
-from repro_torch.models import api
+from repro_torch.models import api, rwkv6
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 from repro_torch.serve.splitbrain_engine import SplitBrainEngine
 from torch_cases import (assert_within_bf16_ulp, bf16_ulp_of, paged_case,
                          pick_report, run_paged, rwkv_case,
-                         teacher_forced_logits, w4a8_case)
+                         rwkv_decay_bits_report, teacher_forced_logits,
+                         w4a8_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -322,18 +323,25 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
         assert_within_bf16_ulp(out, plain.float().cpu().numpy(), atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "tinyllama-1.1b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "tinyllama-1.1b",
+                                  "gemma2-27b", "stablelm-1.6b",
+                                  "granite-8b", "minitron-8b"])
 def test_serve_engine_on_card_matches_cpu_and_counts_launches(cuda, arch):
     """Reduced ServeEngine on the card (flash prefill, paged decode) and on
     the CPU (plain versions) from the same weights: the same tokens under
     the scheduler and generate(), one flash launch per layer per prefill
-    and one paged launch per layer per decode step."""
+    and one paged launch per paging layer per decode step.  Reduced
+    gemma2's local layer keeps a 16-position ring (no paged launch): its
+    17-token prompt fills the ring before decode wraps it, and generate()
+    on 24-token prompts takes the per-token prefill (no flash launch)."""
     cfg = get_config(arch).reduced()
     params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     reqs = [Request(uid=i, prompt=(np.arange(1, 6 + 4 * i) * 7 % 256)
                     .astype(np.int32), max_new=6) for i in range(4)]
     prompts = np.stack([(np.arange(1, 10) * (3 + i)) % 256
                         for i in range(3)]).astype(np.int32)
+    long = np.stack([(np.arange(1, 25) * (5 + i)) % 256
+                     for i in range(2)]).astype(np.int32)
     runs = {}
     for dev in ("cpu", "cuda"):
         eng = ServeEngine(cfg, params, max_len=64, page_size=8, device=dev)
@@ -343,10 +351,13 @@ def test_serve_engine_on_card_matches_cpu_and_counts_launches(cuda, arch):
         gen = eng.generate(prompts, max_new=6)
         gen_counts = ops.launch_counts()
         runs[dev] = ([r.tokens.tolist() for r in out["results"]],
-                     gen["tokens"].tolist())
+                     gen["tokens"].tolist(),
+                     eng.generate(long, max_new=6)["tokens"].tolist())
     L = cfg.num_layers
+    paging = L // len(cfg.layer_pattern) * sum(ax >= 0 for ax in eng._sa["k"])
+    assert paging == (L // 2 if arch == "gemma2-27b" else L)
     assert counts == {"w4a8_matmul": 0, "flash_attention": L * len(reqs),
-                      "paged_decode_attention": L * out["steps"],
+                      "paged_decode_attention": paging * out["steps"],
                       "rwkv6_scan": 0}
     assert gen_counts["flash_attention"] == counts["flash_attention"] + L
     assert gen_counts["paged_decode_attention"] == counts[
@@ -427,3 +438,92 @@ def test_rwkv_engine_and_forward_on_card_match_cpu(cuda):
         rep = pick_report(fwd["cpu"], fwd["cuda"], fwd["cuda"].argmax(-1))
         tol = bf16_ulp_of(rep["max_abs_logit"])
         assert rep["max_abs_err"] <= tol and rep["shortfall"] <= 2 * tol, rep
+
+
+def test_rwkv_decay_path_ops_bit_identical_card_vs_cpu(cuda):
+    """Each op on the way to reduced rwkv6-7b's decay and gate, run on the
+    card and on the CPU from the same CPU inputs: the decay the model uses
+    (``rwkv6.decay``, float64 exps) has the CPU's bits in every layer,
+    where the float32 exps taken op by op differ in the last place on
+    many of the elements."""
+    cfg = get_config("rwkv6-7b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    sp = rwkv6.serve_params(params, cfg, "cpu")
+    x = torch.randn((4, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    for _, p in rwkv6._layers(sp):
+        rep = rwkv_decay_bits_report(p, x, cuda)
+        assert rep["decay"]["differ"] == 0, rep
+        assert rep["exp_inner"]["differ"] > 0, rep   # the op this repairs
+
+
+def test_xla_tanh_on_card_matches_cpu(cuda):
+    """``ref.tanh`` (the softcaps' tanh, XLA's rational form) gives the
+    CPU's bits on the card: the same clamp, fused multiply-adds and IEEE
+    division."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.cat([torch.randn(1 << 18, generator=g) * s
+                   for s in (1e-4, 0.01, 0.3, 1.0, 4.0, 20.0)])
+    assert torch.equal(ref.tanh(x.to(cuda)).cpu(), ref.tanh(x))
+
+
+@pytest.mark.parametrize("with_eos", [False, True], ids=["no_eos", "eos"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "stepwise"])
+@pytest.mark.parametrize("quantize", [True, False], ids=["w4a8", "float"])
+def test_splitbrain_generate_on_card_matches_cpu(cuda, quantize, fused,
+                                                 with_eos):
+    """Reduced tinyllama's split-brain generate() on the card and on the
+    CPU from the same weights: the same tokens, gen_len and meter; with
+    W4A8 weights every projection of every token step is a kernel launch
+    (7 per layer and the head) and attention is the dense plain op."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    prompts = np.stack([(np.arange(1, 7) * (5 + 2 * i) + i) % 256
+                        for i in range(3)]).astype(np.int32)
+    eos, runs = None, {}
+    for dev in ("cpu", "cuda"):
+        eng = SplitBrainEngine(cfg, params, max_len=16, quantize=quantize,
+                               fused=fused, device=dev)
+        if with_eos and eos is None:
+            eos = int(eng.generate(prompts, max_new=8)["tokens"][1, 2])
+            eng.meter.reset()
+        ops.reset_launch_counts()
+        out = eng.generate(prompts, max_new=8, eos_id=eos)
+        runs[dev] = (out["tokens"].tolist(), out["gen_len"].tolist(),
+                     eng.meter.measured_bytes(), ops.launch_counts())
+    assert runs["cuda"][:3] == runs["cpu"][:3]
+    steps = prompts.shape[1] - 1 + 8
+    if fused or not with_eos:
+        assert runs["cuda"][3] == {
+            "w4a8_matmul": (7 * cfg.num_layers + 1) * steps if quantize
+            else 0, "paged_decode_attention": 0, "flash_attention": 0,
+            "rwkv6_scan": 0}
+
+
+# gemma2-27b's attention at full width: 32 query heads over 16 KV heads of
+# 128, softcap 50, the local layers' 4096-token window; lengths that cross
+# the window
+@pytest.mark.parametrize("T", [4080, 4200])
+@pytest.mark.parametrize("window", [4096, None])
+def test_flash_kernel_at_gemma2_shape(cuda, T, window):
+    q, k, v = _flash_inputs(1, 32, 16, T, T, 128, torch.bfloat16, cuda,
+                            seed=T)
+    opts = dict(causal=True, window=window, softcap=50.0)
+    out = ops.attention(q, k, v, **opts)
+    plain = ref.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert_within_bf16_ulp(out, plain.float().cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 4096])
+def test_paged_kernel_at_gemma2_shape(cuda, window):
+    case = {k: v.to(cuda) for k, v in paged_case(
+        31, dtype=torch.bfloat16, B=4, Hq=32, Hkv=16, D=128, ps=16, P=264,
+        lens=(1, 1000, 4096, 4117)).items()}
+    opts = dict(window=window, softcap=50.0)
+    out = run_paged(case, ops.paged_decode_attention, **opts)
+    plain = run_paged(case, ref.paged_decode_attention, **opts)
+    torch.cuda.synchronize()
+    assert_within_bf16_ulp(out, plain.float().cpu().numpy(),
+                           atol=_order_bound(case, **opts))

@@ -255,3 +255,25 @@ def test_source_order_matches_jax_without_excess_precision(model, monkeypatch,
     dl, _ = api.decode_step(p, c, toks[:, 20], tcfg)
     np.testing.assert_array_equal(fl.numpy(), want["forward"])
     np.testing.assert_array_equal(dl.numpy(), want["decode"])
+
+
+def test_ulp_distance_and_the_decay_report_on_one_device():
+    """``torch_cases.ulp_distance`` counts units in the last place across
+    zero and in both dtypes, and the per-op decay report of a device
+    against itself finds no differing element (what the card test's
+    report measures is the device, not the harness)."""
+    from repro_torch.models import rwkv6
+    from torch_cases import rwkv_decay_bits_report, ulp_distance
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.tensor([1.0, -2.0, 0.0, 1e-3], dtype=dt)
+        b = torch.nextafter(a, torch.full_like(a, 10.0))
+        assert ulp_distance(a, b).tolist() == [1, 1, 1, 1]
+        assert ulp_distance(torch.tensor([-0.0], dtype=dt),
+                            torch.tensor([0.0], dtype=dt)).tolist() == [0]
+    cfg = t_get_config("rwkv6-7b").reduced()
+    params = rwkv6.serve_params(api.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"), cfg, "cpu")
+    x = torch.randn((2, 8, cfg.d_model)).to(torch.bfloat16)
+    rep = rwkv_decay_bits_report(next(rwkv6._layers(params))[1], x, "cpu")
+    assert {v["differ"] for v in rep.values()} == {0}
+    assert rep["decay"]["n"] == 2 * 8 * cfg.d_model

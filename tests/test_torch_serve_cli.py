@@ -16,7 +16,8 @@ def _report(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "tinyllama-1.1b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "tinyllama-1.1b",
+                                  "gemma2-27b", "granite-8b"])
 def test_continuous_paged_and_dense_reports(arch, capsys):
     out = serve.main(["--arch", arch, *SMOKE, "--continuous",
                       "--requests", "5", "--slots", "2", "--page-size", "8"])

@@ -138,3 +138,63 @@ def pick_report(cpu, dev, picks):
             "shortfall": (cpu.max(dim=1).values - chosen).max().item(),
             "argmax_agree": int((cpu.argmax(dim=1) == picks).sum()),
             "n": int(picks.numel())}
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-element distance in units in the last place between two float32
+    or bfloat16 tensors of one dtype (their bit patterns read as ordered
+    integers), int64 on the CPU."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+
+    def ordered(t):
+        i = t.detach().cpu().contiguous().view(bits).to(torch.int64)
+        top = 1 << (8 * t.element_size() - 1)
+        return torch.where(i < 0, -(i + top), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def rwkv_decay_path_ops(p, x):
+    """The element-wise and matmul ops of one rwkv6 time-mix on the way to
+    the decay and the gate, in ``models/rwkv6.py``'s order: a list of
+    ``(name, fn, input names)`` whose fns take and return tensors, starting
+    from the pre-normed input ``x`` (B, T, d)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.rwkv6 import _token_shift, decay
+    f32 = torch.float32
+    mix = p["mix"].to(x.dtype)
+    return [
+        ("lerp_w", lambda x: x + mix[4] * (_token_shift(x) - x), ["x"]),
+        ("lerp_g", lambda x: x + mix[3] * (_token_shift(x) - x), ["x"]),
+        ("linear_lora_a", lambda a: L.linear(a, p["w_lora_a"]), ["lerp_w"]),
+        ("tanh", torch.tanh, ["linear_lora_a"]),
+        ("linear_lora_b", lambda a: L.linear(a, p["w_lora_b"]), ["tanh"]),
+        ("w0_plus_dw", lambda a: p["w0"].to(f32) + a.to(f32),
+         ["linear_lora_b"]),
+        ("exp_inner", torch.exp, ["w0_plus_dw"]),
+        ("exp_outer", lambda a: torch.exp(-a), ["exp_inner"]),
+        ("decay_bf16", lambda a: a.to(x.dtype), ["exp_outer"]),
+        ("decay", lambda a: decay(p["w0"], a).to(x.dtype),
+         ["linear_lora_b"]),
+        ("linear_wg", lambda a: L.linear(a, p["wg"]), ["lerp_g"]),
+        ("silu", L.silu, ["linear_wg"]),
+    ]
+
+
+def rwkv_decay_bits_report(p, x, device):
+    """Each op of :func:`rwkv_decay_path_ops` run on the CPU and on
+    ``device`` from the same CPU inputs (the CPU's outputs of the ops before
+    it): ``{name: {"differ": elements whose bits differ, "n": elements,
+    "max_ulps": largest ulp distance}}``."""
+    vals = {"x": x.cpu()}
+    report = {}
+    for name, fn, ins in rwkv_decay_path_ops(
+            {k: v.cpu() for k, v in p.items()}, x.cpu()):
+        vals[name] = fn(*[vals[i] for i in ins])
+    for name, fn, ins in rwkv_decay_path_ops(
+            {k: v.to(device) for k, v in p.items()}, x.to(device)):
+        out = fn(*[vals[i].to(device) for i in ins])
+        d = ulp_distance(out, vals[name])
+        report[name] = {"differ": int((d > 0).sum()), "n": d.numel(),
+                        "max_ulps": int(d.max())}
+    return report
