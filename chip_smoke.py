@@ -55,12 +55,19 @@ fails before printing any result):
   reference  reduced tinyllama split-brain engine served on the card
              (kernels) and on the CPU (plain versions) from the same
              weights, and its generate() (fused and stepwise, with a stop
-             token): identical tokens
+             token): identical tokens; and the KV-cache features
+             (REFERENCE_FEATURES: an int8 prefix-shared pool with chunked
+             prefill, fp8 with the gather discipline, a dense slot cache)
+             on a shared-prefix traffic: identical tokens and cached tokens
   reference_serve  reduced llama2-7b, tinyllama, gemma2-27b, stablelm-1.6b,
              granite-8b and minitron-8b ServeEngine on the card and on the
              CPU, under the scheduler and generate() (gemma2's 16-token
              ring wrapped in decode, and prompts past it on the per-token
-             prefill): identical tokens
+             prefill): identical tokens; then REFERENCE_FEATURES on the
+             ServeEngine (llama2-7b: int8 / fp8 pools, prefix sharing,
+             chunked and block prefill, gather and in place, the dense slot
+             cache; gemma2-27b with an int8 pool): identical tokens and
+             cached tokens
   reference_rwkv  reduced rwkv6-7b on the card and on the CPU from the
              same weights, over four weight seeds: forward logits within one
              bf16 ulp of the largest; the tokens the card's ServeEngine chose
@@ -118,6 +125,31 @@ fails before printing any result):
              meter exact, a second run token-identical; generate() on 2 x
              2,048 tokens (46 flash launches); rates, the busy share and
              peak memory printed beside the card's name and power limit
+  features_path  full-width llama2-7b on the serve path's weights (built
+             once; ``with_paging`` gives each run its pool), pages of 16,
+             max_len 1024, 8 slots, prefill chunks of 64, 16 requests (12
+             share a 512-token prefix with tails of 16-128 tokens, 4 of
+             64-256 share nothing; 32 new each), the first submitted alone
+             and the rest once it decodes: runs (a) bf16 prefix off, (b)
+             bf16 prefix on, (c) int8 prefix on, (d) fp8 prefix on.  Every
+             request DONE; (a) and (b) token-identical; (b) at least 11
+             hits of 512 cached tokens and fewer pages stored than (a);
+             (c) and (d) hold exactly kv_token_bytes_quant bytes per pool
+             token position and (b)'s boundary bytes; 32 paged launches per
+             decode step in every run and no flash launch (chunks attend
+             through the plain chunk_attention, as in the reference); the
+             greedy flip rate of (c) and (d) against (b) as the JAX
+             package's serve_bench counts it; rates and peak memory
+  features_splitbrain  full-width tinyllama-1.1b split-brain on the main
+             path's LAQ weights with an int8 prefix-shared pool (pages of
+             16, chunks of 32) on the main path's traffic behind a shared
+             128-token prefix: 155 W4A8 launches per computed token step,
+             22 paged per decode step, meter exact; a short run on a dense
+             slot cache (4 of the main path's requests, 8 new tokens) gives
+             the tokens of a paged bf16 pool under the
+             gather discipline (the same dense token step on the gathered
+             view; in place, the paged kernel's sum order differs by an
+             ulp, and that run's agreement is reported)
   profile    torch.profiler over decode steps of each path: device time by
              kernel and the device's busy share; on main_path the device
              kernels per W4A8 call (must be 1)
@@ -134,7 +166,10 @@ fails before printing any result):
              23 launches), where the library call is flex_attention
              compiled with the softcap as its score_mod (held against the
              plain version on the record) and SDPA without the softcap is
-             timed beside it
+             timed beside it; and paged at llama2-7b's decode shape over
+             an int8 and an fp8 pool (bound: 1-byte codes plus the live
+             pages' scales; library: SDPA on the already dequantized
+             gathered view), with features_path's launches
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
@@ -164,12 +199,15 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import w4a8_matmul as kw
 from repro_torch.models import api
+from repro_torch.serve import pages
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import (
     ContinuousBatchingScheduler, Request)
 from repro_torch.serve.splitbrain_engine import (
     SplitBrainEngine, traffic_model_for)
-from torch_cases import (bf16_ulp_of, pick_report, rwkv_decay_bits_report,
+from torch_cases import (bf16_ulp_of, feature_prompts, pick_report,
+                         record_prefills, replay_prefills,
+                         rwkv_decay_bits_report, serve_staged,
                          teacher_forced_logits)
 
 SEED = 0
@@ -710,6 +748,7 @@ def phase_reference(dev):
     emit({"phase": "reference", "config": cfg.name, "requests": len(toks["cpu"]),
           "generate": {"batch": 3, "prompt_len": 6, "max_new": 8,
                        "loops": ["fused", "stepwise"], "eos": True},
+          "features": reference_features(dev, "splitbrain"),
           "tokens_identical_card_vs_cpu": True})
 
 
@@ -743,7 +782,89 @@ def phase_reference_serve(dev):
         rows.append({"config": cfg.name, "requests": len(toks["cpu"][0]),
                      "generate_rows": len(toks["cpu"][1]) + len(long)})
     emit({"phase": "reference_serve", "configs": rows,
+          "features": reference_features(dev, "serve"),
           "tokens_identical_card_vs_cpu": True})
+
+
+# the KV-cache feature combinations held card against CPU at reduced size:
+# (engine, arch, engine options, prefill chunk)
+REFERENCE_FEATURES = [
+    ("serve", "llama2-7b", dict(page_size=8, prefix_cache="on",
+                                kv_dtype="int8"), 8),
+    ("serve", "llama2-7b", dict(page_size=8, prefix_cache="on",
+                                kv_dtype="fp8", paged_attn="gather"), 8),
+    ("serve", "llama2-7b", dict(page_size=8, kv_dtype="fp8"), 8),
+    ("serve", "llama2-7b", dict(page_size=8, kv_dtype="fp8"), None),
+    ("serve", "llama2-7b", dict(page_size=8, kv_dtype="int8",
+                                paged_attn="gather"), None),
+    ("serve", "llama2-7b", dict(page_size=8, paged_attn="gather"), 8),
+    ("serve", "llama2-7b", dict(), 8),
+    ("serve", "gemma2-27b", dict(page_size=8, prefix_cache="on",
+                                 kv_dtype="int8"), 8),
+    ("splitbrain", "tinyllama-1.1b", dict(page_size=8, prefix_cache="on",
+                                          kv_dtype="int8"), 8),
+    ("splitbrain", "tinyllama-1.1b", dict(page_size=8, prefix_cache="on",
+                                          kv_dtype="fp8",
+                                          paged_attn="gather"), 8),
+    ("splitbrain", "tinyllama-1.1b", dict(), 8),
+]
+
+
+def reference_features(dev, engine):
+    """Each REFERENCE_FEATURES row of ``engine`` ("serve" or "splitbrain")
+    served from the same weights on the card and on the CPU with
+    ``torch_cases.feature_prompts`` (a shared two-page prefix: partial and
+    whole-body hits, one copy-on-write copy), the first request alone until
+    it decodes: identical tokens and cached tokens.
+
+    A ServeEngine row with block prefill and an int8 / fp8 pool prefills
+    through the flash kernel, which agrees with the plain version to one
+    bf16 ulp, not bit for bit; the pool's coarse grid can turn that ulp
+    into another code and a near-tie into another token.  There the CPU
+    decodes from the card's prefilled request caches (``replay_prefills``)
+    and must give the card's tokens, and whether its own prefill gives them
+    too is reported.  Returns the rows."""
+    rows = []
+    for kind, arch, kw, chunk in REFERENCE_FEATURES:
+        if kind != engine:
+            continue
+        cfg = get_config(arch).reduced()
+        params = api.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 "cpu")
+        flash_quant = (kind == "serve" and chunk is None
+                       and kw.get("kv_dtype", "bf16") != "bf16")
+        got, kept = {}, None
+        for d in ((dev, "cpu", "cpu_own_prefill") if flash_quant
+                  else ("cpu", dev)):
+            eng = (ServeEngine(cfg, params, max_len=64,
+                               device="cpu" if d == "cpu_own_prefill" else d,
+                               **kw)
+                   if kind == "serve" else
+                   SplitBrainEngine(cfg, params, max_len=64, device=d, **kw))
+            if flash_quant and d == dev:
+                kept = record_prefills(eng)
+            elif flash_quant and d == "cpu":
+                replay_prefills(eng, kept)
+            reqs = [Request(uid=i, prompt=p, max_new=6)
+                    for i, p in enumerate(feature_prompts(cfg.vocab_size))]
+            res = serve_staged([ContinuousBatchingScheduler(
+                eng, max_slots=2, prefill_chunk=chunk)], [reqs])[0]
+            check(all(r.state == "DONE" for r in res),
+                  f"reduced {arch} {kw}: a request did not finish")
+            got[str(d)] = ([r.tokens.tolist() for r in res],
+                           [r.cached_tokens for r in res])
+        check(got[str(dev)] == got["cpu"],
+              f"reduced {arch} {kind} {kw} chunk {chunk}: card {got[str(dev)]}"
+              f" != CPU {got['cpu']}")
+        row = {"config": cfg.name, "engine": kind, **kw,
+               "prefill_chunk": chunk, "cached_tokens": got["cpu"][1]}
+        if flash_quant:
+            own = got["cpu_own_prefill"][0]
+            row["cpu_decodes_card_prefill"] = True
+            row["requests_identical_with_cpu_prefill"] = sum(
+                a == b for a, b in zip(own, got[str(dev)][0]))
+        rows.append(row)
+    return rows
 
 
 RWKV_SEEDS = (0, 1, 2, 3)   # weight seeds of reduced rwkv6-7b, card vs CPU
@@ -830,37 +951,43 @@ def main_requests(vocab, n=16, max_new=32):
 
 class PhaseClock:
     """Host seconds spent in the engine's decode steps and admissions
-    (prefill + insert; the insert's length read waits for the prefill)."""
+    (prefill, prefill chunks, the prefix seed and the insert; the insert's
+    length read waits for the prefill), and the count of decode steps.
+    ``detach()`` gives the engine its own methods back."""
+
+    ADMIT = ("prefill_slot", "insert_slot", "prefill_chunk_slot",
+             "seed_request_cache")
 
     def __init__(self, eng):
         self.decode_s = self.admit_s = 0.0
+        self.decode_calls = 0
         self.eng = eng
-        self._decode, self._prefill, self._insert = (
-            eng.decode_slots, eng.prefill_slot, eng.insert_slot)
-        eng.decode_slots = self.decode_slots
-        eng.prefill_slot = self.prefill_slot
-        eng.insert_slot = self.insert_slot
+        for name in ("decode_slots",) + self.ADMIT:
+            setattr(eng, name, self._timed(getattr(eng, name),
+                                           name == "decode_slots"))
 
-    def decode_slots(self, *a, **k):
-        t0 = time.perf_counter()
-        out = self._decode(*a, **k)
-        self.decode_s += time.perf_counter() - t0
-        return out
-
-    def prefill_slot(self, *a, **k):
-        t0 = time.perf_counter()
-        out = self._prefill(*a, **k)
-        self.admit_s += time.perf_counter() - t0
-        return out
-
-    def insert_slot(self, *a, **k):
-        t0 = time.perf_counter()
-        out = self._insert(*a, **k)
-        self.admit_s += time.perf_counter() - t0
-        return out
+    def _timed(self, fn, decode):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            dt = time.perf_counter() - t0
+            if decode:
+                self.decode_s += dt
+                self.decode_calls += 1
+            else:
+                self.admit_s += dt
+            return out
+        return call
 
     def reset(self):
         self.decode_s = self.admit_s = 0.0
+        self.decode_calls = 0
+
+    @classmethod
+    def detach(cls, eng):
+        """Give ``eng`` its own methods back (any clock's)."""
+        for name in ("decode_slots",) + cls.ADMIT:
+            eng.__dict__.pop(name, None)
 
 
 def phase_main_path(dev, smi_line):
@@ -1053,6 +1180,239 @@ def phase_serve_path(dev, smi_line):
             "card": smi_line}
     emit(info)
     return eng, info
+
+
+FEATURE_PAGE, FEATURE_LEN, FEATURE_CHUNK, FEATURE_SLOTS = 16, 1024, 64, 8
+FLIP_GATE = 0.05        # the JAX package's serve_bench gate on int8 / fp8
+
+
+def features_requests(vocab, max_new=32):
+    """16 requests: 12 share a 512-token prefix (32 pages) and add their own
+    tail of 16-128 tokens, 4 share nothing (64-256 tokens), interleaved;
+    uid 0 is a shared-prefix request."""
+    rng = np.random.default_rng(SEED + 20)
+    prefix = rng.integers(1, vocab, 512).astype(np.int32)
+    shared = [np.concatenate([prefix, rng.integers(
+        1, vocab, int(rng.integers(16, 129))).astype(np.int32)])
+        for _ in range(12)]
+    other = [rng.integers(1, vocab, int(rng.integers(64, 257))).astype(
+        np.int32) for _ in range(4)]
+    prompts = (shared[:2] + other[:1] + shared[2:4] + other[1:2]
+               + shared[4:6] + other[2:3] + shared[6:8] + other[3:]
+               + shared[8:])
+    return [Request(uid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+
+
+def flip_rate(base, other):
+    """Greedy-token divergence of ``other`` from ``base`` (results sorted by
+    uid), as the JAX package's serve_bench counts it: first-flip events per
+    aligned token compared up to and including each request's first
+    mismatch (the per-step probability of a flipped argmax), and the share
+    of all aligned tokens that differ."""
+    total = diverged = flips = compared = 0
+    for a, b in zip(base, other):
+        n = min(len(a.tokens), len(b.tokens))
+        total += max(len(a.tokens), len(b.tokens))
+        neq = np.asarray(a.tokens[:n]) != np.asarray(b.tokens[:n])
+        diverged += int(neq.sum()) + max(len(a.tokens), len(b.tokens)) - n
+        flips += int(neq.any())
+        compared += (int(np.argmax(neq)) + 1) if neq.any() else n
+    return flips / max(compared, 1), diverged / max(total, 1)
+
+
+def serve_features(eng, reqs, chunk, slots, name, warm=True):
+    """Serve ``reqs`` on ``eng`` with chunked prefill, the first request
+    alone until it decodes (its prefix pages are published first), the rest
+    then through the scheduler's submit/step lifecycle; a warm-up run
+    first (``warm``), the launch counts set to 0 just before and read just
+    after.  Returns (results, info)."""
+    sched = ContinuousBatchingScheduler(eng, max_slots=slots,
+                                        prefill_chunk=chunk)
+    clock = PhaseClock(eng)
+    if warm:
+        sched.warmup(prompt_len=64, max_new=4)
+    clock.reset()
+    eng.meter.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve_staged([sched], [reqs], max_iters=20000)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(res) == len(reqs) and all(r.state == "DONE" for r in res),
+          f"{name}: not every request DONE: {[r.state for r in res]}")
+    check(all(r.gen_len == q.max_new for q, r in zip(reqs, res)),
+          f"{name}: a request stopped short")
+    check(all(0 <= t < eng.cfg.vocab_size for r in res for t in r.tokens),
+          f"{name}: token out of range")
+    steps = clock.decode_calls
+    cached = [r.cached_tokens for r in res]
+    prefill = sum(len(q.prompt) - 1 for q in reqs) - sum(cached)
+    decoded = sum(r.gen_len for r in res)
+    stats = eng.cache_stats(sched.cache)
+    info = {"run": name, "decode_steps": steps, "prefill_tokens": prefill,
+            "decoded_tokens": decoded, "cached_tokens": cached,
+            "launches": counts, "wall_s": wall, "decode_s": clock.decode_s,
+            "admit_s": clock.admit_s,
+            "decode_steps_per_s": steps / clock.decode_s,
+            "decode_tokens_per_s": decoded / clock.decode_s,
+            "prefill_tokens_per_s": prefill / clock.admit_s,
+            "tokens_per_s_wall": decoded / wall,
+            "peak_memory_bytes": peak,
+            "meter_bytes": eng.meter.measured_bytes()["total"],
+            "host_channels": {ch: eng.meter.host_channel_bytes(ch) for ch in
+                              ("kv_cache_read", "prefix_prefill_saved",
+                               "page_cow_copy")},
+            "cache": stats}
+    PhaseClock.detach(eng)
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, info
+
+
+def phase_features_path(serve_eng, dev, smi_line):
+    """Full-width llama2-7b on the serve path's weights (built once) with
+    the KV-cache features: pages of 16, max_len 1024, 8 slots, prefill
+    chunks of 64, on features_requests (12 of 16 requests share a 512-token
+    prefix).  Runs: (a) bf16 pool, prefix off; (b) bf16, prefix on;
+    (c) int8, prefix on; (d) fp8, prefix on."""
+    t_path = time.perf_counter()
+    cfg = serve_eng.cfg
+    PhaseClock.detach(serve_eng)                # the serve path's clock
+    reqs = features_requests(cfg.vocab_size)
+    L = cfg.num_layers
+    runs, results, engines = {}, {}, {}
+    for name, opts in (("a_bf16_prefix_off", dict(prefix_cache="off")),
+                       ("b_bf16_prefix_on", dict(prefix_cache="on")),
+                       ("c_int8_prefix_on", dict(prefix_cache="on",
+                                                 kv_dtype="int8")),
+                       ("d_fp8_prefix_on", dict(prefix_cache="on",
+                                                kv_dtype="fp8"))):
+        eng = serve_eng.with_paging(page_size=FEATURE_PAGE, **opts)
+        check(eng.params is serve_eng.params, "the weights were copied")
+        res, info = serve_features(eng, reqs, FEATURE_CHUNK, FEATURE_SLOTS,
+                                   name)
+        want = {"w4a8_matmul": 0, "flash_attention": 0, "rwkv6_scan": 0,
+                "paged_decode_attention": L * info["decode_steps"]}
+        check(info["launches"] == want,
+              f"{name}: launch counts {info['launches']} != {want}")
+        runs[name], results[name] = info, res
+        engines[name] = eng
+    a, b = results["a_bf16_prefix_off"], results["b_bf16_prefix_on"]
+    ra, rb = runs["a_bf16_prefix_off"], runs["b_bf16_prefix_on"]
+    check([r.tokens.tolist() for r in a] == [r.tokens.tolist() for r in b],
+          "prefix on and off gave other tokens")
+    hits = sum(c >= 512 for c in rb["cached_tokens"])
+    check(hits >= 11, f"only {hits} prefix hits of 512 or more tokens")
+    check(rb["cache"]["pages_allocated"] < ra["cache"]["pages_allocated"],
+          f"prefix on stored {rb['cache']['pages_allocated']} pages, off "
+          f"{ra['cache']['pages_allocated']}")
+    check(sum(ra["cached_tokens"]) == 0, "prefix off reused a prefix")
+    quant = {}
+    for name, kv in (("c_int8_prefix_on", "int8"), ("d_fp8_prefix_on", "fp8")):
+        rq, st = runs[name], runs[name]["cache"]
+        per_tok = pages.kv_token_bytes_quant(
+            api.init_cache(cfg, 2, FEATURE_LEN, device=torch.device("meta")),
+            serve_eng._ba, serve_eng._sa, FEATURE_PAGE, kv)
+        tokens = st["num_pages"] * st["page_size"]
+        check(st["kv_dtype"] == kv and st["kv_token_bytes_stored"] == per_tok
+              and st["pool_bytes"] == tokens * per_tok,
+              f"{name}: pool bytes {st['pool_bytes']} over {tokens} token "
+              f"positions != kv_token_bytes_quant {per_tok}")
+        check(rq["meter_bytes"] == rb["meter_bytes"],
+              f"{name}: boundary bytes {rq['meter_bytes']} != bf16's "
+              f"{rb['meter_bytes']}")
+        check(rq["cached_tokens"] == rb["cached_tokens"],
+              f"{name}: other prefix hits than bf16's")
+        fr, div = flip_rate(b, results[name])
+        quant[kv] = {"token_flip_rate": fr, "token_divergence_frac": div,
+                     "within_reference_gate": fr <= FLIP_GATE,
+                     "resident_tokens_per_pool_byte": tokens / st[
+                         "pool_bytes"],
+                     "kv_token_bytes_quant": per_tok,
+                     "bf16_kv_token_bytes": rb["cache"][
+                         "kv_token_bytes_stored"]}
+    info = {"phase": "features_path", "config": cfg.name, "layers": L,
+            "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                              cfg.num_kv_heads],
+            "max_slots": FEATURE_SLOTS, "page_size": FEATURE_PAGE,
+            "max_len": FEATURE_LEN, "prefill_chunk": FEATURE_CHUNK,
+            "requests": len(reqs), "prompt_lens": [len(r.prompt)
+                                                    for r in reqs],
+            "all_done": True, "prefix_on_off_identical": True,
+            "prefix_hits_512": hits, "runs": runs, "quantized": quant,
+            "flash_launches_in_chunked_prefill": 0,
+            "path_s": time.perf_counter() - t_path, "card": smi_line}
+    emit(info)
+    return engines["c_int8_prefix_on"], info
+
+
+def phase_features_splitbrain(main_eng, dev, smi_line):
+    """Full-width tinyllama-1.1b split-brain (LAQ W4A8, the main path's
+    weights) with an int8 prefix-shared pool, pages of 16, 8 slots and
+    prefill chunks of 32, on the main path's traffic behind a shared
+    128-token prefix: 155 W4A8 launches per token step and 22 paged launches
+    per decode step; then a short run on a dense slot cache and one on a
+    paged bf16 pool: the same tokens."""
+    t_path = time.perf_counter()
+    cfg = main_eng.cfg
+    PhaseClock.detach(main_eng)                 # the main path's clock
+    rng = np.random.default_rng(SEED + 21)
+    prefix = rng.integers(1, cfg.vocab_size, 128).astype(np.int32)
+    reqs = [Request(uid=r.uid, prompt=np.concatenate([prefix, r.prompt]),
+                    max_new=r.max_new)
+            for r in main_requests(cfg.vocab_size)]
+    eng = main_eng.with_paging(page_size=16, prefix_cache="on",
+                               kv_dtype="int8")
+    res, info = serve_features(eng, reqs, 32, 8, "splitbrain_int8_prefix_on")
+    L = cfg.num_layers
+    steps = info["decode_steps"]
+    want = {"w4a8_matmul": (7 * L + 1) * (info["prefill_tokens"] + steps),
+            "paged_decode_attention": L * steps, "flash_attention": 0,
+            "rwkv6_scan": 0}
+    check(info["launches"] == want,
+          f"split-brain features: launch counts {info['launches']} != {want}")
+    check(sum(c >= 128 for c in info["cached_tokens"]) >= 15,
+          f"split-brain prefix hits {info['cached_tokens']}")
+    tokens = info["prefill_tokens"] + info["decoded_tokens"]
+    check(info["meter_bytes"] == traffic_model_for(cfg).bytes_per_token()
+          * tokens, "split-brain features: meter not eq. 7-10 exact")
+    # the dense slot cache against the paged pool, both bf16: the gather
+    # discipline runs the dense token step on the pool's gathered view, so
+    # their tokens are identical; in place, the paged kernel sums in
+    # another order than the plain dense attention (one bf16 ulp), so its
+    # agreement at full width's near-ties is reported, not required
+    short = [Request(uid=r.uid, prompt=r.prompt, max_new=8)
+             for r in main_requests(cfg.vocab_size)[:4]]
+    toks = {}
+    for name, kw in (("dense", dict()),
+                     ("paged_gather", dict(page_size=16,
+                                           paged_attn="gather")),
+                     ("paged_inplace", dict(page_size=16))):
+        res2, _ = serve_features(main_eng.with_paging(**kw), short, 32, 4,
+                                 "splitbrain_" + name, warm=False)
+        toks[name] = [r.tokens.tolist() for r in res2]
+    check(toks["dense"] == toks["paged_gather"],
+          "the dense slot cache gave other tokens than the paged pool")
+    info.update({"phase": "features_splitbrain", "config": cfg.name,
+                 "layers": L, "page_size": 16, "max_len": main_eng.max_len,
+                 "prefill_chunk": 32, "kv_dtype": "int8",
+                 "w4a8_per_token_step": info["launches"]["w4a8_matmul"]
+                 / (info["prefill_tokens"] + steps),
+                 "paged_per_decode_step":
+                     info["launches"]["paged_decode_attention"] / steps,
+                 "dense_equals_paged_gather": True,
+                 "dense_vs_paged_inplace_identical_requests": sum(
+                     a == b for a, b in zip(toks["dense"],
+                                            toks["paged_inplace"])),
+                 "path_s": time.perf_counter() - t_path, "card": smi_line})
+    emit(info)
+    return info
 
 
 def rwkv_requests(vocab, n=8, max_new=32):
@@ -1551,16 +1911,18 @@ def phase_times(eng, dev, counts):
 
 
 def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name,
-                     **opts):
+                     kv=None, **opts):
     """One decode step's L paged launches (one per layer's pool slice) at
-    slots of the given lengths, with the kernel's ``opts`` (softcap):
-    kernel (graph replay), eager and plain times, the bound, and SDPA on an
-    already-gathered dense view as the library call.  SDPA takes no
-    softcap: with one, the library call is flex_attention on that view and
-    SDPA's time stays beside it as ``sdpa_without_softcap_ms``."""
+    slots of the given lengths, with the kernel's ``opts`` (softcap) over a
+    bf16 pool, or an int8 / fp8 one (``kv``) with its per-(page, KV head)
+    scales: kernel (graph replay), eager and plain times, the bound, and
+    SDPA on an already-gathered (and, for a quantized pool, already
+    dequantized) dense view as the library call.  SDPA takes no softcap:
+    with one, the library call is flex_attention on that view and SDPA's
+    time stays beside it as ``sdpa_without_softcap_ms``."""
     ps, B = 16, len(lens)
     cases = [paged_inputs(gen, dev, qdtype=torch.bfloat16, B=B, Hq=Hq,
-                          Hkv=Hkv, D=D, ps=ps, P=P, lens=lens)
+                          Hkv=Hkv, D=D, ps=ps, P=P, lens=lens, kv=kv)
              for _ in range(L)]
 
     def paged_step(fn):
@@ -1580,16 +1942,25 @@ def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name,
     eager_ms = cuda_time_ms(paged_step(ops.paged_decode_attention), iters=10)
     p_ms = graph_time_ms(paged_step(ref.paged_decode_attention), iters=5)
     toks = sum(lens)
-    # bytes the function must move: the live tokens' K and V, q in, out,
-    # the table and the lengths; operations: q.k and p.v in f32
-    nbytes = L * (2 * toks * Hkv * D * 2 + 2 * B * Hq * D * 2 + B * P * 4
-                  + B * 4)
+    # bytes the function must move: the live tokens' K and V (1-byte codes
+    # plus both scale arrays' entries of the live pages for a quantized
+    # pool), q in, out, the table and the lengths; operations: q.k and p.v
+    # in f32
+    live_pages = sum(-(-n // ps) for n in lens)
+    kv_bytes = (2 * toks * Hkv * D * 2 if kv is None
+                else 2 * toks * Hkv * D + 2 * live_pages * Hkv * 4)
+    nbytes = L * (kv_bytes + 2 * B * Hq * D * 2 + B * P * 4 + B * 4)
     flops = L * 2 * 2 * toks * Hq * D
     dense = []
     for c in cases:
         S = P * ps
-        kd = c["k"][c["table"].long()].reshape(B, S, Hkv, D).transpose(1, 2)
-        vd = c["v"][c["table"].long()].reshape(B, S, Hkv, D).transpose(1, 2)
+        pid = c["table"].long()
+        kd, vd = (ref._fetch_pages(c[x], pid) for x in ("k", "v"))
+        if kv is not None:
+            kd = kd * c["k_scale"][pid][:, :, None, :, None]
+            vd = vd * c["v_scale"][pid][:, :, None, :, None]
+        kd = kd.to(torch.bfloat16).reshape(B, S, Hkv, D).transpose(1, 2)
+        vd = vd.to(torch.bfloat16).reshape(B, S, Hkv, D).transpose(1, 2)
         mask = (torch.arange(S, device=dev)[None, :] < c["lens"][:, None])
         dense.append((c["q"], kd.contiguous(), vd.contiguous(),
                       mask[:, None, None, :]))
@@ -1620,6 +1991,35 @@ def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name,
             detail, name)
         out["sdpa_without_softcap_ms"] = sdpa_ms
     return out
+
+
+def phase_times_kv(dev, serve_info, feat_info):
+    """The paged kernel at llama2-7b's decode shape over an int8 pool and an
+    fp8 pool (32 launches, 8 slots at the serve path's lengths 16 tokens
+    into their decode), as features_path's quantized runs call it."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    detail, rows = [], {}
+    lens = [n - 1 + 16 for n in serve_info["prompt_lens"][:8]]
+    for kv, run in (("int8", "c_int8_prefix_on"), ("fp8", "d_fp8_prefix_on")):
+        t = paged_step_times(gen, dev, 32, 32, 32, 128, FEATURE_LEN // 16,
+                             lens, detail, f"paged_llama2_{kv}_library",
+                             kv=kv)
+        t["unit"] = (f"one decode step of llama2-7b over an {kv} pool: 32 "
+                     f"launches, 8 slots, 32/32 heads, D 128, lengths "
+                     f"{lens}, per-(page, KV head) f32 scales, CUDA-graph "
+                     "replay")
+        t["launches_per_run"] = feat_info["runs"][run]["launches"][
+            "paged_decode_attention"]
+        t["bound_note"] = ("1-byte codes of the live tokens plus the live "
+                           "pages' k and v scales")
+        t["library_note"] = ("scaled_dot_product_attention on the already "
+                             "gathered and dequantized bf16 view (gather "
+                             "and dequantization excluded)")
+        rows[kv] = t
+    emit({"phase": "times", "path": "features_path",
+          "paged_llama2_int8": rows["int8"], "paged_llama2_fp8": rows["fp8"],
+          "detail": detail})
+    return rows
 
 
 def flash_bound(launches, causal=True, windows=None):
@@ -1844,6 +2244,7 @@ def main() -> int:
     eng, main_info = phase_main_path(dev, smi)
     phase_profile(eng, dev, "main_path")
     kernels = phase_times(eng, dev, main_info["launches"])
+    split_info = phase_features_splitbrain(eng, dev, smi)
     del eng                          # release tinyllama before llama2-7b
     gc.collect()
     torch.cuda.empty_cache()
@@ -1851,6 +2252,10 @@ def main() -> int:
     phase_profile(eng, dev, "serve_path")
     flash, paged_llama2 = phase_times_serve(dev, serve_info)
     kernels.append(flash)
+    feng, feat_info = phase_features_path(eng, dev, smi)
+    feat_prof = phase_profile(feng, dev, "features_path int8 pool")
+    del feng
+    paged_kv = phase_times_kv(dev, serve_info, feat_info)
     del eng                          # release llama2-7b before rwkv6-7b
     gc.collect()
     torch.cuda.empty_cache()
@@ -1873,15 +2278,31 @@ def main() -> int:
             "setup_peak_memory_bytes", "peak_memory_bytes")},
         "device_busy_share": prof["device_busy_share"],
         "card": smi})
+    emit({"features_path_summary": {
+        run: {key: info[key] for key in (
+            "decode_steps_per_s", "decode_tokens_per_s",
+            "prefill_tokens_per_s", "tokens_per_s_wall",
+            "peak_memory_bytes")}
+        for run, info in feat_info["runs"].items()},
+        "quantized": feat_info["quantized"],
+        "int8_pool_profile": {key: feat_prof[key] for key in (
+            "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+            "host_ops_per_step")},
+        "card": smi})
     for k in kernels:
         k["max_abs_err"] = errs[k["name"]]
         k["launches_by_path"] = {
             "main_path": main_info["launches"][k["name"]],
             "serve_path": serve_info["launches"][k["name"]],
             "rwkv_path": rwkv_info["launches"][k["name"]],
-            "gemma2_path": gemma2_info["launches"][k["name"]]}
+            "gemma2_path": gemma2_info["launches"][k["name"]],
+            "features_path": sum(r["launches"][k["name"]]
+                                 for r in feat_info["runs"].values()),
+            "features_splitbrain": split_info["launches"][k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
+    kernels[1]["llama2_decode_int8"] = paged_kv["int8"]
+    kernels[1]["llama2_decode_fp8"] = paged_kv["fp8"]
     kernels[1]["gemma2_decode"] = paged_g
     kernels[2]["gemma2_prefill"] = flash_g
     emit({"kernels": kernels})

@@ -27,6 +27,7 @@ from repro_torch.kernels.w4a8_matmul import pack_codes
 
 __all__ = [
     "QuantizedLinear",
+    "QuantizedLeaf",
     "KV_DTYPES",
     "KV_QMAX",
     "quantize_weights",
@@ -77,6 +78,48 @@ class QuantizedLinear:
 # KV-cache page quantization formats (paged pools); fp8 is e4m3.
 KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 KV_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+class QuantizedLeaf:
+    """A quantized page-pool cache leaf: int8 / fp8-e4m3 codes plus
+    per-page, per-KV-head float32 scales beside the page table.
+
+    ``codes`` has the pool leaf's layout ``(*lead, num_pages, page_size,
+    *tail)``; ``scales`` drops the ``page_size`` axis and the trailing
+    head_dim axis, one scale per (leading dims x) page x KV head.
+    ``kv_dtype`` names the code format ("int8" / "fp8"), ``out_dtype`` the
+    dense dtype a dequantized view is produced in.  Indexing takes the same
+    leading index of codes and scales, so a per-layer slice of a stacked
+    pool is again a ``QuantizedLeaf`` (the operand pair of the paged
+    kernel)."""
+
+    def __init__(self, codes: torch.Tensor, scales: torch.Tensor,
+                 kv_dtype: str = "int8", out_dtype=torch.bfloat16):
+        self.codes = codes
+        self.scales = scales
+        self.kv_dtype = kv_dtype
+        self.out_dtype = out_dtype
+
+    def __getitem__(self, idx) -> "QuantizedLeaf":
+        return QuantizedLeaf(self.codes[idx], self.scales[idx],
+                             self.kv_dtype, self.out_dtype)
+
+    def to(self, device) -> "QuantizedLeaf":
+        return QuantizedLeaf(self.codes.to(device), self.scales.to(device),
+                             self.kv_dtype, self.out_dtype)
+
+    @property
+    def shape(self):
+        return self.codes.shape
+
+    @property
+    def nbytes(self) -> int:
+        return (self.codes.numel() * self.codes.element_size()
+                + self.scales.numel() * self.scales.element_size())
+
+    def __repr__(self):
+        return (f"QuantizedLeaf({self.kv_dtype}, codes={tuple(self.codes.shape)}"
+                f", scales={tuple(self.scales.shape)})")
 
 
 def quantize_weights(

@@ -11,6 +11,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.quant import QuantizedLeaf
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
@@ -70,6 +71,20 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
                                 window=window, softcap=softcap, scale=scale)
 
 
+def chunk_attention(q, k_cache, v_cache, q_pos, *,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of a chunked-prefill chunk over a linear cache at absolute
+    positions.  The JAX package has no Pallas kernel for it either
+    (``repro/kernels/ops.py::chunk_attention``): plain PyTorch on every
+    device.  Chunks do not go through the flash kernel's ``kv_offset``:
+    its blocked online softmax rounds otherwise than the reference's chunk
+    path, a plain softmax over the whole cache."""
+    return ref.chunk_attention(q, k_cache, v_cache, q_pos, window=window,
+                               softcap=softcap, scale=scale)
+
+
 def paged_decode_attention(q, k_pool, v_pool, page_table, cache_len, *,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,
@@ -79,7 +94,13 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, cache_len, *,
                            return_lse: bool = False):
     """Decode attention through the page table: the paged kernel for a CUDA
     tensor, the plain version for a CPU tensor.  With ``return_lse`` it
-    returns ``(out, lse)``, lse the (B, Hkv, group) f32 log-sum-exp."""
+    returns ``(out, lse)``, lse the (B, Hkv, group) f32 log-sum-exp.  A
+    quantized pool arrives as a ``QuantizedLeaf`` and is unpacked into its
+    codes and per-(page, KV head) scales, which both versions dequantize
+    at the page fetch."""
+    if isinstance(k_pool, QuantizedLeaf):
+        k_pool, k_scale = k_pool.codes, k_pool.scales
+        v_pool, v_scale = v_pool.codes, v_pool.scales
     kw = dict(window=window, softcap=softcap, scale=scale, k_scale=k_scale,
               v_scale=v_scale, return_lse=return_lse)
     if build.is_cuda(q):

@@ -144,6 +144,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, Hq, 1, D).to(q.dtype)
 
 
+def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, q_pos: torch.Tensor, *,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of a prefill chunk already written into a linear KV cache.
+
+    q: (B, Hq, W, D); caches: (B, Hkv, S, D); q_pos: (B, W) absolute
+    positions of the chunk's rows.  Row r sees key slot s iff ``s <=
+    q_pos[b, r]`` (and ``s > q_pos[b, r] - window`` with a window): causal
+    over absolute positions, so a cached prefix before the chunk is seen,
+    and padding rows and whatever lies past the written region are masked.
+    Query head h reads KV head ``h // group``; softmax in float32, as in
+    :func:`decode_attention`."""
+    B, Hq, W, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    group = Hq // Hkv
+    s = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, Hkv, group, W, D).to(torch.float32)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg,
+                          k_cache.to(torch.float32)) * s
+    logits = _soft_cap(logits, softcap)
+    key_pos = torch.arange(S, device=q.device)[None, None, :]
+    qp = q_pos.to(device=q.device)[:, :, None]
+    valid = key_pos <= qp                                  # (B, W, S)
+    if window is not None:
+        valid &= key_pos > qp - window
+    logits = torch.where(valid[:, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v_cache.to(torch.float32))
+    return out.reshape(B, Hq, W, D).to(q.dtype)
+
+
 def _fetch_pages(pool: torch.Tensor, pid: torch.Tensor) -> torch.Tensor:
     """pool[pid] as float32 (fp8 pools are gathered through a byte view)."""
     if pool.dtype == torch.float8_e4m3fn:

@@ -11,12 +11,17 @@ otherwise.
       --smoke --device cpu --continuous --page-size 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --smoke --device cpu --continuous
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --smoke --device cpu --continuous --page-size 8 --prefix-cache on \
+      --prefill-chunk 8 --kv-dtype int8
 
 Without ``--continuous`` it runs ``ServeEngine.generate`` on ``--batch``
 prompts of ``--prompt-len`` tokens; with it, ``--requests`` ragged prompts
 go through the continuous-batching scheduler over ``--slots`` slots (a page
 pool with ``--page-size`` for lm, else a dense slot cache; rwkv's recurrent
-state is always dense).  Weights come from
+state is always dense), with chunked prefill (``--prefill-chunk``), prefix
+reuse (``--prefix-cache on``), an int8 / fp8 pool (``--kv-dtype``) and the
+gather discipline (``--paged-attn gather``) as asked.  Weights come from
 ``api.init_params`` with a ``torch.Generator`` seeded by ``--seed``.  Prints
 one JSON report, as the JAX package's ``repro.launch.serve`` does.  Flags
 of features the port does not have yet exit with "not ported yet".
@@ -42,10 +47,6 @@ SERVED = ("lm", "rwkv")   # families the float ServeEngine serves
 
 def _refuse_unported(args, ap: argparse.ArgumentParser) -> None:
     unported = [("--tp", args.tp != 1),
-                ("--kv-dtype int8/fp8", args.kv_dtype != "bf16"),
-                ("--prefix-cache on", args.prefix_cache != "off"),
-                ("--prefill-chunk", args.prefill_chunk is not None),
-                ("--paged-attn gather", args.paged_attn != "inplace"),
                 ("--priority", args.priority is not None),
                 ("--deadline-s", args.deadline_s is not None),
                 ("--preemption on", args.preemption != "off"),
@@ -80,17 +81,29 @@ def main(argv=None):
                          "(tokens per page; must divide max_len)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="page-pool capacity (default: dense-equivalent)")
+    ap.add_argument("--paged-attn", choices=("inplace", "gather"),
+                    default="inplace",
+                    help="paged decode discipline: 'inplace' attends through "
+                         "the page table (the paged kernel on the card); "
+                         "'gather' runs the dense decode step on the "
+                         "gathered view")
+    ap.add_argument("--kv-dtype", choices=("bf16", "int8", "fp8"),
+                    default="bf16",
+                    help="page-pool storage format: int8/fp8 pages quantize "
+                         "on write with per-page per-KV-head scales and are "
+                         "dequantized by the paged kernel; requires "
+                         "--page-size")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill width (prompt chunks interleaved "
+                         "with decode steps)")
+    ap.add_argument("--prefix-cache", choices=("on", "off"), default="off",
+                    help="shared-prefix KV reuse through the pool's radix "
+                         "index (copy-on-write pages); requires --page-size")
     # flags of the JAX package's CLI whose features are not ported yet
     ap.add_argument("--priority", default=None)
     ap.add_argument("--deadline-s", type=float, default=None)
     ap.add_argument("--preemption", choices=("on", "off"), default="off")
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--kv-dtype", choices=("bf16", "int8", "fp8"),
-                    default="bf16")
-    ap.add_argument("--prefix-cache", choices=("on", "off"), default="off")
-    ap.add_argument("--prefill-chunk", type=int, default=None)
-    ap.add_argument("--paged-attn", choices=("inplace", "gather"),
-                    default="inplace")
     ap.add_argument("--chaos-plan", default=None)
     ap.add_argument("--chaos-seed", type=int, default=None)
     ap.add_argument("--recovery-log", default=None)
@@ -98,10 +111,17 @@ def main(argv=None):
     _refuse_unported(args, ap)
     if args.num_pages is not None and args.page_size is None:
         ap.error("--num-pages requires --page-size (the paged KV cache)")
+    if args.prefix_cache == "on" and args.page_size is None:
+        ap.error("--prefix-cache on requires --page-size (the prefix index "
+                 "shares pool pages)")
+    if args.kv_dtype != "bf16" and args.page_size is None:
+        ap.error("--kv-dtype int8/fp8 requires --page-size (quantization "
+                 "scales live per pool page)")
     if not args.continuous and (args.page_size is not None
-                                or args.num_pages is not None):
-        ap.error("--page-size/--num-pages only apply to the --continuous "
-                 "serve loop")
+                                or args.num_pages is not None
+                                or args.prefill_chunk is not None):
+        ap.error("--page-size/--num-pages/--prefill-chunk only apply to the "
+                 "--continuous serve loop")
 
     if args.arch not in CONFIGS or CONFIGS[args.arch].family not in SERVED:
         ap.error(f"--arch {args.arch}: not ported yet (the port serves "
@@ -120,11 +140,14 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
 
     if args.continuous:
+        # pages and prefill chunks must both tile the cache
         max_len = pages.round_len(args.prompt_len + args.max_new + 1,
-                                  args.page_size)
+                                  args.page_size, args.prefill_chunk)
         eng = ServeEngine(cfg, params, max_len=max_len,
                           page_size=args.page_size, num_pages=args.num_pages,
-                          device=device)
+                          paged_attn=args.paged_attn,
+                          prefix_cache=args.prefix_cache,
+                          kv_dtype=args.kv_dtype, device=device)
         del params
         lo = min(2, args.prompt_len)
         reqs = [Request(uid=i,
@@ -134,8 +157,9 @@ def main(argv=None):
                         ).astype(np.int32),
                         max_new=args.max_new)
                 for i in range(args.requests)]
-        sched = ContinuousBatchingScheduler(eng, max_slots=args.slots,
-                                            eos_id=args.eos_id)
+        sched = ContinuousBatchingScheduler(
+            eng, max_slots=args.slots, eos_id=args.eos_id,
+            prefill_chunk=args.prefill_chunk)
         out = sched.run(reqs)
         report = {
             "arch": cfg.name,
@@ -148,6 +172,7 @@ def main(argv=None):
             "tokens_per_s": round(out["tokens_per_s"], 2),
             "requests_per_s": round(out["requests_per_s"], 2),
             "gen_len": [r.gen_len for r in out["results"]],
+            "cached_prompt_tokens": out["cached_prompt_tokens"],
             "rejected": [(r.uid, r.reason) for r in out["rejected"]],
             "by_state": out["by_state"],
         }

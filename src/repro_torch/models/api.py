@@ -95,6 +95,28 @@ def prefill_bucketed(params, cache, tokens, true_len, cfg: ModelConfig):
     return logits, cache
 
 
+def prefill_chunk(params, cache, tokens, true_len, cfg: ModelConfig, *,
+                  block: bool = True):
+    """Advance a (possibly non-empty) cache by one right-padded prompt
+    chunk, in place, from whatever state it holds: tokens (B, W), only the
+    first ``true_len`` real.  Returns the cache with ``len += true_len``;
+    no logits (the last prompt token goes through the decode step).
+
+    ``block=True`` takes the lm family's block path
+    (``transformer.prefill_chunk``), whose caller guarantees a linear cache
+    and chunk-aligned start.  Otherwise, as in the JAX package, the chunk
+    goes through ``decode_step`` one token at a time over its true length
+    (the JAX package scans the padded width with the state frozen past
+    ``true_len``: the same state), which every family takes: rwkv6's
+    recurrent state, gemma2's rings."""
+    mod = family_module(cfg)
+    if block and hasattr(mod, "prefill_chunk"):
+        return mod.prefill_chunk(params, cache, tokens, int(true_len), cfg)
+    for t in range(int(true_len)):
+        _, cache = mod.decode_step(params, cache, tokens[:, t], cfg)
+    return cache
+
+
 def prefill(params, cache, tokens, cfg: ModelConfig):
     """Fill a fresh cache with a whole prompt: tokens (B, T) -> (last
     position's logits (B, V), the cache with ``len += T``), in place."""

@@ -1,5 +1,6 @@
 """Shared building blocks in torch: norms, rope, linear (raw or LAQ W4A8),
-SwiGLU, the GQA projections and the in-place paged KV append.
+SwiGLU, the GQA projections, the in-place paged KV append and the KV page
+quantizer of int8 / fp8 pools.
 
 Public functions keep the JAX package's layouts: activations are
 ``(B, H, T, D)`` after projection, pool slices ``(num_pages, page_size,
@@ -130,20 +131,222 @@ def page_offsets(table: torch.Tensor, pos: torch.Tensor, write: torch.Tensor,
     return page.to(torch.int64), pos.to(torch.int64) % page_size
 
 
-def paged_cache_write(pool: torch.Tensor, new: torch.Tensor,
-                      table: torch.Tensor, pos: torch.Tensor,
-                      write: torch.Tensor) -> torch.Tensor:
+def paged_append(pool, tok: torch.Tensor, page: torch.Tensor,
+                 off: torch.Tensor):
+    """Write each slot's token ``tok`` (B, Hkv, D) at ``(page, off)`` of one
+    layer's pool slice, IN PLACE: a float pool takes one ``index_put_`` of
+    B token rows; a :class:`~repro_torch.core.quant.QuantizedLeaf` takes the
+    quantize-on-write page append (:func:`quant_page_append`).  Returns
+    ``pool``."""
+    if isinstance(pool, QuantizedLeaf):
+        quant_page_append(pool.codes, pool.scales, tok, page, off,
+                          pool.kv_dtype)
+        return pool
+    pool[page, off] = tok.to(pool.dtype)
+    return pool
+
+
+def paged_cache_write(pool, new: torch.Tensor, table: torch.Tensor,
+                      pos: torch.Tensor, write: torch.Tensor):
     """Append one token's K or V per slot directly into the page pool, IN
     PLACE: ``pool`` is one layer's slice ``(num_pages, page_size, Hkv, D)``
-    (a view into the stacked pool) and is written with one ``index_put_`` of
-    B token rows, so a step moves O(B x token bytes), never the pool.
+    (a view into the stacked pool, or a ``QuantizedLeaf`` of such codes and
+    their ``(num_pages, Hkv)`` scales), so a step moves O(B x token bytes)
+    of a float pool and O(B x page bytes) of a quantized one, never the
+    pool.
 
     new: (B, Hkv, 1, D); table: (B, P) physical page ids; pos: (B,) write
     positions (== ``len``); write: (B,) bool — inactive slots land on the
-    scratch page.  Returns ``pool`` (the same tensor, updated)."""
+    scratch page.  Returns ``pool`` (the same object, updated)."""
     page, off = page_offsets(table, pos, write, pool.shape[1])
-    pool[page, off] = new[:, :, 0, :].to(pool.dtype)
-    return pool
+    return paged_append(pool, new[:, :, 0, :], page, off)
+
+
+# ----------------------------------------------------------------------------
+# KV page quantization (int8 / fp8 pools)
+# ----------------------------------------------------------------------------
+QuantizedLeaf = quant.QuantizedLeaf
+KV_DTYPES = quant.KV_DTYPES
+KV_QMAX = quant.KV_QMAX
+
+# The JAX package's compiled programs compute the page scale as
+#     exp(ceil(log(max(amax, 1e-30) * (1 / qmax)) * 1.44269502) * 0.693147182)
+# (XLA folds the two divisions into multiplies and lowers exp2 to exp), with
+# XLA's own float32 log and exp on the CPU.  Neither is correctly rounded,
+# and only two of their properties reach the scale:
+#   * where ceil steps: for r = amax * (1 / qmax) near 2^k the exponent
+#     becomes k + 1 from the float32 whose bit pattern is that of 2^k plus
+#     _LOG_STEP_ULPS[k + 110] (k in [-110, 127]), which can fall a few ulps
+#     below 2^k or step only past it;
+#   * the value of exp(e * 0.693147182) for an integer e: 2^e plus
+#     _EXP2_ULPS[e + 110] float32 ulps (e in [-110, 128]; exact for e in
+#     [-13, 13]).
+# Both tables were read off XLA's compiled CPU programs; tests compare them
+# with the JAX package at every entry, so a scale here is the reference's,
+# bit for bit, on any device (the lookups are comparisons and an index).
+_LOG_STEP_ULPS = (
+    7, -11, -35, 35, 23, 11, -3, -27, 39, 27, 15, 3, -19, 43, 31, 19, 7, -10,
+    31, 19, 7, 27, 15, 3, 23, 11, 31, 19, 7, 27, 15, 3, 23, 11, 31, 19, 7, 27,
+    15, 3, 23, 11, 31, 19, 7, 27, 15, 3, -17, 12, -1, 20, 8, -9, 16, 4, -17,
+    12, -1, 20, 8, -9, 16, 4, 16, 4, 8, 12, 16, 4, 8, 12, 16, 4, 8, 12, 16, 4,
+    8, -8, 0, 4, 8, -8, 0, 4, 8, 8, 4, 8, 4, 8, 4, 8, 4, 0, 4, 0, 4, 2, 2, 2,
+    2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3, 3, 3, 5, 1, 5, 1, 5,
+    9, 5, 9, 5, 9, 5, 9, 9, 13, 1, 5, 9, 13, 1, 5, 9, 13, 17, 21, 9, 13, 17,
+    21, 9, 13, 17, 21, 9, 13, 17, 29, 17, 5, 25, 13, 1, 21, 9, 29, 17, 5, 25,
+    13, 1, 21, 9, 30, 18, 38, 26, 14, 34, 22, 42, 30, 18, 38, 26, 14, 34, 22,
+    42, 30, 18, 38, 26, 14, 34, 22, 42, 30, 18, 38, 26, 14, 34, 6, 58, 46, 34,
+    22, 10, 62, 50, 38, 26, 14, 2, 54, 42, 30, 18, 6, 58, 46, 34, 22, 10, 62,
+    50, 38, 26, 14, 2, 54, 42, 30, 18, 6, 59, 47)
+_EXP2_ULPS = (
+    -52, 26, 14, 2, -19, -43, -67, 18, 6, -11, -35, -59, 22, 10, -3, -27, -51,
+    27, 15, 3, -19, 11, -3, -27, 7, -11, -35, 3, -19, 11, -3, -27, 7, -10, 15,
+    3, -18, 11, -2, -26, 7, -10, -34, 3, -18, 11, -2, -26, 7, -10, 15, 3, -18,
+    11, -2, -26, 7, -10, -34, 3, -18, 11, -2, -26, 7, -9, -1, 3, -17, -9, -1,
+    3, 7, -9, -1, 3, -17, -9, -1, 4, 8, -9, -1, 4, -17, -9, -1, 4, -1, -9, -1,
+    4, -1, -9, -1, 4, 0, -8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 0, -8, 0, 4, 0, -7, 0, 4, 0, -7, 0, 4, 8,
+    -7, 0, 4, -15, -7, 1, 5, 9, -7, 1, 5, -15, -7, 1, 5, 9, -7, 1, 5, -15, 13,
+    1, -22, 9, -6, 17, 5, -14, 13, 1, -22, 9, -6, -30, 5, -14, 13, 1, -22, 9,
+    -6, 17, 5, -14, 13, 1, -22, 9, -6, -30, 5, -14, 13, 1, -21, 9, -5, 17, 5,
+    -13, 13, 1, -21, 9, -5, -29, -53, 26, 14, 2, -21, -45, 30, 18, 6, -13, -37,
+    34, 22, 10, -5, -29, -53, 26, 14, 2, -20, -44, 30, 18, 6, -12, -36, -60,
+    22, 10, -4, -28, -52, 26, 14, 0)
+_E_MIN = -110
+_SCALE_TABLES = {}
+
+
+def _scale_tables(device):
+    """(ceil step points as float32, scale per exponent) on ``device``,
+    built once per device from the two tables above."""
+    key = str(device)
+    if key not in _SCALE_TABLES:
+        ks = torch.arange(_E_MIN, _E_MIN + len(_LOG_STEP_ULPS),
+                          dtype=torch.int32)
+        steps = ((ks + 127) * (1 << 23)
+                 + torch.tensor(_LOG_STEP_ULPS, dtype=torch.int32))
+        es = torch.arange(_E_MIN, _E_MIN + len(_EXP2_ULPS), dtype=torch.int64)
+        exact = torch.ldexp(torch.ones(len(es), dtype=torch.float64), es).to(
+            torch.float32)
+        vals = (exact.view(torch.int32)
+                + torch.tensor(_EXP2_ULPS, dtype=torch.int32)).view(
+            torch.float32)
+        _SCALE_TABLES[key] = (steps.view(torch.float32).to(device),
+                              vals.to(device))
+    return _SCALE_TABLES[key]
+
+
+def kv_pow2_scale(amax: torch.Tensor, kv_dtype: str) -> torch.Tensor:
+    """The page scale for a page whose largest |value| is ``amax``: nominally
+    the smallest power of two s with ``amax / s <= qmax``, and exactly the
+    float32 the JAX package's compiled programs compute for it (see the
+    tables above: near a power of two and below 2^-13 or above 2^13 it is
+    not a power of two there).  ``amax`` float32 of any shape."""
+    steps, vals = _scale_tables(amax.device)
+    r = torch.clamp_min(amax.to(torch.float32), 1e-30) * (
+        1.0 / KV_QMAX[kv_dtype])
+    # r is a positive float32; its exponent is E_MIN + the count of steps <= r
+    e = torch.bucketize(r, steps, right=True)
+    return vals[e]
+
+
+def kv_quantize(x: torch.Tensor, scale: torch.Tensor,
+                kv_dtype: str) -> torch.Tensor:
+    """Encode float32 values into page codes under a (broadcastable) scale:
+    ``round(x / scale)`` (half to even) clipped to +-127 for int8, a
+    round-to-nearest-even cast to float8_e4m3fn for fp8."""
+    y = x.to(torch.float32) / scale
+    if kv_dtype == "int8":
+        return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+    return y.to(KV_DTYPES[kv_dtype])
+
+
+def kv_dequantize(codes: torch.Tensor, scale: torch.Tensor,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """codes x scale in float32, then ``out_dtype``."""
+    return (codes.to(torch.float32) * scale).to(out_dtype)
+
+
+def byte_view(codes: torch.Tensor) -> torch.Tensor:
+    """fp8 codes as uint8 (the same bytes), so that indexed reads and writes
+    need no fp8 kernel on any device; other dtypes as they are."""
+    return (codes.view(torch.uint8) if codes.dtype == torch.float8_e4m3fn
+            else codes)
+
+
+def quant_page_append(codes: torch.Tensor, scales: torch.Tensor,
+                      tok: torch.Tensor, page: torch.Tensor, off: torch.Tensor,
+                      kv_dtype: str) -> None:
+    """The quantize-on-write page append, IN PLACE.
+
+    codes: (N, ps, *rest) pool codes with the page axes leading (a view is
+    fine); scales: (N, *rest[:-1]) the matching per-page scales; tok:
+    (B, *rest) the new token; page / off: (B,) int64 write coordinates
+    (:func:`page_offsets`).  The incoming token can exceed a page's range,
+    so each touched page is dequantized, the token inserted at ``off`` and
+    the whole page re-encoded under ``max(old_scale, needed)``:
+
+      * ``off == 0`` is a fresh (or recycled) page: its stale scale counts
+        as zero and its positions past ``off`` are masked out, so a reused
+        page never leaks a stale amax into the new sequence's scale;
+      * the scale never shrinks within a page's lifetime.
+
+    Duplicate ``page`` entries occur only on the scratch page (inactive
+    slots), whose content is garbage by contract: a live append page is
+    private to its slot (copy-on-write), so no live page is written twice.
+    """
+    nd = codes.ndim
+    ps = codes.shape[1]
+    B = tok.shape[0]
+    f32 = torch.float32
+
+    def _x(s):   # (B, *rest[:-1]) -> broadcast over (B, ps, *rest)
+        return s.reshape((B, 1) + tuple(s.shape[1:]) + (1,))
+
+    cb = byte_view(codes)
+    cp = cb[page].view(codes.dtype).to(f32)               # (B, ps, *rest)
+    sp = scales[page]                                     # (B, *rest[:-1])
+    fresh = (off > 0).reshape((B,) + (1,) * (sp.ndim - 1))
+    sp_eff = torch.where(fresh, sp, torch.zeros((), dtype=f32,
+                                                device=sp.device))
+    old = cp * _x(sp_eff)
+    idx = torch.arange(ps, device=codes.device)[None, :]
+    shape = (B, ps) + (1,) * (nd - 2)
+    keep = (idx < off[:, None]).reshape(shape)
+    ins = (idx == off[:, None]).reshape(shape)
+    merged = torch.where(keep, old, torch.zeros((), dtype=f32,
+                                                device=old.device))
+    merged = torch.where(ins, tok[:, None].to(f32), merged)
+    amax = merged.abs().amax(dim=(1, nd - 1))             # (B, *rest[:-1])
+    new_sc = torch.maximum(sp_eff, kv_pow2_scale(amax, kv_dtype))
+    q = kv_quantize(merged, _x(new_sc), kv_dtype)
+    cb[page] = byte_view(q)
+    scales[page] = new_sc
+
+
+def fake_quant_pages(leaf: torch.Tensor, s_ax: int, n_tokens: int,
+                     page_size: int, kv_dtype: str) -> torch.Tensor:
+    """Round-trip the COMPLETED pages of a dense request-cache leaf through
+    the page quantizer (quantize, then dequantize, dense dtype kept), IN
+    PLACE, and return ``leaf``.
+
+    Pages wholly below ``n_tokens`` are frozen at quantized precision the
+    moment they complete, so a chunk stream attends to exactly the values a
+    later reader dequantizes out of the pool (prefix sharing on or off
+    gives the same tokens); the partial tail page stays dense until
+    insertion.  Per-page scales reduce over the within-page axis and the
+    trailing head_dim axis, as the pool's per-page x per-KV-head scales do.
+    Every completed page is re-encoded on every call, as in the JAX
+    package."""
+    done = int(n_tokens) // page_size
+    if done == 0:
+        return leaf
+    x = torch.movedim(leaf, s_ax, 0)[:done * page_size]   # (done*ps, *rest)
+    xp = x.reshape((done, page_size) + tuple(x.shape[1:])).to(torch.float32)
+    amax = xp.abs().amax(dim=(1, xp.ndim - 1), keepdim=True)
+    sc = kv_pow2_scale(amax, kv_dtype)
+    rt = kv_dequantize(kv_quantize(xp, sc, kv_dtype), sc)
+    x.copy_(rt.reshape(x.shape).to(leaf.dtype))
+    return leaf
 
 
 def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,

@@ -5,8 +5,9 @@ per-layer array has leading dims ``(n_groups, group_size, ...)`` from
 :func:`group_layout`, so a params tree converted from the JAX package
 (``models/api.py::params_from_numpy``) and one made here have the same
 structure.  The float serve path is here: ``init_cache``, the block
-``prefill`` (flash attention over the prompt), the dense ``decode_step``
-and the ``paged_decode_step`` through the page pool (a windowed layer's
+``prefill`` (flash attention over the prompt), the chunked prefill's block
+path ``prefill_chunk``, the dense ``decode_step`` and the
+``paged_decode_step`` through the page pool (a windowed layer's
 ring buffer, gemma2's local layers, stays dense beside the paged global
 layers), all updating the cache IN PLACE where the JAX package returned a
 new one.  Numerics follow the JAX package's compiled programs (XLA's
@@ -336,6 +337,45 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     return logits, cache
 
 
+def prefill_chunk(params, cache, tokens: torch.Tensor, true_len: int,
+                  cfg: ModelConfig):
+    """Advance a (possibly non-empty) dense KV cache by one right-padded
+    prompt chunk, IN PLACE: the chunked-prefill block path.
+
+    tokens (B, W): the next ``true_len`` prompt positions, padded to W.  Each
+    layer writes the chunk's K/V at positions ``len .. len + W - 1`` of its
+    cache leaf and attends with ``ops.chunk_attention`` -- causal over
+    absolute positions, so a cached prefix (a prefix-seeded request cache
+    starts at ``len = cached``) is seen and the padding rows' K/V, which
+    the next chunk overwrites or which lie past ``len``, are never read by
+    a real row.  No logits: the last prompt token goes through the decode
+    step.  Returns the cache with ``len += true_len``.
+
+    Precondition (the caller's): every cache leaf is a linear buffer of the
+    full ``max_len`` (a windowed ring takes ``api.prefill_chunk``'s
+    per-token path), ``len`` is a multiple of W and W divides ``max_len``:
+    chunks arrive full width and back to back, only the last one padded."""
+    _check_block_path(cfg)
+    B, W = tokens.shape
+    x = _embed(params, tokens, cfg)
+    start = cache["len"]                                       # (B,)
+    positions = start.to(torch.int64)[:, None] + torch.arange(
+        W, device=x.device)[None, :]                           # (B, W)
+    rows = torch.arange(B, device=x.device)[:, None]
+    h = None
+    for spec, slot, at, pj in _layers(params, cfg):
+        kc, vc = cache["k"][slot][at], cache["v"][slot][at]   # (B, Hkv, S, hd)
+        q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
+                             cfg)
+        kc[rows, :, positions] = k.transpose(1, 2).to(kc.dtype)
+        vc[rows, :, positions] = v.transpose(1, 2).to(vc.dtype)
+        o = ops.chunk_attention(q, kc, vc, positions, window=spec.window,
+                                softcap=cfg.softcap)
+        x, h = _block_tail(pj, x, o, cfg)
+    cache["len"] += int(true_len)
+    return cache
+
+
 def paged_decode_step(params, cache, table: torch.Tensor,
                       tokens: torch.Tensor, cfg: ModelConfig, *,
                       write: Optional[torch.Tensor] = None, seq_axes=None):
@@ -343,9 +383,12 @@ def paged_decode_step(params, cache, table: torch.Tensor,
 
     cache: the paged slot cache.  A pattern slot whose ``seq_axes["k"]``
     entry is >= 0 holds pool leaves ``(n_groups, group_size // P,
-    num_pages, page_size, Hkv, hd)``: each layer appends its token to its
-    page (one indexed write of B token rows) and attends through the table
-    with ``ops.paged_decode_attention`` -- the paged kernel on the card.  A
+    num_pages, page_size, Hkv, hd)`` (``QuantizedLeaf`` s of such codes and
+    their scales in an int8 / fp8 pool): each layer appends its token to
+    its page (``layers.paged_append``: one indexed write of B token rows,
+    or the quantize-on-write page append) and attends through the table
+    with ``ops.paged_decode_attention`` -- the paged kernel on the card,
+    which dequantizes a quantized pool at the page fetch.  A
     slot whose entry is < 0 is a windowed ring buffer that stays dense and
     slot-private, ``(n_groups, group_size // P, n_slots, Hkv, S, hd)``:
     the token goes to ``pos % S`` and attention is ``ops.decode_attention``
@@ -372,8 +415,8 @@ def paged_decode_step(params, cache, table: torch.Tensor,
         q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
                              cfg)
         if paged[slot]:
-            kc[page, off] = k[:, :, 0, :].to(kc.dtype)
-            vc[page, off] = v[:, :, 0, :].to(vc.dtype)
+            L.paged_append(kc, k[:, :, 0, :], page, off)
+            L.paged_append(vc, v[:, :, 0, :], page, off)
             o = ops.paged_decode_attention(q, kc, vc, table, cache_len,
                                            window=spec.window,
                                            softcap=cfg.softcap)

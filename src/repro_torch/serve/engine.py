@@ -32,6 +32,19 @@ the same math eagerly:
                 layers, and a prompt longer than the ring takes the
                 per-token prefill.
 
+  features      the scheduler's chunked prefill (``new_request_cache`` /
+                ``prefill_chunk_slot``: the lm block chunk path through
+                ``ops.chunk_attention``, or per-token decode steps for a
+                ring or rwkv), shared-prefix reuse (``prefix_cache="on"``:
+                radix-matched pages mapped into the slot, the tail
+                prefilled from ``seed_request_cache``, copy-on-write before
+                a shared page is written), the ``"gather"`` decode
+                discipline, and int8 / fp8 page pools (``kv_dtype``), whose
+                pages are quantized on write and dequantized by the paged
+                kernel; a request cache's completed pages are fake-quantized
+                after each prefill so that what it attends to is what the
+                pool stores.
+
 Caches are updated IN PLACE where the JAX package returned new ones, and a
 prefill runs over the true prompt length: eager PyTorch compiles nothing
 per width, so nothing is padded to a power-of-two bucket (pool contents
@@ -73,15 +86,6 @@ class ServeEngine(pages_mod.PagedEngineMixin):
             raise NotImplementedError(
                 f"{cfg.name}: MoE, cross-attention and frontend configs "
                 f"are not ported to the ServeEngine yet")
-        if kv_dtype in ("int8", "fp8"):
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} pools are not ported to the engine "
-                f"yet (the paged attention kernel takes them)")
-        if kv_dtype != "bf16":
-            raise ValueError(f"kv_dtype must be 'bf16', 'int8' or 'fp8', got "
-                             f"{kv_dtype!r}")
-        self.check_paged_attn(paged_attn)
-        self.check_prefix_cache(prefix_cache)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the card's tokens equal the CPU's only under these settings
@@ -99,16 +103,15 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         self._traffic = TrafficModel.for_config(cfg)
         self._ba = family.BATCH_AXES
         self._sa = self._slot_seq_axes(page_size or 8)
-        self.page_size = page_size
-        self.num_pages = num_pages
-        # a page pool only where some cache leaf grows with the sequence:
-        # rwkv keeps the dense slot layout with page_size set, as the JAX
-        # package's engine does
-        pages_any = any(ax >= 0 for e in self._sa.values()
-                        for ax in (e if isinstance(e, list) else [e]))
-        self._pager = (pages_mod.HostPager(page_size, num_pages, max_len,
-                                           device=self.device)
-                       if page_size is not None and pages_any else None)
+        # the paging options; int8 / fp8 pages quantize on write and are
+        # dequantized at the paged kernel's page fetch
+        self._set_paging(page_size, num_pages, paged_attn, prefix_cache,
+                         kv_dtype)
+        # the lm block chunk path needs every cache slot linear (no ring)
+        self._chunk_block_ok = (
+            cfg.family == "lm"
+            and all(sp.window is None or sp.window >= max_len
+                    for sp in cfg.layer_pattern))
 
     def _slot_seq_axes(self, delta: int):
         """Per-leaf sequence axis (-1 = does not page), by diffing the
@@ -255,11 +258,20 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                               device=torch.device("meta"))
         self._note_slot_cache(n_slots, like, ba, sa)
         if not self._paging_active:
+            if self._kv_dtype != "bf16":
+                raise ValueError(
+                    f"kv_dtype={self._kv_dtype!r} requires a paging family: "
+                    f"no cache leaf of this config scales with max_len, so "
+                    f"there is no page pool to quantize")
             return api.init_cache(self.cfg, n_slots, self.max_len,
                                   device=self.device)
         pool = self._pager.reset(n_slots)
         return pages_mod.make_pool(like, ba, sa, pool.num_pages,
-                                   self.page_size, self.device)
+                                   self.page_size, self.device,
+                                   kv_dtype=self._kv_dtype)
+
+    def _stats_seq_axes(self):
+        return self._sa
 
     def rebuild(self, n_slots: int) -> Dict[str, Any]:
         """Re-materialise the device-side KV state from host state after a
@@ -287,7 +299,47 @@ class ServeEngine(pages_mod.PagedEngineMixin):
             _, cache = api.prefill_bucketed(
                 self.params, cache, self._tokens(prompt[None, :-1]), T0 - 1,
                 self.cfg)
+            self._fake_quant_b1(cache)
         return cache, int(prompt[-1])
+
+    def _fake_quant_b1(self, cache):
+        """Round-trip the completed pages of a B=1 request cache through the
+        page quantizer, in place (``pages.fake_quant_tree``), when the pool
+        is quantized: the prefill's values become exactly what the pool
+        will store, so the tokens that follow do not depend on whether a
+        page came from this prefill or from the prefix cache."""
+        if self._kv_dtype != "bf16":
+            pages_mod.fake_quant_tree(cache, int(cache["len"][0]), self._sa,
+                                      self.page_size, self._kv_dtype)
+        return cache
+
+    def new_request_cache(self):
+        """A fresh, empty B=1 ``max_len`` cache for chunked prefill."""
+        return api.init_cache(self.cfg, 1, self.max_len, device=self.device)
+
+    def seed_request_cache(self, cache, slot: int, cached_len: int):
+        """The prefix-aware prefill entry: a B=1 request cache holding the
+        slot's matched prefix pages gathered (dequantized) from the pool,
+        ``len = cached_len``; the tail chunks continue from there."""
+        like = api.init_cache(self.cfg, 1, self.max_len,
+                              device=torch.device("meta"))
+        return self.paged_seed(cache, slot, cached_len, self._ba, self._sa,
+                               like)
+
+    def prefill_chunk_slot(self, cache, chunk: np.ndarray, true_w: int):
+        """Advance a B=1 request cache by one right-padded prompt chunk, in
+        place: chunk (W,), of which the first ``true_w`` tokens are real.
+        The lm family with linear caches takes the block chunk path, with
+        ``ops.chunk_attention`` over absolute positions; a ring (gemma2's
+        local layers) or rwkv's recurrent state takes the per-token decode
+        steps.  A quantized pool's completed pages are then fake-quantized,
+        as after ``prefill_slot``."""
+        chunk = np.asarray(chunk, np.int32)
+        pages_mod.check_chunk_width(chunk.shape[0], self.max_len)
+        cache = api.prefill_chunk(self.params, cache,
+                                  self._tokens(chunk[None, :]), int(true_w),
+                                  self.cfg, block=self._chunk_block_ok)
+        return self._fake_quant_b1(cache)
 
     def insert_slot(self, batched_cache, slot_cache, slot: int):
         """Write a prefilled B=1 request cache into slot ``slot``, in place:
@@ -310,9 +362,12 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         logits before the argmax (the fault-injection hook).  The tokens and
         the sentinel come back in ONE device-to-host copy.
 
-        Paged layout: the host allocates any page the step writes into,
-        then each active slot appends its token to its page and attends
-        through the table (``api.paged_decode_step``)."""
+        Paged layout: the host copies any copy-on-write page and allocates
+        any page the step writes into; then ``paged_attn="inplace"``
+        appends each active slot's token to its page and attends through
+        the table (``api.paged_decode_step``), while ``"gather"`` runs the
+        dense decode step on the gathered view and scatters the new token
+        back."""
         n = int(np.asarray(tokens).shape[0])
         act = np.asarray(active, bool)
         bad = (np.zeros((n,), bool) if corrupt is None
@@ -320,10 +375,22 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         tok_d = self._tokens(tokens)
         act_d = torch.as_tensor(act, device=self.device)
         if self._paging_active:
-            cache = self.paged_pre_step(cache, act)
-            logits, cache = api.paged_decode_step(
-                self.params, cache, self._pager.table(), tok_d,
-                self._ragged_cfg, write=act_d, seq_axes=self._sa)
+            cache = self.paged_pre_step(cache, act, self._ba, self._sa)
+            table = self._pager.table()
+            if self._paged_attn == "inplace":
+                logits, cache = api.paged_decode_step(
+                    self.params, cache, table, tok_d, self._ragged_cfg,
+                    write=act_d, seq_axes=self._sa)
+            else:
+                # the gather discipline: the dense view through the table,
+                # the family's dense decode step on it, then each active
+                # slot's one new token scattered back into its page
+                view = pages_mod.gather_tree(cache, table, self._ba, self._sa)
+                pos = view["len"].clone()
+                logits, view = api.decode_step(self.params, view, tok_d,
+                                               self._ragged_cfg, write=act_d)
+                pages_mod.scatter_token_tree(cache, view, table, pos, act_d,
+                                             self._ba, self._sa)
             self._pager.post_decode(act)
         else:
             self._meter_kv_read(act)
@@ -335,13 +402,3 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         ok = slots_mod.finite_logits(logits).to(torch.int32)
         host = torch.stack([nxt, ok]).cpu().numpy()
         return host[0], host[1].astype(bool), cache
-
-    # ------------------------------------------------------ not ported yet
-    def new_request_cache(self):
-        raise NotImplementedError("chunked prefill is not ported yet")
-
-    def prefill_chunk_slot(self, cache, chunk, true_w):
-        raise NotImplementedError("chunked prefill is not ported yet")
-
-    def seed_request_cache(self, cache, slot, cached_len):
-        raise NotImplementedError("prefix sharing is not ported yet")

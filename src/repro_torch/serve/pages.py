@@ -23,15 +23,19 @@ allocation and the writes of inactive slots land there, and attention
 never reads it for a valid position.
 
 ``PagePool`` and ``HostPager`` are a numpy copy of the JAX package's, radix
-prefix index and copy-on-write included (the engines keep prefix sharing
-off so far).  The device-side helpers work on plain dicts of tensors, or of
-lists of tensors (the lm cache's per-pattern-slot leaves
-``(n_groups, gs // P, B, Hkv, S, hd)`` page into
+prefix index and copy-on-write included.  The device-side helpers work on
+plain dicts of tensors, or of lists of tensors (the lm cache's
+per-pattern-slot leaves ``(n_groups, gs // P, B, Hkv, S, hd)`` page into
 ``(n_groups, gs // P, num_pages, page_size, Hkv, hd)``), and write the pool
-IN PLACE.
+IN PLACE: the in-place append and the insert, the gather discipline's dense
+view and one-token writeback, the prefix seed and the copy-on-write page
+copy.  An int8 / fp8 pool holds a ``QuantizedLeaf`` (codes plus
+per-(page, KV head) scales) for each paging leaf; pages are quantized on
+write (``layers.quant_page_append``) and dequantized where they are read.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 import math
 from collections import OrderedDict
@@ -40,20 +44,35 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.layers import SCRATCH_PAGE
+from repro_torch.core.quant import KV_DTYPES, QuantizedLeaf
+from repro_torch.models.layers import (SCRATCH_PAGE, byte_view,
+                                       fake_quant_pages, kv_pow2_scale,
+                                       kv_quantize, page_offsets,
+                                       quant_page_append)
 from repro_torch.serve.errors import PageLifecycleError, ReservationError
 
 __all__ = [
     "PagePool",
     "HostPager",
     "PagedEngineMixin",
+    "QuantizedLeaf",
+    "check_chunk_width",
+    "check_kv_dtype",
+    "round_len",
     "seq_axes",
     "page_axis",
     "pool_shape",
     "make_pool",
+    "gather_view",
+    "gather_tree",
+    "scatter_token",
+    "scatter_token_tree",
     "insert_tree",
+    "fake_quant_tree",
+    "pool_bytes",
+    "page_token_bytes",
     "kv_token_bytes",
-    "round_len",
+    "kv_token_bytes_quant",
     "SCRATCH_PAGE",
 ]
 
@@ -514,10 +533,14 @@ class HostPager:
                                               device=self.device)
         return self._table_dev
 
+    def row(self, slot: int) -> torch.Tensor:
+        return torch.as_tensor(self.pool.table[slot], device=self.device)
+
     def insert_row(self, slot: int) -> torch.Tensor:
         """Table row for the slot's insert: matched prefix entries are
         redirected to the scratch page, so the B=1 request cache's blocks
-        land only on the slot's private pages."""
+        land only on the slot's private pages (the shared prefix pages
+        already hold what the seed gathered from them)."""
         row = self.pool.table[slot].copy()
         row[:int(self.pool._matched[slot])] = SCRATCH_PAGE
         return torch.as_tensor(row, device=self.device)
@@ -529,6 +552,7 @@ class HostPager:
 # axis, shared by every tensor of a list; ``sa`` each leaf's sequence axis,
 # -1 where the leaf does not page: an int for a tensor entry, a list of
 # ints for a list entry (an int there applies to every tensor of the list).
+# A paging leaf of an int8 / fp8 pool is a QuantizedLeaf.
 # ----------------------------------------------------------------------------
 def _leaves(entry):
     return entry if isinstance(entry, list) else [entry]
@@ -537,6 +561,48 @@ def _leaves(entry):
 def _leaf_axes(ax, entry):
     """The sequence axis of each tensor of ``entry``."""
     return list(ax) if isinstance(ax, list) else [ax] * len(_leaves(entry))
+
+
+def _map(fn, tree, ba, sa, *others):
+    """``fn(leaf, b_ax, s_ax, *other_leaves)`` over every leaf of a cache
+    dict, keeping its dict / list structure."""
+    out = {}
+    for name, entry in tree.items():
+        rows = zip(_leaves(entry), _leaf_axes(sa[name], entry),
+                   *(_leaves(o[name]) for o in others))
+        res = [fn(leaf, ba[name], s_ax, *rest) for leaf, s_ax, *rest in rows]
+        out[name] = res if isinstance(entry, list) else res[0]
+    return out
+
+
+def _nbytes(t) -> int:
+    return (t.nbytes if isinstance(t, QuantizedLeaf)
+            else t.numel() * t.element_size())
+
+
+def check_kv_dtype(kv_dtype: str, page_size) -> str:
+    """Validate the engines' ``kv_dtype`` knob: quantized pools exist only
+    in the paged layout (their scales are per page), so anything but
+    "bf16" needs ``page_size``."""
+    if kv_dtype not in ("bf16",) + tuple(KV_DTYPES):
+        raise ValueError(
+            f"kv_dtype must be one of 'bf16', "
+            f"{', '.join(repr(k) for k in KV_DTYPES)}, got {kv_dtype!r}")
+    if kv_dtype != "bf16" and page_size is None:
+        raise ValueError(
+            f"kv_dtype={kv_dtype!r} quantizes the PAGE pool (per-page "
+            f"scales) — pass page_size to enable the paged layout")
+    return kv_dtype
+
+
+def check_chunk_width(width: int, max_len: int) -> None:
+    """Chunk writes must never spill past the cache end: W | max_len plus
+    the full-width feeding order (``transformer.prefill_chunk``'s
+    precondition) keep every chunk inside the buffer."""
+    if max_len % width != 0:
+        raise ValueError(
+            f"chunk width {width} must divide max_len ({max_len}) so "
+            f"chunk writes never spill past the cache end")
 
 
 def seq_axes(cache_a: Dict[str, object], cache_b: Dict[str, object],
@@ -575,56 +641,58 @@ def pool_shape(shape: Sequence[int], b_ax: int, s_ax: int, num_pages: int,
 
 def make_pool(cache_like: Dict[str, object], ba: Dict[str, int],
               sa: Dict[str, object], num_pages: int, page_size: int,
-              device) -> Dict[str, object]:
+              device, kv_dtype: str = "bf16") -> Dict[str, object]:
     """Allocate the paged slot cache: pool layout for paging leaves, dense
     ``(max_slots, ...)`` zeros for the rest (a ring slot's K/V stays
     slot-private).  ``cache_like`` holds tensors (``meta`` ones are fine),
-    or lists of them, with the dense cache's shapes and dtypes."""
+    or lists of them, with the dense cache's shapes and dtypes.  With
+    ``kv_dtype`` "int8" / "fp8" each paging leaf is a ``QuantizedLeaf``:
+    codes in the pool layout and float32 scales of the pool shape without
+    its ``page_size`` axis and trailing head_dim axis."""
     def alloc(like, b_ax, s_ax):
         shape = tuple(like.shape)
-        if s_ax >= 0:
-            shape = pool_shape(shape, b_ax, s_ax, num_pages, page_size)
-        return torch.zeros(shape, dtype=like.dtype, device=device)
+        if s_ax < 0:
+            return torch.zeros(shape, dtype=like.dtype, device=device)
+        shape = pool_shape(shape, b_ax, s_ax, num_pages, page_size)
+        if kv_dtype == "bf16":
+            return torch.zeros(shape, dtype=like.dtype, device=device)
+        pax = page_axis(b_ax, s_ax)
+        sc_shape = shape[:pax + 1] + shape[pax + 2:-1]
+        return QuantizedLeaf(
+            torch.zeros(shape, dtype=KV_DTYPES[kv_dtype], device=device),
+            torch.zeros(sc_shape, dtype=torch.float32, device=device),
+            kv_dtype, like.dtype)
 
-    out = {}
-    for name, like in cache_like.items():
-        leaves = [alloc(t, ba[name], s_ax) for t, s_ax in
-                  zip(_leaves(like), _leaf_axes(sa[name], like))]
-        out[name] = leaves if isinstance(like, list) else leaves[0]
-    return out
+    return _map(alloc, cache_like, ba, sa)
 
 
 def _pages_leading(pool: torch.Tensor, b_ax: int, s_ax: int) -> torch.Tensor:
-    """A VIEW of a pool leaf with the (num_pages, page_size) axes leading."""
+    """A VIEW of a pool leaf (or of its codes) with the (num_pages,
+    page_size) axes leading; fp8 codes are viewed as their bytes."""
     pax = page_axis(b_ax, s_ax)
-    return torch.movedim(pool, (pax, pax + 1), (0, 1))
+    return torch.movedim(byte_view(pool), (pax, pax + 1), (0, 1))
 
 
-def insert_tree(pcache: Dict[str, object], single: Dict[str, object],
-                table_row: torch.Tensor, slot: int, ba: Dict[str, int],
-                sa: Dict[str, object]) -> None:
-    """Admit one prefilled B=1 dense cache IN PLACE: paged leaves scatter
-    their page blocks to the slot's physical pages (the first entries of
-    ``table_row``, as many as the B=1 cache holds pages; excess logical
-    pages land on scratch), dense leaves take the slot's row.  A B=1 ring
-    sized to a prompt shorter than the slot's ring fills the ring's first
-    positions; the rest is written by decode before anything reads it."""
-    rows = table_row.to(torch.int64)
-    for name, entry in pcache.items():
-        b_ax = ba[name]
-        for p, s, s_ax in zip(_leaves(entry), _leaves(single[name]),
-                              _leaf_axes(sa[name], entry)):
-            if s_ax < 0:
-                dst = p.narrow(b_ax, slot, 1)
-                for ax, n in enumerate(s.shape):
-                    dst = dst.narrow(ax, 0, n)
-                dst.copy_(s.to(p.dtype))
-                continue
-            pl = _pages_leading(p, b_ax, s_ax)             # (N, ps, *rest)
-            ps = pl.shape[1]
-            x = torch.movedim(s, (b_ax, s_ax), (0, 1))[0]  # (S, *rest)
-            blocks = x.reshape((x.shape[0] // ps, ps) + tuple(x.shape[1:]))
-            pl[rows[:blocks.shape[0]]] = blocks.to(p.dtype)
+def _scales_leading(scales: torch.Tensor, b_ax: int,
+                    s_ax: int) -> torch.Tensor:
+    """A VIEW of a scale array with its page axis leading (scales have no
+    page_size axis)."""
+    return torch.movedim(scales, page_axis(b_ax, s_ax), 0)
+
+
+def pool_bytes(pcache: Dict[str, object], sa: Dict[str, object]) -> int:
+    """Resident bytes of the paging leaves, codes and scales of a quantized
+    pool included."""
+    return sum(_nbytes(t) for name, e in pcache.items()
+               for t, s_ax in zip(_leaves(e), _leaf_axes(sa[name], e))
+               if s_ax >= 0)
+
+
+def page_token_bytes(pcache: Dict[str, object], sa: Dict[str, object],
+                     num_pages: int, page_size: int) -> int:
+    """Pool bytes per token position (``num_pages * page_size`` of them),
+    summed over the paging leaves."""
+    return pool_bytes(pcache, sa) // (int(num_pages) * int(page_size))
 
 
 def kv_token_bytes(cache_like: Dict[str, object], ba: Dict[str, int],
@@ -641,6 +709,159 @@ def kv_token_bytes(cache_like: Dict[str, object], ba: Dict[str, int],
     return total
 
 
+def kv_token_bytes_quant(cache_like: Dict[str, object], ba: Dict[str, int],
+                         sa: Dict[str, object], page_size: int,
+                         kv_dtype: str) -> float:
+    """Per-token bytes of the QUANTIZED pool leaves: the 1-byte codes plus
+    the per-page x per-KV-head float32 scales spread over ``page_size``
+    positions, from the DENSE cache shapes (fractional; the meter rounds)."""
+    itemsize = torch.empty((), dtype=KV_DTYPES[kv_dtype]).element_size()
+    total = 0.0
+    for name, entry in cache_like.items():
+        for like, s_ax in zip(_leaves(entry), _leaf_axes(sa[name], entry)):
+            if s_ax >= 0:
+                n = like.numel() // (like.shape[ba[name]] * like.shape[s_ax])
+                total += n * itemsize + (n // like.shape[-1]) * 4.0 / int(
+                    page_size)
+    return float(total)
+
+
+def gather_view(pool, table: torch.Tensor, b_ax: int,
+                s_ax: int) -> torch.Tensor:
+    """Reassemble one paged leaf into its dense ``(..., B, ..., S, ...)``
+    view through the page table ``(B, P)`` (a new tensor: the O(B x
+    max_len) transient the in-place discipline avoids; the gather
+    discipline and the prefix seed only).  A ``QuantizedLeaf`` gathers
+    codes and scales together and dequantizes, ``codes * scale`` in float32
+    rounded once to its ``out_dtype``."""
+    B, P = table.shape
+    idx = table.to(torch.int64)
+    if isinstance(pool, QuantizedLeaf):
+        cl = _pages_leading(pool.codes, b_ax, s_ax)     # (N, ps, *rest)
+        sl = _scales_leading(pool.scales, b_ax, s_ax)   # (N, *rest[:-1])
+        g = cl[idx].view(pool.codes.dtype).to(torch.float32)
+        gs = sl[idx]                                    # (B, P, *rest[:-1])
+        gs = gs.reshape((B, P, 1) + tuple(gs.shape[2:]) + (1,))
+        d = (g * gs).to(pool.out_dtype)
+        d = d.reshape((B, P * cl.shape[1]) + tuple(cl.shape[2:]))
+        return torch.movedim(d, (0, 1), (b_ax, s_ax))
+    pl = _pages_leading(pool, b_ax, s_ax)
+    g = pl[idx]                                         # (B, P, ps, *rest)
+    g = g.reshape((B, P * pl.shape[1]) + tuple(pl.shape[2:]))
+    return torch.movedim(g, (0, 1), (b_ax, s_ax))
+
+
+def gather_tree(pcache: Dict[str, object], table: torch.Tensor,
+                ba: Dict[str, int], sa: Dict[str, object]) -> Dict[str, object]:
+    """The dense-view cache the family ``decode_step`` takes: paged leaves
+    gathered into new tensors, dense leaves (ring K/V, ``len``) passed
+    through as the same tensors, so an in-place step on the view updates
+    them where they lie."""
+    return _map(lambda p, b_ax, s_ax: p if s_ax < 0
+                else gather_view(p, table, b_ax, s_ax), pcache, ba, sa)
+
+
+def _take_token(leaf: torch.Tensor, pos: torch.Tensor, b_ax: int,
+                s_ax: int) -> torch.Tensor:
+    """Slot b's entry at position ``pos[b]`` of a dense leaf -> (B, *rest)."""
+    x = torch.movedim(leaf, (b_ax, s_ax), (0, 1))       # (B, S, *rest)
+    rows = torch.arange(x.shape[0], device=x.device)
+    # a finished slot's stale position may sit at S; it writes to scratch
+    return x[rows, torch.clamp(pos.to(torch.int64), max=x.shape[1] - 1)]
+
+
+def scatter_token(pool, table: torch.Tensor, new_leaf: torch.Tensor,
+                  pos: torch.Tensor, write: torch.Tensor, b_ax: int,
+                  s_ax: int) -> None:
+    """Write each active slot's token at ``pos[b]`` of the updated dense
+    view back into its page, IN PLACE; inactive slots land on the scratch
+    page.  A quantized pool takes the same quantize-on-write append as the
+    in-place discipline (``layers.quant_page_append``), so both encode pages
+    identically."""
+    tok = _take_token(new_leaf, pos, b_ax, s_ax)        # (B, *rest)
+    ps = pool.shape[page_axis(b_ax, s_ax) + 1]
+    page, off = page_offsets(table, pos, write, ps)
+    if isinstance(pool, QuantizedLeaf):
+        quant_page_append(_pages_leading(pool.codes, b_ax, s_ax).view(
+            pool.codes.dtype), _scales_leading(pool.scales, b_ax, s_ax),
+            tok, page, off, pool.kv_dtype)
+        return
+    _pages_leading(pool, b_ax, s_ax)[page, off] = tok.to(pool.dtype)
+
+
+def scatter_token_tree(pcache: Dict[str, object],
+                       new_view: Dict[str, object], table: torch.Tensor,
+                       pos: torch.Tensor, write: torch.Tensor,
+                       ba: Dict[str, int], sa: Dict[str, object]) -> None:
+    """After a decode step on :func:`gather_tree`'s view: each paged leaf
+    gets its one new token per active slot scattered into its page (the
+    dense leaves were the view's own tensors and are already updated)."""
+    _map(lambda p, b_ax, s_ax, n: None if s_ax < 0
+         else scatter_token(p, table, n, pos, write, b_ax, s_ax),
+         pcache, ba, sa, new_view)
+
+
+def insert_tree(pcache: Dict[str, object], single: Dict[str, object],
+                table_row: torch.Tensor, slot: int, ba: Dict[str, int],
+                sa: Dict[str, object], n_tokens: int = 0) -> None:
+    """Admit one prefilled B=1 dense cache IN PLACE: paged leaves scatter
+    their page blocks to the slot's physical pages (the first entries of
+    ``table_row``, as many as the B=1 cache holds pages; excess logical
+    pages land on scratch), dense leaves take the slot's row.  A B=1 ring
+    sized to a prompt shorter than the slot's ring fills the ring's first
+    positions; the rest is written by decode before anything reads it.
+
+    A quantized pool encodes each block under its page's scale; positions
+    at or past ``n_tokens`` (the prefilled length) are zeroed first, so
+    whatever lies past the prompt never coarsens a page's scale."""
+    rows = table_row.to(torch.int64)
+    for name, entry in pcache.items():
+        b_ax = ba[name]
+        for p, s, s_ax in zip(_leaves(entry), _leaves(single[name]),
+                              _leaf_axes(sa[name], entry)):
+            if s_ax < 0:
+                dst = p.narrow(b_ax, slot, 1)
+                for ax, n in enumerate(s.shape):
+                    dst = dst.narrow(ax, 0, n)
+                dst.copy_(s.to(p.dtype))
+                continue
+            x = torch.movedim(s, (b_ax, s_ax), (0, 1))[0]  # (S, *rest)
+            ps = p.shape[page_axis(b_ax, s_ax) + 1]
+            blocks = x.reshape((x.shape[0] // ps, ps) + tuple(x.shape[1:]))
+            dst = rows[:blocks.shape[0]]
+            if not isinstance(p, QuantizedLeaf):
+                _pages_leading(p, b_ax, s_ax)[dst] = blocks.to(p.dtype)
+                continue
+            P = blocks.shape[0]
+            pos = torch.arange(P * ps, device=blocks.device).reshape(P, ps)
+            valid = (pos < int(n_tokens)).reshape(
+                (P, ps) + (1,) * (blocks.dim() - 2))
+            blocks = torch.where(valid, blocks.to(torch.float32),
+                                 torch.zeros((), dtype=torch.float32,
+                                             device=blocks.device))
+            amax = blocks.abs().amax(dim=(1, blocks.dim() - 1))
+            sc = kv_pow2_scale(amax, p.kv_dtype)        # (P, *rest[:-1])
+            q = kv_quantize(blocks, sc.reshape(
+                (P, 1) + tuple(sc.shape[1:]) + (1,)), p.kv_dtype)
+            _pages_leading(p.codes, b_ax, s_ax)[dst] = byte_view(q)
+            _scales_leading(p.scales, b_ax, s_ax)[dst] = sc
+
+
+def fake_quant_tree(cache: Dict[str, object], n_tokens: int,
+                    sa: Dict[str, object], page_size: int,
+                    kv_dtype: str) -> Dict[str, object]:
+    """Round-trip the completed pages of a dense B=1 request cache through
+    the page quantizer, IN PLACE (``layers.fake_quant_pages`` per paging
+    leaf; dense leaves untouched).  Both engines apply it after every
+    prefill and prefill chunk of a quantized pool, so the chunk stream
+    attends to exactly the values insertion will store."""
+    for name, entry in cache.items():
+        for leaf, s_ax in zip(_leaves(entry), _leaf_axes(sa[name], entry)):
+            if s_ax >= 0:
+                fake_quant_pages(leaf, s_ax, n_tokens, page_size, kv_dtype)
+    return cache
+
+
 # ----------------------------------------------------------------------------
 # Engine hooks
 # ----------------------------------------------------------------------------
@@ -648,100 +869,241 @@ class PagedEngineMixin:
     """The slot-protocol paging hooks the serving engines share.
 
     An engine keeps ``_pager`` (a :class:`HostPager`, or None for a dense
-    slot cache) and calls :meth:`_note_slot_cache` from its
-    ``init_slot_cache``.  With no pager every hook takes the dense branch:
-    admission admits everything, and reserve, free and publish do nothing.
-    The in-place discipline is the one ported (attention through the page
-    table); the gather discipline and prefix sharing are not ported yet and
-    refuse to be selected.
+    slot cache), sets ``_paged_attn``, ``_prefix_cache_on`` and
+    ``_kv_dtype`` from its constructor and calls :meth:`_note_slot_cache`
+    from its ``init_slot_cache``.  With no pager every hook takes the dense
+    branch: admission admits everything, and reserve, free and publish do
+    nothing.
+
+    ``paged_attn`` picks the paged decode discipline: ``"inplace"``
+    attends through the page table (the paged kernel on the card),
+    ``"gather"`` gathers the dense view, runs the family's dense decode step
+    and scatters the one new token per active slot back (the reference
+    discipline).  ``prefix_cache="on"`` arms shared-prefix reuse:
+    admission radix-matches the prompt against the pool's index, maps the
+    matched pages into the slot's table (refcount++, no prefill for them)
+    and the tail is prefilled from a B=1 cache seeded with the gathered
+    prefix; it engages only when every dynamic cache leaf pages (``len``
+    aside), so a ring or recurrent family runs a no-op index.
     """
 
     _pager: Optional[HostPager] = None
+    _paged_attn: str = "inplace"
+    _prefix_cache_on: bool = False
+    _prefix_shareable: bool = False
+    _kv_dtype: str = "bf16"      # pool storage format
     _kv_tok_bytes: int = 0       # per-token-per-slot seq-scaling cache bytes
+    _kv_quant_tok_bytes: Optional[float] = None   # a quantized pool's figure
     _slot_count: int = 0
 
     @property
     def _paging_active(self) -> bool:
         return self._pager is not None
 
+    def _set_paging(self, page_size: Optional[int], num_pages: Optional[int],
+                    paged_attn: str, prefix_cache: str,
+                    kv_dtype: str) -> None:
+        """Validate and set the slot cache's paging options (the engines'
+        constructors call this once the cache layout is known): a host pager
+        only with ``page_size`` and where some cache leaf grows with the
+        sequence; rwkv keeps the dense slot layout, as in the JAX
+        package."""
+        self._paged_attn = self.check_paged_attn(paged_attn)
+        self._prefix_cache_on = self.check_prefix_cache(prefix_cache)
+        self._kv_dtype = check_kv_dtype(kv_dtype, page_size)
+        self.page_size, self.num_pages = page_size, num_pages
+        pages_any = any(s_ax >= 0 for e in self._stats_seq_axes().values()
+                        for s_ax in (e if isinstance(e, list) else [e]))
+        self._pager = (HostPager(page_size, num_pages, self.max_len,
+                                 device=self.device)
+                       if page_size is not None and pages_any else None)
+
+    def with_paging(self, page_size: Optional[int] = None,
+                    num_pages: Optional[int] = None,
+                    paged_attn: str = "inplace", prefix_cache: str = "off",
+                    kv_dtype: str = "bf16"):
+        """A second engine over the SAME device weights with other
+        slot-cache options and a fresh meter: the weights are immutable, so
+        one set serves several pool configurations without being built (or
+        LAQ-quantized) again."""
+        other = copy.copy(self)
+        other.meter = type(self.meter)()
+        other._set_paging(page_size, num_pages, paged_attn, prefix_cache,
+                          kv_dtype)
+        return other
+
     @staticmethod
     def check_paged_attn(paged_attn: str) -> str:
-        if paged_attn == "gather":
-            raise NotImplementedError(
-                "paged_attn='gather' is not ported yet; use 'inplace'")
-        if paged_attn != "inplace":
+        if paged_attn not in ("inplace", "gather"):
             raise ValueError(
                 f"paged_attn must be 'inplace' or 'gather', got {paged_attn!r}")
         return paged_attn
 
     @staticmethod
-    def check_prefix_cache(prefix_cache: str) -> None:
-        if prefix_cache == "on":
-            raise NotImplementedError(
-                "prefix_cache='on' (shared-prefix KV reuse) is not ported yet")
-        if prefix_cache != "off":
+    def check_prefix_cache(prefix_cache: str) -> bool:
+        if prefix_cache not in ("on", "off"):
             raise ValueError(
                 f"prefix_cache must be 'on' or 'off', got {prefix_cache!r}")
+        return prefix_cache == "on"
 
     def _note_slot_cache(self, n_slots: int, cache_like, ba, sa) -> None:
-        """Record the slot-cache geometry the KV-read accounting needs."""
+        """Record the slot-cache geometry the KV byte accounting needs, and
+        whether prefix reuse is sound: only when every leaf but ``len``
+        pages (a ring or recurrent leaf is slot-private state a shared page
+        cannot restore)."""
         self._slot_count = int(n_slots)
         self._kv_tok_bytes = kv_token_bytes(cache_like, ba, sa)
+        self._prefix_shareable = all(
+            s_ax >= 0 for name, e in sa.items() if name != "len"
+            for s_ax in _leaf_axes(e, cache_like[name]))
+        self._kv_quant_tok_bytes = (
+            kv_token_bytes_quant(cache_like, ba, sa, self.page_size,
+                                 self._kv_dtype)
+            if self._paging_active and self._kv_dtype != "bf16" else None)
+        if self._paging_active:
+            self._pager.prefix_on = self.prefix_sharing_active()
 
     # ------------------------------------------------ host KV-read accounting
+    def _kv_bytes(self, tokens) -> int:
+        """KV bytes ``tokens`` positions occupy in the pool's storage
+        format: 1-byte codes plus page-amortized scales for a quantized
+        pool, the dense figure otherwise."""
+        if self._kv_quant_tok_bytes is not None:
+            return int(round(tokens * self._kv_quant_tok_bytes))
+        return int(tokens * self._kv_tok_bytes)
+
+    def _dense_view_read_bytes(self) -> int:
+        """Bytes a step reads through a dense (or gathered) ``max_slots x
+        max_len`` view: the dense figure, also under a quantized pool (the
+        gather discipline reads the dequantized view)."""
+        return self._slot_count * self.max_len * self._kv_tok_bytes
+
     def kv_read_bytes_step(self, active: np.ndarray) -> int:
         """KV-cache bytes ONE decode step reads under the engine's read
-        MODEL (replayed on the host, not a hardware counter): through the
-        page table only the live pages, ``ceil((len + is_active) /
-        page_size)`` per occupied slot; a dense slot cache reads its whole
+        MODEL (replayed on the host, not a hardware counter): in place
+        through the page table only the live pages, ``ceil((len +
+        is_active) / page_size)`` per occupied slot, in the pool's storage
+        format; the gather discipline and a dense slot cache read the whole
         ``max_slots x max_len`` view."""
-        if not self._paging_active:
-            return self._slot_count * self.max_len * self._kv_tok_bytes
-        ps = self._pager.page_size
-        lens = self._pager.host_len + np.asarray(active, bool)
-        pages_touched = int(-((lens[lens > 0]) // -ps).sum())
-        return pages_touched * ps * self._kv_tok_bytes
+        if self._paging_active and self._paged_attn == "inplace":
+            ps = self._pager.page_size
+            lens = self._pager.host_len + np.asarray(active, bool)
+            pages_touched = int(-((lens[lens > 0]) // -ps).sum())
+            return self._kv_bytes(pages_touched * ps)
+        return self._dense_view_read_bytes()
 
     def _meter_kv_read(self, active: np.ndarray) -> None:
         n = self.kv_read_bytes_step(active)
         if n:
             self.meter.host_read("kv_cache_read", n)
 
+    def gather_transient_bytes_per_step(self) -> int:
+        """Dense-view transient bytes one paged decode step materialises:
+        the gather discipline's full view, none in place or dense."""
+        if self._paging_active and self._paged_attn == "gather":
+            return self._dense_view_read_bytes()
+        return 0
+
     def paged_insert(self, batched_cache, single_cache, slot: int, ba, sa,
                      n_tokens: int):
         """Admit one prefilled B=1 dense cache into the pool: allocate the
-        slot's pages, then scatter its page blocks through the table row
-        (in place)."""
+        slot's pages, then scatter its page blocks through the table row (in
+        place; matched prefix entries of the row point at scratch, so the
+        shared pages are never written)."""
         self._pager.note_insert(slot, n_tokens)
         insert_tree(batched_cache, single_cache,
-                    self._pager.insert_row(slot), slot, ba, sa)
+                    self._pager.insert_row(slot), slot, ba, sa, n_tokens)
         return batched_cache
 
+    # ------------------------------------------------- shared-prefix KV reuse
     def prefix_cache_armed(self) -> bool:
-        return False
+        """Whether the engine was built with the prefix cache on and a page
+        size (before ``init_slot_cache`` knows whether it can share)."""
+        return (self._prefix_cache_on
+                and getattr(self, "page_size", None) is not None)
+
+    def prefix_sharing_active(self) -> bool:
+        """Whether admission radix-matches: the knob is on, the slot cache
+        pages, and every dynamic leaf pages."""
+        return (self._paging_active and self._prefix_cache_on
+                and self._prefix_shareable)
 
     def admit_slot(self, slot: int, prompt: np.ndarray, max_new: int,
                    chunk: Optional[int] = None) -> Optional[int]:
-        """Admission control: 0 when admitted (no prefix reuse in the port
-        yet; a dense slot cache always admits), None when the pool cannot
-        take the request right now and the scheduler should wait for
-        running requests to free pages."""
+        """Admission control with prefix reuse: the CACHED token count (0 =
+        admitted with no reuse; a dense slot cache always 0), or None when
+        the pool cannot take the request now and the scheduler should wait
+        for frees.  ``chunk`` is the scheduler's prefill chunk width, the
+        alignment quantum of a partial match.  A hit meters the prefill KV
+        bytes it saved on the host channel ``prefix_prefill_saved``, in the
+        pool's storage format."""
         if not self._paging_active:
             return 0
-        return self._pager.admit(slot, prompt, max_new, None)
+        cached = self._pager.admit(
+            slot, prompt, max_new,
+            chunk if self.prefix_sharing_active() else None)
+        if cached:
+            self.meter.host_read("prefix_prefill_saved",
+                                 self._kv_bytes(cached))
+        return cached
 
     def publish_prefix(self, slot: int, prompt: np.ndarray) -> None:
         if self._paging_active:
             self._pager.publish(slot, prompt)
 
-    def paged_pre_step(self, cache, active: np.ndarray):
-        """Host work before one paged decode step: allocate every active
-        slot's append page and meter the step's KV reads."""
+    def paged_seed(self, batched_cache, slot: int, cached_len: int, ba, sa,
+                   b1_like):
+        """The prefix-aware prefill entry: a fresh B=1 dense cache (shapes
+        and dtypes of ``b1_like``) holding the slot's matched prefix pages
+        gathered (and dequantized) from the pool, with ``len =
+        cached_len``; the tail chunk stream continues from there."""
+        row = self._pager.row(slot)[None, :]
+
+        def leaf(like, b_ax, s_ax, pool):
+            # a dense leaf other than ``len`` cannot occur while sharing is
+            # active (the shareability rule); zeros keep the seed total
+            if s_ax >= 0:
+                return gather_view(pool, row, b_ax, s_ax)
+            return torch.zeros(tuple(like.shape), dtype=like.dtype,
+                               device=self.device)
+
+        out = _map(leaf, b1_like, ba, sa, batched_cache)
+        out["len"] = torch.full(tuple(b1_like["len"].shape), int(cached_len),
+                                dtype=b1_like["len"].dtype,
+                                device=self.device)
+        return out
+
+    def apply_cow_copies(self, cache, copies, ba, sa):
+        """Copy each CoW'd page's device bytes (src -> dst) in every pool
+        leaf, scales with their codes; runs only on CoW events (a
+        whole-prompt prefix hit's first decode step).  Meters each copy's
+        bytes on the host channel ``page_cow_copy``."""
+        if not copies:
+            return cache
+
+        def copy(p, b_ax, s_ax, src, dst):
+            if s_ax < 0:
+                return
+            if isinstance(p, QuantizedLeaf):
+                sl = _scales_leading(p.scales, b_ax, s_ax)
+                sl[dst].copy_(sl[src])
+                p = p.codes
+            pl = _pages_leading(p, b_ax, s_ax)
+            pl[dst].copy_(pl[src])
+
+        page_bytes = self._kv_bytes(self._pager.page_size)
+        for src, dst in copies:
+            _map(lambda p, b_ax, s_ax: copy(p, b_ax, s_ax, src, dst),
+                 cache, ba, sa)
+            self.meter.host_read("page_cow_copy", page_bytes)
+        return cache
+
+    def paged_pre_step(self, cache, active: np.ndarray, ba, sa):
+        """Host work before one paged decode step: CoW-protect and allocate
+        every active slot's append position, copy any CoW'd pages, and
+        meter the step's KV reads.  Returns the cache (updated in place)."""
         copies = self._pager.pre_decode(active)
-        if copies:
-            raise NotImplementedError(
-                "copy-on-write page copies need prefix sharing, which is not "
-                "ported yet")
+        cache = self.apply_cow_copies(cache, copies, ba, sa)
         self._meter_kv_read(active)
         return cache
 
@@ -759,21 +1121,40 @@ class PagedEngineMixin:
         if self._paging_active:
             self._pager.free(slot)
 
-    def cache_stats(self, cache) -> Dict[str, int]:
-        """Resident-cache accounting: ``cache_bytes`` backs the slot cache;
-        ``peak_kv_bytes_in_use`` is what its pages held at peak (the whole
-        allocation for the dense layout)."""
-        tensors = [t for e in cache.values() for t in _leaves(e)]
-        total = sum(t.numel() * t.element_size() for t in tensors)
+    def _stats_seq_axes(self):
+        raise NotImplementedError
+
+    def cache_stats(self, cache) -> Dict[str, object]:
+        """Resident-cache accounting: ``cache_bytes`` backs the slot cache
+        (codes and scales of a quantized pool); ``peak_kv_bytes_in_use`` is
+        what its pages held at peak (the whole allocation for the dense
+        layout); the prefix index's hits, pages, evictions and CoW copies;
+        the pool's storage format and its bytes per stored token."""
+        total = sum(_nbytes(t) for e in cache.values() for t in _leaves(e))
         if not self._paging_active:
             return {"cache_bytes": total, "peak_kv_bytes_in_use": total}
-        pool = self._pager.pool
-        page_bytes = self._kv_tok_bytes * pool.page_size
-        pool_bytes = page_bytes * pool.num_pages
+        pool, pager = self._pager.pool, self._pager
+        sa = self._stats_seq_axes()
+        pbytes = pool_bytes(cache, sa)
+        page_bytes = page_token_bytes(cache, sa, pool.num_pages,
+                                      pool.page_size) * pool.page_size
         return {"cache_bytes": total, "page_size": pool.page_size,
-                "num_pages": pool.num_pages, "pool_bytes": pool_bytes,
+                "num_pages": pool.num_pages, "pool_bytes": pbytes,
                 "page_bytes": page_bytes, "pages_in_use": pool.pages_in_use,
                 "peak_pages_in_use": pool.peak_pages_in_use,
                 "pages_allocated": pool.pages_allocated,
-                "peak_kv_bytes_in_use": (total - pool_bytes
-                                         + pool.peak_pages_in_use * page_bytes)}
+                "peak_kv_bytes_in_use": (total - pbytes
+                                         + pool.peak_pages_in_use * page_bytes),
+                "prefix_hits": pager.prefix_hits,
+                "prefix_hit_tokens": pager.prefix_hit_tokens,
+                "index_pages": pool.index_pages,
+                "cached_index_pages": pool.cached_pages,
+                "evictions": pool.evictions,
+                "cow_copies": pool.cow_copies,
+                "kv_shards": 1,
+                "kv_token_bytes_per_shard": self._kv_tok_bytes,
+                "kv_dtype": self._kv_dtype,
+                "kv_token_bytes_stored": (
+                    self._kv_quant_tok_bytes
+                    if self._kv_quant_tok_bytes is not None
+                    else self._kv_tok_bytes)}

@@ -17,7 +17,15 @@ IN PLACE where the JAX package returned new arrays (K/V append into
 ``pool[l]`` / ``cache[l]``; prefill loops over the true prompt length only),
 so no step copies a cache.  With ``page_size`` set, the slot cache is a page
 pool behind a host-owned page table and decode attends through the table
-with the paged flash-decode op (``paged_attn="inplace"``).
+with the paged flash-decode op (``paged_attn="inplace"``) or through the
+gathered dense view (``"gather"``); without it, the dense (L, n_slots, Hkv,
+max_len, hd) cache.  The scheduler's chunked prefill runs the token step
+from whatever state a B=1 request cache holds, a prefix hit seeds that
+cache from the pool's shared pages (``prefix_cache="on"``, copy-on-write
+before a shared page is written), and an int8 / fp8 pool (``kv_dtype``)
+quantizes pages on write, the request cache's completed pages
+fake-quantized after each prefill so that it attends to what the pool
+stores.
 
 ``generate()`` is the paper's own entry point: prompt forcing plus greedy
 decode through the same per-token step on a dense cache.  The JAX package
@@ -114,10 +122,6 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
                 "split-brain engine covers the paper's LM configs")
         if cfg.moe:
             raise ValueError("split-brain engine covers dense FFNs")
-        if kv_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} pools are not ported to the engine "
-                f"yet (the paged attention kernel takes them)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.meter = TrafficMeter()
@@ -146,13 +150,10 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         self._embed = params["embed"]         # host-side float table
         self._ln_final = params["ln_final"]
         self._head = head
-        self.page_size = page_size
-        self.num_pages = num_pages
-        self._pager = (pages_mod.HostPager(page_size, num_pages, max_len,
-                                           device=self.device)
-                       if page_size is not None else None)
-        self.check_paged_attn(paged_attn)
-        self.check_prefix_cache(prefix_cache)
+        # the paging options; int8 / fp8 pages quantize on write and are
+        # dequantized at the paged kernel's page fetch
+        self._set_paging(page_size, num_pages, paged_attn, prefix_cache,
+                         kv_dtype)
 
     # ------------------------------------------------------------ accounting
     def _meter_token(self, batch: int) -> None:
@@ -223,17 +224,21 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         return L.linear(x, self._head, compiled)[:, 0]
 
     def _token_step(self, k_cache, v_cache, length, token,
-                    compiled: bool = False) -> torch.Tensor:
+                    compiled: bool = False,
+                    write: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One token against the dense cache (L, B, Hkv, S, hd), appended in
-        place at ``length``.  Returns the logits; the caller advances
-        ``len``.  ``compiled``: as in :meth:`_layer_sweep`."""
+        place at ``length`` (clamped to the last position, where the JAX
+        package's slice update clamps too).  ``write`` (B,) bool keeps the
+        rows where it is False as they were.  Returns the logits; the
+        caller advances ``len``.  ``compiled``: as in :meth:`_layer_sweep`."""
         pos = length
         cache_len = pos + 1
+        idx = torch.clamp(pos, max=k_cache.shape[3] - 1)
 
         def kv_attend(i, q, k, v):
             kc, vc = k_cache[i], v_cache[i]
-            L.cache_write(kc, k, pos, aligned=False)
-            L.cache_write(vc, v, pos, aligned=False)
+            L.cache_write(kc, k, idx, aligned=False, write=write)
+            L.cache_write(vc, v, idx, aligned=False, write=write)
             return ops.decode_attention(q, kc, vc, cache_len,
                                         softcap=self.cfg.softcap)
 
@@ -396,24 +401,44 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
 
     # ---------------------------------------------------------- slot protocol
     # Consumed by serve/scheduler.py: slot i is row i of the slot cache, at
-    # its own ragged position; its K/V live in a shared page pool behind a
-    # host-owned page table.
+    # its own ragged position.  With ``page_size`` its K/V live in a shared
+    # page pool behind a host-owned page table; without it the slot cache
+    # is the dense (L, n_slots, Hkv, max_len, hd) cache.
     def init_slot_cache(self, n_slots: int) -> Dict[str, torch.Tensor]:
-        if self._pager is None:
-            raise NotImplementedError(
-                "the slot protocol serves a page pool: pass page_size (dense "
-                "slot caches are not ported yet)")
         like = self._cache_like(n_slots)
         ba, sa = self._SLOT_AXES, self._SEQ_AXES
         self._note_slot_cache(n_slots, like, ba, sa)
+        if not self._paging_active:
+            return self.init_cache(n_slots)
         pool = self._pager.reset(n_slots)
         return pages_mod.make_pool(like, ba, sa, pool.num_pages,
-                                   self.page_size, self.device)
+                                   self.page_size, self.device,
+                                   kv_dtype=self._kv_dtype)
+
+    def _stats_seq_axes(self):
+        return self._SEQ_AXES
 
     def rebuild(self, n_slots: int) -> Dict[str, torch.Tensor]:
         """Re-materialise the device-side KV state from host state after a
-        device fault: a fresh page pool and a reset host pager.  The weights are immutable and stay."""
+        device fault: a fresh slot cache and a reset host pager.  The
+        weights are immutable and stay."""
         return self.init_slot_cache(n_slots)
+
+    def _prefill_tokens(self, cache, tokens: np.ndarray) -> None:
+        """Feed ``tokens`` through the token step from whatever state the
+        B=1 cache holds (the compiled numerics), then, for a quantized pool,
+        fake-quantize its completed pages so that what later tokens attend
+        to is what the pool stores."""
+        if len(tokens):
+            body = self._tokens(tokens)
+            for t in range(len(tokens)):
+                self._token_step(cache["k"], cache["v"], cache["len"],
+                                 body[t:t + 1], compiled=True)
+                cache["len"] += 1
+        if self._kv_dtype != "bf16":
+            pages_mod.fake_quant_tree(cache, int(cache["len"][0]),
+                                      self._SEQ_AXES, self.page_size,
+                                      self._kv_dtype)
 
     def prefill_slot(self, prompt: np.ndarray):
         """Prefill ONE request into a fresh B=1 dense cache.
@@ -422,20 +447,42 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         decode step).  The loop runs over the true prompt length only, so
         nothing past it is computed or written."""
         prompt = np.asarray(prompt, np.int32)
-        T0 = prompt.shape[0]
         cache = self.init_cache(1)
-        if T0 > 1:
-            body = self._tokens(prompt[:-1])
-            for t in range(T0 - 1):
-                self._token_step(cache["k"], cache["v"], cache["len"],
-                                 body[t:t + 1], compiled=True)
-                cache["len"] += 1
+        if prompt.shape[0] > 1:
+            self._prefill_tokens(cache, prompt[:-1])
         return cache, int(prompt[-1])
+
+    def new_request_cache(self) -> Dict[str, torch.Tensor]:
+        """A fresh, empty B=1 cache for chunked prefill."""
+        return self.init_cache(1)
+
+    def seed_request_cache(self, cache, slot: int, cached_len: int):
+        """The prefix-aware prefill entry: a B=1 request cache holding the
+        slot's matched prefix pages gathered (dequantized) from the pool,
+        ``len = cached_len``; the tail chunks continue from there."""
+        return self.paged_seed(cache, slot, cached_len, self._SLOT_AXES,
+                               self._SEQ_AXES, self._cache_like(1))
+
+    def prefill_chunk_slot(self, cache: Dict[str, torch.Tensor],
+                           chunk: np.ndarray, true_w: int):
+        """Advance a B=1 request cache by one right-padded prompt chunk, in
+        place: the token step over the chunk's ``true_w`` real tokens from
+        whatever state the cache holds (the JAX package scans its prefill
+        program over the padded width with the state frozen past
+        ``true_w``), then the fake-quant of a quantized pool."""
+        chunk = np.asarray(chunk, np.int32)
+        pages_mod.check_chunk_width(chunk.shape[0], self.max_len)
+        self._prefill_tokens(cache, chunk[:int(true_w)])
+        return cache
 
     def insert_slot(self, batched_cache, slot_cache, slot: int):
         """Write a prefilled B=1 request cache into slot ``slot``, in place:
-        the host allocates the slot's pages first and the K/V is scattered
-        page block by page block."""
+        on the paged layout the host allocates the slot's pages first and
+        the K/V is scattered page block by page block; the dense layout
+        copies it into the slot's row."""
+        if not self._paging_active:
+            return slots_mod.insert_slot(batched_cache, slot_cache, slot,
+                                         self._SLOT_AXES)
         n_tok = int(slot_cache["len"][0])
         return self.paged_insert(batched_cache, slot_cache, slot,
                                  self._SLOT_AXES, self._SEQ_AXES, n_tok)
@@ -449,18 +496,38 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         ``corrupt`` (optional ``(n,)`` bool) NaN-poisons the flagged slots'
         logits before the argmax (the fault-injection hook).  The tokens and
         the sentinel come back in ONE device-to-host copy, the step's only
-        sync."""
+        sync.
+
+        Paged layout: the host copies any copy-on-write page and allocates
+        the page each append lands in; ``paged_attn="inplace"`` appends and
+        attends through the page table, ``"gather"`` runs the dense token
+        step on the gathered view and scatters each active slot's new token
+        back.  Dense layout: the token step on the slot cache itself."""
         n = int(np.asarray(tokens).shape[0])
         act = np.asarray(active, bool)
         bad = (np.zeros((n,), bool) if corrupt is None
                else np.asarray(corrupt, bool))
         tok_d = self._tokens(tokens)
         act_d = torch.as_tensor(act, device=self.device)
-        cache = self.paged_pre_step(cache, act)
-        logits = self._paged_token_step(cache["k"], cache["v"],
-                                        self._pager.table(), cache["len"],
-                                        tok_d, act_d)
-        self._pager.post_decode(act)
+        ba, sa = self._SLOT_AXES, self._SEQ_AXES
+        if not self._paging_active:
+            self._meter_kv_read(act)
+            logits = self._token_step(cache["k"], cache["v"], cache["len"],
+                                      tok_d, compiled=True, write=act_d)
+        else:
+            cache = self.paged_pre_step(cache, act, ba, sa)
+            table = self._pager.table()
+            if self._paged_attn == "inplace":
+                logits = self._paged_token_step(cache["k"], cache["v"], table,
+                                                cache["len"], tok_d, act_d)
+            else:
+                view = pages_mod.gather_tree(cache, table, ba, sa)
+                pos = cache["len"].clone()
+                logits = self._token_step(view["k"], view["v"], pos, tok_d,
+                                          compiled=True)
+                pages_mod.scatter_token_tree(cache, view, table, pos, act_d,
+                                             ba, sa)
+            self._pager.post_decode(act)
         cache["len"] += act_d.to(torch.int32)
         logits = slots_mod.corrupt_logits(
             logits, torch.as_tensor(bad, device=self.device))
@@ -468,13 +535,3 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         ok = slots_mod.finite_logits(logits).to(torch.int32)
         host = torch.stack([nxt, ok]).cpu().numpy()
         return host[0], host[1].astype(bool), cache
-
-    # ------------------------------------------- not ported in this slice yet
-    def new_request_cache(self):
-        raise NotImplementedError("chunked prefill is not ported yet")
-
-    def prefill_chunk_slot(self, cache, chunk, true_w):
-        raise NotImplementedError("chunked prefill is not ported yet")
-
-    def seed_request_cache(self, cache, slot, cached_len):
-        raise NotImplementedError("prefix sharing is not ported yet")

@@ -154,16 +154,29 @@ def test_corrupt_flags_a_slot_and_rebuild_resets(setup):
     assert eng._pager.pool.pages_in_use == 2
     fresh = eng.rebuild(2)
     assert eng._pager.pool.pages_in_use == 0 and not fresh["k"].any()
-    with pytest.raises(NotImplementedError, match="page_size"):
-        _port_engine(setup).init_slot_cache(2)
+    # without page_size the slot cache is the dense (L, n_slots, Hkv,
+    # max_len, hd) cache, and its rebuild a fresh one
+    dense = _port_engine(setup)
+    cache = dense.init_slot_cache(2)
+    assert cache["k"].shape[1:4:2] == (2, 32) and not cache["k"].any()
+    assert dense.cache_stats(cache)["cache_bytes"] == sum(
+        t.numel() * t.element_size() for t in cache.values())
 
 
 def test_not_ported_options_refuse(setup):
-    for kw in (dict(page_size=8, prefix_cache="on"),
-               dict(page_size=8, paged_attn="gather"),
-               dict(page_size=8, kv_dtype="int8")):
-        with pytest.raises(NotImplementedError):
-            _port_engine(setup, **kw)
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingScheduler(_port_engine(setup, page_size=8), max_slots=2,
-                                    prefill_chunk=4).run(_requests(Request))
+    """The options this test once held to a refusal (prefix sharing, the
+    gather discipline, an int8 pool, chunked prefill) now serve: every
+    request DONE with the tokens of the plain paged engine."""
+    plain = ContinuousBatchingScheduler(_port_engine(setup, page_size=8),
+                                        max_slots=2).run(_requests(Request))
+    want = [r.tokens.tolist() for r in plain["results"]]
+    for kw, chunk in ((dict(page_size=8, prefix_cache="on"), None),
+                      (dict(page_size=8, paged_attn="gather"), None),
+                      (dict(page_size=8, kv_dtype="int8"), None),
+                      (dict(page_size=8), 4)):
+        out = ContinuousBatchingScheduler(
+            _port_engine(setup, **kw), max_slots=2,
+            prefill_chunk=chunk).run(_requests(Request))
+        assert out["by_state"] == {"DONE": len(PROMPTS)}
+        if "kv_dtype" not in kw:
+            assert [r.tokens.tolist() for r in out["results"]] == want

@@ -527,3 +527,114 @@ def test_paged_kernel_at_gemma2_shape(cuda, window):
     torch.cuda.synchronize()
     assert_within_bf16_ulp(out, plain.float().cpu().numpy(),
                            atol=_order_bound(case, **opts))
+
+
+# ---------------------------------------------------------------- KV features
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_kv_quantizer_on_card_matches_cpu(cuda, kv_dtype):
+    """The page scale (table lookups), encode (half-to-even int8, the
+    round-to-nearest-even fp8 cast), decode, the page append and the
+    fake-quant give the CPU's bits on the card."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(7)
+    qmax = {"int8": 127.0, "fp8": 448.0}[kv_dtype]
+    edge = qmax * torch.exp2(torch.arange(-30, 12, dtype=torch.float32))
+    amax = torch.cat([edge, torch.nextafter(edge, torch.zeros(())),
+                      torch.nextafter(edge, torch.full((), 1e9)),
+                      torch.exp2(torch.rand(5000, generator=gen) * 30 - 20)])
+    s_cpu = L.kv_pow2_scale(amax, kv_dtype)
+    assert torch.equal(L.kv_pow2_scale(amax.to(cuda), kv_dtype).cpu(), s_cpu)
+    x = torch.randn((64, 128), generator=gen) * 3
+    sc = L.kv_pow2_scale(x.abs().amax(dim=1, keepdim=True), kv_dtype)
+    q_cpu = L.kv_quantize(x, sc, kv_dtype)
+    q_dev = L.kv_quantize(x.to(cuda), sc.to(cuda), kv_dtype)
+    assert torch.equal(L.byte_view(q_dev).cpu(), L.byte_view(q_cpu))
+    # append into a recycled pool: fresh page 3, page 5 mid, scratch twice
+    codes = L.kv_quantize(torch.randn((9, 8, 2, 16), generator=gen),
+                          torch.full((9, 1, 2, 1), 2.0 ** -5), kv_dtype)
+    scales = torch.full((9, 2), 2.0 ** -5)
+    tok = torch.randn((4, 2, 16), generator=gen).bfloat16().float()
+    page, off = torch.tensor([3, 0, 5, 0]), torch.tensor([0, 0, 4, 0])
+    pools = {d: (codes.clone().to(d), scales.clone().to(d))
+             for d in ("cpu", cuda)}
+    for d, (c, s) in pools.items():
+        L.quant_page_append(c, s, tok.to(d), page.to(d), off.to(d), kv_dtype)
+    for a, b in zip(pools["cpu"], pools[cuda]):
+        assert torch.equal(L.byte_view(b.cpu())[1:], L.byte_view(a)[1:])
+    leaf = (torch.randn((2, 1, 1, 2, 32, 16), generator=gen) * 2).bfloat16()
+    fq = {d: L.fake_quant_pages(leaf.clone().to(d), 4, 27, 8, kv_dtype)
+          for d in ("cpu", cuda)}
+    assert torch.equal(fq[cuda].cpu(), fq["cpu"])
+
+
+FEATURES = [
+    ("llama2-7b", dict(page_size=8, prefix_cache="on", kv_dtype="int8"), 8),
+    ("llama2-7b", dict(page_size=8, prefix_cache="on", kv_dtype="fp8",
+                       paged_attn="gather"), 8),
+    ("llama2-7b", dict(page_size=8, kv_dtype="fp8"), None),
+    ("gemma2-27b", dict(page_size=8, prefix_cache="on", kv_dtype="int8"), 8),
+]
+
+
+@pytest.mark.parametrize("case", range(len(FEATURES)))
+def test_serve_engine_features_on_card_match_cpu(cuda, case):
+    """Chunked prefill, prefix reuse, the gather discipline and int8 / fp8
+    pools on the card: the CPU's tokens and cached tokens, and the in-place
+    discipline launches the paged kernel (on the quantized pool: never the
+    plain version) once per paged layer per decode step.  With block
+    prefill (the flash kernel, one bf16 ulp from the plain version) into a
+    quantized pool, the CPU decodes from the card's prefilled request
+    caches."""
+    from torch_cases import (feature_prompts, record_prefills,
+                             replay_prefills, serve_staged)
+    arch, kw, chunk = FEATURES[case]
+    cfg = get_config(arch).reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    got, kept = {}, None
+    for d in (cuda, "cpu"):
+        eng = ServeEngine(cfg, params, max_len=64, device=d, **kw)
+        if chunk is None and d == cuda:
+            kept = record_prefills(eng)
+        elif chunk is None:
+            replay_prefills(eng, kept)
+        reqs = [Request(uid=i, prompt=p, max_new=6)
+                for i, p in enumerate(feature_prompts(cfg.vocab_size))]
+        steps = []
+        decode = eng.decode_slots
+        eng.decode_slots = lambda *a, **k: steps.append(1) or decode(*a, **k)
+        ops.reset_launch_counts()
+        res = serve_staged([ContinuousBatchingScheduler(
+            eng, max_slots=2, prefill_chunk=chunk)], [reqs])[0]
+        got[str(d)] = ([r.tokens.tolist() for r in res],
+                       [r.cached_tokens for r in res])
+        if d == cuda:
+            counts, n_steps = ops.launch_counts(), len(steps)
+    assert got[str(cuda)] == got["cpu"]
+    paged_layers = (cfg.num_layers if arch != "gemma2-27b"
+                    else cfg.num_layers // 2)
+    want = (0 if kw.get("paged_attn") == "gather"
+            else paged_layers * n_steps)
+    assert counts["paged_decode_attention"] == want
+    if chunk:
+        assert counts["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["w4a8", "float"])
+def test_splitbrain_features_on_card_match_cpu(cuda, quantize):
+    """The split-brain engine with an int8 prefix-shared pool and chunked
+    prefill, and on a dense slot cache: the CPU's tokens on the card."""
+    from torch_cases import feature_prompts, serve_staged
+    cfg = get_config("tinyllama-1.1b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for kw in (dict(page_size=8, prefix_cache="on", kv_dtype="int8"),
+               dict()):
+        got = {}
+        for d in ("cpu", cuda):
+            eng = SplitBrainEngine(cfg, params, max_len=64, quantize=quantize,
+                                   device=d, **kw)
+            reqs = [Request(uid=i, prompt=p, max_new=6)
+                    for i, p in enumerate(feature_prompts(cfg.vocab_size))]
+            res = serve_staged([ContinuousBatchingScheduler(
+                eng, max_slots=2, prefill_chunk=8)], [reqs])[0]
+            got[str(d)] = [r.tokens.tolist() for r in res]
+        assert got[str(cuda)] == got["cpu"], kw

@@ -1,7 +1,7 @@
 """The port's serving CLI, ``python -m repro_torch.launch.serve``, on the
-CPU at the reduced size: both modes print their JSON report, flags of
-features the port does not have yet exit with "not ported yet", and the
-default device needs a card.  Imports neither JAX nor the JAX package."""
+CPU at the reduced size: both modes print their JSON report, the KV-cache
+feature flags serve, flags of features the port does not have yet exit
+with "not ported yet", and the default device needs a card.  Imports neither JAX nor the JAX package."""
 import json
 
 import pytest
@@ -44,10 +44,34 @@ def test_generate_report_with_eos(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--kv-dtype", "int8"], ["--prefix-cache", "on"],
-    ["--prefill-chunk", "8"], ["--paged-attn", "gather"],
-    ["--priority", "0,1"], ["--deadline-s", "5"], ["--preemption", "on"],
-    ["--chaos-plan", "device_loss_at=3"], ["--recovery-log", "x.json"]])
+    ["--kv-dtype", "int8"], ["--kv-dtype", "fp8"], ["--prefix-cache", "on"],
+    ["--prefill-chunk", "8"], ["--paged-attn", "gather"]])
+def test_ported_feature_flags_serve(flags, capsys):
+    """The KV-cache feature flags serve on the smoke config, each alone
+    and all together, with the tokens of the plain paged run: prefix reuse
+    and chunked prefill change what is computed, not the tokens; the
+    gather discipline computes the same attention; a quantized pool stores
+    int8 / fp8 pages with their scales."""
+    common = ["--arch", "llama2-7b", *SMOKE, "--continuous", "--requests",
+              "5", "--slots", "2", "--page-size", "8"]
+    plain = [r.tokens.tolist() for r in serve.main(common)["results"]]
+    _report(capsys)
+    for extra in (flags, ["--prefix-cache", "on", "--prefill-chunk", "8",
+                          "--paged-attn", "gather", *flags]):
+        out = serve.main(common + extra)
+        rep = _report(capsys)
+        assert rep["by_state"] == {"DONE": 5} and rep["gen_len"] == [4] * 5
+        assert rep["cache"]["pages_in_use"] == 0
+        kv = flags[1] if flags[0] == "--kv-dtype" else "bf16"
+        assert rep["cache"]["kv_dtype"] == kv
+        if kv == "bf16":
+            assert [r.tokens.tolist() for r in out["results"]] == plain
+
+
+@pytest.mark.parametrize("flags", [
+    ["--tp", "2"], ["--priority", "0,1"], ["--deadline-s", "5"],
+    ["--preemption", "on"], ["--chaos-plan", "device_loss_at=3"],
+    ["--recovery-log", "x.json"]])
 def test_unported_flags_exit(flags, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", "llama2-7b", *SMOKE, "--continuous",

@@ -1,0 +1,122 @@
+"""The float ServeEngine's KV-cache features on the families whose caches do
+not all page, against the JAX package's ServeEngine on the same weights.
+
+Reduced gemma2-27b (16-token window, so with ``max_len`` 64 the local
+layers keep slot-private rings beside the paged global layers): prefix
+sharing is a no-op (a ring cannot be restored from a shared page), chunked
+prefill takes the per-token decode steps (a ring is not a linear cache),
+and an int8 / fp8 pool quantizes the global layers' pages only.  Reduced
+rwkv6-7b: the recurrent state never pages, chunks run the per-token steps,
+and a quantized pool is refused.  Tokens, ``cached_tokens``, page tables,
+``cache_stats`` and meters identical to the reference (``use_pallas=True``,
+Auto-axis mesh).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")   # the parity tests need the JAX package
+
+from jax.sharding import AxisType
+
+from repro.configs import get_config
+from repro.models import api as japi
+from repro.serve.engine import ServeEngine as JEngine
+from repro.serve.scheduler import ContinuousBatchingScheduler as JScheduler
+from repro.serve.scheduler import Request as JRequest
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.models.api import params_from_numpy
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
+from torch_cases import feature_prompts, serve_staged
+
+MAX_LEN, MAX_NEW = 64, 4
+_SETUPS = {}
+
+
+def setup_for(arch):
+    if arch not in _SETUPS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), use_pallas=True)
+        params = jax.jit(japi.init_params, static_argnums=0)(
+            cfg, jax.random.PRNGKey(0))
+        mesh = jax.make_mesh((1, 1), ("data", "model"),
+                             axis_types=(AxisType.Auto,) * 2)
+        prompts = feature_prompts(cfg.vocab_size)
+        # past the reduced 16-token window: the rings wrap while prefilling
+        prompts[0] = np.concatenate([prompts[0], prompts[-1]])
+        _SETUPS[arch] = dict(
+            cfg=cfg, tcfg=t_get_config(arch).reduced(), params=params,
+            tparams=params_from_numpy(jax.tree.map(np.asarray, params),
+                                      "cpu"),
+            mesh=mesh, prompts=prompts)
+    return _SETUPS[arch]
+
+
+def _requests(cls, prompts):
+    return [cls(uid=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts)]
+
+
+CASES = {
+    "gemma2-bf16-prefix-chunk-inplace": ("gemma2-27b", 8, dict(
+        page_size=8, prefix_cache="on")),
+    "gemma2-int8-prefix-chunk-gather": ("gemma2-27b", 8, dict(
+        page_size=8, prefix_cache="on", kv_dtype="int8",
+        paged_attn="gather")),
+    "gemma2-fp8-block-inplace": ("gemma2-27b", None, dict(
+        page_size=8, kv_dtype="fp8")),
+    "rwkv-prefix-chunk": ("rwkv6-7b", 8, dict(page_size=8,
+                                             prefix_cache="on")),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_features_match_reference(case):
+    arch, chunk, kw = CASES[case]
+    s = setup_for(arch)
+    ref = JEngine(s["cfg"], s["params"], mesh=s["mesh"], max_len=MAX_LEN,
+                  **kw)
+    ours = ServeEngine(s["tcfg"], s["tparams"], max_len=MAX_LEN,
+                       device="cpu", **kw)
+    scheds = [JScheduler(ref, max_slots=2, prefill_chunk=chunk),
+              ContinuousBatchingScheduler(ours, max_slots=2,
+                                          prefill_chunk=chunk)]
+    paged = arch != "rwkv6-7b"
+
+    def tables(it):
+        if paged:
+            np.testing.assert_array_equal(ref._pager.pool.table,
+                                          ours._pager.pool.table,
+                                          err_msg=f"iteration {it}")
+
+    rr, tr = serve_staged(scheds, [_requests(JRequest, s["prompts"]),
+                                   _requests(Request, s["prompts"])], tables)
+    assert [r.state for r in tr] == ["DONE"] * len(rr)
+    assert [r.tokens.tolist() for r in tr] == [r.tokens.tolist() for r in rr]
+    assert [r.cached_tokens for r in tr] == [0] * len(tr)
+    assert [r.cached_tokens for r in rr] == [0] * len(rr)
+    assert ours.meter.log == ref.meter.log
+    assert ours.meter.host_log == ref.meter.host_log
+    assert (ours.cache_stats(scheds[1].cache)
+            == ref.cache_stats(scheds[0].cache))
+    assert not ours.prefix_sharing_active()
+    assert ours.prefix_cache_armed() == (kw.get("prefix_cache") == "on")
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_rwkv_refuses_a_quantized_pool(kv_dtype):
+    """rwkv's cache never pages, so there is no pool to quantize: with a
+    page size the slot cache refuses, without one the constructor does, as
+    in the JAX package."""
+    s = setup_for("rwkv6-7b")
+    for make in (lambda **kw: JEngine(s["cfg"], s["params"], mesh=s["mesh"],
+                                      max_len=MAX_LEN, **kw),
+                 lambda **kw: ServeEngine(s["tcfg"], s["tparams"],
+                                          max_len=MAX_LEN, device="cpu",
+                                          **kw)):
+        eng = make(page_size=8, kv_dtype=kv_dtype)
+        with pytest.raises(ValueError, match="paging family"):
+            eng.init_slot_cache(2)
+        with pytest.raises(ValueError, match="page_size"):
+            make(kv_dtype=kv_dtype)

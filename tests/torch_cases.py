@@ -198,3 +198,84 @@ def rwkv_decay_bits_report(p, x, device):
         report[name] = {"differ": int((d > 0).sum()), "n": d.numel(),
                         "max_ulps": int(d.max())}
     return report
+
+
+def feature_prompts(vocab, seed=0, page=8):
+    """Prompts that exercise shared-prefix reuse on a pool of ``page``-token
+    pages: a two-page prefix P; P plus tails of 5, 9, 3 and 1 tokens (the
+    first publishes P, the next three hit it partially, the 1-token tail is a
+    whole-body hit); P itself (a whole-body hit whose last matched page holds
+    the decode append position: a copy-on-write copy); P's first 12 tokens
+    (a partial hit of one page, usable only with chunked prefill); and one
+    unrelated prompt of 7 tokens.  int32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(1, vocab, 2 * page).astype(np.int32)
+    out = [np.concatenate([pre, rng.integers(1, vocab, t).astype(np.int32)])
+           for t in (5, 9, 3, 1)]
+    out += [pre.copy(), pre[:12].copy(),
+            rng.integers(1, vocab, 7).astype(np.int32)]
+    return out
+
+
+def serve_staged(scheds, request_lists, each=None, max_iters=400):
+    """Serve one request list per scheduler, all in lockstep: each list's
+    first request is submitted alone and stepped until it decodes on every
+    scheduler (so its prefix pages are published first), then the rest are
+    submitted.  ``each(iteration)`` runs after every step.  Returns each
+    scheduler's results sorted by uid."""
+    for s, reqs in zip(scheds, request_lists):
+        s.begin()
+        assert s.submit(reqs[0])
+    it = 0
+    while not all(request_lists[i][0].uid in s.decoding_uids()
+                  for i, s in enumerate(scheds)):
+        for s in scheds:
+            s.step()
+        it += 1
+        if each is not None:
+            each(it)
+        assert it < max_iters
+    for s, reqs in zip(scheds, request_lists):
+        for r in reqs[1:]:
+            assert s.submit(r)
+    while any(s.has_work() for s in scheds):
+        for s in scheds:
+            s.step()
+        it += 1
+        if each is not None:
+            each(it)
+        assert it < max_iters
+    return [sorted(s.poll(), key=lambda r: r.uid) for s in scheds]
+
+
+def record_prefills(eng):
+    """Make ``eng.prefill_slot`` also keep each (prompt, request cache moved
+    to the CPU, first decode token) it returns, in call order; returns that
+    list."""
+    kept, fn = [], eng.prefill_slot
+
+    def prefill_slot(prompt):
+        cache, tok = fn(prompt)
+        kept.append((np.asarray(prompt).tolist(), {
+            k: [t.cpu() for t in v] if isinstance(v, list) else v.cpu()
+            for k, v in cache.items()}, tok))
+        return cache, tok
+
+    eng.prefill_slot = prefill_slot
+    return kept
+
+
+def replay_prefills(eng, kept):
+    """Make ``eng.prefill_slot`` hand back :func:`record_prefills`' request
+    caches, in order, for the same prompts: another device then decodes
+    from the recording device's prefill."""
+    it = iter(kept)
+
+    def prefill_slot(prompt):
+        want, cache, tok = next(it)
+        assert np.asarray(prompt).tolist() == want, "prompts out of order"
+        dev = eng.device
+        return {k: [t.to(dev) for t in v] if isinstance(v, list)
+                else v.to(dev) for k, v in cache.items()}, tok
+
+    eng.prefill_slot = prefill_slot
