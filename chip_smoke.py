@@ -150,6 +150,39 @@ fails before printing any result):
              gather discipline (the same dense token step on the gathered
              view; in place, the paged kernel's sum order differs by an
              ulp, and that run's agreement is reported)
+  chaos_path  both engines, reused, under seeded faults: (a) main_path's
+             split-brain engine on main_path's 16 requests with a
+             transient NaN corruption, a step error, a device loss and a
+             cancellation burst; (b) 6 of serve_path's llama2-7b requests
+             with a transient corruption and a device loss, against a
+             fault-free run of the same requests in this call; (c)
+             priority classes on two slots with preemption and a deadline
+             (a victim evicted and resumed, a request TIMEOUT); (d) the
+             OnlineServer with a 2 s watchdog, after a warm-up, and a decode
+             step wedged for 5 s.  Every planned event fires, the pool is
+             empty after every recovery, each request ends DONE (CANCELLED
+             by the burst, TIMEOUT past its deadline) with the fault-free
+             tokens or leaves them only at a near-tie (the two picks'
+             logits, recomputed by the engine's own path from the common
+             prefix, within NEAR_TIE_ULPS bf16 ulps of the largest), and
+             the launches are pinned per step: 155 W4A8 per computed
+             split-brain token step and 22 paged per decode step, 32 flash
+             per llama2-7b prefill and 32 paged per decode step
+  reference_hymba  reduced hymba-1.5b on the card and on the CPU from the
+             same weights on a wrapping ring and on a paged pool, and
+             forward: teacher-forced logits within two bf16 ulps (a
+             differing pick a near-tie), forward within one; XLA's exp
+             (``ref.exp``) the same bits on both
+  hymba_path full-width hymba-1.5b (32 layers, d_model 1600, 25/5 heads of
+             64, window 1024, SSM state 16; float32 weights from a seeded
+             generator on the card): api.forward on 2 x 2,048 tokens twice
+             (32 flash launches per call, each layer's attention held
+             against the plain version, the second call bit-identical);
+             then the float ServeEngine (page 16, max_len 512: K/V page,
+             the SSM state stays a dense slot leaf) under the scheduler
+             with 8 slots on 8 requests of 32-128 prompt tokens (per-token
+             prefill), 32 new each: every request DONE, 32 paged launches
+             per decode step and no flash launch, meter exact
   profile    torch.profiler over decode steps of each path: device time by
              kernel and the device's busy share; on main_path the device
              kernels per W4A8 call (must be 1)
@@ -169,7 +202,11 @@ fails before printing any result):
              timed beside it; and paged at llama2-7b's decode shape over
              an int8 and an fp8 pool (bound: 1-byte codes plus the live
              pages' scales; library: SDPA on the already dequantized
-             gathered view), with features_path's launches
+             gathered view), with features_path's launches; flash and
+             paged at hymba-1.5b's shapes (a 2 x 2,048-token forward's 32
+             launches with the 1024 window and group 5, whose library call
+             is SDPA with a boolean window mask; a decode step's 32
+             launches)
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
@@ -201,8 +238,10 @@ from repro_torch.kernels import w4a8_matmul as kw
 from repro_torch.models import api
 from repro_torch.serve import pages
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.faults import FaultInjector, FaultPlan
 from repro_torch.serve.scheduler import (
     ContinuousBatchingScheduler, Request)
+from repro_torch.serve.server import OnlineServer
 from repro_torch.serve.splitbrain_engine import (
     SplitBrainEngine, traffic_model_for)
 from torch_cases import (bf16_ulp_of, feature_prompts, pick_report,
@@ -952,36 +991,34 @@ def main_requests(vocab, n=16, max_new=32):
 class PhaseClock:
     """Host seconds spent in the engine's decode steps and admissions
     (prefill, prefill chunks, the prefix seed and the insert; the insert's
-    length read waits for the prefill), and the count of decode steps.
-    ``detach()`` gives the engine its own methods back."""
+    length read waits for the prefill), and the calls of each
+    (``calls``).  ``detach()`` gives the engine its own methods back."""
 
     ADMIT = ("prefill_slot", "insert_slot", "prefill_chunk_slot",
              "seed_request_cache")
 
     def __init__(self, eng):
-        self.decode_s = self.admit_s = 0.0
-        self.decode_calls = 0
         self.eng = eng
+        self.reset()
         for name in ("decode_slots",) + self.ADMIT:
-            setattr(eng, name, self._timed(getattr(eng, name),
-                                           name == "decode_slots"))
+            setattr(eng, name, self._timed(getattr(eng, name), name))
 
-    def _timed(self, fn, decode):
+    def _timed(self, fn, name):
         def call(*a, **k):
             t0 = time.perf_counter()
             out = fn(*a, **k)
             dt = time.perf_counter() - t0
-            if decode:
+            if name == "decode_slots":
                 self.decode_s += dt
-                self.decode_calls += 1
             else:
                 self.admit_s += dt
+            self.calls[name] += 1
             return out
         return call
 
     def reset(self):
         self.decode_s = self.admit_s = 0.0
-        self.decode_calls = 0
+        self.calls = {name: 0 for name in ("decode_slots",) + self.ADMIT}
 
     @classmethod
     def detach(cls, eng):
@@ -1079,6 +1116,7 @@ def phase_main_path(dev, smi_line):
                          "tokens_per_s": g["tokens_per_s"]},
             "card": smi_line}
     emit(info)
+    info["_tokens"] = first          # the fault-free tokens, for chaos_path
     return eng, info
 
 
@@ -1249,7 +1287,7 @@ def serve_features(eng, reqs, chunk, slots, name, warm=True):
           f"{name}: a request stopped short")
     check(all(0 <= t < eng.cfg.vocab_size for r in res for t in r.tokens),
           f"{name}: token out of range")
-    steps = clock.decode_calls
+    steps = clock.calls["decode_slots"]
     cached = [r.cached_tokens for r in res]
     prefill = sum(len(q.prompt) - 1 for q in reqs) - sum(cached)
     decoded = sum(r.gen_len for r in res)
@@ -2224,6 +2262,588 @@ def phase_times_rwkv(dev, rwkv_info):
     return kern
 
 
+# ----------------------------------------------------------------- chaos
+NEAR_TIE_ULPS = 4          # a recomputed pick may differ only this close
+
+
+def first_divergence(clean, got):
+    """The first index where ``got`` differs from ``clean`` (over their
+    common length), or None."""
+    for i, (a, b) in enumerate(zip(clean, got)):
+        if a != b:
+            return i
+    return None
+
+
+def tie_report(logits_fn, prompt, clean, got):
+    """Where a faulted request's tokens leave the fault-free run's: the
+    logits at that position, computed by the engine's own path from the
+    prompt and the common prefix (``logits_fn``), the gap between the two
+    picks and whether it is a near-tie (within NEAR_TIE_ULPS bf16 ulps of
+    the largest |logit|).  None where the tokens agree."""
+    i = first_divergence(clean, got)
+    if i is None:
+        return None
+    ctx = np.concatenate([np.asarray(prompt, np.int32),
+                          np.asarray(clean[:i], np.int32)])
+    logits = logits_fn(ctx).float().cpu()
+    a, b = int(clean[i]), int(got[i])
+    gap = abs(logits[a].item() - logits[b].item())
+    tol = NEAR_TIE_ULPS * bf16_ulp_of(logits.abs().max().item())
+    return {"position": i, "clean": a, "faulted": b, "gap": gap,
+            "tolerance": tol, "near_tie": gap <= tol}
+
+
+def serve_logits_fn(eng):
+    """A ServeEngine's logits after a context: the block prefill of all but
+    its last token (flash on the card), then one decode step, as a
+    re-admitted request computes them."""
+    def fn(ctx):
+        cfg = eng.cfg
+        cache = api.init_cache(cfg, 1, len(ctx), device=eng.device)
+        toks = torch.as_tensor(ctx[None, :], device=eng.device)
+        if len(ctx) > 1:
+            _, cache = api.prefill(eng.params, cache, toks[:, :-1], cfg)
+        logits, _ = api.decode_step(eng.params, cache, toks[:, -1], cfg)
+        return logits[0]
+    return fn
+
+
+def splitbrain_logits_fn(eng):
+    """The split-brain engine's logits after a context: its B=1 token steps
+    over all but the last token (``prefill_slot``), then one token step."""
+    def fn(ctx):
+        cache, tok = eng.prefill_slot(ctx)
+        _, logits, _ = eng.decode_token(cache, [tok])
+        return logits[0]
+    return fn
+
+
+def run_with_faults(eng, reqs, plan, seed=SEED, max_slots=8, **kw):
+    """Serve ``reqs`` under a seeded fault plan, one iteration at a time:
+    the pool must be empty the instant each recovering iteration ends.
+    Returns (scheduler, its results, its counters, the injector, the
+    engine's PhaseClock over the run)."""
+    inj = FaultInjector(FaultPlan(**plan), seed=seed)
+    sched = ContinuousBatchingScheduler(eng, max_slots=max_slots,
+                                        faults=inj, **kw)
+    clock = PhaseClock(eng)
+    sched.begin()
+    for r in reqs:
+        sched.submit(r)
+    seen = 0
+    while sched.has_work():
+        sched.step()
+        if sched._recoveries > seen:
+            seen = sched._recoveries
+            pool = eng._pager.pool
+            check((pool.pages_in_use, pool.total_reserved) == (0, 0),
+                  f"pages survived the pool rebuild: {pool.pages_in_use}")
+        check(sched._iterations < 5000, "a faulted run did not drain")
+    torch.cuda.synchronize()
+    PhaseClock.detach(eng)
+    results = sorted(sched.poll(), key=lambda r: r.uid)
+    stats = {"steps": sched._decode_steps,
+             "prefill_tokens": sched._prefill_tokens,
+             "decoded_tokens": sched._decoded_tokens,
+             "recoveries": sched._recoveries,
+             "quarantines": sched._quarantines,
+             "failed": sched._failed_count,
+             "preemptions": sched._preempt_count}
+    return sched, results, stats, inj, clock
+
+
+def hold_faulted(results, reqs, clean, logits_fn, name):
+    """Every request DONE (or CANCELLED by the burst, with a prefix of its
+    output); its tokens the fault-free run's, or leaving them only at a
+    near-tie.  Returns the tie reports."""
+    ties = []
+    prompts = {r.uid: r.prompt for r in reqs}
+    for r in results:
+        check(r.state in ("DONE", "CANCELLED"),
+              f"{name}: request {r.uid} ended {r.state}")
+        want = clean[r.uid]
+        got = r.tokens.tolist()
+        if r.state == "DONE":
+            check(len(got) == len(want), f"{name}: {r.uid} stopped short")
+        rep = tie_report(logits_fn, prompts[r.uid], want, got)
+        if rep is not None:
+            rep["uid"] = r.uid
+            ties.append(rep)
+            check(rep["near_tie"], f"{name}: request {r.uid} left the "
+                  f"fault-free tokens at a pick that is no near-tie: {rep}")
+    return ties
+
+
+CHAOS_SPLIT_PLAN = dict(step_corrupt_at=12, step_corrupt_iters=2,
+                        step_corrupt_frac=0.25, step_error_at=24,
+                        step_error_count=1, device_loss_at=40,
+                        cancel_burst_at=56, cancel_burst_frac=0.25)
+CHAOS_SERVE_PLAN = dict(step_corrupt_at=6, step_corrupt_iters=2,
+                        step_corrupt_frac=0.5, device_loss_at=18)
+CHAOS_SERVE_REQUESTS = 6
+
+
+def phase_chaos_splitbrain(eng, main_info, smi_line):
+    """chaos_path (a): main_path's tinyllama split-brain engine, reused, on
+    main_path's 16 requests under a seeded plan with a transient NaN
+    corruption, a step error, a device loss and a cancellation burst."""
+    cfg = eng.cfg
+    L = cfg.num_layers
+    reqs = main_requests(cfg.vocab_size)
+    clean = {r.uid: t for r, t in zip(reqs, main_info["_tokens"])}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched, res, st, inj, clock = run_with_faults(eng, reqs,
+                                                 CHAOS_SPLIT_PLAN)
+    decode_s = clock.decode_s
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    fired = {k: inj.fired(k) for k in ("step_corrupt", "step_error",
+                                        "device_loss", "cancel_burst")}
+    check(all(fired.values()), f"chaos (a): a planned fault never fired "
+          f"{fired}")
+    check(st["recoveries"] == 2 and st["failed"] == 0
+          and st["quarantines"] >= 1, f"chaos (a): {st}")
+    check(sum(r.state == "CANCELLED" for r in res) == fired["cancel_burst"],
+          "chaos (a): the cancelled requests are not the burst's")
+    want = {"w4a8_matmul": (7 * L + 1) * (st["prefill_tokens"] + st["steps"]),
+            "paged_decode_attention": L * st["steps"], "flash_attention": 0,
+            "rwkv6_scan": 0}
+    check(counts == want, f"chaos (a) launch counts {counts} != {want}")
+    ties = hold_faulted(res, reqs, clean, splitbrain_logits_fn(eng),
+                        "chaos (a)")
+    info = {"run": "a_splitbrain_tinyllama", "config": cfg.name,
+            "plan": CHAOS_SPLIT_PLAN, "fired": fired,
+            "by_state": {s: sum(r.state == s for r in res)
+                         for s in ("DONE", "CANCELLED")},
+            **st, "launches": counts, "launches_expected": want,
+            "recovery_s": [e["recovery_s"] for e in sched.recovery_log
+                           if e["event"] == "recover"],
+            "events": [(e["event"], e.get("uid"), e["iteration"])
+                       for e in sched.recovery_log],
+            "identical_to_fault_free": sum(
+                r.tokens.tolist() == clean[r.uid][:len(r.tokens)]
+                for r in res),
+            "near_ties": ties, "wall_s": wall, "decode_s": decode_s,
+            "decode_steps_per_s": st["steps"] / decode_s,
+            "clean_decode_steps_per_s": main_info["decode_steps_per_s"],
+            "card": smi_line}
+    return info
+
+
+def phase_chaos_serve(eng, serve_info, smi_line):
+    """chaos_path (b)-(d) on serve_path's llama2-7b ServeEngine, reused: (b)
+    6 of its requests under a transient corruption and a device loss
+    against a fault-free run of the same requests; (c) priority classes
+    with preemption and a deadline; (d) the OnlineServer with a watchdog
+    and a decode step wedged for longer than it."""
+    cfg = eng.cfg
+    L = cfg.num_layers
+    reqs = serve_requests(cfg.vocab_size)[:CHAOS_SERVE_REQUESTS]
+    logits_fn = serve_logits_fn(eng)
+    # --- the fault-free run of the same requests
+    clock = PhaseClock(eng)
+    torch.cuda.synchronize()
+    out = ContinuousBatchingScheduler(eng, max_slots=8).run(reqs)
+    torch.cuda.synchronize()
+    PhaseClock.detach(eng)
+    clean = {r.uid: r.tokens.tolist() for r in out["results"]}
+    clean_rate = out["steps"] / clock.decode_s
+    # --- (b) corruption and device loss
+    ops.reset_launch_counts()
+    sched, res, st, inj, clock = run_with_faults(eng, reqs,
+                                                 CHAOS_SERVE_PLAN)
+    decode_s, prefills = clock.decode_s, clock.calls["prefill_slot"]
+    counts = ops.launch_counts()
+    fired = {k: inj.fired(k) for k in ("step_corrupt", "device_loss")}
+    check(all(fired.values()), f"chaos (b): a planned fault never fired "
+          f"{fired}")
+    check(st["recoveries"] == 1 and st["failed"] == 0
+          and st["quarantines"] >= 1, f"chaos (b): {st}")
+    want = {"w4a8_matmul": 0, "flash_attention": L * prefills,
+            "paged_decode_attention": L * st["steps"], "rwkv6_scan": 0}
+    check(counts == want, f"chaos (b) launch counts {counts} != {want}")
+    ties_b = hold_faulted(res, reqs, clean, logits_fn, "chaos (b)")
+    check(all(r.state == "DONE" for r in res), "chaos (b): not all DONE")
+    run_b = {"run": "b_serve_llama2", "config": cfg.name,
+             "plan": CHAOS_SERVE_PLAN, "fired": fired, **st,
+             "prefills": prefills, "launches": counts,
+             "launches_expected": want,
+             "recovery_s": [e["recovery_s"] for e in sched.recovery_log
+                            if e["event"] == "recover"],
+             "events": [(e["event"], e.get("uid"), e["iteration"])
+                        for e in sched.recovery_log],
+             "identical_to_fault_free": sum(r.tokens.tolist() == clean[r.uid]
+                                            for r in res),
+             "near_ties": ties_b, "decode_s": decode_s,
+             "decode_steps_per_s": st["steps"] / decode_s,
+             "clean_decode_steps_per_s": clean_rate}
+    totals = dict(counts)
+    # --- (c) priorities, preemption and a deadline on two slots
+    ops.reset_launch_counts()
+    sched = ContinuousBatchingScheduler(eng, max_slots=2, preemption=True,
+                                        backoff_steps=1)
+    sched.begin()
+    for r in reqs[:2]:
+        sched.submit(Request(uid=r.uid, prompt=r.prompt, max_new=r.max_new,
+                             priority=0))
+    while len(sched.decoding_uids()) < 2:
+        sched.step()
+    for _ in range(4):
+        sched.step()
+    sched.submit(Request(uid=reqs[2].uid, prompt=reqs[2].prompt,
+                         max_new=reqs[2].max_new, priority=5))
+    sched.submit(Request(uid=reqs[3].uid, prompt=reqs[3].prompt,
+                         max_new=reqs[3].max_new, priority=0,
+                         deadline_s=sched.clock() + 0.05))
+    while sched.has_work():
+        sched.step()
+        check(sched._iterations < 2000, "chaos (c) did not drain")
+    torch.cuda.synchronize()
+    res_c = sorted(sched.poll(), key=lambda r: r.uid)
+    states = {r.uid: r.state for r in res_c}
+    check(states == {reqs[0].uid: "DONE", reqs[1].uid: "DONE",
+                     reqs[2].uid: "DONE", reqs[3].uid: "TIMEOUT"},
+          f"chaos (c): states {states}")
+    pre = {r.uid: r.preemptions for r in res_c}
+    check(pre[reqs[2].uid] == 0 and pre[reqs[0].uid] + pre[reqs[1].uid] >= 1,
+          f"chaos (c): preemptions {pre}")
+    ties_c = hold_faulted([r for r in res_c if r.state == "DONE"], reqs,
+                          clean, logits_fn, "chaos (c)")
+    run_c = {"run": "c_priorities_preemption_deadline",
+             "states": states, "preemptions": pre,
+             "launches": ops.launch_counts(),
+             "identical_to_fault_free": sum(
+                 r.tokens.tolist() == clean[r.uid] for r in res_c
+                 if r.state == "DONE"),
+             "near_ties": ties_c}
+    for k, v in run_c["launches"].items():
+        totals[k] += v
+    # --- (d) the OnlineServer's watchdog, after a warm-up
+    stall_s, watchdog_s = 5.0, 2.0
+    inj = FaultInjector(FaultPlan(step_stall_at=8, step_stall_s=stall_s),
+                        seed=SEED)
+    stalled = []
+    stall = inj.step_stall
+
+    def timed_stall():
+        if not inj._step_stalled and inj.iteration >= 8:
+            stalled.append(time.monotonic())
+        stall()
+    inj.step_stall = timed_stall
+    # warm up before the watchdog is armed, on a scheduler of its own (the
+    # injector counts its scheduler's iterations)
+    ContinuousBatchingScheduler(eng, max_slots=8).warmup(prompt_len=64,
+                                                         max_new=4)
+    sched = ContinuousBatchingScheduler(eng, max_slots=8, faults=inj)
+    srv = OnlineServer(sched, watchdog_s=watchdog_s)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    tripped = None
+    with srv:
+        handles = [srv.submit(r.prompt, max_new=r.max_new) for r in reqs[:4]]
+        while not all(h.done() for h in handles):
+            if tripped is None and srv._watchdog_trips:
+                tripped = time.monotonic()
+            time.sleep(0.01)
+            check(time.monotonic() - t0 < 300, "chaos (d): the server hung")
+        results = [h.result() for h in handles]
+    wall = time.monotonic() - t0
+    stats = srv.stats()
+    check(inj.fired("step_stall") == 1 and stats["watchdog_trips"] >= 1
+          and stats["recoveries"] >= 1 and tripped is not None and stalled,
+          f"chaos (d): the watchdog did not trip: {stats}")
+    for r, q in zip(results, reqs[:4]):
+        r.uid = q.uid            # the server numbers its own requests
+    ties_d = hold_faulted(results, reqs, clean, logits_fn, "chaos (d)")
+    check(all(r.state == "DONE" for r in results), "chaos (d): not all DONE")
+    run_d = {"run": "d_online_server_watchdog", "watchdog_s": watchdog_s,
+             "step_stall_s": stall_s,
+             "trip_after_stall_s": tripped - stalled[0],
+             "stats": stats, "wall_s": wall, "launches": ops.launch_counts(),
+             "identical_to_fault_free": sum(
+                 r.tokens.tolist() == clean[r.uid] for r in results),
+             "near_ties": ties_d}
+    for k, v in run_d["launches"].items():
+        totals[k] += v
+    return [run_b, run_c, run_d], totals
+
+
+# ----------------------------------------------------------------- hymba
+HYMBA_SLOTS, HYMBA_MAX_LEN, HYMBA_NEW, HYMBA_PAGE = 8, 512, 32, 16
+HYMBA_FWD = (2, 2048)
+
+
+def hymba_requests(vocab, n=8, max_new=HYMBA_NEW):
+    rng = np.random.default_rng(SEED + 15)
+    return [Request(uid=i, prompt=rng.integers(1, vocab, int(rng.integers(
+        32, 129))).astype(np.int32), max_new=max_new) for i in range(n)]
+
+
+def phase_reference_hymba(dev):
+    """Reduced hymba-1.5b on the card and on the CPU from the same weights,
+    on the ring layout (max_len 40: the 16-token ring wraps) and the paged
+    one (max_len 12, page 4: K/V page, the SSM state stays dense), under
+    the scheduler; and forward.  The card's tokens, fed back teacher-forced
+    through the decode steps on both devices, give float32 logits within
+    two bf16 ulps of the largest, a pick the CPU would not make is a
+    near-tie; forward's logits within one bf16 ulp of the largest."""
+    cfg = get_config("hymba-1.5b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    rows = []
+    for layout, kw, lens, max_len in (
+            ("ring", dict(), (5, 9, 17, 24, 30), 40),
+            ("paged", dict(page_size=4), (3, 5, 2, 7, 4), 12)):
+        reqs = [Request(uid=i, prompt=(np.arange(1, n + 1) * 7 % 256)
+                        .astype(np.int32), max_new=4)
+                for i, n in enumerate(lens)]
+        engs = {str(d): ServeEngine(cfg, params, max_len=max_len, device=d,
+                                    **kw) for d in ("cpu", dev)}
+        toks = {d: [r.tokens.tolist() for r in ContinuousBatchingScheduler(
+            e, max_slots=2).run(reqs)["results"]] for d, e in engs.items()}
+        seqs = [(q.prompt, np.asarray(t, np.int32))
+                for q, t in zip(reqs, toks[str(dev)])]
+        tf = {d: torch.cat([teacher_forced_logits(e.params, cfg, p, t, d)
+                            for p, t in seqs]) for d, e in engs.items()}
+        rep = pick_report(tf["cpu"], tf[str(dev)],
+                          np.concatenate([t for _, t in seqs]))
+        rep["tolerance"] = 2 * bf16_ulp_of(rep["max_abs_logit"])
+        rep["tokens_identical"] = toks["cpu"] == toks[str(dev)]
+        check(rep["max_abs_err"] <= rep["tolerance"]
+              and rep["shortfall"] <= 2 * rep["tolerance"],
+              f"reduced hymba {layout}: card vs CPU {rep}")
+        rows.append({"layout": layout, **rep})
+    toks = torch.from_numpy(np.stack([(np.arange(1, 41) * (3 + i)) % 256
+                                      for i in range(2)]).astype(np.int32))
+    fwd = {d: api.forward(e.params, toks.to(d), cfg)[0]
+           .reshape(-1, cfg.vocab_size).cpu() for d, e in engs.items()}
+    rep = pick_report(fwd["cpu"], fwd[str(dev)], fwd[str(dev)].argmax(-1))
+    rep["tolerance"] = bf16_ulp_of(rep["max_abs_logit"])
+    check(rep["max_abs_err"] <= rep["tolerance"]
+          and rep["shortfall"] <= 2 * rep["tolerance"],
+          f"reduced hymba forward: card vs CPU {rep}")
+    exp_x = torch.cat([torch.rand(1 << 20, generator=torch.Generator()
+                                  .manual_seed(SEED)) * -100.0])
+    check(torch.equal(ref.exp(exp_x.to(dev)).cpu(), ref.exp(exp_x)),
+          "ref.exp (XLA's exp) differs between the card and the CPU")
+    emit({"phase": "reference_hymba", "config": cfg.name, "serve": rows,
+          "forward": rep, "xla_exp_card_equals_cpu": True,
+          "tolerance": "serve, teacher-forced: 2 bf16 ulps of the largest "
+                       "|logit|, a pick the CPU would not make short of "
+                       "its largest by at most twice that; forward: 1 ulp"})
+
+
+def phase_hymba_path(dev, smi_line):
+    """Full-width hymba-1.5b (32 layers, d_model 1600, 25/5 heads of 64,
+    window 1024, SSM state 16; float32 weights from a seeded generator on
+    the card): api.forward on 2 x 2,048 tokens twice (32 flash launches per
+    call, each layer's attention held against the plain version), then the
+    float ServeEngine on a paged pool (K/V page: max_len 512 plus a page is
+    inside the window; the SSM state stays a dense slot leaf) under the
+    scheduler with 8 slots."""
+    cfg = get_config("hymba-1.5b")
+    L = cfg.num_layers
+    window = cfg.layer_pattern[0].window
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      [params["embed"], params["lm_head"]]
+                      + [w for part in params["blocks"].values()
+                         for w in (part.values() if isinstance(part, dict)
+                                   else [part])])
+    eng = ServeEngine(cfg, params, max_len=HYMBA_MAX_LEN,
+                      page_size=HYMBA_PAGE, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    check(eng._sa == {"k": 3, "v": 3, "ssm": -1, "len": -1},
+          f"hymba seq axes {eng._sa}: K/V should page, the SSM state not")
+    # --- forward on 2 x 2,048 tokens (past the window), twice
+    B, T = HYMBA_FWD
+    toks = torch.randint(0, cfg.vocab_size, (B, T), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(SEED + 16))
+    zero = {name: 0 for name in ops.KERNELS}
+    recorded, attention = [], ops.attention
+
+    def recording(q, k, v, **kw):
+        out = attention(q, k, v, **kw)
+        recorded.append((q, k, v, kw, out))
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    runs = []
+    for i in range(2):
+        ops.attention = recording if i == 0 else attention
+        try:
+            before = ops.launch_counts()
+            t = time.perf_counter()
+            logits, _ = api.forward(eng.params, toks, cfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            ops.attention = attention
+        after = ops.launch_counts()
+        check({k: after[k] - before[k] for k in after}
+              == {**zero, "flash_attention": L},
+              f"hymba forward launch counts {before} -> {after}: not {L}")
+        runs.append((logits, dt))
+    fwd_counts = ops.launch_counts()
+    fwd_peak = torch.cuda.max_memory_allocated()
+    (l1, dt1), (l2, dt2) = runs
+    check(l1.shape == (B, T, cfg.vocab_size) and l1.dtype == torch.float32
+          and bool(torch.isfinite(l1).all()),
+          "hymba forward logits not finite or of the wrong shape")
+    check(torch.equal(l1, l2), "a second hymba forward gave other logits")
+    fwd_max = l1.abs().max().item()
+    del runs, l1, l2, logits
+    check(len(recorded) == L and all(
+        kw == dict(causal=True, window=window, softcap=None)
+        and tuple(q.shape) == (B, cfg.num_heads, T, 64)
+        and tuple(k.shape) == (B, cfg.num_kv_heads, T, 64)
+        for q, k, _, kw, _ in recorded), "hymba forward attention shapes")
+    attn_err = 0.0
+    for q, k, v, kw, out in recorded:
+        plain = ref.flash_attention(q, k, v, **kw)
+        diff = (out.float() - plain.float()).abs()
+        tol = bf16_ulp(plain.float()) + 1e-5
+        check(bool((diff <= tol).all()), "hymba forward: a layer's flash "
+              f"attention outside tolerance ({diff.max().item()})")
+        attn_err = max(attn_err, diff.max().item())
+    del recorded, plain
+    # --- serving: 8 requests (32-128 prompt tokens, per-token prefill)
+    sched = ContinuousBatchingScheduler(eng, max_slots=HYMBA_SLOTS)
+    clock = PhaseClock(eng)
+    sched.warmup(prompt_len=32, max_new=4)
+    reqs = hymba_requests(cfg.vocab_size)
+    clock.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = sched.run(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decode_s, admit_s = clock.decode_s, clock.admit_s
+    res = out["results"]
+    check(len(res) == len(reqs) and all(r.state == "DONE" for r in res),
+          f"hymba: not every request DONE: {out['by_state']}")
+    check(all(r.gen_len == HYMBA_NEW for r in res), "a request stopped short")
+    check(all(0 <= t < cfg.vocab_size for r in res for t in r.tokens),
+          "token out of range")
+    check(out["quarantines"] == 0 and out["failed"] == 0,
+          "the finite-logits sentinel flagged a step")
+    steps, prefill = out["steps"], out["prefill_tokens"]
+    check(prefill == sum(len(r.prompt) - 1 for r in reqs), "prefill tokens")
+    want = {"w4a8_matmul": 0, "flash_attention": 0,
+            "paged_decode_attention": L * steps, "rwkv6_scan": 0}
+    check(counts == want, f"hymba serve launch counts {counts} != {want}")
+    tokens = prefill + out["decoded_tokens"]
+    meter = eng.measured_bytes()["total"]
+    check(meter == traffic_model_for(cfg).bytes_per_token() * tokens,
+          f"meter {meter} != eq. 7-10 x {tokens} tokens")
+    stats = eng.cache_stats(sched.cache)
+    info = {"phase": "hymba_path", "config": cfg.name, "layers": L,
+            "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "ssm_state": cfg.ssm.state_dim,
+            "window": window, "dtype": cfg.dtype,
+            "param_bytes_f32": param_bytes, "setup_s": setup_s,
+            "setup_peak_memory_bytes": setup_peak,
+            "forward": {"batch": B, "tokens": T, "launches": fwd_counts,
+                        "seconds": [dt1, dt2], "tokens_per_s": B * T / dt2,
+                        "max_abs_logit": fwd_max, "second_identical": True,
+                        "attention_vs_plain_max_abs_err": attn_err,
+                        "peak_memory_bytes": fwd_peak},
+            "max_slots": HYMBA_SLOTS, "page_size": HYMBA_PAGE,
+            "max_len": HYMBA_MAX_LEN, "num_pages": eng._pager.pool.num_pages,
+            "seq_axes": eng._sa, "requests": len(reqs), "all_done": True,
+            "prefill_tokens": prefill,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "decode_steps": steps, "decoded_tokens": out["decoded_tokens"],
+            "serve_launches": counts, "launches_expected": want,
+            "paged_per_decode_step": counts["paged_decode_attention"] / steps,
+            "meter_bytes": meter,
+            "cache": stats, "wall_s": out["wall_s"], "decode_s": decode_s,
+            "admit_s": admit_s,
+            "decode_steps_per_s": steps / decode_s,
+            "decode_tokens_per_s": out["decoded_tokens"] / decode_s,
+            "prefill_tokens_per_s": prefill / admit_s,
+            "tokens_per_s_wall": out["tokens_per_s"],
+            "peak_memory_bytes": peak,
+            "launches": {k: fwd_counts[k] + counts[k] for k in counts},
+            "card": smi_line}
+    emit(info)
+    return eng, info
+
+
+def phase_times_hymba(dev, info):
+    """hymba-1.5b's kernels at hymba_path's shapes: the flash kernel over
+    one forward's 32 launches (B 2, T 2,048, 25/5 heads of 64, window
+    1024), and the paged kernel over one decode step's 32 launches at 8
+    slots of the path's lengths, 16 tokens into their decode (window 1024,
+    which these lengths do not reach)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    detail = []
+    cfg = get_config("hymba-1.5b")
+    L, (B, T) = cfg.num_layers, HYMBA_FWD
+    window = cfg.layer_pattern[0].window
+    bf = torch.bfloat16
+    launches = [flash_inputs(gen, dev, B, 25, 5, T, T, 64, bf)
+                for _ in range(L)]
+
+    def fwd(fn, ls):
+        return lambda: [fn(q, k, v, causal=True, window=window)
+                        for q, k, v in ls]
+
+    k_ms = graph_time_ms(fwd(ops.attention, launches), iters=10)
+    eager_ms = cuda_time_ms(fwd(ops.attention, launches), iters=3)
+    p_ms = cuda_time_ms(fwd(ref.flash_attention, launches), iters=1,
+                        warmup=1)
+    pos = torch.arange(T, device=dev)
+    mask = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - window))[None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q0, k0, v0 = launches[0]
+    detail.append({"flash_hymba_sdpa_vs_plain": float(
+        (sdpa(q0, k0, v0, attn_mask=mask, enable_gqa=True).float()
+         - ref.flash_attention(q0, k0, v0, causal=True, window=window)
+         .float()).abs().max())})
+    lib_ms = yardstick_ms(
+        lambda: [sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+                 for q, k, v in launches], 10, detail, "flash_hymba_library")
+    bound_ms, bound_by = flash_bound(launches, windows=[window] * L)
+    flash = {"unit": f"one hymba-1.5b forward of {B} x {T} tokens: {L} "
+                     "launches, 25/5 heads, D 64, causal, window 1024, bf16, "
+                     "CUDA-graph replay; plain timed eagerly",
+             "launches": info["forward"]["launches"]["flash_attention"],
+             "ms": k_ms, "eager_ms": eager_ms, "plain_ms": p_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+             "library_note": "scaled_dot_product_attention with enable_gqa "
+                             "and a boolean causal 1024-window mask on the "
+                             "same tensors, CUDA-graph replay"}
+    lens = [n - 1 + 16 for n in info["prompt_lens"][:HYMBA_SLOTS]]
+    paged = paged_step_times(gen, dev, L, 25, 5, 64, HYMBA_MAX_LEN // 16, lens,
+                             detail, "paged_hymba_library", window=window)
+    paged["unit"] = (f"one decode step of hymba-1.5b: {L} launches, "
+                     f"{HYMBA_SLOTS} slots, 25/5 heads, D 64, window 1024, "
+                     f"lengths {lens}, CUDA-graph replay")
+    paged["launches"] = info["serve_launches"]["paged_decode_attention"]
+    paged["launches_per_step"] = info["paged_per_decode_step"]
+    emit({"phase": "times", "path": "hymba_path", "flash_hymba": flash,
+          "paged_hymba": paged, "detail": detail})
+    return flash, paged
+
+
 def main() -> int:
     # flex_attention's compiled kernels cache inside the checkout
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -2245,6 +2865,7 @@ def main() -> int:
     phase_profile(eng, dev, "main_path")
     kernels = phase_times(eng, dev, main_info["launches"])
     split_info = phase_features_splitbrain(eng, dev, smi)
+    chaos_a = phase_chaos_splitbrain(eng, main_info, smi)
     del eng                          # release tinyllama before llama2-7b
     gc.collect()
     torch.cuda.empty_cache()
@@ -2255,6 +2876,11 @@ def main() -> int:
     feng, feat_info = phase_features_path(eng, dev, smi)
     feat_prof = phase_profile(feng, dev, "features_path int8 pool")
     del feng
+    chaos_bcd, chaos_serve_launches = phase_chaos_serve(eng, serve_info, smi)
+    chaos_launches = {k: chaos_a["launches"][k] + chaos_serve_launches[k]
+                      for k in chaos_serve_launches}
+    emit({"phase": "chaos_path", "runs": [chaos_a] + chaos_bcd,
+          "launches": chaos_launches, "card": smi})
     paged_kv = phase_times_kv(dev, serve_info, feat_info)
     del eng                          # release llama2-7b before rwkv6-7b
     gc.collect()
@@ -2265,6 +2891,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     kernels.append(phase_times_rwkv(dev, rwkv_info))
+    phase_reference_hymba(dev)
+    eng, hymba_info = phase_hymba_path(dev, smi)
+    hymba_prof = phase_profile(eng, dev, "hymba_path")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_h, paged_h = phase_times_hymba(dev, hymba_info)
     eng, gemma2_info = phase_gemma2_path(dev, smi)   # after the others: 69 GB
     prof = phase_profile(eng, dev, "gemma2_path", slots=GEMMA2_SLOTS)
     del eng
@@ -2277,6 +2910,25 @@ def main() -> int:
             "prefill_tokens_per_s", "tokens_per_s_wall",
             "setup_peak_memory_bytes", "peak_memory_bytes")},
         "device_busy_share": prof["device_busy_share"],
+        "card": smi})
+    emit({"hymba_path_summary": {
+        key: hymba_info[key] for key in (
+            "decode_steps_per_s", "decode_tokens_per_s",
+            "prefill_tokens_per_s", "tokens_per_s_wall",
+            "setup_peak_memory_bytes", "peak_memory_bytes")},
+        "forward_tokens_per_s": hymba_info["forward"]["tokens_per_s"],
+        "profile": {key: hymba_prof[key] for key in (
+            "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+            "host_ops_per_step")},
+        "card": smi})
+    emit({"chaos_path_summary": [
+        {key: run[key] for key in ("run", "decode_steps_per_s",
+                                   "clean_decode_steps_per_s", "recovery_s",
+                                   "identical_to_fault_free")
+         if key in run} for run in [chaos_a] + chaos_bcd[:1]]
+        + [{"run": chaos_bcd[2]["run"],
+            "trip_after_stall_s": chaos_bcd[2]["trip_after_stall_s"],
+            "recoveries": chaos_bcd[2]["stats"]["recoveries"]}],
         "card": smi})
     emit({"features_path_summary": {
         run: {key: info[key] for key in (
@@ -2298,13 +2950,17 @@ def main() -> int:
             "gemma2_path": gemma2_info["launches"][k["name"]],
             "features_path": sum(r["launches"][k["name"]]
                                  for r in feat_info["runs"].values()),
-            "features_splitbrain": split_info["launches"][k["name"]]}
+            "features_splitbrain": split_info["launches"][k["name"]],
+            "chaos_path": chaos_launches[k["name"]],
+            "hymba_path": hymba_info["launches"][k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
     kernels[1]["llama2_decode_int8"] = paged_kv["int8"]
     kernels[1]["llama2_decode_fp8"] = paged_kv["fp8"]
     kernels[1]["gemma2_decode"] = paged_g
     kernels[2]["gemma2_prefill"] = flash_g
+    kernels[1]["hymba_decode"] = paged_h
+    kernels[2]["hymba_forward"] = flash_h
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

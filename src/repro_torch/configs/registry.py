@@ -3,15 +3,16 @@
 The split-brain main path runs the paper's own two models (Table IV):
 TinyLlama-1.1B and Llama-2-7B.  The float ServeEngine also serves the other
 dense lm configs (stablelm-1.6b, granite-8b, minitron-8b), gemma2-27b with
-its alternating windowed and global layers, and the attention-free RWKV6
-family (rwkv6-7b).  The other families' configs join as their slices are
-ported.
+its alternating windowed and global layers, the attention-free RWKV6
+family (rwkv6-7b) and the hybrid attention + SSM family (hymba-1.5b).  The
+encoder-decoder, vision and MoE configs join as their slices are ported.
 """
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs import gemma2_27b as _gemma2_27b
 from repro_torch.configs import granite_8b as _granite_8b
+from repro_torch.configs import hymba_1_5b as _hymba_1_5b
 from repro_torch.configs import llama2_7b as _llama2_7b
 from repro_torch.configs import minitron_8b as _minitron_8b
 from repro_torch.configs import rwkv6_7b as _rwkv6_7b
@@ -26,6 +27,7 @@ CONFIGS: Dict[str, ModelConfig] = {
     "minitron-8b": _minitron_8b.CONFIG,
     "gemma2-27b": _gemma2_27b.CONFIG,
     "granite-8b": _granite_8b.CONFIG,
+    "hymba-1.5b": _hymba_1_5b.CONFIG,
 }
 
 

@@ -129,3 +129,14 @@ def rwkv6_chunked(r, k, v, w, u, state: Optional[torch.Tensor] = None, *,
     """The chunked (matmul-form) WKV recurrence.  The JAX package has no
     Pallas kernel for it either: plain PyTorch on every device."""
     return ref.rwkv6_scan_chunked(r, k, v, w, u, state, chunk=chunk)
+
+
+def selective_scan(x, delta, A, B, C, state: Optional[torch.Tensor] = None,
+                   *, algorithm: str = "sequential"):
+    """Hymba's selective state-space scan: the sequential form, or with
+    ``algorithm="associative"`` (and more than one step) the associative
+    one, as the JAX package's ``ops.selective_scan`` chooses.  The JAX
+    package has no kernel for it either: plain PyTorch on every device."""
+    if algorithm == "associative" and x.shape[1] > 1:
+        return ref.selective_scan_assoc(x, delta, A, B, C, state)
+    return ref.selective_scan(x, delta, A, B, C, state)

@@ -67,6 +67,46 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < 0.0004, x, r)
 
 
+# exp(x) = 2^n exp(r) with n = floor(x log2(e) + 1/2) and r = x - n ln(2)
+# (ln(2) in two parts), exp(r) = 1 + r + r^2 P(r): Cephes' expf, the form
+# XLA evaluates on the CPU with every multiply-add fused; P's coefficients,
+# highest power first, and the clamp of x
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+          1.6666665459e-1, 5.0000001201e-1)
+_EXP_LN2 = (-0.693359375, 2.12194440e-4)
+_EXP_LO, _EXP_HI = -88.3762626647949, 88.72283935546875
+_F32_MIN_NORMAL = 2.0 ** -126
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp as the JAX package's compiled programs compute it on the
+    CPU: Cephes' range reduction and polynomial as fused multiply-adds
+    (``addcmul``), the power of two applied as two exact scalings, and a
+    result below the smallest normal float32 flushed to zero (XLA runs
+    with denormals off).  Bit-identical to ``jax.jit(jnp.exp)`` on the CPU
+    for x <= 88.39 (above, where 2^n overflows a float32 exponent, it may
+    be an ulp off), where ``torch.exp`` differs from it on about one value
+    in ten; the same op sequence on the card."""
+    x = x.to(torch.float32)
+    xc = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.floor(torch.addcmul(torch.full_like(xc, 0.5), xc,
+                                  torch.full_like(xc, 1.44269504088896341)))
+    r = torch.addcmul(xc, n, torch.full_like(xc, _EXP_LN2[0]))
+    r = torch.addcmul(r, n, torch.full_like(xc, _EXP_LN2[1]))
+    y = torch.full_like(r, _EXP_P[0])
+    for c in _EXP_P[1:]:
+        y = torch.addcmul(torch.full_like(r, c), y, r)
+    y = torch.addcmul(r, y, r * r) + 1.0
+    e = n.to(torch.int32)
+    half = torch.div(e, 2, rounding_mode="floor")
+
+    def pow2(k):                     # 2^k for k in [-126, 127], exactly
+        return ((k + 127) << 23).view(torch.float32)
+
+    out = y * pow2(half) * pow2(e - half)
+    return torch.where(out < _F32_MIN_NORMAL, torch.zeros_like(out), out)
+
+
 def _soft_cap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return logits
@@ -384,3 +424,117 @@ def rwkv6_scan_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(inter + intra)
     out = torch.stack(outs, dim=0).permute(1, 2, 0, 3, 4).reshape(B, H, T, D)
     return out.to(r.dtype), S
+
+
+# ----------------------------------------------------------------------------
+# Mamba-style selective scan (hymba's SSM heads)
+# ----------------------------------------------------------------------------
+def _scan_operands(x, delta, A, Bm):
+    """a = exp(delta * A) (XLA's exp, :func:`exp`) and b = delta * B * x,
+    (B, T, D, N) float32."""
+    f32 = torch.float32
+    d = delta.to(f32)[..., None]
+    a = exp(d * A.to(f32)[None, None])
+    b = d * Bm.to(f32)[:, :, None, :] * x.to(f32)[..., None]
+    return a, b
+
+
+def _readout(h: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """y = sum_n h[..., n] c[..., n] in float32, summed in the order of the
+    JAX package's compiled ``einsum`` (XLA's dot on the CPU): one row
+    (leading axis 1) accumulates n = 0, 1, ... with fused multiply-adds;
+    more rows accumulate 8 lanes (n mod 8) with fused multiply-adds and
+    add the lanes pairwise.  h (R, ..., N), c broadcast against it."""
+    N = h.shape[-1]
+    if h.shape[0] == 1:
+        acc = h[..., 0] * c[..., 0]
+        for n in range(1, N):
+            acc = torch.addcmul(acc, h[..., n], c[..., n])
+        return acc
+    k = min(8, N)
+    if N % k or k & (k - 1):
+        return (h * c).sum(dim=-1)
+    acc = h[..., :k] * c[..., :k]
+    for s in range(k, N, k):
+        acc = torch.addcmul(acc, h[..., s:s + k], c[..., s:s + k])
+    while acc.shape[-1] > 1:
+        acc = acc[..., 0::2] + acc[..., 1::2]
+    return acc[..., 0]
+
+
+def selective_scan(x: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor,
+                   state: Optional[torch.Tensor] = None):
+    """S4/Mamba selective state-space scan, one time step at a time on the
+    (B, D, N) float32 carry.
+
+    x, delta: (B, T, D); A: (D, N); Bm, Cm: (B, T, N); state: (B, D, N)
+    (zeros when None).
+      h_t = exp(delta_t * A) h_{t-1} + delta_t * B_t * x_t
+      y_t = h_t C_t^T
+    Returns (y (B, T, D) in x's dtype, final state (B, D, N) float32).  The
+    JAX package has no kernel for it: plain on every device."""
+    Bsz, T, D = x.shape
+    f32 = torch.float32
+    h = (torch.zeros((Bsz, D, A.shape[1]), dtype=f32, device=x.device)
+         if state is None else state.to(f32))
+    a, b = _scan_operands(x, delta, A, Bm)
+    C = Cm.to(f32)
+    ys = []
+    for t in range(T):
+        h = torch.addcmul(b[:, t], a[:, t], h)     # one fused multiply-add
+        ys.append(_readout(h, C[:, t, None, :]))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def _associative_scan(combine, elems):
+    """``jax.lax.associative_scan`` along axis 1, with its pairing order:
+    combine the odd/even pairs, scan the half recursively, then fill in the
+    even positions -- so the float32 products and sums are the JAX
+    package's."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    reduced = combine([e[:, 0:-1:2] for e in elems],
+                      [e[:, 1::2] for e in elems])
+    odd = _associative_scan(combine, reduced)
+    if n % 2 == 0:
+        even = combine([e[:, :-1] for e in odd], [e[:, 2::2] for e in elems])
+    else:
+        even = combine(odd, [e[:, 2::2] for e in elems])
+    even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
+    out = []
+    for ev, od in zip(even, odd):
+        full = torch.empty((ev.shape[0], n) + tuple(ev.shape[2:]),
+                           dtype=ev.dtype, device=ev.device)
+        full[:, 0::2] = ev
+        full[:, 1::2] = od
+        out.append(full)
+    return out
+
+
+def selective_scan_assoc(x: torch.Tensor, delta: torch.Tensor,
+                         A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                         state: Optional[torch.Tensor] = None):
+    """The selective scan as an associative scan over time: h_t = a_t h_{t-1}
+    + b_t composes as (a1, b1) o (a2, b2) = (a1 a2, b2 + a2 b1), taken in
+    ``jax.lax.associative_scan``'s order (log2(T) vectorised passes, no
+    division).  A carried ``state`` is folded into the first step (b_0 +=
+    a_0 h_0).  Returns what :func:`selective_scan` returns, up to the
+    reassociation."""
+    a, b = _scan_operands(x, delta, A, Bm)
+    if state is not None:
+        b = b.clone()
+        b[:, 0] = torch.addcmul(b[:, 0], a[:, 0], state.to(torch.float32))
+
+    def combine(left, right):
+        al, bl = left
+        ar, br = right
+        return [al * ar, torch.addcmul(br, ar, bl)]
+
+    _, h = _associative_scan(combine, [a, b])
+    Bsz, T = h.shape[:2]
+    y = _readout(h.reshape((Bsz * T,) + tuple(h.shape[2:])),
+                 Cm.to(torch.float32).reshape(Bsz * T, 1, -1)
+                 ).reshape(Bsz, T, -1)
+    return y.to(x.dtype), h[:, -1]

@@ -1,5 +1,5 @@
-"""The port's serving CLI: batched greedy decoding of an lm-family or an
-rwkv config with the float ``ServeEngine``, on the card unless asked
+"""The port's serving CLI: batched greedy decoding of an lm-family, an rwkv
+or a hymba config with the float ``ServeEngine``, on the card unless asked
 otherwise.
 
   # on a machine with the card: llama2-7b at full size, random weights
@@ -11,25 +11,45 @@ otherwise.
       --smoke --device cpu --continuous --page-size 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --smoke --device cpu --continuous
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --smoke --device cpu --continuous
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --smoke --device cpu --continuous --page-size 8 --prefix-cache on \
       --prefill-chunk 8 --kv-dtype int8
 
+  # online semantics: SLA classes, deadlines, SLA-aware preemption
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --smoke --device cpu --continuous --page-size 8 --priority 0,0,0,1 \
+      --deadline-s 5 --preemption on
+
+  # chaos: seeded faults against the recovery seam; --recovery-log writes
+  # the quarantine / recover event stream as JSON
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --smoke --device cpu --continuous --page-size 8 --prefill-chunk 8 \
+      --prefix-cache on --chaos-seed 0 --recovery-log events.json \
+      --chaos-plan "step_corrupt_at=4,step_corrupt_iters=2,device_loss_at=10"
+
 Without ``--continuous`` it runs ``ServeEngine.generate`` on ``--batch``
 prompts of ``--prompt-len`` tokens; with it, ``--requests`` ragged prompts
 go through the continuous-batching scheduler over ``--slots`` slots (a page
-pool with ``--page-size`` for lm, else a dense slot cache; rwkv's recurrent
-state is always dense), with chunked prefill (``--prefill-chunk``), prefix
-reuse (``--prefix-cache on``), an int8 / fp8 pool (``--kv-dtype``) and the
-gather discipline (``--paged-attn gather``) as asked.  Weights come from
-``api.init_params`` with a ``torch.Generator`` seeded by ``--seed``.  Prints
-one JSON report, as the JAX package's ``repro.launch.serve`` does.  Flags
-of features the port does not have yet exit with "not ported yet".
+pool with ``--page-size`` where some cache leaf grows with the sequence,
+else a dense slot cache: rwkv's recurrent state, hymba's ring once the
+window binds), with chunked prefill (``--prefill-chunk``), prefix reuse
+(``--prefix-cache on``), an int8 / fp8 pool (``--kv-dtype``), the gather
+discipline (``--paged-attn gather``), SLA classes (``--priority``),
+deadlines (``--deadline-s``), SLA-aware preemption (``--preemption on``)
+and seeded fault injection (``--chaos-plan``, ``--chaos-seed``,
+``--recovery-log``) as asked.  Weights come from ``api.init_params`` with
+a ``torch.Generator`` seeded by ``--seed``.  Prints one JSON report, as
+the JAX package's ``repro.launch.serve`` does.  ``--tp`` exits with "not
+ported yet".
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -40,22 +60,53 @@ from repro_torch.core.device import matmul_settings, resolve_device
 from repro_torch.models import api
 from repro_torch.serve import pages
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.faults import FaultInjector, FaultPlan
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 
-SERVED = ("lm", "rwkv")   # families the float ServeEngine serves
+SERVED = ("lm", "rwkv", "hymba")   # families the float ServeEngine serves
 
 
-def _refuse_unported(args, ap: argparse.ArgumentParser) -> None:
-    unported = [("--tp", args.tp != 1),
-                ("--priority", args.priority is not None),
-                ("--deadline-s", args.deadline_s is not None),
-                ("--preemption on", args.preemption != "off"),
-                ("--chaos-plan", args.chaos_plan is not None),
-                ("--chaos-seed", args.chaos_seed is not None),
-                ("--recovery-log", args.recovery_log is not None)]
-    for flag, used in unported:
-        if used:
-            ap.error(f"{flag}: not ported yet")
+def _parse_chaos_plan(spec: str, ap: argparse.ArgumentParser) -> FaultPlan:
+    """``key=val,key=val`` over FaultPlan's fields, coerced per field type
+    (tuple fields take ``+``-separated uids, e.g. ``step_corrupt_uids=1+3``),
+    as the JAX package's CLI parses it."""
+    fields = {f.name: f for f in dataclasses.fields(FaultPlan)}
+    kwargs = {}
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        key, sep, val = item.partition("=")
+        key, val = key.strip(), val.strip()
+        if not sep or key not in fields:
+            ap.error(f"--chaos-plan: unknown or malformed entry {item!r} "
+                     f"(fields: {', '.join(sorted(fields))})")
+        ftype = str(fields[key].type)
+        try:
+            if "Tuple" in ftype:
+                kwargs[key] = tuple(int(v) for v in val.split("+") if v)
+            elif ftype == "float":
+                kwargs[key] = float(val)
+            else:
+                kwargs[key] = int(val)
+        except ValueError:
+            ap.error(f"--chaos-plan: bad value {val!r} for {key} ({ftype})")
+    if not kwargs:
+        ap.error("--chaos-plan named no fault points")
+    return FaultPlan(**kwargs)
+
+
+def _priorities(args, ap: argparse.ArgumentParser):
+    if args.priority is None:
+        return [0]
+    try:
+        out = [int(p) for p in args.priority.split(",") if p != ""]
+    except ValueError:
+        ap.error(f"--priority must be comma-separated integers, "
+                 f"got {args.priority!r}")
+    if not out:
+        ap.error("--priority must name at least one SLA class")
+    return out
 
 
 def main(argv=None):
@@ -99,16 +150,36 @@ def main(argv=None):
     ap.add_argument("--prefix-cache", choices=("on", "off"), default="off",
                     help="shared-prefix KV reuse through the pool's radix "
                          "index (copy-on-write pages); requires --page-size")
-    # flags of the JAX package's CLI whose features are not ported yet
-    ap.add_argument("--priority", default=None)
-    ap.add_argument("--deadline-s", type=float, default=None)
-    ap.add_argument("--preemption", choices=("on", "off"), default="off")
+    ap.add_argument("--priority", default=None,
+                    help="comma-separated SLA classes cycled over the "
+                         "request stream (higher wins admission and may "
+                         "preempt lower), e.g. '0,0,0,1'")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request deadline in seconds from serve-loop "
+                         "start; a request not finished by then terminates "
+                         "as TIMEOUT (slot and pages freed)")
+    ap.add_argument("--preemption", choices=("on", "off"), default="off",
+                    help="SLA-aware preemption: when a higher-priority "
+                         "request cannot be admitted, evict a lower-"
+                         "priority victim (publishing its full pages to "
+                         "the prefix cache first) and re-queue it with "
+                         "bounded exponential backoff")
+    ap.add_argument("--chaos-plan", default=None,
+                    help="seeded fault injection: comma-separated "
+                         "FaultPlan fields (repro_torch/serve/faults.py), "
+                         "e.g. 'step_corrupt_at=4,step_corrupt_iters=2,"
+                         "device_loss_at=10'")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="PRNG seed for --chaos-plan: same (plan, seed) -> "
+                         "same fault sequence")
+    ap.add_argument("--recovery-log", default=None,
+                    help="write the scheduler's quarantine / recover event "
+                         "stream to this path as JSON")
+    # a flag of the JAX package's CLI whose feature is not ported yet
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--chaos-plan", default=None)
-    ap.add_argument("--chaos-seed", type=int, default=None)
-    ap.add_argument("--recovery-log", default=None)
     args = ap.parse_args(argv)
-    _refuse_unported(args, ap)
+    if args.tp != 1:
+        ap.error("--tp: not ported yet")
     if args.num_pages is not None and args.page_size is None:
         ap.error("--num-pages requires --page-size (the paged KV cache)")
     if args.prefix_cache == "on" and args.page_size is None:
@@ -122,6 +193,20 @@ def main(argv=None):
                                 or args.prefill_chunk is not None):
         ap.error("--page-size/--num-pages/--prefill-chunk only apply to the "
                  "--continuous serve loop")
+    if not args.continuous and (args.priority is not None
+                                or args.deadline_s is not None
+                                or args.preemption == "on"):
+        ap.error("--priority/--deadline-s/--preemption only apply to the "
+                 "--continuous serve loop")
+    if not args.continuous and (args.chaos_plan is not None
+                                or args.recovery_log is not None):
+        ap.error("--chaos-plan/--recovery-log only apply to the "
+                 "--continuous serve loop")
+    faults = None
+    if args.chaos_plan is not None:
+        faults = FaultInjector(_parse_chaos_plan(args.chaos_plan, ap),
+                               seed=args.chaos_seed)
+    priorities = _priorities(args, ap)
 
     if args.arch not in CONFIGS or CONFIGS[args.arch].family not in SERVED:
         ap.error(f"--arch {args.arch}: not ported yet (the port serves "
@@ -155,11 +240,14 @@ def main(argv=None):
                             1, cfg.vocab_size,
                             (int(rng.integers(lo, args.prompt_len + 1)),)
                         ).astype(np.int32),
-                        max_new=args.max_new)
+                        max_new=args.max_new,
+                        priority=priorities[i % len(priorities)],
+                        deadline_s=args.deadline_s)
                 for i in range(args.requests)]
         sched = ContinuousBatchingScheduler(
             eng, max_slots=args.slots, eos_id=args.eos_id,
-            prefill_chunk=args.prefill_chunk)
+            prefill_chunk=args.prefill_chunk,
+            preemption=args.preemption == "on", faults=faults)
         out = sched.run(reqs)
         report = {
             "arch": cfg.name,
@@ -175,9 +263,25 @@ def main(argv=None):
             "cached_prompt_tokens": out["cached_prompt_tokens"],
             "rejected": [(r.uid, r.reason) for r in out["rejected"]],
             "by_state": out["by_state"],
+            "preemptions": out["preemptions"],
         }
         if args.page_size:
             report["cache"] = eng.cache_stats(sched.cache)
+        if faults is not None:
+            fired: dict = {}
+            for name, *_ in faults.events:
+                fired[name] = fired.get(name, 0) + 1
+            report["chaos"] = {
+                "seed": args.chaos_seed,
+                "fired": fired,
+                "quarantines": out["quarantines"],
+                "failed": out["failed"],
+                "recoveries": out["recoveries"],
+                "last_recovery_s": round(out["last_recovery_s"], 4),
+            }
+        if args.recovery_log is not None:
+            Path(args.recovery_log).write_text(
+                json.dumps(sched.recovery_log, indent=2) + "\n")
         print(json.dumps(report))
         return out
 

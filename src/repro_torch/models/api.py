@@ -1,4 +1,4 @@
-"""Model API of the port: family dispatch (the lm and rwkv families),
+"""Model API of the port: family dispatch (the lm, rwkv and hymba families),
 params, the whole-sequence forward, the serve path (cache, prefill,
 decode), LAQ model quantization, and the bridge that turns the JAX
 package's params (as numpy) into the port's."""
@@ -11,10 +11,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import hymba, rwkv6, transformer
 
 
-_FAMILIES = {"lm": transformer, "rwkv": rwkv6}
+_FAMILIES = {"lm": transformer, "rwkv": rwkv6, "hymba": hymba}
 
 
 def family_module(cfg: ModelConfig):
@@ -35,7 +35,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def forward(params, tokens, cfg: ModelConfig):
     """Whole-sequence logits: tokens (B, T) -> (logits (B, T, V) float32,
-    aux)."""
+    aux).  The rwkv and hymba families have it; the lm family's comes with
+    training (ROADMAP queue 1, item 11)."""
     mod = family_module(cfg)
     if not hasattr(mod, "forward"):
         raise NotImplementedError(
@@ -81,8 +82,9 @@ def prefill_bucketed(params, cache, tokens, true_len, cfg: ModelConfig):
     The lm family takes its block prefill when every cache leaf holds the
     prompt (one flash-attention launch per layer on the card).  Otherwise,
     as in the JAX package, the prompt goes through ``decode_step`` one token
-    at a time -- the recurrent families' prefill -- over the true length
-    only, so padding never reaches the state."""
+    at a time -- the prefill of rwkv and hymba (whose SSM state must not see
+    padding) -- over the true length only, so padding never reaches the
+    state."""
     mod = family_module(cfg)
     n = int(true_len)
     if hasattr(mod, "prefill") and mod.prefill_fits(cache, tokens.shape[1]):
@@ -108,7 +110,7 @@ def prefill_chunk(params, cache, tokens, true_len, cfg: ModelConfig, *,
     goes through ``decode_step`` one token at a time over its true length
     (the JAX package scans the padded width with the state frozen past
     ``true_len``: the same state), which every family takes: rwkv6's
-    recurrent state, gemma2's rings."""
+    recurrent state, hymba's SSM state and rings, gemma2's rings."""
     mod = family_module(cfg)
     if block and hasattr(mod, "prefill_chunk"):
         return mod.prefill_chunk(params, cache, tokens, int(true_len), cfg)

@@ -110,6 +110,24 @@ def qkv_project(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
             heads(p["wv"], num_kv_heads))
 
 
+def attn_apply(p: dict, x: torch.Tensor, *, num_heads: int,
+               num_kv_heads: int, head_dim: int, positions: torch.Tensor,
+               rope_theta: float, window: Optional[int] = None,
+               softcap: Optional[float] = None,
+               causal: bool = True) -> torch.Tensor:
+    """Full attention block over a whole sequence (the forward path): QKV
+    projection, rope at ``positions``, ``ops.attention`` (the flash kernel
+    on the card, its plain version on the CPU) with ``causal`` / ``window``
+    / ``softcap``, and the output projection.  x (B, T, d) -> (B, T, d)."""
+    B, T, _ = x.shape
+    q, k, v = qkv_project(p, x, num_heads, num_kv_heads, head_dim)
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    o = ops.attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    o = o.transpose(1, 2).reshape(B, T, num_heads * head_dim)
+    return linear(o, p["wo"])
+
+
 # ----------------------------------------------------------------------------
 # Paged KV append
 # ----------------------------------------------------------------------------
@@ -347,6 +365,17 @@ def fake_quant_pages(leaf: torch.Tensor, s_ax: int, n_tokens: int,
     rt = kv_dequantize(kv_quantize(xp, sc, kv_dtype), sc)
     x.copy_(rt.reshape(x.shape).to(leaf.dtype))
     return leaf
+
+
+def store_rows(dst: torch.Tensor, new: torch.Tensor,
+               write: Optional[torch.Tensor]) -> None:
+    """dst <- new IN PLACE, on the rows (leading axis) where ``write`` (B,)
+    bool is True (every row when it is None): the recurrent families'
+    frozen-slot state update."""
+    if write is not None:
+        new = torch.where(write.reshape((-1,) + (1,) * (new.dim() - 1)),
+                          new, dst)
+    dst.copy_(new)
 
 
 def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,

@@ -32,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, linear, rmsnorm, silu
+from repro_torch.models.layers import (dense_init, linear, rmsnorm, silu,
+                                       store_rows)
 
 HEAD_DIM = 64  # RWKV6 uses 64-wide heads
 LORA_DIM = 64
@@ -237,15 +238,6 @@ def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
                                             .to(torch.float32)}
 
 
-def _store(dst: torch.Tensor, new: torch.Tensor,
-           write: Optional[torch.Tensor]) -> None:
-    """dst <- new IN PLACE, on the rows (leading axis) where ``write``."""
-    if write is not None:
-        mask = write.reshape((-1,) + (1,) * (new.dim() - 1))
-        new = torch.where(mask, new, dst)
-    dst.copy_(new)
-
-
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
                 write: Optional[torch.Tensor] = None):
     """One token per row, the cache updated IN PLACE: tokens (B,) ->
@@ -257,9 +249,9 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
         x, wkv, last_tm, last_cm = _block(
             p, x, cfg, state=cache["wkv"][i], x_tm=cache["x_tm"][i],
             x_cm=cache["x_cm"][i])
-        _store(cache["wkv"][i], wkv, write)
-        _store(cache["x_tm"][i], last_tm, write)
-        _store(cache["x_cm"][i], last_cm, write)
+        store_rows(cache["wkv"][i], wkv, write)
+        store_rows(cache["x_tm"][i], last_tm, write)
+        store_rows(cache["x_cm"][i], last_cm, write)
     logits = _head(params, x[:, 0], cfg)
     cache["len"] += 1 if write is None else write.to(torch.int32)
     return logits, cache

@@ -1,6 +1,6 @@
 """Production serving engine for the dense lm family (gemma2's windowed
-layers and softcaps included) and the rwkv family: float weights, batched
-prefill and greedy decode, in torch.
+layers and softcaps included), the rwkv family and the hymba family: float
+weights, batched prefill and greedy decode, in torch.
 
 The JAX package's ``ServeEngine`` compiles each request into two programs
 (one bucketed block prefill, one scan-fused decode loop).  The port runs
@@ -9,8 +9,8 @@ the same math eagerly:
   generate()    one prefill of the whole prompt body through
                 ``api.prefill_bucketed`` (for lm a block prefill whose
                 attention is the flash kernel on the card, one launch per
-                layer; for rwkv one ``decode_step`` per prompt token, as in
-                the JAX package), then a Python loop of
+                layer; for rwkv and hymba one ``decode_step`` per prompt
+                token, as in the JAX package), then a Python loop of
                 ``api.decode_step`` on the dense cache in lockstep
                 (``fused=True``, one host sync at the end); ``fused=False``
                 feeds the prompt one ``decode_step`` per token and syncs
@@ -30,7 +30,11 @@ the same math eagerly:
                 layer's ring (gemma2's local layers, ``window < max_len``)
                 stays dense and slot-private beside the paged global
                 layers, and a prompt longer than the ring takes the
-                per-token prefill.
+                per-token prefill.  Hymba's K/V page only where the window
+                covers ``max_len`` plus a page (else they stay a dense
+                ring); its SSM state is always a dense slot leaf, frozen
+                where a slot does not write, so its prefix index is a
+                no-op and ``rebuild()`` restores the state by re-prefill.
 
   features      the scheduler's chunked prefill (``new_request_cache`` /
                 ``prefill_chunk_slot``: the lm block chunk path through
@@ -73,8 +77,8 @@ from repro_torch.serve.errors import InvalidRequestError
 
 
 class ServeEngine(pages_mod.PagedEngineMixin):
-    """Greedy serving of a dense lm-family or an rwkv config with float
-    weights."""
+    """Greedy serving of a dense lm-family, an rwkv or a hymba config with
+    float weights."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 128,
                  fused: bool = True, page_size: Optional[int] = None,

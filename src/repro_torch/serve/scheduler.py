@@ -191,9 +191,8 @@ class ContinuousBatchingScheduler:
     ``preemption=True`` arms SLA-aware eviction (module docstring);
     ``backoff_steps``/``backoff_cap`` bound the evicted victim's
     exponential re-admission backoff in scheduler iterations.  ``faults``
-    takes a fault injector (the JAX package's ``serve/faults.py`` interface;
-    not ported yet) whose seeded failure points the loop must absorb
-    gracefully.
+    takes a :class:`repro_torch.serve.faults.FaultInjector` whose seeded
+    failure points the loop must absorb gracefully.
     """
 
     def __init__(self, engine, max_slots: int = 8,

@@ -638,3 +638,108 @@ def test_splitbrain_features_on_card_match_cpu(cuda, quantize):
                 eng, max_slots=2, prefill_chunk=8)], [reqs])[0]
             got[str(d)] = [r.tokens.tolist() for r in res]
         assert got[str(cuda)] == got["cpu"], kw
+
+
+# ---------------------------------------------------------------- hymba
+# hymba-1.5b's attention at full width: 25 query heads over 5 KV heads of
+# 64 (group 5), the 1024-token sliding window; lengths that cross it
+@pytest.mark.parametrize("T", [1000, 2048])
+def test_flash_kernel_at_hymba_shape(cuda, T):
+    q, k, v = _flash_inputs(2, 25, 5, T, T, 64, torch.bfloat16, cuda, seed=T)
+    opts = dict(causal=True, window=1024)
+    out = ops.attention(q, k, v, **opts)
+    plain = ref.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert_within_bf16_ulp(out, plain.float().cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 1024])
+def test_paged_kernel_at_hymba_shape(cuda, window):
+    case = {k: v.to(cuda) for k, v in paged_case(
+        41, dtype=torch.bfloat16, B=8, Hq=25, Hkv=5, D=64, ps=16, P=80,
+        lens=(1, 33, 100, 512, 1023, 1024, 1025, 1270)).items()}
+    opts = dict(window=window)
+    out = run_paged(case, ops.paged_decode_attention, **opts)
+    plain = run_paged(case, ref.paged_decode_attention, **opts)
+    torch.cuda.synchronize()
+    assert_within_bf16_ulp(out, plain.float().cpu().numpy(),
+                           atol=_order_bound(case, **opts))
+
+
+def test_xla_exp_on_card_matches_cpu(cuda):
+    """``ref.exp`` (XLA's CPU exp: Cephes' reduction and polynomial as fused
+    multiply-adds, exact power-of-two scaling, flush below 2^-126) gives
+    the CPU's bits on the card, over the range the SSM scan uses and
+    beyond."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.cat([torch.rand(1 << 20, generator=g) * -100.0,
+                   torch.randn(1 << 18, generator=g) * 10.0])
+    assert torch.equal(ref.exp(x.to(cuda)).cpu(), ref.exp(x))
+
+
+def test_hymba_engine_and_forward_on_card_match_cpu(cuda):
+    """Reduced hymba-1.5b on the card and on the CPU from the same weights:
+    under the scheduler on the ring layout (max_len 40, the 16-token ring
+    wraps) and on the paged one (max_len 12, page 4: 2 paged launches per
+    decode step, no flash launch), and generate().  The card's tokens, fed
+    back teacher-forced through the decode steps on both devices, give
+    float32 logits within two bf16 ulps of the largest, and a token the CPU
+    would not choose is a near-tie (short of its largest by at most twice
+    that).  forward's logits (one flash launch per layer) agree within one
+    bf16 ulp of the largest."""
+    cfg = get_config("hymba-1.5b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = np.stack([(np.arange(1, 21) * (3 + i)) % 256
+                        for i in range(3)]).astype(np.int32)
+    for kw, lens, max_len in ((dict(), (5, 9, 17, 24), 40),
+                              (dict(page_size=4), (3, 5, 2, 7), 12)):
+        reqs = [Request(uid=i, prompt=(np.arange(1, n + 1) * 7 % 256)
+                        .astype(np.int32), max_new=4) for i, n in
+                enumerate(lens)]
+        engs = {dev: ServeEngine(cfg, params, max_len=max_len, device=dev,
+                                 **kw) for dev in ("cpu", "cuda")}
+        ops.reset_launch_counts()
+        out = ContinuousBatchingScheduler(engs["cuda"], max_slots=2).run(reqs)
+        counts = ops.launch_counts()
+        assert counts["flash_attention"] == 0
+        assert counts["paged_decode_attention"] == (
+            cfg.num_layers * out["steps"] if kw else 0)
+        seqs = [(q.prompt, r.tokens) for q, r in zip(reqs, out["results"])]
+        if not kw:
+            gen = engs["cuda"].generate(prompts, max_new=6)
+            seqs += list(zip(prompts, gen["tokens"]))
+        tf = {dev: torch.cat([teacher_forced_logits(engs[dev].params, cfg,
+                                                    p, t, dev)
+                              for p, t in seqs]) for dev in engs}
+        rep = pick_report(tf["cpu"], tf["cuda"],
+                          np.concatenate([t for _, t in seqs]))
+        tol = 2 * bf16_ulp_of(rep["max_abs_logit"])
+        assert rep["max_abs_err"] <= tol and rep["shortfall"] <= 2 * tol, rep
+    toks = torch.from_numpy(prompts)
+    ops.reset_launch_counts()
+    fwd = {dev: api.forward(engs[dev].params, toks.to(dev), cfg)[0]
+           .reshape(-1, cfg.vocab_size).cpu() for dev in engs}
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    rep = pick_report(fwd["cpu"], fwd["cuda"], fwd["cuda"].argmax(-1))
+    tol = bf16_ulp_of(rep["max_abs_logit"])
+    assert rep["max_abs_err"] <= tol and rep["shortfall"] <= 2 * tol, rep
+
+
+def test_online_server_on_card_serves_from_its_loop_thread(cuda):
+    """The OnlineServer's loop thread runs under the engine's device: a
+    reduced llama2-7b engine on the card serves streamed requests with the
+    tokens of the scheduler run on the same engine."""
+    from repro_torch.serve.server import OnlineServer
+    cfg = get_config("llama2-7b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ServeEngine(cfg, params, max_len=64, page_size=8, device=cuda)
+    prompts = [(np.arange(1, n + 1) * 7 % 256).astype(np.int32)
+               for n in (5, 9, 3)]
+    base = ContinuousBatchingScheduler(eng, max_slots=2).run(
+        [Request(uid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)])
+    with OnlineServer(ContinuousBatchingScheduler(eng, max_slots=2),
+                      watchdog_s=30.0) as srv:
+        handles = [srv.submit(p, max_new=6) for p in prompts]
+        streamed = [list(h.stream()) for h in handles]
+    assert streamed == [r.tokens.tolist() for r in base["results"]]

@@ -37,6 +37,13 @@ def test_static_scan_finds_no_jax_or_repro_import():
     assert not bad, bad
 
 
+# the jax-free modules the port copies and the hymba family: they must be
+# among the modules the scan imports
+NEW_MODULES = ("repro_torch.serve.faults", "repro_torch.serve.server",
+               "repro_torch.serve.disciplines", "repro_torch.models.hymba",
+               "repro_torch.configs.hymba_1_5b")
+
+
 def test_importing_every_module_loads_no_jax_or_repro():
     script = (
         "import importlib, pkgutil, sys, repro_torch\n"
@@ -45,8 +52,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+        f"missing = sorted(set({NEW_MODULES!r}) - set(sys.modules))\n"
+        "print(len(mods), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 20 else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
     r = subprocess.run([sys.executable, "-c", script], env=env,
                        capture_output=True, text=True, timeout=120)

@@ -68,10 +68,7 @@ def test_ported_feature_flags_serve(flags, capsys):
             assert [r.tokens.tolist() for r in out["results"]] == plain
 
 
-@pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--priority", "0,1"], ["--deadline-s", "5"],
-    ["--preemption", "on"], ["--chaos-plan", "device_loss_at=3"],
-    ["--recovery-log", "x.json"]])
+@pytest.mark.parametrize("flags", [["--tp", "2"]])
 def test_unported_flags_exit(flags, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", "llama2-7b", *SMOKE, "--continuous",
@@ -82,8 +79,89 @@ def test_unported_flags_exit(flags, capsys):
 
 def test_unported_arch_exits(capsys):
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "hymba-1.5b", *SMOKE])
+        serve.main(["--arch", "phi3.5-moe-42b-a6.6b", *SMOKE])
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--priority", "0,1"], ["--deadline-s", "30"], ["--preemption", "on"],
+    ["--chaos-plan", "device_loss_at=3"], ["--chaos-seed", "5"],
+    ["--recovery-log", "RECOVERY_LOG"]])
+def test_online_and_chaos_flags_serve(flags, capsys, tmp_path):
+    """The online-serving and chaos flags serve on the smoke config: SLA
+    classes, a generous deadline and armed preemption with nothing to evict
+    give the plain run's tokens; a device loss at iteration 3 is recovered
+    with the same tokens; ``--recovery-log`` writes the event stream as
+    JSON."""
+    common = ["--arch", "llama2-7b", *SMOKE, "--continuous", "--requests",
+              "5", "--slots", "2", "--page-size", "8"]
+    plain = [r.tokens.tolist() for r in serve.main(common)["results"]]
+    _report(capsys)
+    log = tmp_path / "events.json"
+    flags = [str(log) if f == "RECOVERY_LOG" else f for f in flags]
+    if flags[0] == "--recovery-log":
+        flags += ["--chaos-plan", "step_corrupt_at=2,step_corrupt_iters=2"]
+    out = serve.main(common + flags)
+    rep = _report(capsys)
+    assert rep["by_state"] == {"DONE": 5} and rep["gen_len"] == [4] * 5
+    assert rep["preemptions"] == 0 and rep["cache"]["pages_in_use"] == 0
+    assert [r.tokens.tolist() for r in out["results"]] == plain
+    if flags[0] == "--chaos-plan":
+        assert rep["chaos"]["fired"] == {"device_loss": 1}
+        assert rep["chaos"]["recoveries"] == 1 and rep["chaos"]["seed"] == 0
+    if flags[0] == "--recovery-log":
+        events = json.loads(log.read_text())
+        assert rep["chaos"]["quarantines"] >= 1
+        assert [e["event"] for e in events] == (
+            ["quarantine"] * rep["chaos"]["quarantines"])
+
+
+def test_zero_deadline_times_every_request_out(capsys):
+    serve.main(["--arch", "llama2-7b", *SMOKE, "--continuous", "--requests",
+                "4", "--slots", "2", "--page-size", "8", "--deadline-s", "0"])
+    rep = _report(capsys)
+    assert rep["by_state"] == {"TIMEOUT": 4} and rep["decoded_tokens"] == 0
+    assert rep["cache"]["pages_in_use"] == 0
+
+
+@pytest.mark.parametrize("bad, message", [
+    ("bogus=1", "unknown or malformed entry"),
+    ("device_loss_at", "unknown or malformed entry"),
+    ("device_loss_at=x", "bad value"),
+    (",", "named no fault points")])
+def test_bad_chaos_plan_entries_exit(bad, message, capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--arch", "llama2-7b", *SMOKE, "--continuous",
+                    "--chaos-plan", bad])
+    assert e.value.code == 2 and message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--priority", "0,1"], ["--chaos-plan", "device_loss_at=3"],
+    ["--priority", "a,b"]])
+def test_online_flags_need_continuous_or_integers(flags, capsys):
+    args = ["--arch", "llama2-7b", *SMOKE, *flags]
+    if flags[1] == "a,b":
+        args.append("--continuous")
+    with pytest.raises(SystemExit) as e:
+        serve.main(args)
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert ("integers" if flags[1] == "a,b" else "--continuous") in err
+
+
+@pytest.mark.parametrize("extra", [[], ["--continuous", "--requests", "4",
+                                        "--slots", "2"]],
+                         ids=["generate", "continuous"])
+def test_hymba_serves(extra, capsys):
+    out = serve.main(["--arch", "hymba-1.5b", *SMOKE, "--prompt-len", "20",
+                      *extra])
+    rep = _report(capsys)
+    assert rep["arch"] == "hymba-1.5b-smoke"
+    if extra:
+        assert rep["by_state"] == {"DONE": 4} and "cache" not in rep
+    else:
+        assert out["tokens"].shape == (4, 4)
 
 
 def test_default_device_needs_a_card(monkeypatch):
