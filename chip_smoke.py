@@ -98,11 +98,12 @@ fails before printing any result):
              meter exact, a second run token-identical; then generate() on
              4 prompts of 128 tokens (32 flash launches, the same tokens on a
              second call)
-  rwkv_path  full-width rwkv6-7b (32 layers, d_model 4096, 64 heads of 64,
-             d_ff 14336, vocab 65536; bf16 weights from a seeded generator
-             on the card): api.forward on 4 x 512 tokens twice, counts set
-             to 0 just before and read just after (32 scan launches per
-             call, finite logits, the second call bit-identical); then the
+  rwkv_path  full-width rwkv6-7b at 16 of its 32 layers (d_model 4096, 64
+             heads of 64, d_ff 14336, vocab 65536; bf16 weights from a
+             seeded generator on the card): api.forward on 4 x 512 tokens
+             twice, counts set to 0 just before and read just after (16
+             scan launches per call, finite logits, the second call
+             bit-identical); then the
              float ServeEngine (max_len 128, dense slot cache) under the
              scheduler with 8 slots: a warm-up run, then 8 seeded requests
              (prompts of 16-64 tokens, 32 new tokens each), counts set to 0
@@ -173,16 +174,48 @@ fails before printing any result):
              forward: teacher-forced logits within two bf16 ulps (a
              differing pick a near-tie), forward within one; XLA's exp
              (``ref.exp``) the same bits on both
-  hymba_path full-width hymba-1.5b (32 layers, d_model 1600, 25/5 heads of
-             64, window 1024, SSM state 16; float32 weights from a seeded
-             generator on the card): api.forward on 2 x 2,048 tokens twice
-             (32 flash launches per call, each layer's attention held
-             against the plain version, the second call bit-identical);
+  hymba_path full-width hymba-1.5b at 8 of its 32 layers (d_model 1600,
+             25/5 heads of 64, window 1024, SSM state 16; float32 weights
+             from a seeded generator on the card): api.forward on 2 x 2,048
+             tokens twice (8 flash launches per call, each layer's
+             attention held against the plain version, the second call
+             bit-identical);
              then the float ServeEngine (page 16, max_len 512: K/V page,
              the SSM state stays a dense slot leaf) under the scheduler
              with 8 slots on 8 requests of 32-128 prompt tokens (per-token
-             prefill), 32 new each: every request DONE, 32 paged launches
-             per decode step and no flash launch, meter exact
+             prefill), 32 new each: every request DONE, one paged launch
+             per layer per decode step and no flash launch, meter exact
+  reference_moe  reduced phi3.5-moe-42b-a6.6b, reduced qwen3-moe-235b-a22b
+             and the top-8 override (16 experts, top-8, GQA 16/1) on the
+             card and on the CPU from the same weights, the two schedulers
+             stepped in turn on paged pools with 4 slots (the MoE's
+             capacity couples the decode rows), and generate(): tokens
+             identical, or at the first differing pick a near-tie in the
+             logits or the router, gaps reported
+  moe_path   the MoE configs at every published width, cut in depth to fit
+             one card (their full depth does not): (a) phi3.5-moe-42b-a6.6b
+             (24 of 32 layers, 16 experts, top-2, 32/8 heads of 128) at
+             page 16, max_len 1024, 8 slots, 16 requests of 64-512 prompt
+             tokens and 32 new, then generate() on 4 x 128 twice; (b)
+             qwen3-moe-235b-a22b (8 of 94 layers, 128 experts, top-8,
+             64/4 heads of 64: the paged kernel's group 16) at max_len
+             512, 8 requests of 32-256 tokens and 16 new.  bf16 weights
+             drawn per slice from a seeded generator on the card.  A
+             warm-up, the timed run with the counts set to 0 just before
+             and read just after (every request DONE, one flash launch per
+             layer per prefill and one paged launch per layer per decode
+             step, meter exact), a second run token-identical with the drop
+             log open (capacity drops per decode step and per prefill),
+             peak memory at setup and serving
+  moe_check  moe_apply at full width on each run's layer-0 weights for a
+             decode batch of 8 rows and a 512-token prefill: per row
+             within 2^-6 in relative norm of a float32 recomputation over
+             the kept (token, expert) pairs (fp8 expert products, also
+             computed, exceed it), a second call bit-identical, the
+             router's top-k sets a float32 softmax's except at near-ties
+             (gaps reported), and the W4A8 expert products (one kernel
+             launch per expert on packed codes) bit-identical to the plain
+             version
   profile    torch.profiler over decode steps of each path: device time by
              kernel and the device's busy share; on main_path the device
              kernels per W4A8 call (must be 1)
@@ -206,13 +239,23 @@ fails before printing any result):
              paged at hymba-1.5b's shapes (a 2 x 2,048-token forward's 32
              launches with the 1024 window and group 5, whose library call
              is SDPA with a boolean window mask; a decode step's 32
-             launches)
+             launches); flash and paged at both MoE shapes (phi3.5-moe's
+             512-token prefill and decode step, 24 launches each;
+             qwen3-moe's 256-token prefill and decode step, 8 launches
+             each; SDPA with enable_gqa, and SDPA on the gathered view);
+             and the expert FFN of one decode step at 8 slots (cuBLAS bf16
+             bmm, not a kernel of the port) against reading every expert
+             once
+
+``python3 chip_smoke.py --only moe`` runs the device and build phases and
+the MoE phases alone, and prints neither the kernels line nor the ok line.
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -271,7 +314,14 @@ BEFORE_REDESIGN = {"w4a8_decode_step_ms": 3.108,
                    "rwkv6_scan_forward_ms": 11.10}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so
+    far (``elapsed_s``), so the log shows where the time limit goes."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1461,10 +1511,17 @@ def rwkv_requests(vocab, n=8, max_new=32):
                     max_new=max_new) for i in range(n)]
 
 
+# rwkv_path runs 16 of the 32 layers at full width (cut when moe_path
+# joined, to keep the script inside its time limit: its per-token prefill
+# grows with the depth); the scan's times phase keeps the 32-layer forward
+RWKV_LAYERS = 16
+
+
 def phase_rwkv_path(dev, smi_line):
-    """Full-width rwkv6-7b: the whole-sequence forward (the scan kernel, one
-    launch per layer), then the float ServeEngine under the scheduler."""
-    cfg = get_config("rwkv6-7b")
+    """Full-width rwkv6-7b at RWKV_LAYERS of its 32 layers: the
+    whole-sequence forward (the scan kernel, one launch per layer), then
+    the float ServeEngine under the scheduler."""
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=RWKV_LAYERS)
     L = cfg.num_layers
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2574,6 +2631,11 @@ def phase_chaos_serve(eng, serve_info, smi_line):
 # ----------------------------------------------------------------- hymba
 HYMBA_SLOTS, HYMBA_MAX_LEN, HYMBA_NEW, HYMBA_PAGE = 8, 512, 32, 16
 HYMBA_FWD = (2, 2048)
+# hymba_path runs 8 of the 32 layers at full width (cut when moe_path
+# joined, to keep the script inside its time limit: the per-token prefill
+# and the sequential scan make its time grow with the depth); its kernels'
+# times phase keeps the full 32-layer forward and decode step as units
+HYMBA_LAYERS = 8
 
 
 def hymba_requests(vocab, n=8, max_new=HYMBA_NEW):
@@ -2636,14 +2698,16 @@ def phase_reference_hymba(dev):
 
 
 def phase_hymba_path(dev, smi_line):
-    """Full-width hymba-1.5b (32 layers, d_model 1600, 25/5 heads of 64,
-    window 1024, SSM state 16; float32 weights from a seeded generator on
-    the card): api.forward on 2 x 2,048 tokens twice (32 flash launches per
-    call, each layer's attention held against the plain version), then the
+    """Full-width hymba-1.5b at HYMBA_LAYERS of its 32 layers (d_model
+    1600, 25/5 heads of 64, window 1024, SSM state 16; float32 weights from
+    a seeded generator on the card): api.forward on 2 x 2,048 tokens twice
+    (one flash launch per layer per call, each layer's attention held
+    against the plain version), then the
     float ServeEngine on a paged pool (K/V page: max_len 512 plus a page is
     inside the window; the SSM state stays a dense slot leaf) under the
     scheduler with 8 slots."""
-    cfg = get_config("hymba-1.5b")
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              num_layers=HYMBA_LAYERS)
     L = cfg.num_layers
     window = cfg.layer_pattern[0].window
     gc.collect()
@@ -2787,8 +2851,9 @@ def phase_hymba_path(dev, smi_line):
 
 
 def phase_times_hymba(dev, info):
-    """hymba-1.5b's kernels at hymba_path's shapes: the flash kernel over
-    one forward's 32 launches (B 2, T 2,048, 25/5 heads of 64, window
+    """hymba-1.5b's kernels at hymba_path's shapes, at the full depth's
+    units (hymba_path runs HYMBA_LAYERS): the flash kernel over one
+    32-layer forward's 32 launches (B 2, T 2,048, 25/5 heads of 64, window
     1024), and the paged kernel over one decode step's 32 launches at 8
     slots of the path's lengths, 16 tokens into their decode (window 1024,
     which these lengths do not reach)."""
@@ -2844,7 +2909,582 @@ def phase_times_hymba(dev, info):
     return flash, paged
 
 
-def main() -> int:
+# ----------------------------------------------------------------- MoE
+# The two MoE configs at every published width, cut in depth only: neither
+# fits one 80 GB card at full depth (bf16 projections, float32 embedding and
+# head as serve_params keeps them): phi3.5-moe holds 2.600 GB per layer
+# (83.2 GB at 32 layers), qwen3-moe 4.903 GB per layer at 94 layers.
+MOE_RUNS = {
+    "a": dict(arch="phi3.5-moe-42b-a6.6b", layers=24, max_len=1024,
+              requests=16, prompt=(64, 512), new=32, generate=(4, 128, 16),
+              seed=SEED + 30),
+    "b": dict(arch="qwen3-moe-235b-a22b", layers=8, max_len=512,
+              requests=8, prompt=(32, 256), new=16, generate=None,
+              seed=SEED + 31),
+}
+MOE_SLOTS, MOE_PAGE = 8, 16
+# the full-width moe_apply check: the port's bf16 output against a float32
+# recomputation from the same bf16 weights over the kept (token, expert)
+# pairs, per row ||out - ref|| / ||ref||.  The bf16 path rounds h, g, the
+# SwiGLU's steps, y, each weighted contribution and each partial sum (each
+# at most 2^-9 relative): well inside 2^-6.  Rounding the expert products h
+# and g to fp8 (e4m3, 3 mantissa bits, up to 2^-4 relative) lands near
+# 2^-5, and the check shows that it would fail.
+MOE_REL_TOL = 2.0 ** -6
+MOE_TIE_GAP = 1e-5       # router near-tie: k-th and (k+1)-th probability
+
+
+def moe_cfg(run):
+    spec = MOE_RUNS[run]
+    return dataclasses.replace(get_config(spec["arch"]),
+                               num_layers=spec["layers"])
+
+
+def moe_requests(vocab, spec):
+    rng = np.random.default_rng(spec["seed"])
+    lo, hi = spec["prompt"]
+    return [Request(uid=i, prompt=rng.integers(1, vocab, int(rng.integers(
+        lo, hi + 1))).astype(np.int32), max_new=spec["new"])
+        for i in range(spec["requests"])]
+
+
+def expert_bytes(cfg) -> int:
+    """Bytes of one layer's bf16 expert stacks (w1, w3, w2)."""
+    return 3 * cfg.moe.num_experts * cfg.d_model * cfg.d_ff * 2
+
+
+def moe_lockstep(engs, reqs, slots):
+    """Serve ``reqs`` on each engine's scheduler, stepping them in turn, and
+    capture every decode step's logits (all slots) on each device.
+    Returns ({device: tokens per request}, {device: [logits (n, V) f32
+    on the CPU]})."""
+    from repro_torch.serve import engine as engine_mod
+    captured = {d: [] for d in engs}
+    corrupt = engine_mod.slots_mod.corrupt_logits
+
+    def capture(logits, bad):
+        captured[str(logits.device)].append(logits.float().cpu())
+        return corrupt(logits, bad)
+    scheds = {d: ContinuousBatchingScheduler(e, max_slots=slots)
+              for d, e in engs.items()}
+    engine_mod.slots_mod.corrupt_logits = capture
+    try:
+        for sch in scheds.values():
+            sch.begin()
+            for r in reqs:
+                check(sch.submit(r), "a reference request was refused")
+        for _ in range(500):
+            if not any(sch.has_work() for sch in scheds.values()):
+                break
+            for sch in scheds.values():
+                sch.step()
+    finally:
+        engine_mod.slots_mod.corrupt_logits = corrupt
+    toks = {d: [r.tokens.tolist() for r in sorted(sch.poll(),
+                                                  key=lambda r: r.uid)]
+            for d, sch in scheds.items()}
+    return toks, captured
+
+
+def phase_reference_moe(dev):
+    """Reduced phi3.5-moe, reduced qwen3-moe and the top-8 override (16
+    experts, top-8, GQA 16/1) on the card and on the CPU from the same
+    weights: the two schedulers stepped in turn on paged pools with 4 slots
+    (the MoE capacity couples the decode rows), every decode step's logits
+    captured, and generate() on 3 prompts.  Tokens identical; or, at the
+    first decode step whose picks differ, every earlier step's logits within
+    two bf16 ulps of the largest and the card's pick short of the CPU's best
+    by at most twice that (a near-tie in the logits), or a near-tie in the
+    router (its smallest top-k margin on the card at most MOE_TIE_GAP):
+    both gaps are reported."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    rows = []
+    for seed, (name, cfg) in enumerate((
+            ("phi", get_config("phi3.5-moe-42b-a6.6b").reduced()),
+            ("qwen", get_config("qwen3-moe-235b-a22b").reduced()),
+            ("top8", get_config("qwen3-moe-235b-a22b").reduced(
+                num_heads=16, num_kv_heads=1, moe=MoEConfig(16, 8))))):
+        # the two reduced configs are one model: their weights come from
+        # two seeds
+        params = api.init_params(
+            cfg, torch.Generator().manual_seed(SEED + seed), "cpu")
+        engs = {str(d): ServeEngine(cfg, params, max_len=64, page_size=8,
+                                    device=d) for d in ("cpu", dev)}
+        reqs = [Request(uid=i, prompt=(np.arange(1, n + 1) * 7 % 256)
+                        .astype(np.int32), max_new=6)
+                for i, n in enumerate((5, 9, 17, 24, 3, 12))]
+        log = moe.drop_log()
+        try:
+            toks, logits = moe_lockstep(engs, reqs, 4)
+            prompts = np.stack([(np.arange(1, 8) * (3 + i)) % 256
+                                for i in range(3)]).astype(np.int32)
+            gen = {d: e.generate(prompts, max_new=6)["tokens"]
+                   for d, e in engs.items()}
+        finally:
+            moe.drop_log(False)
+        card = str(dev)
+        on_card = [e for e in log if e["min_gap"].device.type == dev.type]
+        gaps = [float(e["min_gap"]) for e in on_card]
+        rep = {"tokens_identical": (toks["cpu"] == toks[card]
+                                    and np.array_equal(gen["cpu"], gen[card])),
+               "decode_steps": len(logits["cpu"]),
+               "dropped_assignments_card": sum(int(e["dropped"])
+                                               for e in on_card),
+               "router_min_gap_card": min(gaps)}
+        steps = list(zip(logits["cpu"], logits[card]))
+        check(len(logits["cpu"]) == len(logits[card]) or not
+              rep["tokens_identical"], "the two runs took other steps")
+        rep["max_abs_err"] = max((a - b).abs().max().item()
+                                 for a, b in steps)
+        rep["max_abs_logit"] = max(a.abs().max().item() for a, _ in steps)
+        tol = 2 * bf16_ulp_of(rep["max_abs_logit"])
+        rep["tolerance"] = tol
+        if not rep["tokens_identical"]:
+            first = next((i for i, (a, b) in enumerate(steps)
+                          if not torch.equal(a.argmax(-1), b.argmax(-1))),
+                         None)
+            before = steps[:first] if first is not None else steps
+            err = max([(a - b).abs().max().item() for a, b in before],
+                      default=0.0)
+            short = 0.0
+            if first is not None:
+                a, b = steps[first]
+                pick = b.argmax(-1)
+                short = (a.max(-1).values - a.gather(1, pick[:, None])[:, 0]
+                         ).max().item()
+            rep.update(first_divergent_step=first,
+                       max_abs_err_before=err, logit_shortfall=short)
+            check((err <= tol and short <= 2 * tol)
+                  or rep["router_min_gap_card"] <= MOE_TIE_GAP,
+                  f"reduced MoE {name}: card vs CPU {rep}")
+        rows.append({"config": name, "experts": cfg.moe.num_experts,
+                     "top_k": cfg.moe.top_k, **rep})
+    emit({"phase": "reference_moe", "runs": rows,
+          "tolerance": "tokens identical; or where they first differ, the "
+                       "logits before within 2 bf16 ulps of the largest "
+                       "|logit| and the card's pick short of the CPU's best "
+                       f"by at most twice that, or a router near-tie (top-k "
+                       f"margin <= {MOE_TIE_GAP})"})
+
+
+def moe_reference_out(p, xt, gate, ids, C, E):
+    """float32 recomputation of moe_apply's output from the same bf16
+    weights: for each expert its kept tokens (the port's own routing and
+    capacity), SwiGLU in float32, weighted by the gates and summed per
+    token; also the same with the expert products h and g rounded to fp8
+    (e4m3).  Returns (ref, ref_fp8), (n, d) float32."""
+    from repro_torch.models import moe
+    order, tok, keep, dest = moe.dispatch(ids, C, E)
+    sorted_ids = ids.reshape(-1)[order]
+    w_sorted = gate.reshape(-1)[order]
+    n, d = xt.shape
+    out = torch.zeros((n, d), dtype=torch.float32, device=xt.device)
+    out8 = torch.zeros_like(out)
+    f8 = torch.float8_e4m3fn
+    for e in range(E):
+        sel = torch.nonzero((sorted_ids == e) & keep)[:, 0]
+        if sel.numel() == 0:
+            continue
+        t = tok[sel]
+        xe = xt[t].float()
+        h = xe @ p["w1"][e].float()
+        g = xe @ p["w3"][e].float()
+        w = w_sorted[sel][:, None]
+        out.index_add_(0, t, (torch.nn.functional.silu(h) * g)
+                       @ p["w2"][e].float() * w)
+        h8, g8 = h.to(f8).float(), g.to(f8).float()
+        out8.index_add_(0, t, (torch.nn.functional.silu(h8) * g8)
+                        @ p["w2"][e].float() * w)
+    return out, out8
+
+
+def phase_moe_check(eng, dev, run):
+    """moe_apply at full width on layer 0 of the path's weights, for a
+    decode batch of 8 rows and a 512-token prefill: the output against a
+    float32 recomputation over the kept pairs (MOE_REL_TOL), a second call
+    bit-identical, the router's top-k sets against a float32 softmax's
+    (a differing set only at a near-tie, gap reported); and the quantized
+    branch (W4A8 codes of layer 0's w1 and w2, one kernel launch per
+    expert) bit-identical to its plain version."""
+    from repro_torch.core import quant
+    from repro_torch.models import moe
+    cfg = eng.cfg
+    mc = cfg.moe
+    E, k, d = mc.num_experts, mc.top_k, cfg.d_model
+    p = {name: w[0, 0] for name, w in eng.params["blocks"]["moe"].items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    rows = []
+    qw = {name: api.quantize_model({name: p[name]}, cfg)[name].with_packed()
+          for name in ("w1", "w2")}
+    for n in (8, 512):
+        x = torch.randn((1, n, d), generator=gen, device=dev).to(torch.bfloat16)
+        out, _ = moe.moe_apply(p, x, mc)
+        again, _ = moe.moe_apply(p, x, mc)
+        check(torch.equal(out, again), f"moe_apply {run} n={n}: a second "
+              "call gave other bits")
+        xt = x[0]
+        C = moe.capacity(n, mc)
+        probs, gate, ids = moe.route(p, xt, mc)
+        _, _, keep, _ = moe.dispatch(ids, C, E)
+        pr32 = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+        top = torch.sort(pr32, dim=-1, descending=True).values
+        ids32 = torch.topk(pr32, k, dim=-1).indices
+        differ = (torch.sort(ids32, dim=1).values
+                  != torch.sort(ids, dim=1).values).any(dim=1)
+        gaps = (top[:, k - 1] - top[:, k])[differ]
+        check(bool((gaps <= MOE_TIE_GAP).all()), f"moe {run} n={n}: router "
+              f"sets differ from float32 away from a near-tie {gaps}")
+        ref_out, ref8 = moe_reference_out(p, xt, gate, ids, C, E)
+        norm = ref_out.norm(dim=1).clamp_min(1e-30)
+        rel = ((out[0].float() - ref_out).norm(dim=1) / norm).max().item()
+        rel8 = ((ref8 - ref_out).norm(dim=1) / norm).max().item()
+        check(rel <= MOE_REL_TOL, f"moe {run} n={n}: relative error {rel} "
+              f"> {MOE_REL_TOL}")
+        check(rel8 > MOE_REL_TOL, f"moe {run} n={n}: the tolerance would "
+              f"pass fp8 expert products ({rel8})")
+        # the quantized branch on the dispatched rows of this call
+        order, tok, _, dest = moe.dispatch(ids, C, E)
+        buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+        buf[dest] = xt[tok]
+        eb = buf[:-1].reshape(E, C, d)
+        hb = moe._expert_matmul(eb, p["w1"])
+        q_exact = True
+        for name, a in (("w1", eb), ("w2", hb)):
+            got = moe._expert_matmul(a, qw[name])
+            qx, xs = quant.quantize_activations_int8(
+                a.reshape(E * C, -1), reciprocal=True)
+            qx, xs = qx.reshape(E, C, -1), xs.reshape(E, C, 1)
+            plain = torch.stack([ref.w4a8_matmul(
+                qx[e], xs[e], qw[name].codes[e], qw[name].scales[e],
+                torch.bfloat16) for e in range(E)])
+            q_exact &= torch.equal(got, plain)
+        check(q_exact, f"moe {run} n={n}: the W4A8 expert products differ "
+              "from their plain version")
+        rows.append({"rows": n, "capacity": C,
+                     "dropped": int((~keep).sum()), "assignments": n * k,
+                     "max_rel_err": rel, "fp8_products_rel_err": rel8,
+                     "router_sets_differing": int(differ.sum()),
+                     "router_near_tie_gaps": gaps.tolist(),
+                     "second_call_identical": True,
+                     "w4a8_experts_bit_identical": True})
+    del qw
+    emit({"phase": "moe_check", "run": run, "config": cfg.name,
+          "experts": E, "top_k": k, "cases": rows,
+          "tolerance": f"per row ||out - ref|| / ||ref|| <= {MOE_REL_TOL} "
+                       "(bf16 roundings of the path; fp8 expert products "
+                       "exceed it); router sets as float32's except where "
+                       f"the k-th and (k+1)-th probabilities are within "
+                       f"{MOE_TIE_GAP}; W4A8 bit-identical"})
+
+
+def moe_drops(log, L, slots, reqs):
+    """The drop log of a scheduler run, per decode step (the L layers'
+    calls of one step over every slot) and per prefill.  The prefills come
+    in the requests' order (no chunking, no preemption): each one's first
+    ``len(prompt) - 1`` rows are the prompt, the rest its bucket's zero
+    padding, whose rows come last and so claim capacity last."""
+    dec = [e for e in log if e["rows"] == slots]
+    pre = [e for e in log if e["rows"] != slots]
+    check(len(dec) % L == 0 and len(pre) == L * len(reqs), "MoE calls not "
+          "the layer count per decode step and per prefill")
+    per_step = [sum(int(e["dropped"]) for e in dec[i:i + L])
+                for i in range(0, len(dec), L)]
+    per_pre = [sum(int(e["dropped"]) for e in pre[i:i + L])
+               for i in range(0, len(pre), L)]
+    real = [len(r.prompt) - 1 for r in reqs]
+    per_pre_real = [sum(int(e["dropped_rows"][:t].sum())
+                        for e in pre[L * i:L * (i + 1)])
+                    for i, t in enumerate(real)]
+    k = pre[0]["assignments"] // pre[0]["rows"]
+    return {"decode_steps": len(per_step),
+            "dropped_per_decode_step_mean": float(np.mean(per_step)),
+            "dropped_per_decode_step_max": max(per_step),
+            "decode_assignments_per_step": sum(e["assignments"]
+                                               for e in dec[:L]),
+            "decode_drop_share": sum(per_step) / max(
+                1, sum(e["assignments"] for e in dec)),
+            "prefills": len(per_pre),
+            "dropped_per_prefill": per_pre,
+            "prefill_drop_share": sum(per_pre) / max(
+                1, sum(e["assignments"] for e in pre)),
+            "dropped_prompt_rows_per_prefill": per_pre_real,
+            "prefill_drop_share_prompt_rows": sum(per_pre_real) / max(
+                1, L * k * sum(real))}
+
+
+def phase_moe_path(dev, smi_line, run):
+    """One MoE config at full width, cut in depth (MOE_RUNS), on the float
+    ServeEngine: the scheduler over a page pool with 8 slots (a warm-up,
+    then the timed run with the counts set to 0 just before and read just
+    after: every request DONE, one flash launch per layer per prefill and
+    one paged launch per layer per decode step, meter exact), a second run
+    token-identical with the drop log open, and for run (a) generate()
+    on 4 x 128 tokens twice."""
+    from repro_torch.models import moe
+    spec = MOE_RUNS[run]
+    cfg = moe_cfg(run)
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev, dtype=torch.bfloat16)
+    eng = ServeEngine(cfg, params, max_len=spec["max_len"],
+                      page_size=MOE_PAGE, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       [eng.params["embed"], eng.params["lm_head"]]
+                       + [w for part in eng.params["blocks"].values()
+                          for w in (part.values() if isinstance(part, dict)
+                                    else [part])])
+    sched = ContinuousBatchingScheduler(eng, max_slots=MOE_SLOTS)
+    clock = PhaseClock(eng)
+    sched.warmup(prompt_len=64, max_new=4)
+    reqs = moe_requests(cfg.vocab_size, spec)
+    from repro_torch.serve.slots import bucket
+    check(all(bucket(len(r.prompt) - 1) <= spec["max_len"] for r in reqs),
+          "a prompt's bucket does not fit max_len: no block prefill")
+    clock.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = sched.run(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decode_s, admit_s = clock.decode_s, clock.admit_s
+    res = out["results"]
+    check(len(res) == len(reqs) and all(r.state == "DONE" for r in res),
+          f"moe {run}: not every request DONE: {out['by_state']}")
+    check(all(r.gen_len == spec["new"] for r in res), "a request stopped short")
+    check(all(0 <= t < cfg.vocab_size for r in res for t in r.tokens),
+          "token out of range")
+    check(out["quarantines"] == 0 and out["failed"] == 0,
+          "the finite-logits sentinel flagged a step")
+    steps, prefill = out["steps"], out["prefill_tokens"]
+    check(prefill == sum(len(r.prompt) - 1 for r in reqs), "prefill tokens")
+    want = {"w4a8_matmul": 0, "flash_attention": L * len(reqs),
+            "paged_decode_attention": L * steps, "rwkv6_scan": 0}
+    check(counts == want, f"moe {run} launch counts {counts} != {want}")
+    tokens = prefill + out["decoded_tokens"]
+    meter = eng.measured_bytes()["total"]
+    check(meter == traffic_model_for(cfg).bytes_per_token() * tokens,
+          f"meter {meter} != eq. 7-10 x {tokens} tokens")
+    stats = eng.cache_stats(sched.cache)
+    first = [r.tokens.tolist() for r in res]
+    log = moe.drop_log()
+    try:
+        again = sched.run(reqs)
+    finally:
+        moe.drop_log(False)
+    check([r.tokens.tolist() for r in again["results"]] == first,
+          "a second identical run gave other tokens")
+    drops = moe_drops(log, L, MOE_SLOTS, reqs)
+    del log
+    launches = dict(counts)
+    gen_info = None
+    if spec["generate"]:
+        gb, gt, gn = spec["generate"]
+        prompts = np.random.default_rng(spec["seed"] + 1).integers(
+            1, cfg.vocab_size, (gb, gt)).astype(np.int32)
+        ops.reset_launch_counts()
+        g1 = eng.generate(prompts, max_new=gn)
+        gen_counts = ops.launch_counts()
+        g2 = eng.generate(prompts, max_new=gn)
+        check(gen_counts == {"w4a8_matmul": 0, "flash_attention": L,
+                             "paged_decode_attention": 0, "rwkv6_scan": 0},
+              f"generate() launch counts {gen_counts}")
+        check(np.array_equal(g1["tokens"], g2["tokens"])
+              and g1["tokens"].shape == (gb, gn)
+              and bool(((g1["tokens"] >= 0)
+                        & (g1["tokens"] < cfg.vocab_size)).all()),
+              "generate() tokens out of range or not repeatable")
+        launches = {key: launches[key] + gen_counts[key] for key in launches}
+        gen_info = {"batch": gb, "prompt_len": gt, "max_new": gn,
+                    "launches": gen_counts, "repeatable": True,
+                    "prefill_s": g1["prefill_s"], "decode_s": g1["decode_s"],
+                    "decode_tokens_per_s": g1["tokens_per_s"]}
+    info = {"phase": "moe_path", "run": run, "config": cfg.name,
+            "layers": L, "layers_published": get_config(spec["arch"])
+            .num_layers, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads],
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "experts": cfg.moe.num_experts,
+            "top_k": cfg.moe.top_k, "dtype": cfg.dtype,
+            "max_slots": MOE_SLOTS, "page_size": MOE_PAGE,
+            "max_len": spec["max_len"], "num_pages": eng._pager.pool.num_pages,
+            "requests": len(reqs), "all_done": True, "setup_s": setup_s,
+            "weight_bytes": weight_bytes,
+            "expert_bytes_per_layer": expert_bytes(cfg),
+            "prefill_tokens": prefill,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "decode_steps": steps, "decoded_tokens": out["decoded_tokens"],
+            "serve_launches": counts, "launches_expected": want,
+            "flash_per_prefill": counts["flash_attention"] / len(reqs),
+            "paged_per_decode_step": counts["paged_decode_attention"] / steps,
+            "meter_bytes": meter, "second_run_identical": True,
+            "drops": drops, "cache": stats,
+            "wall_s": out["wall_s"], "decode_s": decode_s,
+            "admit_s": admit_s,
+            "decode_steps_per_s": steps / decode_s,
+            "decode_tokens_per_s": out["decoded_tokens"] / decode_s,
+            "prefill_tokens_per_s": prefill / admit_s,
+            "tokens_per_s_wall": out["tokens_per_s"],
+            "generate": gen_info, "launches": launches,
+            "peak_memory_bytes": peak, "setup_peak_memory_bytes": setup_peak,
+            "card": smi_line}
+    emit(info)
+    return eng, info
+
+
+def phase_moe_ffn_time(eng, dev, run):
+    """The expert FFN of one decode step at 8 slots: every layer's three
+    grouped products over its (E, C, d) buffer (C = capacity(8)) and the
+    SwiGLU between them, replayed from a CUDA graph, against the bound of
+    reading every expert's weights once; and moe_apply over the layers
+    eagerly (routing, dispatch and combine included, host gaps too)."""
+    from repro_torch.models import moe
+    cfg = eng.cfg
+    mc, L, d, f = cfg.moe, cfg.num_layers, cfg.d_model, cfg.d_ff
+    E, C = mc.num_experts, moe.capacity(MOE_SLOTS, cfg.moe)
+    ws = eng.params["blocks"]["moe"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    eb = torch.randn((E, C, d), generator=gen, device=dev).to(torch.bfloat16)
+
+    def ffn():
+        for g in range(L):
+            h = moe._expert_matmul(eb, ws["w1"][g, 0])
+            u = moe._expert_matmul(eb, ws["w3"][g, 0])
+            moe._expert_matmul(moe._silu(h) * u, ws["w2"][g, 0])
+
+    ms = graph_time_ms(ffn, iters=10)
+    x = torch.randn((MOE_SLOTS, 1, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    layers = [{k: w[g, 0] for k, w in ws.items()} for g in range(L)]
+    apply_ms = cuda_time_ms(lambda: [moe.moe_apply(p, x, mc)
+                                     for p in layers], iters=3)
+    nbytes = L * (expert_bytes(cfg) + 2 * E * C * (2 * d + 2 * f))
+    flops = L * 2 * E * C * 3 * d * f
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    row = {"unit": f"the expert FFN of one {cfg.name} decode step at "
+                   f"{MOE_SLOTS} slots: {L} layers x (3 grouped bf16 "
+                   f"products over ({E}, {C}, {d}) rows and the SwiGLU), "
+                   "CUDA-graph replay",
+           "ms": ms, "bound_ms": bound,
+           "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                        >= flops / BF16_FLOPS_PER_S else "operations"),
+           "expert_bytes_per_step": L * expert_bytes(cfg),
+           "moe_apply_eager_ms_per_step": apply_ms,
+           "note": "torch.bmm (cuBLAS), the reference's einsum outside any "
+                   "Pallas kernel: not a kernel of the port"}
+    emit({"phase": "times", "path": f"moe_path ({run})", "expert_ffn": row})
+    return row
+
+
+def phase_times_moe(dev, info_a, info_b):
+    """The flash and paged kernels at the two MoE shapes: phi3.5-moe's
+    (32/8 heads of 128: a 512-token prefill's 24 launches, a decode step's
+    24 launches at run (a)'s lengths) and qwen3-moe's (64/4 heads of 64,
+    group 16: a 256-token prefill's 8 launches, a decode step's 8 launches
+    at run (b)'s lengths), each flash shape first held against the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    detail, rows = [], {}
+    bf = torch.bfloat16
+    for run, info, T in (("a", info_a, 512), ("b", info_b, 256)):
+        L, (Hq, Hkv), D = info["layers"], info["heads"], info["head_dim"]
+        launches = [flash_inputs(gen, dev, 1, Hq, Hkv, T, T, D, bf)
+                    for _ in range(L)]
+        q0, k0, v0 = launches[0]
+        got = ops.attention(q0, k0, v0, causal=True).float()
+        plain = ref.flash_attention(q0, k0, v0, causal=True).float()
+        err = (got - plain).abs()
+        check(bool((err <= bf16_ulp(plain) + 1e-5).all()),
+              f"flash at the {info['config']} shape outside tolerance "
+              f"({err.max().item()})")
+
+        def prefill(fn, ls):
+            return lambda: [fn(q, k, v, causal=True) for q, k, v in ls]
+
+        k_ms = graph_time_ms(prefill(ops.attention, launches), iters=10)
+        eager_ms = cuda_time_ms(prefill(ops.attention, launches), iters=3)
+        p_ms = graph_time_ms(prefill(ref.flash_attention, launches), iters=3)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = yardstick_ms(
+            lambda: [sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                     for q, k, v in launches], 10, detail,
+            f"flash_moe_{run}_library")
+        bound_ms, bound_by = flash_bound(launches)
+        flash = {"unit": f"one {T}-token prefill of {info['config']}: {L} "
+                         f"launches, B 1, {Hq}/{Hkv} heads, D {D}, causal, "
+                         "bf16, CUDA-graph replay",
+                 "launches": info["launches"]["flash_attention"],
+                 "ms": k_ms, "eager_ms": eager_ms, "plain_ms": p_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": lib_ms, "max_abs_err": err.max().item(),
+                 "library_note": "scaled_dot_product_attention(is_causal="
+                                 "True, enable_gqa=True) on the same tensors"}
+        lens = [n - 1 + 16 for n in info["prompt_lens"][:MOE_SLOTS]]
+        paged = paged_step_times(gen, dev, L, Hq, Hkv, D,
+                                 info["max_len"] // MOE_PAGE, lens, detail,
+                                 f"paged_moe_{run}_library")
+        paged["unit"] = (f"one decode step of {info['config']}: {L} "
+                         f"launches, {MOE_SLOTS} slots, {Hq}/{Hkv} heads, "
+                         f"D {D}, lengths {lens}, CUDA-graph replay")
+        paged["launches"] = info["launches"]["paged_decode_attention"]
+        paged["launches_per_step"] = info["paged_per_decode_step"]
+        rows[run] = (flash, paged)
+    emit({"phase": "times", "path": "moe_path",
+          "flash_phi_moe": rows["a"][0], "paged_phi_moe": rows["a"][1],
+          "flash_qwen_moe": rows["b"][0], "paged_qwen_moe": rows["b"][1],
+          "detail": detail})
+    return rows
+
+
+def run_moe(dev, smi):
+    """The MoE phases: the reduced configs card against CPU, then runs (a)
+    and (b), each with its full-width moe_apply check, its profile and its
+    expert FFN time, then the kernels' times at both shapes."""
+    phase_reference_moe(dev)
+    infos, profs, ffn = {}, {}, {}
+    for run in ("a", "b"):
+        eng, infos[run] = phase_moe_path(dev, smi, run)
+        phase_moe_check(eng, dev, run)
+        profs[run] = phase_profile(eng, dev, f"moe_path ({run})",
+                                   slots=MOE_SLOTS)
+        ffn[run] = phase_moe_ffn_time(eng, dev, run)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = phase_times_moe(dev, infos["a"], infos["b"])
+    emit({"moe_path_summary": {
+        run: {**{key: infos[run][key] for key in (
+            "config", "layers", "decode_steps_per_s", "decode_tokens_per_s",
+            "prefill_tokens_per_s", "tokens_per_s_wall",
+            "setup_peak_memory_bytes", "peak_memory_bytes")},
+            "drops": {key: infos[run]["drops"][key] for key in (
+                "dropped_per_decode_step_mean", "decode_drop_share",
+                "prefill_drop_share", "prefill_drop_share_prompt_rows")},
+            "profile": {key: profs[run][key] for key in (
+                "wall_ms_per_step", "device_ms_per_step",
+                "device_busy_share", "host_ops_per_step")},
+            "expert_ffn_ms_per_decode_step": ffn[run]["ms"],
+            "expert_ffn_bound_ms": ffn[run]["bound_ms"]}
+        for run in ("a", "b")}, "card": smi})
+    launches = {k: infos["a"]["launches"][k] + infos["b"]["launches"][k]
+                for k in infos["a"]["launches"]}
+    return launches, rows
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     # flex_attention's compiled kernels cache inside the checkout
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
                      ("TRITON_CACHE_DIR", "triton")):
@@ -2853,6 +3493,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = dev_info["nvidia_smi"]
     phase_build()
+    if argv == ["--only", "moe"]:
+        # a quicker call for work on the MoE path alone: no kernels line
+        # and no ok line, so it never stands for the whole script
+        run_moe(dev, smi)
+        emit({"subset": "moe", "done": True})
+        return 0
+    check(not argv, f"unknown arguments {argv} (only `--only moe`)")
     phase_sanitizer()
     errs = {"w4a8_matmul": phase_w4a8(dev),
             "paged_decode_attention": phase_paged(dev),
@@ -2904,6 +3551,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     flash_g, paged_g = phase_times_gemma2(dev, gemma2_info)
+    moe_launches, moe_rows = run_moe(dev, smi)
     emit({"gemma2_path_summary": {
         key: gemma2_info[key] for key in (
             "decode_steps_per_s", "decode_tokens_per_s",
@@ -2952,7 +3600,8 @@ def main() -> int:
                                  for r in feat_info["runs"].values()),
             "features_splitbrain": split_info["launches"][k["name"]],
             "chaos_path": chaos_launches[k["name"]],
-            "hymba_path": hymba_info["launches"][k["name"]]}
+            "hymba_path": hymba_info["launches"][k["name"]],
+            "moe_path": moe_launches[k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
     kernels[1]["llama2_decode_int8"] = paged_kv["int8"]
@@ -2961,6 +3610,10 @@ def main() -> int:
     kernels[2]["gemma2_prefill"] = flash_g
     kernels[1]["hymba_decode"] = paged_h
     kernels[2]["hymba_forward"] = flash_h
+    kernels[1]["phi_moe_decode"] = moe_rows["a"][1]
+    kernels[2]["phi_moe_prefill"] = moe_rows["a"][0]
+    kernels[1]["qwen_moe_decode"] = moe_rows["b"][1]
+    kernels[2]["qwen_moe_prefill"] = moe_rows["b"][0]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

@@ -1,6 +1,6 @@
-"""The port's serving CLI: batched greedy decoding of an lm-family, an rwkv
-or a hymba config with the float ``ServeEngine``, on the card unless asked
-otherwise.
+"""The port's serving CLI: batched greedy decoding of an lm-family (dense or
+MoE), an rwkv or a hymba config with the float ``ServeEngine``, on the card
+unless asked otherwise.
 
   # on a machine with the card: llama2-7b at full size, random weights
   python -m repro_torch.launch.serve --arch llama2-7b --continuous \
@@ -13,6 +13,9 @@ otherwise.
       --smoke --device cpu --continuous
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --smoke --device cpu --continuous
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi3.5-moe-42b-a6.6b --smoke --device cpu --continuous \
+      --page-size 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --smoke --device cpu --continuous --page-size 8 --prefix-cache on \
       --prefill-chunk 8 --kv-dtype int8
@@ -43,6 +46,12 @@ and seeded fault injection (``--chaos-plan``, ``--chaos-seed``,
 a ``torch.Generator`` seeded by ``--seed``.  Prints one JSON report, as
 the JAX package's ``repro.launch.serve`` does.  ``--tp`` exits with "not
 ported yet".
+
+The MoE configs at full depth do not fit one 80 GB card (phi3.5-moe-42b-a6.6b
+holds 2.6 GB of bf16 weights per layer, 83 GB at its 32 layers;
+qwen3-moe-235b-a22b 4.9 GB per layer at 94 layers): run them with
+``--smoke`` here, and at full width on the card through ``chip_smoke.py``'s
+``moe_path``, which cuts their depth.
 """
 from __future__ import annotations
 
@@ -111,7 +120,12 @@ def _priorities(args, ap: argparse.ArgumentParser):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--arch", default="llama2-7b",
+                    help="config name; the MoE configs "
+                         "(phi3.5-moe-42b-a6.6b, qwen3-moe-235b-a22b) do "
+                         "not fit one 80 GB card at full depth: serve them "
+                         "with --smoke, or at full width at cut depth "
+                         "through chip_smoke.py's moe_path")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced config of --arch")
     ap.add_argument("--device", default="cuda",

@@ -13,8 +13,9 @@ layers), all updating the cache IN PLACE where the JAX package returned a
 new one.  Numerics follow the JAX package's compiled programs (XLA's
 excess precision, its tanh and its dot order; see ``_block_tail``,
 ``_norm_input`` and ``_logits_head``): logits are bit-identical on the
-CPU.  The split-brain slice's token loop lives in
-``serve/splitbrain_engine.py``; the full-sequence ``forward``, MoE, cross
+CPU.  A config with ``moe`` takes the MoE FFN (``models/moe.py``) in place
+of the dense one in every block.  The split-brain slice's token loop lives
+in ``serve/splitbrain_engine.py``; the full-sequence ``forward``, cross
 attention and the other families come with their slices.
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 
 def group_layout(cfg: ModelConfig) -> Tuple[int, int]:
@@ -47,10 +49,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     Each projection is drawn one (layer, matrix) slice at a time in float32
     and rounded into its leaf, so no more than one matrix's float32 draw
     exists at once: with ``dtype=torch.bfloat16`` full-width gemma2-27b
-    takes 52 GB of projections where a float32 tree would take 104 GB."""
-    if cfg.family != "lm" or cfg.moe or cfg.cross_attn_every:
+    takes 52 GB of projections where a float32 tree would take 104 GB.
+    With ``cfg.moe`` a block holds ``moe`` (router and expert stacks,
+    ``moe.moe_init``, drawn the same way) instead of ``mlp``."""
+    if cfg.family != "lm" or cfg.cross_attn_every:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense lm family is ported so far")
+            f"{cfg.name}: only the decoder-only lm family is ported so far")
     n_groups, group_size = group_layout(cfg)
     hd = cfg.resolved_head_dim
     d, f = cfg.d_model, cfg.d_ff
@@ -79,10 +83,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                      "wk": dense(d, cfg.num_kv_heads * hd),
                      "wv": dense(d, cfg.num_kv_heads * hd),
                      "wo": dense(cfg.num_heads * hd, d)},
-            "mlp": {"w1": dense(d, f), "w3": dense(d, f), "w2": dense(f, d)},
         },
         "ln_final": zeros(d),
     }
+    if cfg.moe:
+        params["blocks"]["moe"] = moe_mod.moe_init(
+            d, f, cfg.moe, generator, lead=(n_groups, group_size),
+            device=device, dtype=dtype)
+    else:
+        params["blocks"]["mlp"] = {"w1": dense(d, f), "w3": dense(d, f),
+                                   "w2": dense(f, d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(d, cfg.vocab_size, generator,
                                          device=device).to(dtype)
@@ -100,9 +110,11 @@ BATCH_AXES = {"k": 2, "v": 2, "len": 0}
 
 
 def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
-    """The serving engine's copy of the float params on ``device``:
-    attention and MLP projections cast once to the compute dtype, embedding
-    and norm scales kept float32 (a tensor already in place is not copied).
+    """The serving engine's copy of the float params on ``device``: the
+    attention projections and the FFN's (the MLP's, or the MoE router and
+    expert stacks; the reference reads the router in the compute dtype too)
+    cast once to the compute dtype, embedding and norm scales kept float32
+    (a tensor already in place is not copied).
     The LM head -- an untied ``lm_head``, or the embedding of a tied one --
     is rounded once to the compute dtype and held in float32, the operand
     of :func:`_logits_head`'s float32 product, so no step copies or casts
@@ -117,12 +129,13 @@ def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
     embed = params["embed"].to(device)
     if cfg.tie_embeddings:
         embed = embed.to(dtype).to(torch.float32)
+    ffn = "moe" if cfg.moe else "mlp"
     out = {"embed": embed,
            "ln_final": params["ln_final"].to(device),
            "blocks": {"ln_attn": blocks["ln_attn"].to(device),
                       "ln_mlp": blocks["ln_mlp"].to(device),
                       "attn": cast(blocks["attn"]),
-                      "mlp": cast(blocks["mlp"])}}
+                      ffn: cast(blocks[ffn])}}
     if "lm_head" in params:
         out["lm_head"] = params["lm_head"].to(device=device, dtype=dtype).to(
             torch.float32)
@@ -136,10 +149,10 @@ def prefill_fits(cache, prompt_len: int) -> bool:
 
 
 def _check_block_path(cfg: ModelConfig) -> None:
-    if cfg.family != "lm" or cfg.moe or cfg.cross_attn_every:
+    if cfg.family != "lm" or cfg.cross_attn_every:
         raise NotImplementedError(
-            f"{cfg.name}: the lm block path covers dense decoder-only "
-            f"configs (MoE and cross-attention are not ported yet)")
+            f"{cfg.name}: the lm block path covers decoder-only configs "
+            f"(cross-attention is not ported yet)")
 
 
 def _layers(params, cfg: ModelConfig):
@@ -187,7 +200,8 @@ def _block_qkv(pj, x, positions, cfg: ModelConfig):
 
 def _block_tail(pj, x, o, cfg: ModelConfig):
     """Shared block tail for prefill/decode: attention-output projection,
-    the dense FFN, both residual adds.  o: (B, H, T, hd).
+    the FFN (dense, or MoE over every row of the call, its ``aux``
+    discarded as in the reference), both residual adds.  o: (B, H, T, hd).
 
     The FFN's pre-norm reads the attention residual sum before it is
     rounded to the compute dtype, as the JAX package's compiled programs
@@ -200,8 +214,11 @@ def _block_tail(pj, x, o, cfg: ModelConfig):
     s = x.to(torch.float32) + L.linear(o, pj["attn"]["wo"]).to(torch.float32)
     x = s.to(x.dtype)
     y = L.rmsnorm(s, pj["ln_mlp"], cfg.norm_eps).to(x.dtype)
-    h = x.to(torch.float32) + L.swiglu(y, pj["mlp"]["w1"], pj["mlp"]["w3"],
-                                       pj["mlp"]["w2"]).to(torch.float32)
+    if cfg.moe:
+        ffn, _ = moe_mod.moe_apply(pj["moe"], y, cfg.moe, need_aux=False)
+    else:
+        ffn = L.swiglu(y, pj["mlp"]["w1"], pj["mlp"]["w3"], pj["mlp"]["w2"])
+    h = x.to(torch.float32) + ffn.to(torch.float32)
     return h.to(x.dtype), h
 
 

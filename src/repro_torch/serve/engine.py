@@ -1,6 +1,6 @@
-"""Production serving engine for the dense lm family (gemma2's windowed
-layers and softcaps included), the rwkv family and the hymba family: float
-weights, batched prefill and greedy decode, in torch.
+"""Production serving engine for the lm family (its dense and MoE members,
+gemma2's windowed layers and softcaps included), the rwkv family and the
+hymba family: float weights, batched prefill and greedy decode, in torch.
 
 The JAX package's ``ServeEngine`` compiles each request into two programs
 (one bucketed block prefill, one scan-fused decode loop).  The port runs
@@ -53,9 +53,15 @@ Caches are updated IN PLACE where the JAX package returned new ones, and a
 prefill runs over the true prompt length: eager PyTorch compiles nothing
 per width, so nothing is padded to a power-of-two bucket (pool contents
 past a slot's ``len`` then differ from the reference's garbage, and nothing
-reads them).  The float weights are cast once to the compute dtype (the JAX
-package casts them at every use; the values are the same); the embedding
-stays float32 and is gathered, then cast.  The TrafficMeter replays eq.
+reads them).  The MoE configs are the exception: their FFN couples the
+rows of a call (the capacity and its order of claim depend on every row),
+so for them the engine feeds the reference's rows exactly -- the prompt
+body zero-padded to its bucket in a ``max_len`` request cache, whose
+padding K/V reach the pool's last page and the scratch page as there, and
+``generate()``'s batch padded to its bucket with copies of row 0.  The
+float weights are cast once to the compute dtype (the JAX package casts
+them at every use; the values are the same); the embedding stays float32
+and is gathered, then cast.  The TrafficMeter replays eq.
 7-10 bytes per active token, as the reference does on one device.
 """
 from __future__ import annotations
@@ -77,8 +83,8 @@ from repro_torch.serve.errors import InvalidRequestError
 
 
 class ServeEngine(pages_mod.PagedEngineMixin):
-    """Greedy serving of a dense lm-family, an rwkv or a hymba config with
-    float weights."""
+    """Greedy serving of an lm-family (dense or MoE), an rwkv or a hymba
+    config with float weights."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 128,
                  fused: bool = True, page_size: Optional[int] = None,
@@ -86,10 +92,10 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                  paged_attn: str = "inplace", prefix_cache: str = "off",
                  kv_dtype: str = "bf16", device="cuda"):
         family = api.family_module(cfg)     # raises for an unported family
-        if cfg.moe or cfg.cross_attn_every or cfg.frontend_tokens:
+        if cfg.cross_attn_every or cfg.frontend_tokens:
             raise NotImplementedError(
-                f"{cfg.name}: MoE, cross-attention and frontend configs "
-                f"are not ported to the ServeEngine yet")
+                f"{cfg.name}: cross-attention and frontend configs are not "
+                f"ported to the ServeEngine yet")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the card's tokens equal the CPU's only under these settings
@@ -103,6 +109,8 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         self.params = family.serve_params(params, cfg, self.device)
         self.max_len = max_len
         self.fused = fused
+        # the MoE FFN couples a call's rows: feed the reference's padding
+        self._pad_rows = bool(cfg.moe)
         self.meter = TrafficMeter()
         self._traffic = TrafficModel.for_config(cfg)
         self._ba = family.BATCH_AXES
@@ -150,6 +158,17 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         return torch.as_tensor(np.asarray(tokens, np.int32),
                                device=self.device)
 
+    def _body(self, prompts: np.ndarray):
+        """The prompt bodies ``prompts[:, :-1]`` as the prefill takes them:
+        as they are, or for a row-coupled (MoE) config zero-padded to the
+        reference's power-of-two bucket, whose padding rows then go
+        through the same FFN calls as there."""
+        body = prompts[:, :-1]
+        if not self._pad_rows:
+            return body
+        width = slots_mod.bucket(body.shape[1])
+        return np.pad(body, ((0, 0), (0, width - body.shape[1])))
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -169,12 +188,19 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         cfg = self.cfg
         prompts = np.asarray(prompts, np.int32)
         B, T0 = prompts.shape
+        if fused and self._pad_rows:
+            # the reference pads the batch to its bucket with copies of
+            # row 0; the MoE FFN sees those rows too
+            Bb = slots_mod.bucket(B)
+            prompts = np.concatenate(
+                [prompts, np.broadcast_to(prompts[:1], (Bb - B, T0))])
         if T0 - 1 + max_new > self.max_len:
             raise ValueError(
                 f"request does not fit the cache: prompt_len={T0} + "
                 f"max_new={max_new} needs {T0 - 1 + max_new} positions but "
                 f"max_len={self.max_len}")
-        cache = api.init_cache(cfg, B, self.max_len, device=self.device)
+        cache = api.init_cache(cfg, prompts.shape[0], self.max_len,
+                               device=self.device)
         if not fused:
             return self._generate_stepwise(cache, prompts, max_new, eos_id)
         toks = self._tokens(prompts)
@@ -182,12 +208,13 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         if T0 > 1:
             # one prefill fills the cache with the whole prompt body
             _, cache = api.prefill_bucketed(self.params, cache,
-                                            toks[:, :-1], T0 - 1, cfg)
+                                            self._tokens(self._body(prompts)),
+                                            T0 - 1, cfg)
         self._sync()
         prefill_s = time.perf_counter() - tp0
         tok = toks[:, -1]
-        alive = torch.ones((B,), dtype=torch.bool, device=self.device)
-        n = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        alive = torch.ones_like(tok, dtype=torch.bool)
+        n = torch.zeros_like(tok)
         out = []
         t0 = time.perf_counter()
         for _ in range(max_new):
@@ -200,10 +227,10 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                 tok = torch.where(alive, nxt, torch.full_like(nxt, eos_id))
                 alive &= tok != eos_id
             out.append(tok)
-        tokens = (torch.stack(out, dim=1).cpu().numpy() if out
+        tokens = (torch.stack(out, dim=1).cpu().numpy()[:B] if out
                   else np.zeros((B, 0), np.int32))
         dt = time.perf_counter() - t0
-        gen_len = np.minimum(n.cpu().numpy(), max_new)
+        gen_len = np.minimum(n.cpu().numpy()[:B], max_new)
         self.meter_tokens(B * (T0 - 1) + int(gen_len.sum()))
         return {"tokens": tokens, "gen_len": gen_len,
                 "tokens_per_s": int(gen_len.sum()) / dt if dt else 0.0,
@@ -289,7 +316,11 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         prompt (T0,) -> (cache with len = T0 - 1, input token of the first
         decode step): one prefill over the true prompt body.  On the
         paged layout the cache holds just the body's pages (the insert
-        scatters those); the dense slot cache takes a ``max_len`` row."""
+        scatters those); the dense slot cache takes a ``max_len`` row.  A
+        row-coupled (MoE) config prefills the body zero-padded to its
+        bucket in a ``max_len`` cache on both layouts (:meth:`_body`): the
+        block prefill when the bucket fits ``max_len``, else the per-token
+        steps, as the reference chooses."""
         prompt = np.asarray(prompt, np.int32)
         T0 = prompt.shape[0]
         if T0 < 1:
@@ -297,12 +328,12 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                 "prefill_slot needs a non-empty prompt (the last token "
                 "seeds decoding)")
         S = (pages_mod.round_len(T0 - 1, self.page_size)
-             if self._paging_active else self.max_len)
+             if self._paging_active and not self._pad_rows else self.max_len)
         cache = api.init_cache(self.cfg, 1, S, device=self.device)
         if T0 > 1:
             _, cache = api.prefill_bucketed(
-                self.params, cache, self._tokens(prompt[None, :-1]), T0 - 1,
-                self.cfg)
+                self.params, cache, self._tokens(self._body(prompt[None])),
+                T0 - 1, self.cfg)
             self._fake_quant_b1(cache)
         return cache, int(prompt[-1])
 

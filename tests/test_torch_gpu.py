@@ -743,3 +743,96 @@ def test_online_server_on_card_serves_from_its_loop_thread(cuda):
         handles = [srv.submit(p, max_new=6) for p in prompts]
         streamed = [list(h.stream()) for h in handles]
     assert streamed == [r.tokens.tolist() for r in base["results"]]
+
+
+def _moe_layer0(seed=0):
+    """Reduced top-8 override (16 experts, top-8, GQA 16/1): its config and
+    layer 0's MoE weights in bf16 on the CPU."""
+    from repro_torch.configs.base import MoEConfig
+    cfg = get_config("qwen3-moe-235b-a22b").reduced(
+        num_heads=16, num_kv_heads=1, moe=MoEConfig(16, 8))
+    params = api.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    return cfg, {k: w[0, 0].to(torch.bfloat16)
+                 for k, w in params["blocks"]["moe"].items()}
+
+
+@pytest.mark.parametrize("n", [8, 64])
+def test_moe_apply_on_card_matches_cpu_and_repeats(cuda, n):
+    """``moe_apply`` on the card against the CPU on the same bf16 inputs
+    (similar rows, so capacity drops): the experts chosen are the CPU's
+    except where a row's k-th and (k+1)-th router probabilities are within
+    1e-5, each row within 2^-7 of the CPU's in relative norm (the bf16
+    GEMMs and the CPU's float32 products round the expert outputs in
+    other places), and a second call on the card bit-identical (the
+    combine gathers; no atomics)."""
+    from repro_torch.models import moe
+    cfg, p = _moe_layer0()
+    mc = cfg.moe
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.standard_normal((1, n, 64))
+                          + 2 * rng.standard_normal(64)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    want, _ = moe.moe_apply(p, x, mc)
+    pc = {k: w.to(cuda) for k, w in p.items()}
+    got, _ = moe.moe_apply(pc, x.to(cuda), mc)
+    again, _ = moe.moe_apply(pc, x.to(cuda), mc)
+    assert torch.equal(got, again)
+    probs, _, ids = moe.route(p, x[0], mc)
+    _, _, ids_c = moe.route(pc, x[0].to(cuda), mc)
+    C = moe.capacity(n, mc)
+    assert not moe.dispatch(ids, C, mc.num_experts)[2].all()   # drops
+    top = torch.sort(probs, dim=-1, descending=True).values
+    tie = (top[:, mc.top_k - 1] - top[:, mc.top_k]) <= 1e-5
+    same = (torch.sort(ids, 1).values == torch.sort(ids_c.cpu(), 1).values
+            ).all(1)
+    assert bool((same | tie).all())
+    rel = ((got.cpu().float() - want.float())[0].norm(dim=1)
+           / want.float()[0].norm(dim=1).clamp_min(1e-30))
+    assert float(rel.max()) <= 2.0 ** -7
+
+
+def test_moe_quantized_experts_on_card_match_plain(cuda):
+    """The W4A8 branch of the expert products: one kernel launch per
+    expert on its packed codes, bit-identical to the plain version on the
+    card and to the CPU path."""
+    from repro_torch.core import quant
+    from repro_torch.models import moe
+    cfg, p = _moe_layer0(1)
+    E = cfg.moe.num_experts
+    qw = api.quantize_model({"w1": p["w1"]}, cfg)["w1"]
+    qc = quant.QuantizedLinear(qw.codes.to(cuda), qw.scales.to(cuda)
+                               ).with_packed()
+    eb = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (E, 5, 64)).astype(np.float32)).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    got = moe._expert_matmul(eb.to(cuda), qc)
+    assert ops.launch_counts()["w4a8_matmul"] == E
+    qx, xs = quant.quantize_activations_int8(eb.to(cuda).reshape(E * 5, 64),
+                                             reciprocal=True)
+    plain = torch.stack([ref.w4a8_matmul(
+        qx.reshape(E, 5, 64)[e], xs.reshape(E, 5, 1)[e], qc.codes[e],
+        qc.scales[e], torch.bfloat16) for e in range(E)])
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), moe._expert_matmul(eb, qw))
+
+
+def test_moe_engine_on_card_matches_cpu(cuda):
+    """Reduced phi3.5-moe's ServeEngine on a paged pool with 4 slots (the
+    MoE couples the decode rows): one flash launch per layer per prefill,
+    one paged launch per layer per decode step, and the CPU's tokens."""
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    reqs = [Request(uid=i, prompt=(np.arange(1, n + 1) * 7 % 256)
+                    .astype(np.int32), max_new=6)
+            for i, n in enumerate((5, 9, 17, 24, 3, 12))]
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params, max_len=64, page_size=8, device=dev)
+        ops.reset_launch_counts()
+        out = ContinuousBatchingScheduler(eng, max_slots=4).run(reqs)
+        counts = ops.launch_counts()
+        toks[dev] = [r.tokens.tolist() for r in out["results"]]
+    L = cfg.num_layers
+    assert counts["flash_attention"] == L * len(reqs)
+    assert counts["paged_decode_attention"] == L * out["steps"]
+    assert toks["cuda"] == toks["cpu"]

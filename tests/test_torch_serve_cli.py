@@ -79,8 +79,21 @@ def test_unported_flags_exit(flags, capsys):
 
 def test_unported_arch_exits(capsys):
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "phi3.5-moe-42b-a6.6b", *SMOKE])
+        serve.main(["--arch", "seamless-m4t-medium", *SMOKE])
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_serves(arch, capsys):
+    serve.main(["--arch", arch, *SMOKE, "--continuous", "--requests", "5",
+                "--slots", "4", "--page-size", "8"])
+    rep = _report(capsys)
+    assert rep["arch"] == arch + "-smoke"
+    assert rep["by_state"] == {"DONE": 5} and rep["gen_len"] == [4] * 5
+    assert rep["cache"]["pages_in_use"] == 0
+    out = serve.main(["--arch", arch, *SMOKE, "--batch", "3"])
+    assert out["tokens"].shape == (3, 4)
 
 
 @pytest.mark.parametrize("flags", [
