@@ -40,9 +40,12 @@ fails before printing any result):
              llama2-7b's prefill shapes (T in {1, 37, 512}), tinyllama's
              (GQA 32/4, D 64, T 300), non-causal with kv_offset, window 64
              with softcap 30, gemma2-27b's (32/16 heads of 128, softcap 50,
-             window 4096, T 4,084 and 4,200), in f32 and bf16: f32 within
-             1e-5, bf16 within one bf16 ulp of the plain value plus that
-             1e-5 (an output near zero has a bf16 ulp below the f32
+             window 4096, T 4,084 and 4,200), seamless-m4t-medium's
+             encoder (B 4, 16/16 heads of 64, T 960, non-causal) and
+             llama-3.2-vision-11b's cross blocks (B 4, 32/8 heads of 128,
+             Tq 127 and 1, Tk 1,600, non-causal), in f32 and bf16: f32
+             within 1e-5, bf16 within one bf16 ulp of the plain value plus
+             that 1e-5 (an output near zero has a bf16 ulp below the f32
              sum-order error)
   rwkv       the RWKV6 WKV-scan kernel against the plain version at
              rwkv6-7b's forward shape (B 4, H 64, D 64, bf16, T in {1, 37,
@@ -88,16 +91,17 @@ fails before printing any result):
              step, eq. 7-10 meter exact, a second run token-identical;
              then generate() on 4 prompts of 64 tokens with 32 new tokens:
              155 W4A8 launches per token step, its tokens/s
-  serve_path full-width llama2-7b (32 layers, d_model 4096, bf16 weights
-             from a seeded generator on the card), the float ServeEngine
-             (page_size=16, max_len=1024) under the scheduler with 8 slots:
-             a warm-up run, then 16 seeded requests (prompts of 64-512
-             tokens, 32 new tokens each), counts set to 0 just before and
-             read just after: every request DONE, 32 flash launches per
-             prefill, 32 paged launches per decode step, no W4A8 launch,
-             meter exact, a second run token-identical; then generate() on
-             4 prompts of 128 tokens (32 flash launches, the same tokens on a
-             second call)
+  serve_path full-width llama2-7b at 16 of its 32 layers (d_model 4096,
+             bf16 weights from a seeded generator on the card), the float
+             ServeEngine (page_size=16, max_len=1024) under the scheduler
+             with 8 slots: a warm-up run, then 16 seeded requests (prompts
+             of 64-512 tokens, 32 new tokens each), counts set to 0 just
+             before and read just after: every request DONE, one flash
+             launch per layer per prefill, one paged launch per layer per
+             decode step, no W4A8 launch, meter exact, a second run
+             token-identical; then generate() on 4 prompts of 128 tokens
+             (one flash launch per layer, the same tokens on a second
+             call)
   rwkv_path  full-width rwkv6-7b at 16 of its 32 layers (d_model 4096, 64
              heads of 64, d_ff 14336, vocab 65536; bf16 weights from a
              seeded generator on the card): api.forward on 4 x 512 tokens
@@ -126,8 +130,9 @@ fails before printing any result):
              meter exact, a second run token-identical; generate() on 2 x
              2,048 tokens (46 flash launches); rates, the busy share and
              peak memory printed beside the card's name and power limit
-  features_path  full-width llama2-7b on the serve path's weights (built
-             once; ``with_paging`` gives each run its pool), pages of 16,
+  features_path  full-width llama2-7b on the serve path's 16-layer
+             weights (built once; ``with_paging`` gives each run its
+             pool), pages of 16,
              max_len 1024, 8 slots, prefill chunks of 64, 16 requests (12
              share a 512-token prefix with tails of 16-128 tokens, 4 of
              64-256 share nothing; 32 new each), the first submitted alone
@@ -136,7 +141,7 @@ fails before printing any result):
              request DONE; (a) and (b) token-identical; (b) at least 11
              hits of 512 cached tokens and fewer pages stored than (a);
              (c) and (d) hold exactly kv_token_bytes_quant bytes per pool
-             token position and (b)'s boundary bytes; 32 paged launches per
+             token position and (b)'s boundary bytes; 16 paged launches per
              decode step in every run and no flash launch (chunks attend
              through the plain chunk_attention, as in the reference); the
              greedy flip rate of (c) and (d) against (b) as the JAX
@@ -167,8 +172,8 @@ fails before printing any result):
              logits, recomputed by the engine's own path from the common
              prefix, within NEAR_TIE_ULPS bf16 ulps of the largest), and
              the launches are pinned per step: 155 W4A8 per computed
-             split-brain token step and 22 paged per decode step, 32 flash
-             per llama2-7b prefill and 32 paged per decode step
+             split-brain token step and 22 paged per decode step, 16 flash
+             per llama2-7b prefill and 16 paged per decode step (16 layers)
   reference_hymba  reduced hymba-1.5b on the card and on the CPU from the
              same weights on a wrapping ring and on a paged pool, and
              forward: teacher-forced logits within two bf16 ulps (a
@@ -216,6 +221,37 @@ fails before printing any result):
              (gaps reported), and the W4A8 expert products (one kernel
              launch per expert on packed codes) bit-identical to the plain
              version
+  reference_xattn  reduced llama-3.2-vision-11b (cross gates 0.7 and -0.9:
+             the reference's zero gates would hide the cross path) and
+             reduced seamless-m4t-medium on the card and on the CPU from
+             the same weights and frontends: generate() fused and
+             stepwise, with and without a stop token: identical tokens
+  vision_path  llama-3.2-vision-11b at full width and depth (40 self
+             layers, a gated cross block after every 5, 32/8 heads of 128,
+             1,600 frontend tokens of 4,096; bf16 projections drawn per
+             slice from a seeded generator on the card, every gate a
+             seeded non-zero value): generate() on 4 prompts of 128 tokens
+             with 4 frontends, 32 new, counts set to 0 just before and read
+             just after (48 flash launches per prefill, 8 per decode step:
+             the cross blocks at one query row; meter exact), a second call
+             token-identical, stepwise generate() on 2 x 16 prompts (8 per
+             step) token-identical to fused, forward on the prompts and the
+             generated tokens (48 launches) whose argmax at each generated
+             position is the decoded token or a near-tie, and another
+             frontend moving the logits (a live cross path); rates, peaks,
+             a profile of the decode steps
+  encdec_path  seamless-m4t-medium at full width and depth (12 encoder
+             and 12 decoder layers, 16/16 heads of 64, 960 frontend
+             frames): generate() on 4 prompts of 64 tokens, 32 new (12
+             flash launches per call: the encoder, once; the decode steps
+             attend through the plain decode_attention, as in the
+             reference), the same checks as vision_path, and forward on 2 x
+             256 tokens (36 launches: encoder, causal self, cross)
+  lm_forward the lm family's whole-sequence api.forward on serve_path's,
+             gemma2_path's and both moe_path engines (1 x 128 tokens):
+             one flash launch per layer (16, 46, 24, 8), finite logits, the
+             last position's against the block prefill's (equal picks or a
+             near-tie)
   profile    torch.profiler over decode steps of each path: device time by
              kernel and the device's busy share; on main_path the device
              kernels per W4A8 call (must be 1)
@@ -245,10 +281,14 @@ fails before printing any result):
              each; SDPA with enable_gqa, and SDPA on the gathered view);
              and the expert FFN of one decode step at 8 slots (cuBLAS bf16
              bmm, not a kernel of the port) against reading every expert
-             once
+             once; flash at the cross-attention shapes (the seamless
+             encoder's 12 launches, the VLM's 8 cross launches in a
+             prefill and in a decode step, non-causal; library: SDPA)
 
 ``python3 chip_smoke.py --only moe`` runs the device and build phases and
-the MoE phases alone, and prints neither the kernels line nor the ok line.
+the MoE phases alone, and prints neither the kernels line nor the ok line;
+``--only xattn`` does the same for the cross-attention phases (with the
+flash phase's cases at their shapes).
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
@@ -689,7 +729,23 @@ def flash_inputs(gen, dev, B, Hq, Hkv, Tq, Tk, D, dtype):
             for shape in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
 
 
-def phase_flash(dev):
+# the cross-attention families' flash shapes (B, Hq, Hkv, Tq, Tk, D):
+# seamless-m4t-medium's encoder (non-causal over 960 frames, 16/16 heads of
+# 64) and llama-3.2-vision-11b's cross blocks (32/8 heads of 128 over 1,600
+# frontend tokens: a 127-row prompt body, a decode step's one row)
+XATTN_FLASH_CASES = [
+    ("seamless-m4t-medium encoder", (4, 16, 16, 960, 960, 64),
+     dict(causal=False)),
+    ("llama-3.2-vision-11b cross prefill", (4, 32, 8, 127, 1600, 128),
+     dict(causal=False)),
+    ("llama-3.2-vision-11b cross decode", (4, 32, 8, 1, 1600, 128),
+     dict(causal=False))]
+
+
+def phase_flash(dev, cases=None):
+    """The flash kernel against its plain version at every case (``cases``
+    given: those alone, as ``--only xattn`` runs the cross-attention
+    families' shapes)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     bf, f32 = torch.bfloat16, torch.float32
     llama = [("llama2-7b", (1, 32, 32, T, T, 128), dict(causal=True))
@@ -705,8 +761,10 @@ def phase_flash(dev):
               dict(causal=True, window=4096, softcap=50.0)),
              ("gemma2-27b", (1, 32, 16, 4200, 4200, 128),
               dict(causal=True, window=4096, softcap=50.0))]
+    if cases is None:
+        cases = llama + other + XATTN_FLASH_CASES
     worst, rows = 0.0, []
-    for name, shape, opts in llama + other:
+    for name, shape, opts in cases:
         for qd in (bf, f32):
             q, k, v = flash_inputs(gen, dev, *shape, qd)
             out = ops.attention(q, k, v, **opts)
@@ -1178,10 +1236,19 @@ def serve_requests(vocab, n=16, max_new=32):
                     max_new=max_new) for i in range(n)]
 
 
+# serve_path's llama2-7b (reused by features_path, chaos_path (b)-(d) and
+# lm_forward) runs 16 of its 32 layers at full width since the
+# cross-attention paths joined, to keep the script inside its time limit:
+# its host-bound steps grow with the depth; the times rows keep the
+# 32-layer units
+SERVE_LAYERS = 16
+
+
 def phase_serve_path(dev, smi_line):
-    """Full-width llama2-7b through the float ServeEngine: the scheduler
-    over a paged pool, then generate()."""
-    cfg = get_config("llama2-7b")
+    """Full-width llama2-7b at SERVE_LAYERS of its 32 layers through the
+    float ServeEngine: the scheduler over a paged pool, then generate()."""
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              num_layers=SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -1783,6 +1850,17 @@ def phase_profile(eng, dev, path, slots=8):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     w4a8_calls = ops.launch_counts()["w4a8_matmul"]
+    prof_info = {"phase": "profile", "path": path, "config": eng.cfg.name,
+                 "slots": slots,
+                 **profile_summary(prof, wall, n, path, w4a8_calls)}
+    emit(prof_info)
+    return prof_info
+
+
+def profile_summary(prof, wall, n, path, w4a8_calls=0):
+    """Per-step device time by kernel, the device's busy share of the
+    host's wall time and the host ops of ``n`` profiled decode steps; a
+    W4A8 call must be one device kernel."""
     rows = []
     dev_total, w4a8_kernels = 0.0, 0
     for ev in prof.key_averages():
@@ -1804,9 +1882,8 @@ def phase_profile(eng, dev, path, slots=8):
                    if not str(getattr(ev, "device_type", "")).endswith("CUDA")),
                   reverse=True)
     busy = dev_total / 1e6 / wall if wall else 0.0
-    prof_info = {
-        "phase": "profile", "path": path, "config": eng.cfg.name,
-        "slots": slots, "decode_steps": n, "wall_ms_per_step": wall / n * 1e3,
+    return {
+        "decode_steps": n, "wall_ms_per_step": wall / n * 1e3,
         "device_ms_per_step": dev_total / 1e3 / n,
         "device_busy_share": busy if dev_total else "not measured",
         "w4a8_calls": w4a8_calls,
@@ -1818,8 +1895,6 @@ def phase_profile(eng, dev, path, slots=8):
         "host_ops_per_step": sum(c for _, _, c in host) / n,
         "top_host_ops": [{"name": k[:60], "self_cpu_ms_per_step": t / 1e3 / n,
                           "calls_per_step": c / n} for t, k, c in host[:12]]}
-    emit(prof_info)
-    return prof_info
 
 
 def w4a8_step_launches(eng, M, gen, dev):
@@ -3448,17 +3523,53 @@ def phase_times_moe(dev, info_a, info_b):
     return rows
 
 
+def phase_lm_forward(eng, dev, path, T=128):
+    """The lm family's whole-sequence ``api.forward`` on a path's engine at
+    full width: one row of T seeded tokens, the counts set to 0 just before
+    and read just after (one flash launch per layer, nothing else), finite
+    logits, and the last position's logits against the block prefill's on
+    the same tokens (``pick_report``'s near-tie rule, the gap at most
+    FWD_GAP_SHARE of the largest |logit|: the forward rounds its head
+    product, the prefill does not).  Returns the counts."""
+    cfg = eng.cfg
+    toks = torch.as_tensor(np.random.default_rng(SEED + 43).integers(
+        1, cfg.vocab_size, (1, T)).astype(np.int32), device=dev)
+    ops.reset_launch_counts()
+    fwd, aux = api.forward(eng.params, toks, cfg)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {"w4a8_matmul": 0, "flash_attention": cfg.num_layers,
+            "paged_decode_attention": 0, "rwkv6_scan": 0}
+    check(counts == want, f"{path} forward launch counts {counts} != {want}")
+    check(fwd.shape == (1, T, cfg.vocab_size)
+          and bool(torch.isfinite(fwd).all()), f"{path} forward logits")
+    last = fwd[:, -1].float().cpu()
+    del fwd
+    pre, _ = api.prefill(eng.params, api.init_cache(cfg, 1, T, device=dev),
+                         toks, cfg)
+    rep = pick_report(pre.float().cpu(), last, last.argmax(-1))
+    check((rep["argmax_agree"] == rep["n"]
+           or rep["shortfall"] <= 2 * rep["max_abs_err"])
+          and rep["max_abs_err"] <= FWD_GAP_SHARE * rep["max_abs_logit"],
+          f"{path} forward against the block prefill: {rep}")
+    emit({"phase": "lm_forward", "path": path, "config": cfg.name,
+          "layers": cfg.num_layers, "tokens": [1, T], "launches": counts,
+          "aux": float(aux), "against_prefill": rep})
+    return counts
+
+
 def run_moe(dev, smi):
     """The MoE phases: the reduced configs card against CPU, then runs (a)
     and (b), each with its full-width moe_apply check, its profile and its
     expert FFN time, then the kernels' times at both shapes."""
     phase_reference_moe(dev)
-    infos, profs, ffn = {}, {}, {}
+    infos, profs, ffn, fwd_counts = {}, {}, {}, {}
     for run in ("a", "b"):
         eng, infos[run] = phase_moe_path(dev, smi, run)
         phase_moe_check(eng, dev, run)
         profs[run] = phase_profile(eng, dev, f"moe_path ({run})",
                                    slots=MOE_SLOTS)
+        fwd_counts[run] = phase_lm_forward(eng, dev, f"moe_path ({run})")
         ffn[run] = phase_moe_ffn_time(eng, dev, run)
         del eng
         gc.collect()
@@ -3480,7 +3591,506 @@ def run_moe(dev, smi):
         for run in ("a", "b")}, "card": smi})
     launches = {k: infos["a"]["launches"][k] + infos["b"]["launches"][k]
                 for k in infos["a"]["launches"]}
-    return launches, rows
+    return launches, rows, {k: fwd_counts["a"][k] + fwd_counts["b"][k]
+                            for k in fwd_counts["a"]}
+
+
+# ------------------------------------------------ cross-attention families
+# llama-3.2-vision-11b (the lm family's cross-attention member) and
+# seamless-m4t-medium (the encoder-decoder family), both at every published
+# width and full depth: served through generate() only, as the JAX package
+# serves them.  The reference's cross gates start at zero, and tanh(0) = 0
+# makes a fresh VLM's cross blocks add nothing: every gate is set to a
+# seeded value of magnitude 0.25-1 here, and the reduced configs take
+# XATTN_GATES.
+XATTN_GATES = (0.7, -0.9)
+VISION = dict(arch="llama-3.2-vision-11b", batch=4, prompt=128, new=32,
+              step=(2, 16, 8), seed=SEED + 40)
+ENCDEC = dict(arch="seamless-m4t-medium", batch=4, prompt=64, new=32,
+              step=(2, 16, 8), fwd=(2, 256), seed=SEED + 41)
+FWD_GAP_SHARE = 0.1   # forward against decode logits: at most this share
+                      # of the largest |logit| apart (a dropped or broken
+                      # block moves them by the logits' own size)
+
+
+def xattn_gates(n, gen):
+    """``n`` seeded cross gates, magnitude uniform in [0.25, 1), either
+    sign (float32, on the generator's device)."""
+    mag = 0.25 + 0.75 * torch.rand(n, generator=gen, device=gen.device)
+    sign = torch.rand(n, generator=gen, device=gen.device) < 0.5
+    return torch.where(sign, -mag, mag)
+
+
+def phase_reference_xattn(dev):
+    """Reduced llama-3.2-vision-11b (cross gates XATTN_GATES) and reduced
+    seamless-m4t-medium on the card (kernels) and on the CPU (plain
+    versions) from the same weights and frontends: generate() fused and
+    stepwise, and with a stop token: identical tokens and gen_len."""
+    rows = []
+    for i, arch in enumerate((VISION["arch"], ENCDEC["arch"])):
+        cfg = get_config(arch).reduced()
+        params = api.init_params(cfg, torch.Generator().manual_seed(SEED + i),
+                                 "cpu")
+        if cfg.cross_attn_every:
+            params["cross"]["gate"] = torch.tensor(XATTN_GATES)
+        rng = np.random.default_rng(SEED + 40 + i)
+        prompts = rng.integers(1, cfg.vocab_size, (3, 9)).astype(np.int32)
+        fe = rng.standard_normal(
+            (3, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+        engs = {str(d): ServeEngine(cfg, params, max_len=32, device=d)
+                for d in ("cpu", dev)}
+        eos = int(engs["cpu"].generate(prompts, max_new=8, frontend=fe)
+                  ["tokens"][0, 2])
+        got = {}
+        for d, eng in engs.items():
+            for fused in (True, False):
+                for stop in (None, eos):
+                    out = eng.generate(prompts, max_new=8, frontend=fe,
+                                       fused=fused, eos_id=stop)
+                    got[d, fused, stop] = (out["tokens"].tolist(),
+                                           out["gen_len"].tolist())
+        card = str(dev)
+        same = all(got["cpu", f, e] == got[card, f, e]
+                   for f in (True, False) for e in (None, eos))
+        check(same, f"reduced {arch}: card tokens differ from the CPU's")
+        check(all(got["cpu", True, e] == got["cpu", False, e]
+                  for e in (None, eos)), f"reduced {arch}: fused and "
+              "stepwise generate() differ")
+        rows.append({"config": arch, "tokens_identical": True,
+                     "eos_id": eos, "gen_len_eos": got[card, True, eos][1],
+                     "gates": list(XATTN_GATES) if cfg.cross_attn_every
+                     else None})
+    emit({"phase": "reference_xattn", "runs": rows,
+          "tolerance": "tokens and gen_len identical, card and CPU, fused "
+                       "and stepwise, with and without eos_id"})
+
+
+def _capture_decode_logits(fn):
+    """Run ``fn()`` with every ``api.decode_step``'s logits kept on the
+    device (no sync); returns (fn's result, [logits (B, V)])."""
+    from repro_torch.serve import engine as engine_mod
+    kept, step = [], engine_mod.api.decode_step
+
+    def spy(*a, **kw):
+        logits, cache = step(*a, **kw)
+        kept.append(logits.clone())
+        return logits, cache
+    engine_mod.api.decode_step = spy
+    try:
+        out = fn()
+    finally:
+        engine_mod.api.decode_step = step
+    return out, kept
+
+
+def first_divergence_report(fused, step, fused_logits, step_logits):
+    """Fused against stepwise generate() on the same inputs: identical
+    tokens, or at the first decode step where a row's pick differs, the
+    stepwise pick a near-tie in the fused run's logits there (``pick_report``'s
+    rule: short of their largest by at most twice the two runs' logit gap,
+    that gap at most FWD_GAP_SHARE of the largest |logit|).  The two runs
+    prefill differently (the block prefill's GEMMs over the whole prompt,
+    one decode step per prompt token), so on the card their bf16 products
+    round apart; the CPU's reduced runs are held identical."""
+    if np.array_equal(fused, step):
+        return {"identical": True, "near_tie": False}
+    i = int(np.argwhere((fused != step).any(axis=0))[0, 0])
+    rep = pick_report(fused_logits[i].float().cpu(),
+                      step_logits[i].float().cpu(), step[:, i])
+    rep.update(identical=False, first_differing_step=i,
+               near_tie=(rep["shortfall"] <= 2 * rep["max_abs_err"]
+                         and rep["max_abs_err"]
+                         <= FWD_GAP_SHARE * rep["max_abs_logit"]))
+    return rep
+
+
+def forward_pick_report(fwd, dec, picks, T0):
+    """The forward's logits at the positions that chose ``picks`` (B, n)
+    after T0-token prompts, against the decode steps' logits there
+    (``dec``: n tensors (B, V)): ``pick_report``'s rule, with the forward in
+    the reference's place."""
+    n = picks.shape[1]
+    f = fwd[:, T0 - 1:T0 - 1 + n].reshape(-1, fwd.shape[-1]).float().cpu()
+    d = torch.stack(dec, dim=1).reshape(-1, fwd.shape[-1]).float().cpu()
+    rep = pick_report(f, d, picks.reshape(-1))
+    rep["near_tie_ok"] = (rep["argmax_agree"] == rep["n"]
+                          or rep["shortfall"] <= 2 * rep["max_abs_err"])
+    return rep
+
+
+def profile_generate(eng, dev, path, prompts, fe, n=5):
+    """torch.profiler over ``n`` lockstep decode steps of ``generate()``'s
+    loop (the dense cache with the frontend's cross K/V, after the prompt's
+    prefill and two warm steps): device time by kernel, busy share, host
+    ops per step."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = eng.cfg
+    toks = torch.as_tensor(prompts, device=dev)
+    B, T0 = prompts.shape
+    cache = api.init_cache(cfg, B, eng.max_len, frontend=fe,
+                           params=eng.params, device=dev)
+    _, cache = api.prefill_bucketed(eng.params, cache, toks[:, :-1], T0 - 1,
+                                    cfg)
+    tok = toks[:, -1]
+    for _ in range(2):
+        logits, cache = api.decode_step(eng.params, cache, tok, cfg)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            logits, cache = api.decode_step(eng.params, cache, tok, cfg)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    info = {"phase": "profile", "path": path, "config": cfg.name,
+            "batch": B, **profile_summary(prof, wall, n, path),
+            "flash_per_step": ops.launch_counts()["flash_attention"] / n}
+    emit(info)
+    return info
+
+
+def xattn_setup(dev, spec, build_params):
+    """Draw a config's bf16 weights on the card and build its ServeEngine:
+    (cfg, engine, setup seconds, setup peak bytes, weight bytes)."""
+    cfg = get_config(spec["arch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_params(cfg)
+    eng = ServeEngine(cfg, params, max_len=spec["max_len"], device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(eng.params))
+    return (cfg, eng, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated(), weight_bytes)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def xattn_serve(eng, dev, spec, prompts, fe, flash_per_call, name):
+    """The timed generate() of a cross-attention path and its checks:
+    counts set to 0 just before and read just after (the pin
+    ``flash_per_call``), meter exact, a second call token-identical (its
+    decode logits kept for the forward check), and stepwise generate() on
+    ``spec["step"]`` (batch, prompt, new) token-identical to a fused call
+    on the same inputs.  Returns (info, the timed call's tokens, the second
+    call's decode logits)."""
+    cfg = eng.cfg
+    B, T0 = prompts.shape
+    new = spec["new"]
+    eng.generate(prompts[:1, :16], max_new=2, frontend=fe[:1])   # warm-up
+    eng.meter.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new=new, frontend=fe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"w4a8_matmul": 0, "flash_attention": flash_per_call,
+            "paged_decode_attention": 0, "rwkv6_scan": 0}
+    check(counts == want, f"{name} generate() launch counts {counts} != "
+          f"{want}")
+    toks = out["tokens"]
+    check(toks.shape == (B, new) and bool(((toks >= 0)
+                                           & (toks < cfg.vocab_size)).all())
+          and (out["gen_len"] == new).all(), f"{name}: tokens out of range")
+    meter = eng.measured_bytes()["total"]
+    ntok = B * (T0 - 1) + int(out["gen_len"].sum())
+    check(meter == traffic_model_for(cfg).bytes_per_token() * ntok,
+          f"{name}: meter {meter} != eq. 7-10 x {ntok} tokens")
+    again, dec = _capture_decode_logits(
+        lambda: eng.generate(prompts, max_new=new, frontend=fe))
+    check(np.array_equal(again["tokens"], toks),
+          f"{name}: a second identical generate() gave other tokens")
+    sb, st, sn = spec["step"]
+    ops.reset_launch_counts()
+    step, step_logits = _capture_decode_logits(
+        lambda: eng.generate(prompts[:sb, :st], max_new=sn, frontend=fe[:sb],
+                             fused=False))
+    step_counts = ops.launch_counts()
+    fused, fused_logits = _capture_decode_logits(
+        lambda: eng.generate(prompts[:sb, :st], max_new=sn,
+                             frontend=fe[:sb]))
+    agree = first_divergence_report(fused["tokens"], step["tokens"],
+                                    fused_logits[-sn:], step_logits[-sn:])
+    check(agree["identical"] or agree["near_tie"],
+          f"{name}: stepwise and fused generate() differ: {agree}")
+    info = {"batch": B, "prompt_len": T0, "max_new": new,
+            "launches": counts, "flash_per_call": flash_per_call,
+            "meter_bytes": meter, "second_call_identical": True,
+            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+            "wall_s": wall,
+            "decode_steps_per_s": new / out["decode_s"],
+            "decode_tokens_per_s": out["tokens_per_s"],
+            "prefill_tokens_per_s": B * (T0 - 1) / out["prefill_s"],
+            "peak_memory_bytes": peak,
+            "stepwise": {"batch": sb, "prompt_len": st, "max_new": sn,
+                         "launches": step_counts,
+                         "against_fused": agree,
+                         "decode_tokens_per_s": step["tokens_per_s"]}}
+    return info, toks, dec
+
+
+# the live-cross check's second frontend is a fresh draw shifted by 1:
+# attention over 1,600 i.i.d. keys averages two unshifted draws to nearly
+# the same output, while a shift moves every value row alike
+
+
+def phase_vision_path(dev, smi_line):
+    """llama-3.2-vision-11b at full width and depth (40 self layers in 8
+    groups of 5, a gated cross block after each; 32/8 heads of 128, d_ff
+    14,336, vocab 128,256, 1,600 frontend tokens of 4,096), bf16
+    projections drawn per slice from a seeded generator on the card, every
+    cross gate set to a seeded non-zero value: generate() on 4 prompts of
+    128 tokens with 4 frontends, 32 new (48 flash launches per prefill: 40
+    causal and 8 cross; 8 per decode step: the cross blocks at one query
+    row), a second call token-identical, stepwise on 2 x 16 prompts with
+    8 new (8 launches per step) token-identical to fused; forward on the
+    prompts and the generated tokens (48 launches), whose argmax at each
+    generated position is the decoded token or a near-tie; a second
+    frontend changes the logits (the cross path is live)."""
+    spec = dict(VISION, max_len=VISION["prompt"] + VISION["new"])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def build(cfg):
+        params = api.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+        params["cross"]["gate"] = xattn_gates(
+            cfg.num_layers // cfg.cross_attn_every, gen)
+        return params
+    cfg, eng, setup_s, setup_peak, wbytes = xattn_setup(dev, spec, build)
+    L, G = cfg.num_layers, cfg.num_layers // cfg.cross_attn_every
+    B, T0, new = spec["batch"], spec["prompt"], spec["new"]
+    rng = np.random.default_rng(spec["seed"])
+    prompts = rng.integers(1, cfg.vocab_size, (B, T0)).astype(np.int32)
+    fgen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    fe = torch.randn((B, cfg.frontend_tokens, cfg.d_model), generator=fgen,
+                     device=dev)
+    info, toks, dec = xattn_serve(eng, dev, spec, prompts, fe,
+                                  L + G + G * new, "vision_path")
+    sb, st, sn = spec["step"]
+    check(info["stepwise"]["launches"]["flash_attention"]
+          == G * (st - 1 + sn), f"vision_path stepwise launches "
+          f"{info['stepwise']['launches']}")
+    seq = torch.from_numpy(np.concatenate([prompts, toks], 1)).to(dev)
+    ops.reset_launch_counts()
+    fwd, _ = api.forward(eng.params, seq, cfg, frontend=fe)
+    torch.cuda.synchronize()
+    fwd_counts = ops.launch_counts()
+    check(fwd_counts["flash_attention"] == L + G,
+          f"vision_path forward launches {fwd_counts}")
+    check(bool(torch.isfinite(fwd).all()) and fwd.shape == (
+        B, T0 + new, cfg.vocab_size), "vision_path forward logits")
+    rep = forward_pick_report(fwd, dec, toks, T0)
+    check(rep["near_tie_ok"] and rep["max_abs_err"]
+          <= FWD_GAP_SHARE * rep["max_abs_logit"],
+          f"vision_path forward against decode: {rep}")
+    other = torch.randn(fe.shape, generator=fgen, device=dev) + 1.0
+    fwd2, _ = api.forward(eng.params, seq, cfg, frontend=other)
+    live = (fwd2 - fwd).abs().max().item()
+    del fwd, fwd2
+    check(live > rep["max_abs_err"], f"vision_path: another frontend moves "
+          f"the logits by {live} only")
+    launches = {k: info["launches"][k] + info["stepwise"]["launches"][k]
+                + fwd_counts[k] for k in fwd_counts}
+    prof = profile_generate(eng, dev, "vision_path", prompts, fe)
+    info.update({"phase": "vision_path", "config": cfg.name, "layers": L,
+                 "cross_blocks": G, "d_model": cfg.d_model,
+                 "heads": [cfg.num_heads, cfg.num_kv_heads],
+                 "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab_size,
+                 "frontend_tokens": cfg.frontend_tokens,
+                 "gates": eng.params["cross"]["gate"].tolist(),
+                 "setup_s": setup_s, "setup_peak_memory_bytes": setup_peak,
+                 "weight_bytes": wbytes,
+                 "flash_per_prefill": L + G, "flash_per_decode_step": G,
+                 "forward": {"tokens": [B, T0 + new],
+                             "launches": fwd_counts, "picks": rep,
+                             "other_frontend_max_abs_change": live},
+                 "launches_total": launches,
+                 "profile": {k: prof[k] for k in (
+                     "wall_ms_per_step", "device_ms_per_step",
+                     "device_busy_share", "host_ops_per_step")},
+                 "card": smi_line})
+    emit(info)
+    return eng, info
+
+
+def phase_encdec_path(dev, smi_line):
+    """seamless-m4t-medium at full width and depth (12 encoder and 12
+    decoder layers, d_model 1,024, 16/16 heads of 64, d_ff 4,096, vocab
+    256,206, 960 frontend frames), bf16 projections drawn per slice from a
+    seeded generator on the card: generate() on 4 prompts of 64 tokens
+    with 960-frame frontends, 32 new (12 flash launches per call: the
+    encoder, once per batch; its decode steps attend through the plain
+    decode_attention, as in the reference), a second call token-identical,
+    stepwise on 2 x 16 prompts with 8 new token-identical to fused; then
+    generate() on 2 prompts of 224 tokens with 32 new and forward on those
+    2 x 256 tokens (36 launches: 12 encoder, 12 causal self, 12 cross),
+    whose argmax at each generated position is the decoded token or a
+    near-tie; a second frontend changes the logits."""
+    fb, ft = ENCDEC["fwd"]
+    spec = dict(ENCDEC, max_len=ft)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cfg, eng, setup_s, setup_peak, wbytes = xattn_setup(
+        dev, spec, lambda cfg: api.init_params(cfg, gen, device=dev,
+                                               dtype=torch.bfloat16))
+    Le, Ld = cfg.num_encoder_layers, cfg.num_layers
+    B, T0, new = spec["batch"], spec["prompt"], spec["new"]
+    rng = np.random.default_rng(spec["seed"])
+    prompts = rng.integers(1, cfg.vocab_size, (B, T0)).astype(np.int32)
+    fgen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    fe = torch.randn((B, cfg.frontend_tokens, cfg.d_model), generator=fgen,
+                     device=dev)
+    info, _, _ = xattn_serve(eng, dev, spec, prompts, fe, Le, "encdec_path")
+    check(info["stepwise"]["launches"]["flash_attention"] == Le,
+          f"encdec_path stepwise launches {info['stepwise']['launches']}")
+    long = rng.integers(1, cfg.vocab_size, (fb, ft - new)).astype(np.int32)
+    ops.reset_launch_counts()
+    out, dec = _capture_decode_logits(
+        lambda: eng.generate(long, max_new=new, frontend=fe[:fb]))
+    long_counts = ops.launch_counts()
+    check(long_counts["flash_attention"] == Le,
+          f"encdec_path generate() launches {long_counts}")
+    seq = torch.from_numpy(np.concatenate([long, out["tokens"]], 1)).to(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    fwd, _ = api.forward(eng.params, seq, cfg, frontend=fe[:fb])
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_counts = ops.launch_counts()
+    check(fwd_counts["flash_attention"] == Le + 2 * Ld,
+          f"encdec_path forward launches {fwd_counts}")
+    check(bool(torch.isfinite(fwd).all()) and fwd.shape == (
+        fb, ft, cfg.vocab_size), "encdec_path forward logits")
+    rep = forward_pick_report(fwd, dec, out["tokens"], ft - new)
+    check(rep["near_tie_ok"] and rep["max_abs_err"]
+          <= FWD_GAP_SHARE * rep["max_abs_logit"],
+          f"encdec_path forward against decode: {rep}")
+    other = torch.randn(fe[:fb].shape, generator=fgen, device=dev) + 1.0
+    fwd2, _ = api.forward(eng.params, seq, cfg, frontend=other)
+    live = (fwd2 - fwd).abs().max().item()
+    del fwd, fwd2
+    check(live > rep["max_abs_err"], f"encdec_path: another frontend moves "
+          f"the logits by {live} only")
+    launches = {k: info["launches"][k] + info["stepwise"]["launches"][k]
+                + long_counts[k] + fwd_counts[k] for k in fwd_counts}
+    prof = profile_generate(eng, dev, "encdec_path", prompts, fe)
+    info.update({"phase": "encdec_path", "config": cfg.name,
+                 "encoder_layers": Le, "decoder_layers": Ld,
+                 "d_model": cfg.d_model,
+                 "heads": [cfg.num_heads, cfg.num_kv_heads],
+                 "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                 "vocab": cfg.vocab_size,
+                 "frontend_tokens": cfg.frontend_tokens,
+                 "setup_s": setup_s, "setup_peak_memory_bytes": setup_peak,
+                 "weight_bytes": wbytes,
+                 "flash_per_prefill_token": 0, "flash_per_decode_step": 0,
+                 "forward": {"tokens": [fb, ft], "launches": fwd_counts,
+                             "seconds": fwd_s,
+                             "tokens_per_s": fb * ft / fwd_s,
+                             "picks": rep,
+                             "other_frontend_max_abs_change": live},
+                 "launches_total": launches,
+                 "profile": {k: prof[k] for k in (
+                     "wall_ms_per_step", "device_ms_per_step",
+                     "device_busy_share", "host_ops_per_step")},
+                 "card": smi_line})
+    emit(info)
+    return eng, info
+
+
+def phase_times_xattn(dev, vinfo, einfo):
+    """The flash kernel at the cross-attention families' shapes, each held
+    against the plain version first, then timed by CUDA-graph replay: the
+    seamless encoder (12 launches, B 4, T 960, 16/16 heads of 64), the VLM's
+    cross blocks in a prefill (8 launches, B 4, Tq 127, Tk 1,600, 32/8 heads
+    of 128) and in a decode step (8 launches, Tq 1); non-causal.  The
+    library call is SDPA on the same tensors (with enable_gqa at 32/8)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    bf = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    detail, rows = [], {}
+    for key, n, (label, shape, opts), launched in (
+            ("encdec_encoder", einfo["encoder_layers"], XATTN_FLASH_CASES[0],
+             einfo["launches_total"]["flash_attention"]),
+            ("vision_cross_prefill", vinfo["cross_blocks"],
+             XATTN_FLASH_CASES[1],
+             vinfo["launches_total"]["flash_attention"]),
+            ("vision_cross_decode", vinfo["cross_blocks"],
+             XATTN_FLASH_CASES[2],
+             vinfo["launches_total"]["flash_attention"])):
+        launches = [flash_inputs(gen, dev, *shape, bf) for _ in range(n)]
+        q0, k0, v0 = launches[0]
+        got = ops.attention(q0, k0, v0, **opts).float()
+        plain = ref.flash_attention(q0, k0, v0, **opts).float()
+        err = (got - plain).abs()
+        check(bool((err <= bf16_ulp(plain) + 1e-5).all()),
+              f"flash at the {label} shape outside tolerance "
+              f"({err.max().item()})")
+
+        def run(fn, ls):
+            return lambda: [fn(q, k, v, **opts) for q, k, v in ls]
+        gqa = shape[1] != shape[2]
+        k_ms = graph_time_ms(run(ops.attention, launches), iters=20)
+        eager_ms = cuda_time_ms(run(ops.attention, launches), iters=3)
+        p_ms = graph_time_ms(run(ref.flash_attention, launches), iters=3)
+        lib_ms = yardstick_ms(
+            lambda: [sdpa(q, k, v, enable_gqa=gqa) for q, k, v in launches],
+            20, detail, f"flash_{key}_library")
+        bound_ms, bound_by = flash_bound(launches, causal=False)
+        B, Hq, Hkv, Tq, Tk, D = shape
+        rows[key] = {
+            "unit": f"{label}: {n} launches, B {B}, {Hq}/{Hkv} heads, D {D}, "
+                    f"Tq {Tq}, Tk {Tk}, non-causal, bf16, CUDA-graph replay",
+            "launches": launched, "ms": k_ms, "eager_ms": eager_ms,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "max_abs_err": err.max().item(),
+            "library_note": "scaled_dot_product_attention(enable_gqa="
+                            f"{gqa}) on the same tensors"}
+    emit({"phase": "times", "path": "vision_path, encdec_path", **rows,
+          "detail": detail})
+    return rows
+
+
+def run_xattn(dev, smi):
+    """The cross-attention phases: the reduced configs card against CPU,
+    vision_path, encdec_path, then the flash kernel's times at their
+    shapes."""
+    phase_reference_xattn(dev)
+    eng, vinfo = phase_vision_path(dev, smi)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, einfo = phase_encdec_path(dev, smi)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = phase_times_xattn(dev, vinfo, einfo)
+    emit({"xattn_summary": {
+        info["config"]: {**{key: info[key] for key in (
+            "decode_steps_per_s", "decode_tokens_per_s",
+            "prefill_tokens_per_s", "setup_peak_memory_bytes",
+            "peak_memory_bytes", "flash_per_call", "profile")},
+            "forward_picks_agree": [info["forward"]["picks"]["argmax_agree"],
+                                    info["forward"]["picks"]["n"]]}
+        for info in (vinfo, einfo)}, "card": smi})
+    return vinfo["launches_total"], einfo["launches_total"], rows
 
 
 def main(argv=None) -> int:
@@ -3499,7 +4109,15 @@ def main(argv=None) -> int:
         run_moe(dev, smi)
         emit({"subset": "moe", "done": True})
         return 0
-    check(not argv, f"unknown arguments {argv} (only `--only moe`)")
+    if argv == ["--only", "xattn"]:
+        # the same for the cross-attention families, with the flash
+        # kernel's checks at their shapes
+        phase_flash(dev, cases=XATTN_FLASH_CASES)
+        run_xattn(dev, smi)
+        emit({"subset": "xattn", "done": True})
+        return 0
+    check(not argv, f"unknown arguments {argv} (only `--only moe` or "
+          "`--only xattn`)")
     phase_sanitizer()
     errs = {"w4a8_matmul": phase_w4a8(dev),
             "paged_decode_attention": phase_paged(dev),
@@ -3518,6 +4136,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     eng, serve_info = phase_serve_path(dev, smi)
     phase_profile(eng, dev, "serve_path")
+    fwd_serve = phase_lm_forward(eng, dev, "serve_path")
     flash, paged_llama2 = phase_times_serve(dev, serve_info)
     kernels.append(flash)
     feng, feat_info = phase_features_path(eng, dev, smi)
@@ -3547,11 +4166,13 @@ def main(argv=None) -> int:
     flash_h, paged_h = phase_times_hymba(dev, hymba_info)
     eng, gemma2_info = phase_gemma2_path(dev, smi)   # after the others: 69 GB
     prof = phase_profile(eng, dev, "gemma2_path", slots=GEMMA2_SLOTS)
+    fwd_gemma2 = phase_lm_forward(eng, dev, "gemma2_path")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     flash_g, paged_g = phase_times_gemma2(dev, gemma2_info)
-    moe_launches, moe_rows = run_moe(dev, smi)
+    moe_launches, moe_rows, fwd_moe = run_moe(dev, smi)
+    vision_launches, encdec_launches, xattn_rows = run_xattn(dev, smi)
     emit({"gemma2_path_summary": {
         key: gemma2_info[key] for key in (
             "decode_steps_per_s", "decode_tokens_per_s",
@@ -3601,7 +4222,11 @@ def main(argv=None) -> int:
             "features_splitbrain": split_info["launches"][k["name"]],
             "chaos_path": chaos_launches[k["name"]],
             "hymba_path": hymba_info["launches"][k["name"]],
-            "moe_path": moe_launches[k["name"]]}
+            "moe_path": moe_launches[k["name"]],
+            "vision_path": vision_launches[k["name"]],
+            "encdec_path": encdec_launches[k["name"]],
+            "lm_forward": (fwd_serve[k["name"]] + fwd_gemma2[k["name"]]
+                           + fwd_moe[k["name"]])}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
     kernels[1]["llama2_decode_int8"] = paged_kv["int8"]
@@ -3614,6 +4239,8 @@ def main(argv=None) -> int:
     kernels[2]["phi_moe_prefill"] = moe_rows["a"][0]
     kernels[1]["qwen_moe_decode"] = moe_rows["b"][1]
     kernels[2]["qwen_moe_prefill"] = moe_rows["b"][0]
+    for key, row in xattn_rows.items():
+        kernels[2][key] = row
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

@@ -1,6 +1,6 @@
-"""The port's serving CLI: batched greedy decoding of an lm-family (dense or
-MoE), an rwkv or a hymba config with the float ``ServeEngine``, on the card
-unless asked otherwise.
+"""The port's serving CLI: batched greedy decoding of an lm-family (dense,
+MoE or cross-attention), an rwkv, a hymba or an encoder-decoder config with
+the float ``ServeEngine``, on the card unless asked otherwise.
 
   # on a machine with the card: llama2-7b at full size, random weights
   python -m repro_torch.launch.serve --arch llama2-7b --continuous \
@@ -20,6 +20,12 @@ unless asked otherwise.
       --smoke --device cpu --continuous --page-size 8 --prefix-cache on \
       --prefill-chunk 8 --kv-dtype int8
 
+  # the frontend configs (generate() only): a VLM, an encoder-decoder
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-11b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-medium --smoke --device cpu
+
   # online semantics: SLA classes, deadlines, SLA-aware preemption
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --smoke --device cpu --continuous --page-size 8 --priority 0,0,0,1 \
@@ -33,7 +39,10 @@ unless asked otherwise.
       --chaos-plan "step_corrupt_at=4,step_corrupt_iters=2,device_loss_at=10"
 
 Without ``--continuous`` it runs ``ServeEngine.generate`` on ``--batch``
-prompts of ``--prompt-len`` tokens; with it, ``--requests`` ragged prompts
+prompts of ``--prompt-len`` tokens (with, for a VLM or encoder-decoder
+config, a float32 ``frontend`` of ``frontend_tokens`` standard-normal
+vectors per prompt, drawn after the prompts from the same seeded
+generator, as the JAX package's CLI draws them); with it, ``--requests`` ragged prompts
 go through the continuous-batching scheduler over ``--slots`` slots (a page
 pool with ``--page-size`` where some cache leaf grows with the sequence,
 else a dense slot cache: rwkv's recurrent state, hymba's ring once the
@@ -51,7 +60,10 @@ The MoE configs at full depth do not fit one 80 GB card (phi3.5-moe-42b-a6.6b
 holds 2.6 GB of bf16 weights per layer, 83 GB at its 32 layers;
 qwen3-moe-235b-a22b 4.9 GB per layer at 94 layers): run them with
 ``--smoke`` here, and at full width on the card through ``chip_smoke.py``'s
-``moe_path``, which cuts their depth.
+``moe_path``, which cuts their depth.  llama-3.2-vision-11b and
+seamless-m4t-medium serve through ``generate()`` only: with
+``--continuous`` the CLI exits with the engine's refusal, as the JAX
+package's engine refuses their slot caches.
 """
 from __future__ import annotations
 
@@ -72,7 +84,8 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.faults import FaultInjector, FaultPlan
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 
-SERVED = ("lm", "rwkv", "hymba")   # families the float ServeEngine serves
+# families the float ServeEngine serves
+SERVED = ("lm", "rwkv", "hymba", "encdec")
 
 
 def _parse_chaos_plan(spec: str, ap: argparse.ArgumentParser) -> FaultPlan:
@@ -229,10 +242,11 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
-    # the lm family's projections are drawn straight into the compute dtype
-    # the engine serves them in (full-width gemma2-27b would not fit the
-    # card in float32)
-    kw = {"dtype": getattr(torch, cfg.dtype)} if cfg.family == "lm" else {}
+    # the lm and encdec families' projections are drawn straight into the
+    # compute dtype the engine serves them in (full-width gemma2-27b would
+    # not fit the card in float32)
+    kw = ({"dtype": getattr(torch, cfg.dtype)}
+          if cfg.family in ("lm", "encdec") else {})
     params = api.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed), device,
         **kw)
@@ -262,7 +276,10 @@ def main(argv=None):
             eng, max_slots=args.slots, eos_id=args.eos_id,
             prefill_chunk=args.prefill_chunk,
             preemption=args.preemption == "on", faults=faults)
-        out = sched.run(reqs)
+        try:
+            out = sched.run(reqs)
+        except ValueError as e:      # the engine refuses this config's slots
+            ap.error(f"--continuous --arch {args.arch}: {e}")
         report = {
             "arch": cfg.name,
             "device": str(device),
@@ -301,10 +318,14 @@ def main(argv=None):
 
     prompts = rng.integers(1, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
+    frontend = (rng.standard_normal(
+        (args.batch, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.frontend_tokens else None)
     eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new + 1,
                       device=device)
     del params
-    out = eng.generate(prompts, max_new=args.max_new, eos_id=args.eos_id)
+    out = eng.generate(prompts, max_new=args.max_new, frontend=frontend,
+                       eos_id=args.eos_id)
     print(json.dumps({
         "arch": cfg.name,
         "device": str(device),

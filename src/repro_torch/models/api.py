@@ -1,6 +1,6 @@
-"""Model API of the port: family dispatch (the lm, rwkv and hymba families),
-params, the whole-sequence forward, the serve path (cache, prefill,
-decode), LAQ model quantization, and the bridge that turns the JAX
+"""Model API of the port: family dispatch (the lm, rwkv, hymba and encdec
+families), params, the whole-sequence forward, the serve path (cache,
+prefill, decode), LAQ model quantization, and the bridge that turns the JAX
 package's params (as numpy) into the port's."""
 from __future__ import annotations
 
@@ -11,10 +11,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
-from repro_torch.models import hymba, rwkv6, transformer
+from repro_torch.models import encdec, hymba, rwkv6, transformer
 
 
-_FAMILIES = {"lm": transformer, "rwkv": rwkv6, "hymba": hymba}
+_FAMILIES = {"lm": transformer, "rwkv": rwkv6, "hymba": hymba,
+             "encdec": encdec}
 
 
 def family_module(cfg: ModelConfig):
@@ -28,28 +29,32 @@ def family_module(cfg: ModelConfig):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", **kw) -> Dict[str, Any]:
     """The family's random params; ``kw`` goes to its ``init_params`` (the
-    lm family's ``dtype`` of the projections)."""
+    ``dtype`` of the lm and encdec families' projections)."""
     return family_module(cfg).init_params(cfg, generator, device=device,
                                           **kw)
 
 
-def forward(params, tokens, cfg: ModelConfig):
+def forward(params, tokens, cfg: ModelConfig, frontend=None):
     """Whole-sequence logits: tokens (B, T) -> (logits (B, T, V) float32,
-    aux).  The rwkv and hymba families have it; the lm family's comes with
-    training (ROADMAP queue 1, item 11)."""
-    mod = family_module(cfg)
-    if not hasattr(mod, "forward"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the whole-sequence forward is not "
-            f"ported yet")
-    return mod.forward(params, tokens, cfg)
+    aux: a MoE config's load-balancing loss summed over its layers, else
+    0.0).  ``frontend`` (B, Tx, d): the stub modality embeddings of a VLM
+    or encoder-decoder config, which need it."""
+    kw = {} if frontend is None else {"frontend": frontend}
+    return family_module(cfg).forward(params, tokens, cfg, **kw)
 
 
 # ----------------------------------------------------------------------------
 # Serve path
 # ----------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    return family_module(cfg).init_cache(cfg, batch, max_len, device=device)
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, frontend=None,
+               params=None, device="cuda"):
+    """The family's zeroed serve cache; a VLM or encoder-decoder config
+    given ``frontend`` (batch, Tx, d) and its serving ``params`` also holds
+    the per-request cross K/V (the encoder runs here)."""
+    kw = ({} if frontend is None
+          else {"frontend": frontend, "params": params})
+    return family_module(cfg).init_cache(cfg, batch, max_len, device=device,
+                                         **kw)
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, *, write=None):
@@ -82,9 +87,9 @@ def prefill_bucketed(params, cache, tokens, true_len, cfg: ModelConfig):
     The lm family takes its block prefill when every cache leaf holds the
     prompt (one flash-attention launch per layer on the card).  Otherwise,
     as in the JAX package, the prompt goes through ``decode_step`` one token
-    at a time -- the prefill of rwkv and hymba (whose SSM state must not see
-    padding) -- over the true length only, so padding never reaches the
-    state."""
+    at a time -- the prefill of rwkv, hymba (whose SSM state must not see
+    padding) and encdec (no block prefill) -- over the true length only, so
+    padding never reaches the state."""
     mod = family_module(cfg)
     n = int(true_len)
     if hasattr(mod, "prefill") and mod.prefill_fits(cache, tokens.shape[1]):
@@ -194,7 +199,10 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     A quantized leaf is recognised by its ``codes`` / ``scales`` attributes
     (no import of the JAX package) and becomes a
     :class:`~repro_torch.core.quant.QuantizedLinear`; arrays become tensors
-    on ``device``; dict and list structure is kept."""
+    on ``device``; dict and list structure is kept, so every family's
+    layout carries over as it is (the lm family's ``(n_groups, group_size,
+    ...)`` and a VLM's ``cross`` blocks' ``(n_groups, ...)``, encdec's
+    ``(L, ...)``)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -1,0 +1,274 @@
+"""Encoder-decoder backbone (seamless-m4t-medium) in torch: a bidirectional
+encoder over stub modality embeddings (precomputed audio-frame vectors, the
+``frontend``) and a causal decoder with cross-attention.
+
+Params keep the JAX package's layout: ``enc_blocks`` and ``dec_blocks`` are
+stacked by layer, ``(L, ...)``.  The encoder and the whole-sequence
+``forward`` attend through ``ops.attention`` (the flash kernel on the card:
+non-causal over the frontend in the encoder, causal self-attention and
+non-causal cross-attention in the decoder).  Serving is the JAX package's:
+``init_cache`` runs the encoder once per request batch and projects every
+decoder layer's cross K/V; ``decode_step`` attends to its dense self cache
+and to the cross K/V with ``ops.decode_attention``, plain on every device
+as in the reference, so a decode step launches no kernel.  Caches are
+updated IN PLACE.  Numerics follow the compiled reference: each layer is a
+scan body, inside which the residual sums reach the next norm in float32
+(:func:`_residual`); the decode head product stays float32, ``forward``'s
+is rounded.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+# Batch axis of each serve-cache entry: K/V (L, B, Hkv, S, hd), len (B,),
+# cross K/V (L, B, Hkv, Tx, hd).
+BATCH_AXES = {"k": 1, "v": 1, "len": 0, "cross_k": 1, "cross_v": 1}
+
+
+def _dtype(cfg: ModelConfig):
+    return getattr(torch, cfg.dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda", dtype=torch.float32) -> Dict[str, Any]:
+    """Random params drawn from ``generator`` on ``device`` in the JAX
+    package's layout (its random bits differ; tests convert its params
+    instead): normal(0, 0.02) float32 embeddings, zero float32 norm scales,
+    uniform ``dense_init`` projections stored in ``dtype``, each drawn one
+    (layer, matrix) slice at a time."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+
+    def dense(n, in_dim, out_dim):
+        w = torch.empty((n, in_dim, out_dim), dtype=dtype, device=device)
+        for i in range(n):
+            w[i] = L.dense_init(in_dim, out_dim, generator, device=device)
+        return w
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    def attn(n):
+        return {"wq": dense(n, d, qd), "wk": dense(n, d, kvd),
+                "wv": dense(n, d, kvd), "wo": dense(n, qd, d)}
+
+    def mlp(n):
+        return {"w1": dense(n, d, f), "w3": dense(n, d, f),
+                "w2": dense(n, f, d)}
+
+    Le, Ld = cfg.num_encoder_layers, cfg.num_layers
+    embed = torch.empty((cfg.vocab_size, d), dtype=torch.float32,
+                        device=device)
+    embed.normal_(0.0, 1.0, generator=generator).mul_(0.02)
+    return {
+        "embed": embed,
+        "enc_blocks": {"ln_attn": zeros(Le, d), "ln_mlp": zeros(Le, d),
+                       "attn": attn(Le), "mlp": mlp(Le)},
+        "dec_blocks": {"ln_self": zeros(Ld, d), "ln_cross": zeros(Ld, d),
+                       "ln_mlp": zeros(Ld, d), "self": attn(Ld),
+                       "cross": attn(Ld), "mlp": mlp(Ld)},
+        "ln_enc": zeros(d),
+        "ln_final": zeros(d),
+        "lm_head": L.dense_init(d, cfg.vocab_size, generator,
+                                device=device).to(dtype),
+    }
+
+
+def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
+    """The serving engine's copy on ``device``: projections cast once to the
+    compute dtype, embedding and norm scales float32, and the LM head
+    rounded to the compute dtype and held in float32 (the operand of the
+    decode step's float32 head product; rounding is idempotent)."""
+    dtype = _dtype(cfg)
+
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if key.startswith("ln_"):
+            return node.to(device)
+        return node.to(device=device, dtype=dtype)
+
+    return {"embed": params["embed"].to(device),
+            "enc_blocks": walk(params["enc_blocks"]),
+            "dec_blocks": walk(params["dec_blocks"]),
+            "ln_enc": params["ln_enc"].to(device),
+            "ln_final": params["ln_final"].to(device),
+            "lm_head": params["lm_head"].to(device=device, dtype=dtype).to(
+                torch.float32)}
+
+
+def _layer(blocks, i):
+    """Layer ``i``'s params of a stacked block tree."""
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in blocks.items()}
+
+
+def _residual(x, a):
+    """``x + a`` as the compiled layer body computes it: (the residual
+    stream rounded to x's dtype, its float32 sum), the sum being what the
+    next norm inside the body reads (XLA's excess precision drops that
+    round trip)."""
+    s = x.to(torch.float32) + a.to(torch.float32)
+    return s.to(x.dtype), s
+
+
+def _norm(x, gamma, cfg: ModelConfig):
+    return L.rmsnorm(x, gamma, cfg.norm_eps).to(_dtype(cfg))
+
+
+def _attn(p, xn, cfg: ModelConfig, positions, **kw):
+    return L.attn_apply(p, xn, num_heads=cfg.num_heads,
+                        num_kv_heads=cfg.num_kv_heads,
+                        head_dim=cfg.resolved_head_dim, positions=positions,
+                        rope_theta=cfg.rope_theta, **kw)
+
+
+def _mlp_tail(p, x, s, cfg: ModelConfig):
+    """The FFN's pre-norm of the float32 sum ``s``, SwiGLU, residual add:
+    the layer's output (rounded: the scan carry)."""
+    y = _norm(s, p["ln_mlp"], cfg)
+    out = L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
+    return _residual(x, out)[0]
+
+
+def encode(params, frontend: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """frontend (B, Tx, d) stub audio embeddings -> (B, Tx, d): each layer
+    non-causal self-attention with rope (one flash launch on the card) and
+    the FFN, then ``ln_enc``."""
+    x = frontend.to(_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.num_encoder_layers):
+        p = _layer(params["enc_blocks"], i)
+        h = _attn(p["attn"], _norm(x, p["ln_attn"], cfg), cfg, positions,
+                  causal=False)
+        x, s = _residual(x, h)
+        x = _mlp_tail(p, x, s, cfg)
+    return _norm(x, params["ln_enc"], cfg)
+
+
+def _cross_kv(p, enc: torch.Tensor, cfg: ModelConfig):
+    """One decoder layer's cross K and V of the encoder output, each (B,
+    Hkv, Tx, hd)."""
+    B, Tx, _ = enc.shape
+    hd = cfg.resolved_head_dim
+
+    def heads(w):
+        return L.linear(enc, w).reshape(B, Tx, cfg.num_kv_heads,
+                                        hd).transpose(1, 2)
+
+    return heads(p["cross"]["wk"]), heads(p["cross"]["wv"])
+
+
+def _logits(params, x, cfg: ModelConfig, rounded: bool):
+    """Final norm and the LM head as a float32 product of compute-dtype
+    values.  The decode step's head must already hold compute-dtype values
+    in float32 (:func:`serve_params`), so no step copies it; ``rounded``
+    (``forward``, on any params tree) rounds the head here first and the
+    product to the compute dtype after, as the compiled forward does."""
+    head = params["lm_head"]
+    if rounded:
+        head = head.to(_dtype(cfg)).to(torch.float32)
+    logits = _norm(x, params["ln_final"], cfg).to(torch.float32) @ head
+    return logits.to(_dtype(cfg)).to(torch.float32) if rounded else logits
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend: Optional[torch.Tensor] = None):
+    """Teacher-forced decode over the whole target sequence: tokens (B, T)
+    and frontend (B, Tx, d) -> (logits (B, T, V) float32, 0.0).  The
+    encoder, then per decoder layer causal self-attention with rope and
+    non-causal cross-attention over that layer's projection of the encoder
+    output (three flash launches per layer pair on the card).  The
+    reference's ``remat`` and FSDP gathers change no value and are left
+    out."""
+    if frontend is None:
+        raise ValueError(f"{cfg.name}: forward needs the frontend")
+    enc = encode(params, frontend, cfg)
+    x = params["embed"][tokens.to(torch.int64)].to(_dtype(cfg))
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    for i in range(cfg.num_layers):
+        p = _layer(params["dec_blocks"], i)
+        h = _attn(p["self"], _norm(x, p["ln_self"], cfg), cfg, positions)
+        x, s = _residual(x, h)
+        h = _attn(p["cross"], _norm(s, p["ln_cross"], cfg), cfg, positions,
+                  kv=_cross_kv(p, enc, cfg))
+        x, s = _residual(x, h)
+        x = _mlp_tail(p, x, s, cfg)
+    return _logits(params, x, cfg, rounded=True), 0.0
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               frontend: Optional[torch.Tensor] = None,
+               params=None) -> Dict[str, Any]:
+    """Zeroed dense self-attention cache ``k`` / ``v`` (L, batch, Hkv,
+    max_len, hd) in the compute dtype and ``len`` (batch,) int32; given
+    ``frontend`` and ``params``, the encoder runs once (:func:`encode`) and
+    each decoder layer's cross K/V go into ``cross_k`` / ``cross_v`` (L,
+    batch, Hkv, Tx, hd)."""
+    hd, Ld = cfg.resolved_head_dim, cfg.num_layers
+    dtype = _dtype(cfg)
+    shape = (Ld, batch, cfg.num_kv_heads, max_len, hd)
+    cache: Dict[str, Any] = {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if frontend is not None and params is not None:
+        enc = encode(params, frontend, cfg)
+        shape = (Ld, batch, cfg.num_kv_heads, enc.shape[1], hd)
+        cache["cross_k"] = torch.empty(shape, dtype=dtype, device=device)
+        cache["cross_v"] = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(Ld):
+            cache["cross_k"][i], cache["cross_v"][i] = _cross_kv(
+                _layer(params["dec_blocks"], i), enc, cfg)
+    return cache
+
+
+def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
+                write: Optional[torch.Tensor] = None):
+    """One decode step on the dense cache, updated IN PLACE: tokens (B,) ->
+    (logits (B, V) float32, cache).  Per decoder layer the token's K/V go
+    to position ``len`` (``cfg.parallel.aligned_decode`` picks the lockstep
+    or the ragged write; ``write`` (B,) bool freezes rows where it is
+    False), self-attention over ``len + 1`` positions and cross-attention
+    over every cached cross position, both through the plain
+    ``ops.decode_attention`` (the reference's choice too)."""
+    if "cross_k" not in cache:
+        raise ValueError(
+            f"{cfg.name}: the cache holds the encoder's cross K/V: build it "
+            "with init_cache(..., frontend=, params=)")
+    B = tokens.shape[0]
+    hd, Hq = cfg.resolved_head_dim, cfg.num_heads
+    x = params["embed"][tokens.to(torch.int64)][:, None, :].to(_dtype(cfg))
+    pos = cache["len"]
+    positions = pos[:, None]
+    aligned = cfg.parallel.aligned_decode
+    Tx = cache["cross_k"].shape[3]
+    cross_len = torch.full((B,), Tx, dtype=torch.int32, device=x.device)
+    for i in range(cfg.num_layers):
+        p = _layer(params["dec_blocks"], i)
+        q, k, v = L.qkv_project(p["self"], _norm(x, p["ln_self"], cfg), Hq,
+                                cfg.num_kv_heads, hd)
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+        kc, vc = cache["k"][i], cache["v"][i]
+        L.cache_write(kc, k, pos, aligned, write)
+        L.cache_write(vc, v, pos, aligned, write)
+        o = ops.decode_attention(q, kc, vc, pos + 1)
+        x, s = _residual(x, L.linear(o.transpose(1, 2).reshape(B, 1, Hq * hd),
+                                     p["self"]["wo"]))
+        qx = L.linear(_norm(s, p["ln_cross"], cfg), p["cross"]["wq"]).reshape(
+            B, 1, Hq, hd).transpose(1, 2)
+        o = ops.decode_attention(qx, cache["cross_k"][i],
+                                 cache["cross_v"][i], cross_len)
+        x, s = _residual(x, L.linear(o.transpose(1, 2).reshape(B, 1, Hq * hd),
+                                     p["cross"]["wo"]))
+        x = _mlp_tail(p, x, s, cfg)
+    logits = _logits(params, x[:, 0], cfg, rounded=False)
+    cache["len"] += 1 if write is None else write.to(torch.int32)
+    return logits, cache

@@ -114,15 +114,27 @@ def attn_apply(p: dict, x: torch.Tensor, *, num_heads: int,
                num_kv_heads: int, head_dim: int, positions: torch.Tensor,
                rope_theta: float, window: Optional[int] = None,
                softcap: Optional[float] = None,
-               causal: bool = True) -> torch.Tensor:
+               causal: bool = True, kv: Optional[tuple] = None
+               ) -> torch.Tensor:
     """Full attention block over a whole sequence (the forward path): QKV
     projection, rope at ``positions``, ``ops.attention`` (the flash kernel
     on the card, its plain version on the CPU) with ``causal`` / ``window``
-    / ``softcap``, and the output projection.  x (B, T, d) -> (B, T, d)."""
+    / ``softcap``, and the output projection.  x (B, T, d) -> (B, T, d).
+
+    ``kv = (k, v)``, each (B, Hkv, Tk, hd), is cross-attention: keys and
+    values from another sequence, no rope, ``causal`` and ``window`` off.
+    The JAX package projects ``wk`` / ``wv`` of ``x`` there too and drops
+    them; the port skips those two products (the result is the same)."""
     B, T, _ = x.shape
-    q, k, v = qkv_project(p, x, num_heads, num_kv_heads, head_dim)
-    q = rope(q, positions, rope_theta)
-    k = rope(k, positions, rope_theta)
+    if kv is None:
+        q, k, v = qkv_project(p, x, num_heads, num_kv_heads, head_dim)
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    else:
+        q = linear(x, p["wq"]).reshape(B, T, num_heads,
+                                       head_dim).transpose(1, 2)
+        k, v = kv
+        causal, window = False, None
     o = ops.attention(q, k, v, causal=causal, window=window, softcap=softcap)
     o = o.transpose(1, 2).reshape(B, T, num_heads * head_dim)
     return linear(o, p["wo"])

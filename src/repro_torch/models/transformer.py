@@ -1,22 +1,28 @@
-"""Decoder-only Llama-family LM params (the lm family's dense FFN members).
+"""Decoder-only Llama-family LM: the lm family's dense, windowed (gemma2),
+MoE and cross-attention (VLM) members.
 
 Params are plain dicts of tensors with the JAX package's layout: every
 per-layer array has leading dims ``(n_groups, group_size, ...)`` from
-:func:`group_layout`, so a params tree converted from the JAX package
+:func:`group_layout`, and a VLM's cross-attention blocks ``params["cross"]``
+lead with ``n_groups`` (one block after each group of ``cross_attn_every``
+layers), so a params tree converted from the JAX package
 (``models/api.py::params_from_numpy``) and one made here have the same
-structure.  The float serve path is here: ``init_cache``, the block
-``prefill`` (flash attention over the prompt), the chunked prefill's block
-path ``prefill_chunk``, the dense ``decode_step`` and the
-``paged_decode_step`` through the page pool (a windowed layer's
-ring buffer, gemma2's local layers, stays dense beside the paged global
-layers), all updating the cache IN PLACE where the JAX package returned a
-new one.  Numerics follow the JAX package's compiled programs (XLA's
-excess precision, its tanh and its dot order; see ``_block_tail``,
-``_norm_input`` and ``_logits_head``): logits are bit-identical on the
-CPU.  A config with ``moe`` takes the MoE FFN (``models/moe.py``) in place
-of the dense one in every block.  The split-brain slice's token loop lives
-in ``serve/splitbrain_engine.py``; the full-sequence ``forward``, cross
-attention and the other families come with their slices.
+structure.  The whole-sequence ``forward`` and the float serve path are
+here: ``init_cache`` (with a VLM's ``frontend``, the cross K/V projected
+once per request), the block ``prefill`` (flash attention over the
+prompt), the chunked prefill's block path ``prefill_chunk``, the dense
+``decode_step`` and the ``paged_decode_step`` through the page pool (a
+windowed layer's ring buffer, gemma2's local layers, stays dense beside the
+paged global layers), all updating the cache IN PLACE where the JAX package
+returned a new one.  Numerics follow the JAX package's compiled programs
+(XLA's excess precision, its tanh and its dot order; see ``_block_tail``,
+``_norm_input``, ``_cross_apply`` and ``_logits_head``): logits are
+bit-identical on the CPU.  A config with ``moe`` takes the MoE FFN
+(``models/moe.py``) in place of the dense one in every block.  A
+cross-attention config runs through ``forward``, the block ``prefill`` and
+the dense ``decode_step`` only (the JAX package serves it through
+``generate()`` alone); the split-brain slice's token loop lives in
+``serve/splitbrain_engine.py``.
 """
 from __future__ import annotations
 
@@ -51,23 +57,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     exists at once: with ``dtype=torch.bfloat16`` full-width gemma2-27b
     takes 52 GB of projections where a float32 tree would take 104 GB.
     With ``cfg.moe`` a block holds ``moe`` (router and expert stacks,
-    ``moe.moe_init``, drawn the same way) instead of ``mlp``."""
-    if cfg.family != "lm" or cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: only the decoder-only lm family is ported so far")
+    ``moe.moe_init``, drawn the same way) instead of ``mlp``.  With
+    ``cfg.cross_attn_every`` the tree holds ``cross``: per group a norm
+    scale ``ln``, the projections ``attn`` and a scalar ``gate``, zero as
+    in the JAX package (which makes a fresh model's cross blocks add
+    nothing: ``tanh(0) = 0``)."""
+    if cfg.family != "lm":
+        raise NotImplementedError(f"{cfg.name}: not an lm-family config")
     n_groups, group_size = group_layout(cfg)
     hd = cfg.resolved_head_dim
     d, f = cfg.d_model, cfg.d_ff
     f32 = torch.float32
 
-    def dense(in_dim, out_dim):
-        w = torch.empty((n_groups, group_size, in_dim, out_dim), dtype=dtype,
-                        device=device)
-        for g in range(n_groups):
-            for j in range(group_size):
-                w[g, j] = L.dense_init(in_dim, out_dim, generator,
-                                       device=device)
+    def dense(in_dim, out_dim, lead=(n_groups, group_size)):
+        w = torch.empty(lead + (in_dim, out_dim), dtype=dtype, device=device)
+        for i in range(math.prod(lead)):
+            w.view((-1, in_dim, out_dim))[i] = L.dense_init(
+                in_dim, out_dim, generator, device=device)
         return w
+
+    def attn(lead=(n_groups, group_size)):
+        return {"wq": dense(d, cfg.num_heads * hd, lead),
+                "wk": dense(d, cfg.num_kv_heads * hd, lead),
+                "wv": dense(d, cfg.num_kv_heads * hd, lead),
+                "wo": dense(cfg.num_heads * hd, d, lead)}
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=f32, device=device)
@@ -79,10 +92,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "blocks": {
             "ln_attn": zeros(n_groups, group_size, d),
             "ln_mlp": zeros(n_groups, group_size, d),
-            "attn": {"wq": dense(d, cfg.num_heads * hd),
-                     "wk": dense(d, cfg.num_kv_heads * hd),
-                     "wv": dense(d, cfg.num_kv_heads * hd),
-                     "wo": dense(cfg.num_heads * hd, d)},
+            "attn": attn(),
         },
         "ln_final": zeros(d),
     }
@@ -96,6 +106,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(d, cfg.vocab_size, generator,
                                          device=device).to(dtype)
+    if cfg.cross_attn_every:
+        params["cross"] = {"ln": zeros(n_groups, d),
+                           "attn": attn((n_groups,)),
+                           "gate": zeros(n_groups)}
     return params
 
 
@@ -103,10 +117,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # KV cache, prefill and decode (lm block path)
 # ----------------------------------------------------------------------------
 # Batch axis of each serve-cache entry (the K/V lists share theirs): leaves
-# (n_groups, gs // P, B, Hkv, S, hd), len (B,).  Which leaves page is found
-# by the engine from two cache builds (``serve/pages.py::seq_axes``): every
-# K/V leaf but a windowed ring (gemma2's local layers).
-BATCH_AXES = {"k": 2, "v": 2, "len": 0}
+# (n_groups, gs // P, B, Hkv, S, hd), len (B,), a VLM's cross K/V
+# (n_groups, B, Hkv, Tx, hd).  Which leaves page is found by the engine from
+# two cache builds (``serve/pages.py::seq_axes``): every K/V leaf but a
+# windowed ring (gemma2's local layers).
+BATCH_AXES = {"k": 2, "v": 2, "len": 0, "cross_k": 1, "cross_v": 1}
 
 
 def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
@@ -119,7 +134,8 @@ def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
     is rounded once to the compute dtype and held in float32, the operand
     of :func:`_logits_head`'s float32 product, so no step copies or casts
     it; rounding is idempotent, so the embedding's gather-then-cast gives
-    the same bits as from the unrounded table."""
+    the same bits as from the unrounded table.  A VLM's cross blocks get
+    the same treatment: projections cast, norm scales and gates kept."""
     dtype = getattr(torch, cfg.dtype)
     blocks = params["blocks"]
 
@@ -139,6 +155,11 @@ def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
     if "lm_head" in params:
         out["lm_head"] = params["lm_head"].to(device=device, dtype=dtype).to(
             torch.float32)
+    if cfg.cross_attn_every:
+        cross = params["cross"]
+        out["cross"] = {"ln": cross["ln"].to(device),
+                        "attn": cast(cross["attn"]),
+                        "gate": cross["gate"].to(device)}
     return out
 
 
@@ -148,11 +169,19 @@ def prefill_fits(cache, prompt_len: int) -> bool:
     return all(a.shape[4] >= prompt_len for a in cache["k"])
 
 
-def _check_block_path(cfg: ModelConfig) -> None:
-    if cfg.family != "lm" or cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the lm block path covers decoder-only configs "
-            f"(cross-attention is not ported yet)")
+def _check_block_path(cfg: ModelConfig, cross_ok: bool = False) -> None:
+    """The lm family only; a cross-attention config only where ``cross_ok``
+    (``init_cache``, the block ``prefill`` and the dense ``decode_step``,
+    the JAX package's ``generate()`` path): the chunked prefill and the
+    paged step have no cross block, and the slot cache that would reach
+    them is refused, as in the reference."""
+    if cfg.family != "lm":
+        raise NotImplementedError(f"{cfg.name}: not an lm-family config")
+    if cfg.cross_attn_every and not cross_ok:
+        raise ValueError(
+            f"{cfg.name}: continuous batching covers the text-only families "
+            "(frontend_tokens / cross-attention configs are not "
+            "slot-servable)")
 
 
 def _layers(params, cfg: ModelConfig):
@@ -211,15 +240,83 @@ def _block_tail(pj, x, o, cfg: ModelConfig):
     before rounding (the next layer's norm input inside a group)."""
     B, T = x.shape[:2]
     o = o.transpose(1, 2).reshape(B, T, cfg.num_heads * cfg.resolved_head_dim)
-    s = x.to(torch.float32) + L.linear(o, pj["attn"]["wo"]).to(torch.float32)
+    x, h, _ = _residual_ffn(pj, x, L.linear(o, pj["attn"]["wo"]), cfg)
+    return x, h
+
+
+def _residual_ffn(pj, x, a, cfg: ModelConfig, need_aux: bool = False):
+    """The attention residual add of ``a`` (the attention block's output,
+    after ``wo``), the FFN's pre-norm on the unrounded float32 sum
+    (:func:`_block_tail`), the FFN and its residual add: (x, its float32
+    sum before rounding, the MoE ``aux`` or None)."""
+    s = x.to(torch.float32) + a.to(torch.float32)
     x = s.to(x.dtype)
     y = L.rmsnorm(s, pj["ln_mlp"], cfg.norm_eps).to(x.dtype)
+    aux = None
     if cfg.moe:
-        ffn, _ = moe_mod.moe_apply(pj["moe"], y, cfg.moe, need_aux=False)
+        ffn, aux = moe_mod.moe_apply(pj["moe"], y, cfg.moe,
+                                     need_aux=need_aux)
     else:
         ffn = L.swiglu(y, pj["mlp"]["w1"], pj["mlp"]["w3"], pj["mlp"]["w2"])
     h = x.to(torch.float32) + ffn.to(torch.float32)
-    return h.to(x.dtype), h
+    return h.to(x.dtype), h, aux
+
+
+def _group_end(cfg: ModelConfig, at, slot) -> bool:
+    """True after the last layer of a group: where a VLM's cross block
+    runs."""
+    P = len(cfg.layer_pattern)
+    return bool(cfg.cross_attn_every) and (
+        at[1] * P + slot == group_layout(cfg)[1] - 1)
+
+
+def _cross_kv(p, frontend: torch.Tensor, cfg: ModelConfig):
+    """Project stub modality embeddings (B, Tx, d) to one cross block's K and
+    V, each (B, Hkv, Tx, hd) in the compute dtype (a device-phase op)."""
+    B, Tx, _ = frontend.shape
+    hd = cfg.resolved_head_dim
+    x = frontend.to(getattr(torch, cfg.dtype))
+
+    def heads(w):
+        return L.linear(x, w).reshape(B, Tx, cfg.num_kv_heads,
+                                      hd).transpose(1, 2)
+
+    return heads(p["attn"]["wk"]), heads(p["attn"]["wv"])
+
+
+def _cross_apply(p, x, h, cross_kv, cfg: ModelConfig):
+    """The gated cross-attention block after a group: x (B, T, d) is the
+    residual stream and ``h`` its float32 sum before rounding (the group's
+    last layer's, :func:`_block_tail`), which the block's norm reads as the
+    JAX package's compiled programs do; attention over ``cross_kv`` through
+    ``layers.attn_apply(kv=)`` (no rope, not causal: the flash kernel on the
+    card, also at T = 1 in a decode step), then ``x + tanh(gate) * out``
+    with XLA's tanh of the float32 gate cast to the compute dtype.
+    Returns the new residual stream (the group's output, rounded)."""
+    dtype = x.dtype
+    xn = L.rmsnorm(h, p["ln"], cfg.norm_eps).to(dtype)
+    out = L.attn_apply(
+        p["attn"], xn, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        positions=None, rope_theta=cfg.rope_theta, kv=cross_kv)
+    return x + ref.tanh(p["gate"]).to(dtype) * out
+
+
+def _cross_params(params, g):
+    """Group ``g``'s cross block params."""
+    c = params["cross"]
+    return {"ln": c["ln"][g], "gate": c["gate"][g],
+            "attn": {k: w[g] for k, w in c["attn"].items()}}
+
+
+def _cross_at(params, cache, g):
+    """Group ``g``'s cross block params and its cached (K, V)."""
+    if "cross_k" not in cache:
+        raise ValueError(
+            "a cross-attention config's cache holds the frontend's cross "
+            "K/V: build it with init_cache(..., frontend=, params=)")
+    return _cross_params(params, g), (cache["cross_k"][g],
+                                      cache["cross_v"][g])
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -235,7 +332,8 @@ def _embed_decode(params, tokens: torch.Tensor, cfg: ModelConfig):
     return _embed(params, tokens, cfg)[:, None, :]
 
 
-def _logits_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _logits_head(params, x: torch.Tensor, cfg: ModelConfig,
+                 rounded: bool = False) -> torch.Tensor:
     """Shared logits tail: final norm, (tied) LM head, final softcap; float32
     logits.
 
@@ -249,12 +347,25 @@ def _logits_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     it.  The tied product is taken as ``(embed @ x^T)^T``: it reads the
     (V, d) table where it lies and sums each logit in the order of the
     reference's dot (``x @ embed^T`` on a transposed view sums in another
-    order on the CPU, a float32 ulp off on many of the logits)."""
+    order on the CPU, a float32 ulp off on many of the logits).
+
+    ``rounded`` (the whole-sequence ``forward``): the compiled forward
+    rounds the head product to the compute dtype before the float32
+    convert, and the head may be any params tree's (float32 draws,
+    compute-dtype leaves or the engine's copy), so it is rounded to the
+    compute dtype here first (idempotent on the engine's copy)."""
+    dtype = getattr(torch, cfg.dtype)
     x = L.rmsnorm(x, params["ln_final"], cfg.norm_eps).to(torch.float32)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if rounded:
+        head = head.to(dtype).to(torch.float32)
     if cfg.tie_embeddings:
-        logits = (params["embed"] @ x.T).T
+        logits = (head @ x.reshape(-1, x.shape[-1]).T).T.reshape(
+            x.shape[:-1] + (head.shape[0],))
     else:
-        logits = x @ params["lm_head"]
+        logits = x @ head
+    if rounded:
+        logits = logits.to(dtype).to(torch.float32)
     if cfg.final_softcap:
         # the compiled programs multiply by the cap's reciprocal (XLA
         # rewrites the division by a constant), then take XLA's tanh
@@ -264,12 +375,17 @@ def _logits_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", frontend: Optional[torch.Tensor] = None,
+               params=None) -> Dict[str, Any]:
     """Zeroed dense KV cache: per layer-pattern slot a K and a V leaf of
     shape ``(n_groups, group_size // P, batch, Hkv, S, hd)`` in the compute
     dtype (S = max_len, or the window for a windowed slot), and ``len``
-    (batch,) int32."""
-    _check_block_path(cfg)
+    (batch,) int32.  A cross-attention config given ``frontend`` (batch, Tx,
+    d) and ``params`` also holds ``cross_k`` / ``cross_v`` (n_groups, batch,
+    Hkv, Tx, hd): each group's cross projections of the frontend, made once
+    per request here (:func:`_cross_kv`), group by group into the leaves,
+    so each group's slice is contiguous for the flash kernel."""
+    _check_block_path(cfg, cross_ok=True)
     n_groups, group_size = group_layout(cfg)
     P = len(cfg.layer_pattern)
     hd = cfg.resolved_head_dim
@@ -282,8 +398,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                             cfg.num_kv_heads, S, hd), dtype=dtype,
                            device=device)
 
-    return {"k": [leaf(S) for S in sizes], "v": [leaf(S) for S in sizes],
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    cache = {"k": [leaf(S) for S in sizes], "v": [leaf(S) for S in sizes],
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.cross_attn_every and frontend is not None and params is not None:
+        Tx = frontend.shape[1]
+        shape = (n_groups, batch, cfg.num_kv_heads, Tx, hd)
+        cache["cross_k"] = torch.empty(shape, dtype=dtype, device=device)
+        cache["cross_v"] = torch.empty(shape, dtype=dtype, device=device)
+        for g in range(n_groups):
+            cache["cross_k"][g], cache["cross_v"][g] = _cross_kv(
+                _cross_params(params, g), frontend, cfg)
+    return cache
 
 
 def prefill(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
@@ -294,10 +419,12 @@ def prefill(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
     the cache with ``len += true_len``; ``true_len`` defaults to T).  Each
     layer writes its K/V into positions ``0..T-1`` of its cache leaf IN
     PLACE (one slice assignment) and runs causal self-attention over the
-    prompt through ``ops.attention`` -- the flash kernel on the card.
+    prompt through ``ops.attention`` -- the flash kernel on the card.  A
+    VLM runs its cross block after each group (:func:`_cross_apply`,
+    another flash launch over the cached cross K/V).
     Requires every cache leaf to hold T positions and an empty cache
     (``api.prefill`` checks both)."""
-    _check_block_path(cfg)
+    _check_block_path(cfg, cross_ok=True)
     B, T = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(T, device=x.device)
@@ -310,6 +437,9 @@ def prefill(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
         o = ops.attention(q, k, v, causal=True, window=spec.window,
                           softcap=cfg.softcap)
         x, h = _block_tail(pj, x, o, cfg)
+        if _group_end(cfg, at, slot):
+            cp, kv = _cross_at(params, cache, at[0])
+            x = _cross_apply(cp, x, h, kv, cfg)
     n = T if true_len is None else int(true_len)
     logits = _logits_head(params, x[:, n - 1], cfg)
     cache["len"] += n
@@ -326,8 +456,9 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     aligned_decode`` picks the lockstep write (every row at ``len[0]``,
     ``generate()``) or the ragged one (slot positions); ``write`` (B,) bool
     freezes the rows where it is False: their K/V and ``len`` keep their
-    values and their logits are garbage to be ignored."""
-    _check_block_path(cfg)
+    values and their logits are garbage to be ignored.  A VLM runs its
+    cross block after each group, the flash kernel at one query row."""
+    _check_block_path(cfg, cross_ok=True)
     x = _embed_decode(params, tokens, cfg)
     pos = cache["len"]
     positions = pos[:, None]
@@ -349,6 +480,9 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
             o = ops.decode_attention(q, kc, vc, pos + 1, window=spec.window,
                                      softcap=cfg.softcap)
         x, h = _block_tail(pj, x, o, cfg)
+        if _group_end(cfg, at, slot):
+            cp, kv = _cross_at(params, cache, at[0])
+            x = _cross_apply(cp, x, h, kv, cfg)
     logits = _logits_head(params, x[:, 0], cfg)
     cache["len"] += 1 if write is None else write.to(torch.int32)
     return logits, cache
@@ -447,3 +581,43 @@ def paged_decode_step(params, cache, table: torch.Tensor,
     logits = _logits_head(params, x[:, 0], cfg)
     cache["len"] += write.to(torch.int32)
     return logits, cache
+
+
+# ----------------------------------------------------------------------------
+# Forward: the whole sequence
+# ----------------------------------------------------------------------------
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend: Optional[torch.Tensor] = None):
+    """Whole-sequence logits: tokens (B, T) -> (logits (B, T, V) float32,
+    aux).  Every layer is ``layers.attn_apply`` (causal, the config's window
+    and softcap: one flash launch per layer on the card) and the FFN, with
+    the JAX package's compiled numerics (:func:`_norm_input`,
+    :func:`_residual_ffn`); a MoE config's ``aux`` is summed over the
+    layers (0.0 otherwise); a VLM runs its cross block after each group
+    over its frontend's cross K/V, projected here (:func:`_cross_kv`);
+    the head product is rounded, as the compiled forward rounds it.  The
+    reference's ``remat`` and FSDP gathers (training and sharding matters
+    that change no value) are left out."""
+    _check_block_path(cfg, cross_ok=True)
+    if cfg.cross_attn_every and frontend is None:
+        raise ValueError(f"{cfg.name}: forward needs the frontend")
+    T = tokens.shape[1]
+    dtype = getattr(torch, cfg.dtype)
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(T, device=x.device)
+    aux, h = 0.0, None
+    for spec, slot, at, pj in _layers(params, cfg):
+        xn = L.rmsnorm(_norm_input(x, h, at, slot), pj["ln_attn"],
+                       cfg.norm_eps).to(dtype)
+        a = L.attn_apply(pj["attn"], xn, num_heads=cfg.num_heads,
+                         num_kv_heads=cfg.num_kv_heads,
+                         head_dim=cfg.resolved_head_dim, positions=positions,
+                         rope_theta=cfg.rope_theta, window=spec.window,
+                         softcap=cfg.softcap)
+        x, h, layer_aux = _residual_ffn(pj, x, a, cfg, need_aux=True)
+        if cfg.moe:
+            aux = aux + layer_aux
+        if _group_end(cfg, at, slot):
+            cp = _cross_params(params, at[0])
+            x = _cross_apply(cp, x, h, _cross_kv(cp, frontend, cfg), cfg)
+    return _logits_head(params, x, cfg, rounded=True), aux

@@ -1,6 +1,7 @@
-"""Production serving engine for the lm family (its dense and MoE members,
-gemma2's windowed layers and softcaps included), the rwkv family and the
-hymba family: float weights, batched prefill and greedy decode, in torch.
+"""Production serving engine for the lm family (its dense, MoE and
+cross-attention members, gemma2's windowed layers and softcaps included),
+the rwkv family, the hymba family and the encoder-decoder family: float
+weights, batched prefill and greedy decode, in torch.
 
 The JAX package's ``ServeEngine`` compiles each request into two programs
 (one bucketed block prefill, one scan-fused decode loop).  The port runs
@@ -9,12 +10,18 @@ the same math eagerly:
   generate()    one prefill of the whole prompt body through
                 ``api.prefill_bucketed`` (for lm a block prefill whose
                 attention is the flash kernel on the card, one launch per
-                layer; for rwkv and hymba one ``decode_step`` per prompt
+                layer, and a VLM's cross blocks one more per group; for
+                rwkv, hymba and encdec one ``decode_step`` per prompt
                 token, as in the JAX package), then a Python loop of
                 ``api.decode_step`` on the dense cache in lockstep
                 (``fused=True``, one host sync at the end); ``fused=False``
                 feeds the prompt one ``decode_step`` per token and syncs
-                every token, as the reference's stepwise loop does.
+                every token, as the reference's stepwise loop does.  A VLM
+                or encoder-decoder config takes a ``frontend`` (stub
+                modality embeddings), from which ``api.init_cache``
+                projects the cross K/V once per call (encdec's encoder
+                runs there); such configs are served through
+                ``generate()`` only, as in the JAX package.
 
   slot protocol ``init_slot_cache`` / ``prefill_slot`` / ``insert_slot`` /
                 ``decode_slots`` / ``rebuild`` for the continuous-batching
@@ -83,8 +90,8 @@ from repro_torch.serve.errors import InvalidRequestError
 
 
 class ServeEngine(pages_mod.PagedEngineMixin):
-    """Greedy serving of an lm-family (dense or MoE), an rwkv or a hymba
-    config with float weights."""
+    """Greedy serving of an lm-family (dense, MoE or cross-attention), an
+    rwkv, a hymba or an encoder-decoder config with float weights."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 128,
                  fused: bool = True, page_size: Optional[int] = None,
@@ -92,10 +99,6 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                  paged_attn: str = "inplace", prefix_cache: str = "off",
                  kv_dtype: str = "bf16", device="cuda"):
         family = api.family_module(cfg)     # raises for an unported family
-        if cfg.cross_attn_every or cfg.frontend_tokens:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention and frontend configs are not "
-                f"ported to the ServeEngine yet")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the card's tokens equal the CPU's only under these settings
@@ -121,7 +124,7 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                          kv_dtype)
         # the lm block chunk path needs every cache slot linear (no ring)
         self._chunk_block_ok = (
-            cfg.family == "lm"
+            cfg.family == "lm" and not cfg.cross_attn_every
             and all(sp.window is None or sp.window >= max_len
                     for sp in cfg.layer_pattern))
 
@@ -175,10 +178,13 @@ class ServeEngine(pages_mod.PagedEngineMixin):
 
     # --------------------------------------------------------------- generate
     def generate(self, prompts: np.ndarray, max_new: int = 16,
-                 fused: Optional[bool] = None,
+                 frontend=None, fused: Optional[bool] = None,
                  eos_id: Optional[int] = None) -> Dict[str, Any]:
         """Greedy-decode a batch. prompts: (B, T0) int32.
 
+        ``frontend``: (B, Tx, d) stub modality embeddings (array or
+        tensor, taken as float32) of a VLM or encoder-decoder config, from
+        which the cache's cross K/V are projected once.
         ``eos_id``: per-request stop token.  Output rows are padded with
         ``eos_id`` past each request's stop, and ``gen_len`` reports the
         exact generated length (EOS inclusive, capped at ``max_new``).
@@ -188,6 +194,11 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         cfg = self.cfg
         prompts = np.asarray(prompts, np.int32)
         B, T0 = prompts.shape
+        if frontend is not None:
+            frontend = (frontend.to(self.device, torch.float32)
+                        if torch.is_tensor(frontend) else torch.as_tensor(
+                            np.asarray(frontend, np.float32),
+                            device=self.device))
         if fused and self._pad_rows:
             # the reference pads the batch to its bucket with copies of
             # row 0; the MoE FFN sees those rows too
@@ -200,6 +211,7 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                 f"max_new={max_new} needs {T0 - 1 + max_new} positions but "
                 f"max_len={self.max_len}")
         cache = api.init_cache(cfg, prompts.shape[0], self.max_len,
+                               frontend=frontend, params=self.params,
                                device=self.device)
         if not fused:
             return self._generate_stepwise(cache, prompts, max_new, eos_id)
@@ -283,7 +295,14 @@ class ServeEngine(pages_mod.PagedEngineMixin):
     def init_slot_cache(self, n_slots: int) -> Dict[str, Any]:
         """A fresh slot cache for ``n_slots`` concurrent streams: a page pool
         (and a reset host pager) with ``page_size``, else the dense
-        ``(n_slots, ...)`` cache."""
+        ``(n_slots, ...)`` cache.  A VLM or encoder-decoder config is
+        refused, as the JAX package refuses it: its requests carry a
+        frontend that the slot protocol has no place for."""
+        if self.cfg.frontend_tokens or self.cfg.cross_attn_every:
+            raise ValueError(
+                "continuous batching covers the text-only families "
+                "(frontend_tokens / cross-attention configs are not "
+                "slot-servable)")
         ba, sa = self._ba, self._sa
         like = api.init_cache(self.cfg, n_slots, self.max_len,
                               device=torch.device("meta"))

@@ -836,3 +836,105 @@ def test_moe_engine_on_card_matches_cpu(cuda):
     assert counts["flash_attention"] == L * len(reqs)
     assert counts["paged_decode_attention"] == L * out["steps"]
     assert toks["cuda"] == toks["cpu"]
+
+
+# ------------------------------------------------ cross-attention families
+# seamless-m4t-medium's encoder (non-causal self-attention over 960 frames,
+# 16/16 heads of 64) and llama-3.2-vision-11b's cross blocks (32/8 heads of
+# 128 over 1,600 frontend tokens, 127 prompt rows in a prefill and one row
+# in a decode step)
+XATTN_FLASH = [(4, 16, 16, 960, 960, 64), (2, 32, 8, 127, 1600, 128),
+               (4, 32, 8, 1, 1600, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(XATTN_FLASH)))
+def test_flash_kernel_at_cross_attention_shapes(cuda, case, dtype):
+    q, k, v = _flash_inputs(*XATTN_FLASH[case], dtype, cuda, seed=60 + case)
+    n0 = kfa.flash_attention.launches
+    out = ops.attention(q, k, v, causal=False)
+    plain = ref.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == n0 + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    else:
+        assert_within_bf16_ulp(out, plain.float().cpu().numpy(), atol=1e-5)
+
+
+def _xattn_model(arch):
+    """A reduced cross-attention config's params with its cross gates set
+    (0.7, -0.9: a zero gate hides the cross path) and seeded frontends."""
+    cfg = get_config(arch).reduced()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if cfg.cross_attn_every:
+        params["cross"]["gate"] = torch.tensor([0.7, -0.9])
+    fe = (np.random.default_rng(7).standard_normal(
+        (3, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.frontend_tokens else None)
+    return cfg, params, fe
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_frontend_generate_on_card_matches_cpu(cuda, arch):
+    """Reduced llama-3.2-vision-11b and seamless-m4t-medium: generate()
+    fused and stepwise on the card (kernels) and on the CPU (plain
+    versions) from the same weights and frontends give the same tokens.
+    Launches per call: the VLM one flash per layer and per cross block in
+    the prefill and one per cross block per decode step (at one query row),
+    stepwise one per cross block per step; seamless one per encoder layer
+    (its decode steps attend through the plain decode_attention)."""
+    cfg, params, fe = _xattn_model(arch)
+    prompts = np.stack([(np.arange(1, 10) * (3 + i)) % 256
+                        for i in range(3)]).astype(np.int32)
+    T0, new = prompts.shape[1], 6
+    toks, counts = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params, max_len=32, device=dev)
+        for fused in (True, False):
+            ops.reset_launch_counts()
+            out = eng.generate(prompts, max_new=new, frontend=fe,
+                               fused=fused)
+            counts[fused] = ops.launch_counts()["flash_attention"]
+            toks[dev, fused] = out["tokens"].tolist()
+    if cfg.cross_attn_every:
+        G = cfg.num_layers // cfg.cross_attn_every
+        assert counts[True] == cfg.num_layers + G + G * new
+        assert counts[False] == G * (T0 - 1 + new)
+    else:
+        assert counts[True] == counts[False] == cfg.num_encoder_layers
+    assert toks["cuda", True] == toks["cpu", True] == toks["cpu", False]
+    assert toks["cuda", False] == toks["cpu", False]
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "gemma2-27b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_forward_on_card_matches_cpu_and_counts_launches(cuda, arch):
+    """``api.forward`` on 3 x 24 tokens on the card and on the CPU from the
+    same engine weights: one flash launch per layer (and per VLM cross
+    block; seamless: encoder, causal self and cross per layer), logits
+    within two bf16 ulps of the largest and a differing pick a near-tie."""
+    cfg, params, fe = _xattn_model(arch)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        1, 256, (3, 24)).astype(np.int32))
+    fwd = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params, max_len=32, device=dev)
+        ops.reset_launch_counts()
+        f = torch.from_numpy(fe).to(dev) if cfg.frontend_tokens else None
+        fwd[dev] = api.forward(eng.params, toks.to(dev), cfg, frontend=f)[0] \
+            .reshape(-1, cfg.vocab_size).cpu()
+    want = cfg.num_layers
+    if cfg.cross_attn_every:
+        want += cfg.num_layers // cfg.cross_attn_every
+    if cfg.family == "encdec":
+        want = cfg.num_encoder_layers + 2 * cfg.num_layers
+    assert ops.launch_counts()["flash_attention"] == want
+    rep = pick_report(fwd["cpu"], fwd["cuda"], fwd["cuda"].argmax(-1))
+    tol = 2 * bf16_ulp_of(rep["max_abs_logit"])
+    assert rep["max_abs_err"] <= tol and rep["shortfall"] <= 2 * tol, rep

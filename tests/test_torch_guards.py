@@ -37,13 +37,17 @@ def test_static_scan_finds_no_jax_or_repro_import():
     assert not bad, bad
 
 
-# the jax-free modules the port copies, the hymba family and the MoE FFN
-# with its configs: they must be among the modules the scan imports
+# the jax-free modules the port copies, the hymba family, the MoE FFN and
+# the encoder-decoder family with their configs: they must be among the
+# modules the scan imports
 NEW_MODULES = ("repro_torch.serve.faults", "repro_torch.serve.server",
                "repro_torch.serve.disciplines", "repro_torch.models.hymba",
                "repro_torch.configs.hymba_1_5b", "repro_torch.models.moe",
                "repro_torch.configs.phi3_5_moe_42b_a6_6b",
-               "repro_torch.configs.qwen3_moe_235b_a22b")
+               "repro_torch.configs.qwen3_moe_235b_a22b",
+               "repro_torch.models.encdec",
+               "repro_torch.configs.seamless_m4t_medium",
+               "repro_torch.configs.llama_3_2_vision_11b")
 
 
 def test_importing_every_module_loads_no_jax_or_repro():

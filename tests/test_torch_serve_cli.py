@@ -1,7 +1,8 @@
 """The port's serving CLI, ``python -m repro_torch.launch.serve``, on the
 CPU at the reduced size: both modes print their JSON report, the KV-cache
-feature flags serve, flags of features the port does not have yet exit
-with "not ported yet", and the default device needs a card.  Imports neither JAX nor the JAX package."""
+feature flags serve, the frontend configs serve through generate() only,
+flags of features the port does not have yet exit with "not ported yet",
+and the default device needs a card.  Imports neither JAX nor the JAX package."""
 import json
 
 import pytest
@@ -78,9 +79,29 @@ def test_unported_flags_exit(flags, capsys):
 
 
 def test_unported_arch_exits(capsys):
+    """Every config of the registry is served now: a name outside it."""
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "seamless-m4t-medium", *SMOKE])
+        serve.main(["--arch", "t5-small", *SMOKE])
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_frontend_configs_serve_generate_only(arch, capsys):
+    """The VLM and the encoder-decoder config serve through generate() with
+    a seeded frontend, the same tokens on a second call; ``--continuous``
+    exits with the engine's refusal of their slot caches."""
+    args = ["--arch", arch, *SMOKE, "--batch", "3", "--prompt-len", "5"]
+    out = serve.main(args)
+    rep = _report(capsys)
+    assert rep["arch"] == arch + "-smoke" and rep["gen_len"] == [4] * 3
+    assert out["tokens"].shape == (3, 4)
+    assert (serve.main(args)["tokens"] == out["tokens"]).all()
+    _report(capsys)
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--arch", arch, *SMOKE, "--continuous"])
+    assert e.value.code == 2
+    assert "not slot-servable" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
