@@ -91,6 +91,32 @@ fails before printing any result):
              step, eq. 7-10 meter exact, a second run token-identical;
              then generate() on 4 prompts of 64 tokens with 32 new tokens:
              155 W4A8 launches per token step, its tokens/s
+  tp_path    tensor-parallel serving on two ranks of a torch.distributed
+             group sharing the one card over gloo (one process each; the
+             ranks' devices and backend from ``runtime.plan``): (a) the main
+             path at tp 2, full-width tinyllama-1.1b split-brain (22 layers,
+             LAQ W4A8 column blocks of wq/wk/wv/w1/w3 and the head, packed
+             per rank; wo/w2 whole), page 16, 8 slots, 8 of main_path's
+             requests with 32 new: tokens identical to main_path's (the tp 1
+             engine on the same requests), 155 W4A8 and 22 paged launches
+             per rank per token step, the meter's bytes per token eq.
+             7-10's, kv_shards 2; (b) the float ServeEngine, llama2-7b at
+             full width and 8 of its 32 layers (bf16 weights), 8 requests of
+             64-256 tokens with 16 new: 8 flash launches per prefill and 8
+             paged per decode step per rank, tokens against a tp 1 engine of
+             the same depth served here (identical, or parting only at a
+             near-tie, reported); (c) the paged kernel's TP dispatch: the
+             page-split LSE merge (Hkv 1, Hq 32, D 128, ps 16, B 8, lengths
+             up to 1,024) within phase_paged's bf16 bound of the plain
+             version, and the head cut (32/8 heads, the rank's 16/4) bit for
+             bit the unsharded kernel's heads and within the same bound of
+             the plain version on the rank's inputs.  The ranks' kernel
+             shapes are also held to the plain versions in the kernel
+             phases: w4a8 at (a)'s column blocks (W4A8_TP), paged at (a)'s
+             and (b)'s head-cut pools (PAGED_TP_CASES), flash at (b)'s
+             16/16-head prefill (FLASH_TP_CASES).  Per rank: wall time and
+             its parts' seconds, decode steps/s and its device busy share
+             over 5 profiled decode steps (its share of the card)
   serve_path full-width llama2-7b at 16 of its 32 layers (d_model 4096,
              bf16 weights from a seeded generator on the card), the float
              ServeEngine (page_size=16, max_len=1024) under the scheduler
@@ -288,7 +314,9 @@ fails before printing any result):
 ``python3 chip_smoke.py --only moe`` runs the device and build phases and
 the MoE phases alone, and prints neither the kernels line nor the ok line;
 ``--only xattn`` does the same for the cross-attention phases (with the
-flash phase's cases at their shapes).
+flash phase's cases at their shapes); ``--only tp`` for tp_path (with the
+w4a8, paged and flash phases' cases at its ranks' shapes; it then serves
+its tp 1 tokens of (a) itself).
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
@@ -423,7 +451,8 @@ def phase_sanitizer():
     A timeout fails the run."""
     tool = Path(build.find_nvcc()).parent / "compute-sanitizer"
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT / 'tests'}")
-    rows = {}
+    rows, procs = {}, {}
+    # both tools at once: each is a process of its own on the card
     for check_tool in ("memcheck", "racecheck"):
         if not tool.exists():
             rows[check_tool] = {"ran": False, "why": f"no {tool}"}
@@ -433,32 +462,44 @@ def phase_sanitizer():
                "-p", "no:cacheprovider"] + [
                f"{ROOT / 'tests' / 'test_torch_gpu.py'}::{t}"
                for t in SANITIZED_TESTS]
-        try:
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 timeout=SANITIZER_TIMEOUT_S, env=env,
-                                 cwd=ROOT)
-        except subprocess.TimeoutExpired:
-            check(False, f"compute-sanitizer {check_tool} timed out after "
-                         f"{SANITIZER_TIMEOUT_S} s")
-        out = res.stdout + res.stderr
-        tool_lines = [ln for ln in out.splitlines()
-                      if ln.startswith("=========")]
-        messages = [ln.strip("= ").strip() for ln in tool_lines]
-        messages = [m for m in messages if m and m != "COMPUTE-SANITIZER"]
-        passed = re.search(r"(\d+) passed", out)
-        n_passed = int(passed.group(1)) if passed else 0
-        unsupported = (bool(messages)
-                       and messages[0].startswith("Error: Device not supported")
-                       and n_passed == 0)
-        rows[check_tool] = {"ran": not unsupported, "rc": res.returncode,
-                            "passed": n_passed,
-                            "first_message": messages[:1],
-                            "summary": [ln for ln in tool_lines
-                                        if "SUMMARY" in ln]}
-        check(unsupported or (res.returncode == 0
-                              and n_passed == len(SANITIZED_TESTS)),
-              f"compute-sanitizer {check_tool}: rc {res.returncode}, "
-              f"{n_passed} passed, {tool_lines[:20]}")
+        procs[check_tool] = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)
+    deadline = time.monotonic() + SANITIZER_TIMEOUT_S
+    try:
+        for check_tool, proc in procs.items():
+            try:
+                stdout, stderr = proc.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                check(False, f"compute-sanitizer {check_tool} timed out "
+                             f"after {SANITIZER_TIMEOUT_S} s")
+            res = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                              stdout, stderr)
+            out = res.stdout + res.stderr
+            tool_lines = [ln for ln in out.splitlines()
+                          if ln.startswith("=========")]
+            messages = [ln.strip("= ").strip() for ln in tool_lines]
+            messages = [m for m in messages if m and m != "COMPUTE-SANITIZER"]
+            passed = re.search(r"(\d+) passed", out)
+            n_passed = int(passed.group(1)) if passed else 0
+            unsupported = (bool(messages) and messages[0].startswith(
+                "Error: Device not supported") and n_passed == 0)
+            rows[check_tool] = {"ran": not unsupported,
+                                "rc": res.returncode, "passed": n_passed,
+                                "first_message": messages[:1],
+                                "summary": [ln for ln in tool_lines
+                                            if "SUMMARY" in ln]}
+            check(unsupported or (res.returncode == 0
+                                  and n_passed == len(SANITIZED_TESTS)),
+                  f"compute-sanitizer {check_tool}: rc {res.returncode}, "
+                  f"{n_passed} passed, {tool_lines[:20]}")
+    finally:
+        # a failed check leaves no tool running
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     emit({"phase": "sanitizer", "tests": SANITIZED_TESTS, "tools": rows})
 
 
@@ -549,6 +590,9 @@ def phase_build():
 W4A8_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
                (2048, 32000)]
 W4A8_LLAMA2 = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+# tp_path (a)'s column blocks on each of its two ranks: tinyllama's wq,
+# wk / wv, w1 / w3 and head at (K, N / 2); wo and w2 stay whole
+W4A8_TP = [(2048, 1024), (2048, 128), (2048, 2816), (2048, 16000)]
 
 
 def w4a8_inputs(M, K, N, gen, dev):
@@ -580,11 +624,15 @@ def device_kernels(fn, attempts=3):
     return names
 
 
-def phase_w4a8(dev):
+def phase_w4a8(dev, shapes=None):
+    """The W4A8 kernel against its plain version, bit for bit, at every
+    (K, N) of ``shapes`` (default: every path's) with M 1 and 8."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [(M, K, N) for (K, N) in W4A8_SHAPES for M in (1, 8)]
-    cases += [(M, K, N) for (K, N) in W4A8_LLAMA2 for M in (1, 8)]
-    cases += [(5, 2048, 1003), (3, 100, 37), (13, 5632, 130)]
+    if shapes is None:
+        shapes = W4A8_SHAPES + W4A8_LLAMA2 + W4A8_TP
+    cases = [(M, K, N) for (K, N) in shapes for M in (1, 8)]
+    if shapes is not W4A8_TP:
+        cases += [(5, 2048, 1003), (3, 100, 37), (13, 5632, 130)]
     worst, per_call = 0.0, {}
     for M, K, N in cases:
         args = w4a8_inputs(M, K, N, gen, dev)
@@ -674,12 +722,21 @@ LLAMA2_SERVE = dict(LLAMA2, P=64, lens=[0, 1, 143, 208, 300, 431, 527, 1024])
 # at lengths that cross the local layers' 4096-token window
 GEMMA2 = dict(B=4, Hq=32, Hkv=16, D=128, ps=16, P=512,
               lens=[0, 1000, 4096, 4117])
+# tp_path's head-cut pools on each of its two ranks: (a) tinyllama's 16/2
+# heads on main_path's table, (b) llama2-7b's 16/16 on its serve table
+PAGED_TP_CASES = [
+    ("tinyllama tp 2 rank", dict(TINY, Hq=16, Hkv=2), torch.bfloat16, None,
+     {}),
+    ("llama2-7b serve tp 2 rank", dict(LLAMA2_SERVE, Hq=16, Hkv=16),
+     torch.bfloat16, None, {})]
 
 
-def phase_paged(dev):
+def phase_paged(dev, cases=None):
+    """The paged kernel against its plain version at every case (``cases``
+    given: those alone)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [("tinyllama", TINY, bf, None, {}),
+    every = [("tinyllama", TINY, bf, None, {}),
              ("tinyllama", TINY, bf, None, dict(window=40, softcap=30.0)),
              ("tinyllama", TINY, bf, "int8", {}),
              ("tinyllama", TINY, bf, "fp8", dict(softcap=30.0)),
@@ -694,6 +751,7 @@ def phase_paged(dev):
              ("gemma2-27b", GEMMA2, bf, None, dict(window=4096,
                                                    softcap=50.0)),
              ("gemma2-27b", GEMMA2, f32, None, dict(softcap=50.0))]
+    cases = every + PAGED_TP_CASES if cases is None else cases
     worst, rows = 0.0, []
     for name, geom, qd, kv, opts in cases:
         case = paged_inputs(gen, dev, qdtype=qd, kv=kv, **geom)
@@ -740,6 +798,10 @@ XATTN_FLASH_CASES = [
      dict(causal=False)),
     ("llama-3.2-vision-11b cross decode", (4, 32, 8, 1, 1600, 128),
      dict(causal=False))]
+# tp_path (b)'s block prefill on each of its two ranks: llama2-7b's 16/16
+# heads of 128 over prompts of 64-256 tokens
+FLASH_TP_CASES = [("llama2-7b tp 2 rank", (1, 16, 16, T, T, 128),
+                   dict(causal=True)) for T in (100, 256)]
 
 
 def phase_flash(dev, cases=None):
@@ -762,7 +824,7 @@ def phase_flash(dev, cases=None):
              ("gemma2-27b", (1, 32, 16, 4200, 4200, 128),
               dict(causal=True, window=4096, softcap=50.0))]
     if cases is None:
-        cases = llama + other + XATTN_FLASH_CASES
+        cases = llama + other + XATTN_FLASH_CASES + FLASH_TP_CASES
     worst, rows = 0.0, []
     for name, shape, opts in cases:
         for qd in (bf, f32):
@@ -1335,6 +1397,343 @@ def phase_serve_path(dev, smi_line):
             "card": smi_line}
     emit(info)
     return eng, info
+
+
+# ----------------------------------------------------------------- tp_path
+# Two ranks of a torch.distributed group share the one card over gloo (NCCL
+# refuses two ranks on one device), each a process of its own running the
+# same engine over its shard: (a) the main path's split-brain tinyllama,
+# (b) the float llama2-7b at TP_LAYERS of its 32 layers, (c) the paged
+# kernel's TP dispatch at the card's shapes.
+TP = 2
+TP_LAYERS = 8
+# (c): the page-split LSE merge (one KV head, whole on every rank) and the
+# head cut (32/8 heads, 4 KV heads a rank) on the serve path's table
+TP_MERGE = dict(B=8, Hq=32, Hkv=1, D=128, ps=16, P=64,
+                lens=[0, 1, 100, 255, 256, 517, 900, 1024])
+TP_HEADS = dict(TP_MERGE, Hkv=8)
+
+
+def tp_serve_requests(vocab, n=8, max_new=16):
+    rng = np.random.default_rng(SEED + 21)
+    return [Request(uid=i,
+                    prompt=rng.integers(1, vocab, int(rng.integers(64, 257)))
+                    .astype(np.int32),
+                    max_new=max_new) for i in range(n)]
+
+
+def tp_rank_profile(eng, slots=8, n=5):
+    """This rank's device time over ``n`` decode steps with every slot
+    decoding (prompts of 2 tokens, so that admission is one token step
+    each), and its busy share of the rank's wall time: its share of the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+    sched = ContinuousBatchingScheduler(eng, max_slots=slots)
+    sched.begin()
+    for r in main_requests(eng.cfg.vocab_size, n=slots, max_new=n + 6):
+        sched.submit(Request(uid=r.uid, prompt=r.prompt[:2],
+                             max_new=r.max_new))
+    while len(sched.decoding_uids()) < slots:
+        sched.step()
+    for _ in range(2):
+        sched.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    while sched.has_work():
+        sched.step()
+    s = profile_summary(prof, wall, n, "tp_path")
+    return {k: s[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                              "device_busy_share", "host_ops_per_step")}
+
+
+def tp_rank_serve(eng, reqs, warm_len):
+    """A warm-up run, then ``reqs`` under the scheduler with 8 slots, the
+    counts set to 0 just before and read just after.  Returns the run's
+    figures, its tokens by uid and its slot cache's stats."""
+    sched = ContinuousBatchingScheduler(eng, max_slots=8)
+    clock = PhaseClock(eng)
+    sched.warmup(prompt_len=warm_len, max_new=4)
+    clock.reset()
+    torch.cuda.synchronize()
+    eng.meter.reset()
+    ops.reset_launch_counts()
+    out = sched.run(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    PhaseClock.detach(eng)
+    res = sorted(out["results"], key=lambda r: r.uid)
+    max_new = {r.uid: r.max_new for r in reqs}
+    check(all(r.state == "DONE" and r.gen_len == max_new[r.uid]
+              for r in res),
+          f"tp_path: not every request DONE in full: {out['by_state']}")
+    check(out["quarantines"] == 0 and out["failed"] == 0,
+          "tp_path: the finite-logits sentinel flagged a step")
+    steps, prefill = out["steps"], out["prefill_tokens"]
+    tokens = prefill + out["decoded_tokens"]
+    meter = eng.meter.measured_bytes()["total"]
+    check(meter == traffic_model_for(eng.cfg).bytes_per_token() * tokens,
+          f"tp_path: meter {meter} != eq. 7-10 x {tokens} tokens")
+    return {"requests": len(reqs), "prefill_tokens": prefill,
+            "decode_steps": steps, "decoded_tokens": out["decoded_tokens"],
+            "launches": counts, "meter_bytes": meter,
+            "meter_bytes_per_token": meter / tokens,
+            "traffic_shards": eng.traffic_shards,
+            "kv_shards": eng.cache_stats(sched.cache)["kv_shards"],
+            "wall_s": out["wall_s"], "decode_s": clock.decode_s,
+            "admit_s": clock.admit_s,
+            "decode_steps_per_s": steps / clock.decode_s,
+            "decode_tokens_per_s": out["decoded_tokens"] / clock.decode_s,
+            }, [r.tokens.tolist() for r in res]
+
+
+def tp_paged_bound_ms(geom, hkv):
+    """The least time of one paged launch over ``hkv`` KV heads of
+    ``geom``'s bf16 pool: each live K and V row read once, q read and out
+    written once, at the HBM rate."""
+    rows = sum(geom["lens"])
+    q_heads = geom["Hq"] * hkv // geom["Hkv"]
+    nbytes = (2 * rows * hkv * geom["D"] * 2
+              + 2 * geom["B"] * q_heads * geom["D"] * 2)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def tp_rank_paged(group, dev):
+    """(c) on this rank: the merge (ops' TP dispatch over the whole pool)
+    and the head cut (the rank's 16 query and 4 KV heads) against the
+    unsharded kernel and the plain version, on the same seeded inputs on
+    both ranks.  Launches here are comparisons and are not counted."""
+    from repro_torch.distributed import sharding
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    out = {}
+    mcase = paged_inputs(gen, dev, qdtype=torch.bfloat16, **TP_MERGE)
+    merged = run_paged(mcase, ops.paged_decode_attention, tp=group)
+    whole = run_paged(mcase, kpa.paged_decode_attention)
+    torch.cuda.synchronize()
+    err, ulps, ok = paged_error(mcase, merged)
+    check(ok, f"tp_path (c): the merge is outside phase_paged's bf16 bound "
+              f"(max error {err}, {ulps} ulps)")
+    out["merge"] = {"max_abs_err_vs_plain": err, "max_err_bf16_ulps": ulps,
+                    "max_abs_diff_vs_unsharded_kernel":
+                        (merged.float() - whole.float()).abs().max().item(),
+                    "empty_slot_zero": not merged[0].any().item()}
+    case = paged_inputs(gen, dev, qdtype=torch.bfloat16, **TP_HEADS)
+    whole = run_paged(case, kpa.paged_decode_attention)
+    q = sharding.shard(case["q"], 1, group)
+    k, v = (sharding.shard(case[n], 2, group) for n in ("k", "v"))
+    cut = ops.paged_decode_attention(q, k, v, case["table"], case["lens"],
+                                     tp=group, head_cut=True)
+    own = kpa.paged_decode_attention(q, k, v, case["table"], case["lens"])
+    mine = sharding.shard(whole, 1, group)
+    torch.cuda.synchronize()
+    check(torch.equal(cut, mine), "tp_path (c): the head-cut kernel is not "
+          "bit-identical to the unsharded kernel's heads")
+    # the rank's heads against the plain version on the rank's inputs
+    cut_err, cut_ulps, ok = paged_error(dict(case, q=q, k=k, v=v), cut)
+    check(ok, f"tp_path (c): the head cut is outside phase_paged's bf16 "
+              f"bound (max error {cut_err}, {cut_ulps} ulps)")
+    plan = kpa.split_plan(TP_HEADS["ps"], TP_HEADS["P"],
+                          TP_HEADS["B"] * TP_HEADS["Hkv"], TP_HEADS["D"])
+    args = (q, k, v, case["table"], case["lens"])
+    whole_args = (case["q"], case["k"], case["v"], case["table"],
+                  case["lens"])
+    group.barrier()
+    out["head_cut"] = {
+        "bit_identical_to_unsharded": True,
+        "max_abs_err_vs_plain": cut_err, "max_err_bf16_ulps": cut_ulps,
+        "own_plan_max_abs_diff":
+            (own.float() - mine.float()).abs().max().item(),
+        "plan": list(plan),
+        "own_plan": list(kpa.split_plan(TP_HEADS["ps"], TP_HEADS["P"],
+                                        TP_HEADS["B"] * k.shape[2],
+                                        TP_HEADS["D"])),
+        # CUDA-event times per launch; both ranks time at once, so each
+        # shares the card with the other rank's launches
+        "rank_kernel_ms": cuda_time_ms(
+            lambda: kpa.paged_decode_attention(*args, plan=plan), 50),
+        "unsharded_kernel_ms": cuda_time_ms(
+            lambda: kpa.paged_decode_attention(*whole_args), 50),
+        # the K/V rows the lengths need, q and out, once: bytes-bound
+        "rank_bound_ms": tp_paged_bound_ms(TP_HEADS, k.shape[2]),
+        "unsharded_bound_ms": tp_paged_bound_ms(TP_HEADS, TP_HEADS["Hkv"])}
+    group.barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        run_paged(mcase, ops.paged_decode_attention, tp=group)
+    torch.cuda.synchronize()
+    out["merge"]["wall_ms_per_call"] = (time.perf_counter() - t0) / 20 * 1e3
+    return out
+
+
+def tp_rank(group, smi_line, t_spawn):
+    """One rank of tp_path: (a), (b), (c) in turn, each engine freed before
+    the next.  Every check raises here, which fails the run.  ``t_spawn``:
+    the parent's ``time.time()`` at the spawn, for the rank's start-up
+    seconds."""
+    dev = group.device
+    exact_matmuls()
+    t_rank = time.perf_counter()
+    res = {"rank": group.rank, "start_s": time.time() - t_spawn}
+    parts, mark = {}, [t_rank]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = now - mark[0]
+        mark[0] = now
+
+    # (a) the main path: split-brain tinyllama, W4A8 column blocks
+    cfg = get_config("tinyllama-1.1b")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    eng = SplitBrainEngine(cfg, params, max_len=256, page_size=16,
+                           quantize=True, device=dev, tp=group)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    heads = {n: tuple(w.codes.shape)
+             for n, w in eng._layers[0]["attn"].items()}
+    part("a_setup")
+    run, toks = tp_rank_serve(eng, main_requests(cfg.vocab_size, n=8), 8)
+    part("a_serve")
+    res["a"] = {**run, "setup_s": setup_s, "layer0_attn_codes": heads,
+                "head_codes": tuple(eng._head.codes.shape),
+                "profile": tp_rank_profile(eng), "tokens": toks}
+    part("a_profile")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the float engine: llama2-7b at TP_LAYERS layers, full width
+    cfg = dataclasses.replace(get_config("llama2-7b"), num_layers=TP_LAYERS)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev, dtype=torch.bfloat16)
+    eng = ServeEngine(cfg, params, max_len=512, page_size=16, device=dev,
+                      tp=group)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    part("b_setup")
+    run, toks = tp_rank_serve(eng, tp_serve_requests(cfg.vocab_size), 64)
+    part("b_serve")
+    res["b"] = {**run, "setup_s": setup_s,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "profile": tp_rank_profile(eng), "tokens": toks}
+    part("b_profile")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["c"] = tp_rank_paged(group, dev)
+    part("c")
+    res["wall_s"] = time.perf_counter() - t_rank
+    res["parts_s"] = parts
+    return res
+
+
+def phase_tp_path(dev, smi_line, clean=None):
+    """tp_path: two ranks on the one card; (a)'s tokens against ``clean``,
+    main_path's tokens of the same 8 requests (a split-brain request's
+    tokens do not depend on the others it is batched with; without
+    ``clean`` a tp 1 engine serves them here), (b)'s against a tp 1 engine
+    of the same depth built here."""
+    from repro_torch.distributed import runtime
+    t0 = time.perf_counter()
+    L = get_config("tinyllama-1.1b").num_layers
+    if clean is None:
+        cfg = get_config("tinyllama-1.1b")
+        params = api.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        eng = SplitBrainEngine(cfg, params, max_len=256, page_size=16,
+                               quantize=True, device=dev)
+        del params
+        out = ContinuousBatchingScheduler(eng, max_slots=8).run(
+            main_requests(cfg.vocab_size, n=8))
+        clean = [r.tokens.tolist() for r in out["results"]]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    backend, devices = runtime.plan(TP, dev)
+    ranks = runtime.spawn(tp_rank, TP, (smi_line, time.time()),
+                          backend=backend, devices=devices, timeout=900)
+    spawn_s = time.perf_counter() - t0
+    for r in ranks:
+        a = r["a"]
+        steps, prefill = a["decode_steps"], a["prefill_tokens"]
+        want = {"w4a8_matmul": (7 * L + 1) * (prefill + steps),
+                "paged_decode_attention": L * steps, "flash_attention": 0,
+                "rwkv6_scan": 0}
+        check(a["launches"] == want, f"tp_path (a) rank {r['rank']}: "
+              f"launches {a['launches']} != {want}")
+        check(a["tokens"] == clean, f"tp_path (a) rank {r['rank']}: tokens "
+              f"differ from the tp 1 engine's")
+        check(a["kv_shards"] == TP and a["traffic_shards"] == TP,
+              f"tp_path (a): kv_shards {a['kv_shards']}")
+        check(a["meter_bytes_per_token"]
+              == traffic_model_for(get_config("tinyllama-1.1b"))
+              .bytes_per_token(), "tp_path (a): meter bytes per token")
+        b = r["b"]
+        want = {"w4a8_matmul": 0, "flash_attention": TP_LAYERS * b["requests"],
+                "paged_decode_attention": TP_LAYERS * b["decode_steps"],
+                "rwkv6_scan": 0}
+        check(b["launches"] == want, f"tp_path (b) rank {r['rank']}: "
+              f"launches {b['launches']} != {want}")
+        check(b["kv_shards"] == TP, f"tp_path (b): kv_shards {b['kv_shards']}")
+    check(ranks[0]["b"]["tokens"] == ranks[1]["b"]["tokens"],
+          "tp_path (b): the ranks decoded different tokens")
+    # (b)'s tp 1 engine: the same depth, weights and requests
+    cfg = dataclasses.replace(get_config("llama2-7b"), num_layers=TP_LAYERS)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev, dtype=torch.bfloat16)
+    eng = ServeEngine(cfg, params, max_len=512, page_size=16, device=dev)
+    del params
+    reqs = tp_serve_requests(cfg.vocab_size)
+    out = ContinuousBatchingScheduler(eng, max_slots=8).run(reqs)
+    one = [r.tokens.tolist() for r in sorted(out["results"],
+                                             key=lambda r: r.uid)]
+    ties = []
+    for r, want, got in zip(reqs, one, ranks[0]["b"]["tokens"]):
+        rep = tie_report(serve_logits_fn(eng), r.prompt, want, got)
+        if rep is not None:
+            rep["uid"] = r.uid
+            ties.append(rep)
+            check(rep["near_tie"], f"tp_path (b): request {r.uid} left the "
+                  f"tp 1 tokens at a pick that is no near-tie: {rep}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_rank = []
+    for r in ranks:
+        row = {"rank": r["rank"], "wall_s": r["wall_s"],
+               "start_s": r["start_s"], "parts_s": r["parts_s"]}
+        for part in ("a", "b"):
+            row[part] = {k: v for k, v in r[part].items() if k != "tokens"}
+        row["c"] = r["c"]
+        per_rank.append(row)
+    info = {"phase": "tp_path", "tp": TP, "backend": backend,
+            "devices": devices, "ranks": per_rank,
+            "a": {"config": "tinyllama-1.1b", "layers": L,
+                  "tokens_identical_to_tp1": True,
+                  "launches_per_token_step": {"w4a8_matmul": 7 * L + 1,
+                                              "paged_decode_attention": L}},
+            "b": {"config": "llama2-7b", "layers": TP_LAYERS,
+                  "tokens_identical_to_tp1": not ties,
+                  "first_divergences": ties},
+            "c": {"merge": TP_MERGE, "head_cut": TP_HEADS},
+            "seconds": time.perf_counter() - t0, "spawn_s": spawn_s,
+            "card": smi_line}
+    emit(info)
+    info["launches"] = {k: ranks[0]["a"]["launches"][k]
+                        + ranks[0]["b"]["launches"][k]
+                        for k in ranks[0]["a"]["launches"]}
+    return info
 
 
 FEATURE_PAGE, FEATURE_LEN, FEATURE_CHUNK, FEATURE_SLOTS = 16, 1024, 64, 8
@@ -4109,6 +4508,15 @@ def main(argv=None) -> int:
         run_moe(dev, smi)
         emit({"subset": "moe", "done": True})
         return 0
+    if argv == ["--only", "tp"]:
+        # the tensor-parallel phase alone (its tp 1 tokens served here),
+        # with the kernels' checks at its ranks' shapes
+        phase_w4a8(dev, shapes=W4A8_TP)
+        phase_paged(dev, cases=PAGED_TP_CASES)
+        phase_flash(dev, cases=FLASH_TP_CASES)
+        phase_tp_path(dev, smi)
+        emit({"subset": "tp", "done": True})
+        return 0
     if argv == ["--only", "xattn"]:
         # the same for the cross-attention families, with the flash
         # kernel's checks at their shapes
@@ -4116,8 +4524,8 @@ def main(argv=None) -> int:
         run_xattn(dev, smi)
         emit({"subset": "xattn", "done": True})
         return 0
-    check(not argv, f"unknown arguments {argv} (only `--only moe` or "
-          "`--only xattn`)")
+    check(not argv, f"unknown arguments {argv} (only `--only moe`, "
+          "`--only xattn` or `--only tp`)")
     phase_sanitizer()
     errs = {"w4a8_matmul": phase_w4a8(dev),
             "paged_decode_attention": phase_paged(dev),
@@ -4134,6 +4542,7 @@ def main(argv=None) -> int:
     del eng                          # release tinyllama before llama2-7b
     gc.collect()
     torch.cuda.empty_cache()
+    tp_info = phase_tp_path(dev, smi, main_info["_tokens"][:8])
     eng, serve_info = phase_serve_path(dev, smi)
     phase_profile(eng, dev, "serve_path")
     fwd_serve = phase_lm_forward(eng, dev, "serve_path")
@@ -4226,7 +4635,8 @@ def main(argv=None) -> int:
             "vision_path": vision_launches[k["name"]],
             "encdec_path": encdec_launches[k["name"]],
             "lm_forward": (fwd_serve[k["name"]] + fwd_gemma2[k["name"]]
-                           + fwd_moe[k["name"]])}
+                           + fwd_moe[k["name"]]),
+            "tp_path": tp_info["launches"][k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
     kernels[1]["llama2_decode_int8"] = paged_kv["int8"]

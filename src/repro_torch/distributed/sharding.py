@@ -1,0 +1,289 @@
+"""The serve sharding rules of the JAX package's ``distributed/sharding.py``,
+for one process per model shard.
+
+The JAX package maps each leaf's path to a ``PartitionSpec`` on a
+``("data", "model")`` mesh; the port keeps its serve rules as they are and
+returns, for each leaf, the dim that the tensor-parallel group cuts (the
+one that the spec puts on ``"model"``), or ``None`` where every rank holds
+the whole leaf.  The copied rules:
+
+  * params (:func:`param_cuts`): the column-only serve transform of
+    ``_PARAM_RULES`` (``serve_param_pspecs``): ``wq`` / ``wk`` / ``wv`` /
+    ``w1`` / ``w3`` and the recurrent projections of ``_COL`` cut on their
+    output dim, ``lm_head`` / ``head`` on the vocabulary; the row-parallel
+    weights (``wo``, ``w2``, ``_ROW``), ``embed``, ``A_log`` and the norms
+    whole on every rank.  A QuantizedLinear's codes cut like its weight and
+    its per-channel scales on their last dim.  The split-brain engine
+    takes the same column-only cut: the JAX package gives it the full
+    Megatron row cuts, whose exact cross-rank sum would need the W4A8
+    kernel's int32 partial sums; a column block of the kernel's output is
+    bit-identical to the full product's columns;
+  * slot caches (:func:`serve_cache_cuts`, ``_SERVE_CACHE_RULES``): K/V on
+    their KV-head dim, rwkv's WKV state on heads, its token-shift carries
+    and hymba's SSM state on channels;
+  * page pools (:func:`pool_cuts`, ``_POOL_CACHE_RULES``): a paging leaf
+    ``(..., num_pages, page_size, Hkv, hd)`` on Hkv, a quantized pool's
+    per-page scales on their Hkv dim; :func:`pool_kv_cut` is the pool's
+    effective head cut.
+
+The engines allocate a rank's slot caches and pools from these cuts alone
+(:func:`rank_zeros`), with one named exception: rwkv's token-shift carries
+``x_tm`` / ``x_cm``, which the rules cut on channels, stay whole.
+
+Every cut is shape-checked as ``_fit`` does: a dim that the group's size
+does not divide stays whole, which is the Hkv < tp fallback.
+
+:func:`shard` takes a rank's block of a leaf, and :func:`gather` is
+``pin_tp_exact``: the all-gather of a column-cut activation, which moves
+bits and adds nothing.  The training rules (``param_pspecs`` with FSDP,
+``gather_fsdp``, ``pin_batch``, ``batch_pspecs``, ``logits_pspec``) are
+not here: they belong to the training slice.
+"""
+from __future__ import annotations
+
+import re
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.quant import QuantizedLeaf, QuantizedLinear
+from repro_torch.distributed.runtime import TPGroup, size_of
+
+# param-name -> logical spec on the trailing dims, as in the JAX package
+_COL = ("fsdp", "model")     # (d_in, out): out split over TP
+_ROW = ("model", "fsdp")     # (in, d_out): in split over TP
+_PARAM_RULES: Sequence[Tuple[str, Tuple[Optional[str], ...]]] = (
+    (r".*moe/w[13]$", ("expert", "fsdp", None)),
+    (r".*moe/w2$", ("expert", None, "fsdp")),
+    (r".*moe/router$", ("fsdp", None)),
+    (r".*/(wq|wk|wv|w1|w3|cm_k|w_in|w_delta|wg|wr|w_lora_a|w_B|w_C)$", _COL),
+    (r".*/(wo|w2|cm_v|w_out|w_delta_up|w_lora_b)$", _ROW),
+    (r".*/A_log$", ("model", None)),
+    (r"^embed$", ("model", "fsdp")),
+    (r"^lm_head$", ("fsdp", "model")),
+    (r"(^|.*/)head$", ("fsdp", "model")),
+    (r".*/u$", (None, None)),
+)
+
+_SERVE_CACHE_RULES: Sequence[Tuple[str, Tuple[Optional[str], ...]]] = (
+    (r".*(^|/)(k|v|cross_k|cross_v)(/\d+)?$", ("batch", "model", None, None)),
+    (r".*wkv$", ("batch", "model", None, None)),      # rwkv state (L,B,H,D,D)
+    (r".*x_(tm|cm)$", ("batch", "model")),             # rwkv shift state (L,B,d)
+    (r".*ssm$", ("batch", "model", None)),             # hymba ssm (L,B,d,N)
+    (r".*len$", ("batch",)),
+)
+
+_POOL_CACHE_RULES: Sequence[Tuple[str, Tuple[Optional[str], ...]]] = (
+    (r".*(^|/)(k|v|cross_k|cross_v)(/\d+)?$", (None, None, "model", None)),
+)
+
+
+def _match(rules, key: str):
+    for pattern, spec in rules:
+        if re.match(pattern, key):
+            return spec
+    return None
+
+
+def _fit(spec_tail, shape, tp: int) -> Optional[int]:
+    """The dim of ``shape`` that ``spec_tail`` (padded on the left to the
+    rank of ``shape``) puts on "model", if ``tp`` divides it; else None.
+    The group has no other axis: "batch", "fsdp" and "seq" place nothing."""
+    ndim = len(shape)
+    tail = list(spec_tail[-ndim:]) if len(spec_tail) > ndim else list(spec_tail)
+    full = [None] * (ndim - len(tail)) + tail
+    for i, (dim, logical) in enumerate(zip(shape, full)):
+        if logical in ("model", "expert") and tp > 1 and dim % tp == 0:
+            return i
+    return None
+
+
+def _column_only(spec):
+    """The serve transform: "model" survives only on the last dim."""
+    last = len(spec) - 1
+    return tuple(None if (s in ("model", "expert") and i != last) else s
+                 for i, s in enumerate(spec))
+
+
+def _map_paths(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over a nested dict / list tree, keeping its
+    structure; a path joins keys and list indices with "/"."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_paths(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
+def param_cuts(params, tp: int):
+    """Per leaf of a params tree (float tensors or QuantizedLinear), the dim
+    that ``tp`` ranks cut under the column-only serve rules, or None; a
+    QuantizedLinear gets ``(codes dim, scales dim)``.  Leaves without a
+    shape (the TP group itself) stay whole."""
+    def cut(path, leaf):
+        spec = _match(_PARAM_RULES, path)
+        if isinstance(leaf, QuantizedLinear):
+            if spec is None:
+                return (None, None)
+            spec = _column_only(spec)
+            return (_fit(spec, leaf.codes.shape, tp),
+                    _fit(spec[-1:], leaf.scales.shape, tp))
+        if spec is None or not hasattr(leaf, "shape"):
+            return None
+        return _fit(_column_only(spec), leaf.shape, tp)
+
+    return _map_paths(cut, params)
+
+
+def serve_cache_cuts(cache, tp: int):
+    """Per leaf of a dense serve cache, the dim that ``tp`` ranks cut under
+    the serve cache rules (``serve_cache_pspecs``), or None."""
+    def cut(path, leaf):
+        spec = _match(_SERVE_CACHE_RULES, path)
+        return None if spec is None else _fit(spec, leaf.shape, tp)
+
+    return _map_paths(cut, cache)
+
+
+def pool_cuts(pool, seq_axes, tp: int):
+    """Per leaf of a paged slot cache (``serve/pages.py::make_pool``), the
+    cut dim (``pool_pspecs``): a paging leaf (its ``seq_axes`` entry >= 0)
+    takes the pool rule, its KV-head dim, and a QuantizedLeaf gets ``(codes
+    dim, scales dim)`` with the scales cut on their own Hkv dim (the last);
+    every other leaf takes the serve cache rules."""
+    def cut(path, leaf):
+        name = path.split("/")[0]
+        axes = seq_axes[name]
+        s_ax = axes[int(path.split("/")[1])] if isinstance(axes, list) else axes
+        paged = s_ax >= 0
+        spec = _match(_POOL_CACHE_RULES if paged else _SERVE_CACHE_RULES, path)
+        if isinstance(leaf, QuantizedLeaf):
+            if spec is None:
+                return (None, None)
+            return (_fit(spec, leaf.codes.shape, tp),
+                    _fit((None, "model"), leaf.scales.shape, tp))
+        return None if spec is None else _fit(spec, leaf.shape, tp)
+
+    return _map_paths(cut, pool)
+
+
+def pool_kv_cut(cuts, seq_axes, tp: int) -> int:
+    """The pool's effective KV-head cut: ``tp`` when every paging leaf is cut
+    (codes and scales of a quantized one), else 1: a whole leaf would break
+    the per-shard byte accounting."""
+    if tp <= 1:
+        return 1
+    flags = []
+    for name, axes in seq_axes.items():
+        entry = cuts[name]
+        leaves = entry if isinstance(entry, list) else [entry]
+        axes = axes if isinstance(axes, list) else [axes] * len(leaves)
+        for c, s_ax in zip(leaves, axes):
+            if s_ax >= 0:
+                flags.append(all(d is not None for d in c)
+                             if isinstance(c, tuple) else c is not None)
+    return tp if all(flags) else 1
+
+
+# Leaves that every rank keeps whole though the serve cache rules cut them:
+# rwkv's token-shift carries are the whole pre-normed inputs of the next
+# step's token mix, so a cut would only force a gather there (storage, not
+# arithmetic)
+_HELD_WHOLE = r"(^|.*/)x_(tm|cm)$"
+
+
+def rank_zeros(like, cuts, tp: Optional[TPGroup], device):
+    """A rank's zeroed state: every leaf of ``like`` (a tree of tensors --
+    ``meta`` ones are fine -- or QuantizedLeafs, at the whole shapes) with
+    the dim that ``cuts`` names for it (:func:`serve_cache_cuts` or
+    :func:`pool_cuts` of ``like``) divided by the group's size, except the
+    leaves held whole (``_HELD_WHOLE``); on ``device``.  This is the one
+    place where a rank's cache and pool layouts are decided."""
+    n = size_of(tp)
+    flat = {}
+    _map_paths(lambda path, c: flat.__setitem__(path, c), cuts)
+
+    def zeros(t, dim):
+        shape = list(t.shape)
+        if dim is not None:
+            shape[dim] //= n
+        return torch.zeros(shape, dtype=t.dtype, device=device)
+
+    def alloc(path, leaf):
+        dim = None if re.match(_HELD_WHOLE, path) else flat[path]
+        if isinstance(leaf, QuantizedLeaf):
+            codes, scales = dim or (None, None)
+            return QuantizedLeaf(zeros(leaf.codes, codes),
+                                 zeros(leaf.scales, scales), leaf.kv_dtype,
+                                 leaf.out_dtype)
+        return zeros(leaf, dim)
+
+    return _map_paths(alloc, like)
+
+
+def rank_cache(like, tp: Optional[TPGroup], device):
+    """This rank's zeroed dense serve cache: the whole cache's shapes
+    ``like`` cut by the serve cache rules (:func:`rank_zeros`)."""
+    return rank_zeros(like, serve_cache_cuts(like, size_of(tp)), tp, device)
+
+
+# ----------------------------------------------------------------------------
+# Cutting and gathering
+# ----------------------------------------------------------------------------
+def shard(t: torch.Tensor, dim: Optional[int], tp: Optional[TPGroup]
+          ) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` (contiguous, its own memory),
+    or ``t`` itself where ``dim`` is None or the group is one rank."""
+    n = size_of(tp)
+    if dim is None or n == 1:
+        return t
+    w = t.shape[dim] // n
+    return t.narrow(dim, tp.rank * w, w).contiguous()
+
+
+def shard_params(params, tp: Optional[TPGroup]):
+    """This rank's shard of a params tree under :func:`param_cuts` (the
+    tree as it is for one rank).  A QuantizedLinear is cut unpacked; its
+    packed codes are made from the block afterwards."""
+    n = size_of(tp)
+    if n == 1:
+        return params
+    cuts = param_cuts(params, n)
+
+    def cut(leaf, c):
+        if isinstance(leaf, QuantizedLinear):
+            return QuantizedLinear(shard(leaf.codes, c[0], tp),
+                                   shard(leaf.scales, c[1], tp))
+        if isinstance(leaf, dict):
+            return {k: cut(v, c[k]) for k, v in leaf.items()}
+        return shard(leaf, c, tp) if torch.is_tensor(leaf) else leaf
+
+    return cut(params, cuts)
+
+
+def local_width(width: int, tp: Optional[TPGroup]) -> int:
+    """A dim of ``width`` as a rank holds it: ``width / tp`` where the group
+    cuts it (the group's size divides it), else whole."""
+    n = size_of(tp)
+    return width // n if n > 1 and width % n == 0 else width
+
+
+def head_cut(tp: Optional[TPGroup], *heads: int) -> bool:
+    """True when every count of ``heads`` divides by the group's size (more
+    than one rank): the ranks then hold contiguous blocks of heads, and a
+    block of query heads attends only the block of KV heads its column
+    cuts produced."""
+    n = size_of(tp)
+    return n > 1 and all(h % n == 0 for h in heads)
+
+
+def gather(x: torch.Tensor, tp: Optional[TPGroup], width: int,
+           dim: int = -1) -> torch.Tensor:
+    """``pin_tp_exact``: the whole of a column-cut activation ``x`` along
+    ``dim`` (``width`` wide in all), every rank's block concatenated in
+    rank order -- an all-gather, which moves bits and adds nothing.  ``x``
+    already ``width`` wide (a whole weight's output, or one rank) is
+    returned as it is."""
+    if tp is None or tp.size == 1 or x.shape[dim] == width:
+        return x
+    return torch.cat(tp.all_gather(x), dim=dim)

@@ -12,6 +12,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.quant import QuantizedLeaf
+from repro_torch.distributed import collectives
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
@@ -91,16 +92,42 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, cache_len, *,
                            scale: Optional[float] = None,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
-                           return_lse: bool = False):
+                           return_lse: bool = False, tp=None,
+                           head_cut: bool = False):
     """Decode attention through the page table: the paged kernel for a CUDA
     tensor, the plain version for a CPU tensor.  With ``return_lse`` it
     returns ``(out, lse)``, lse the (B, Hkv, group) f32 log-sum-exp.  A
     quantized pool arrives as a ``QuantizedLeaf`` and is unpacked into its
     codes and per-(page, KV head) scales, which both versions dequantize
-    at the page fetch."""
+    at the page fetch.
+
+    With ``tp`` (a ``TPGroup`` of more than one rank), the JAX package's
+    tensor-parallel dispatch (``repro/kernels/ops.py::
+    paged_decode_attention``).  ``head_cut``: q and the pools hold this
+    rank's block of heads (both head counts divide by the group's size),
+    and the kernel runs on them with no collective
+    (``collectives.tp_paged_decode_attention``).  Otherwise q holds every
+    head over the whole pool: with no window, a float pool and a table
+    width the group's size divides, each rank walks its share of the page
+    columns and the partials merge by log-sum-exp
+    (``collectives.tp_paged_decode_attention_merge``); else every rank runs
+    the unsharded kernel.  The JAX package sends a quantized pool under TP
+    to its plain version; the port runs its kernel on the rank's codes and
+    scales, the same function."""
     if isinstance(k_pool, QuantizedLeaf):
         k_pool, k_scale = k_pool.codes, k_pool.scales
         v_pool, v_scale = v_pool.codes, v_pool.scales
+    if tp is not None and tp.size > 1 and not return_lse:
+        if head_cut:
+            return collectives.tp_paged_decode_attention(
+                q, k_pool, v_pool, page_table, cache_len, tp, window=window,
+                softcap=softcap, scale=scale, k_scale=k_scale,
+                v_scale=v_scale)
+        if (window is None and k_scale is None
+                and page_table.shape[1] % tp.size == 0):
+            return collectives.tp_paged_decode_attention_merge(
+                q, k_pool, v_pool, page_table, cache_len, tp,
+                softcap=softcap, scale=scale)
     kw = dict(window=window, softcap=softcap, scale=scale, k_scale=k_scale,
               v_scale=v_scale, return_lse=return_lse)
     if build.is_cuda(q):

@@ -80,12 +80,18 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            scale: Optional[float] = None,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
-                           return_lse: bool = False):
+                           return_lse: bool = False,
+                           plan: Optional[Tuple[int, int]] = None):
     """q (B, Hq, 1, D) bf16/f32; pools (num_pages, ps, Hkv, D) bf16, f32,
     int8 or fp8-e4m3, D in ``HEAD_DIMS``; page_table (B, P) int32;
     cache_len (B,) int32; k_scale/v_scale (num_pages, Hkv) f32 or None.  All
     contiguous on one CUDA device.  Returns (B, Hq, 1, D) in q's dtype, and
-    with ``return_lse`` also the (B, Hkv, group) f32 log-sum-exp."""
+    with ``return_lse`` also the (B, Hkv, group) f32 log-sum-exp.
+
+    ``plan`` (pages per chunk, chunks per slot) overrides
+    :func:`split_plan` of these shapes: a rank of a head-cut pool passes the
+    plan of the whole pool, so that each head's chunks and their merge do
+    not depend on how many heads the call holds."""
     named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
              ("page_table", page_table), ("cache_len", cache_len)]
     if k_scale is not None or v_scale is not None:
@@ -125,7 +131,12 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     group = Hq // Hkv
     P = page_table.shape[1]
     rows = 1 if group == 1 else ROWS_PER_BLOCK
-    chunk_pages, n_chunks = split_plan(ps, P, B * Hkv, D)
+    chunk_pages, n_chunks = (split_plan(ps, P, B * Hkv, D) if plan is None
+                             else plan)
+    _require(chunk_pages >= 1 and n_chunks <= MAX_CHUNKS
+             and chunk_pages * n_chunks >= P > chunk_pages * (n_chunks - 1),
+             f"plan {plan} does not tile {P} pages in at most {MAX_CHUNKS} "
+             f"chunks")
     fn = build.function("paged_decode_attention_launch", _ARGTYPES)
     out = torch.empty_like(q)
     lse = (torch.empty((B, Hkv, group), dtype=torch.float32, device=q.device)

@@ -38,6 +38,11 @@ the float ``ServeEngine``, on the card unless asked otherwise.
       --prefix-cache on --chaos-seed 0 --recovery-log events.json \
       --chaos-plan "step_corrupt_at=4,step_corrupt_iters=2,device_loss_at=10"
 
+  # tensor-parallel serving over two ranks (gloo on the CPU; on a machine
+  # with one card both ranks share it over gloo, with two or more NCCL)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
+      --smoke --device cpu --continuous --page-size 8 --tp 2
+
 Without ``--continuous`` it runs ``ServeEngine.generate`` on ``--batch``
 prompts of ``--prompt-len`` tokens (with, for a VLM or encoder-decoder
 config, a float32 ``frontend`` of ``frontend_tokens`` standard-normal
@@ -53,8 +58,21 @@ deadlines (``--deadline-s``), SLA-aware preemption (``--preemption on``)
 and seeded fault injection (``--chaos-plan``, ``--chaos-seed``,
 ``--recovery-log``) as asked.  Weights come from ``api.init_params`` with
 a ``torch.Generator`` seeded by ``--seed``.  Prints one JSON report, as
-the JAX package's ``repro.launch.serve`` does.  ``--tp`` exits with "not
-ported yet".
+the JAX package's ``repro.launch.serve`` does.
+
+``--tp N`` (N > 1) serves on N ranks of a ``torch.distributed`` group, one
+process each (``distributed/runtime.py``): every rank builds the engine
+over its shard of the same seeded weights and serves the same requests;
+rank 0's report is printed, with ``tp``, ``tp_backend`` and
+``tp_devices``, and the run fails if any rank raises or if the ranks'
+tokens differ.  The ranks share ``cuda:0`` over gloo where the host has
+fewer than N cards, and take one card each over NCCL otherwise.  Under
+``--tp`` the lm (dense and windowed), rwkv and hymba configs serve through
+the continuous scheduler with every KV-cache flag; ``generate()`` (no
+``--continuous``), the MoE and cross-attention configs and the online and
+chaos flags (``--priority``, ``--deadline-s``, ``--preemption``,
+``--chaos-plan``, ``--recovery-log``) are refused as not ported to TP yet
+(ROADMAP.md).
 
 The MoE configs at full depth do not fit one 80 GB card (phi3.5-moe-42b-a6.6b
 holds 2.6 GB of bf16 weights per layer, 83 GB at its 32 layers;
@@ -70,6 +88,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -78,6 +97,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.registry import CONFIGS
 from repro_torch.core.device import matmul_settings, resolve_device
+from repro_torch.distributed import runtime
 from repro_torch.models import api
 from repro_torch.serve import pages
 from repro_torch.serve.engine import ServeEngine
@@ -131,7 +151,9 @@ def _priorities(args, ap: argparse.ArgumentParser):
     return out
 
 
-def main(argv=None):
+def _setup(argv):
+    """Parse and check ``argv``: (parser, args, config, fault injector or
+    None, priority classes)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama2-7b",
                     help="config name; the MoE configs "
@@ -202,11 +224,12 @@ def main(argv=None):
     ap.add_argument("--recovery-log", default=None,
                     help="write the scheduler's quarantine / recover event "
                          "stream to this path as JSON")
-    # a flag of the JAX package's CLI whose feature is not ported yet
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: serve on this many ranks, "
+                         "one process each (the module docstring)")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        ap.error("--tp: not ported yet")
+    if args.tp < 1:
+        ap.error(f"--tp must be at least 1, got {args.tp}")
     if args.num_pages is not None and args.page_size is None:
         ap.error("--num-pages requires --page-size (the paged KV cache)")
     if args.prefix_cache == "on" and args.page_size is None:
@@ -241,7 +264,57 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if args.tp > 1:
+        if not args.continuous:
+            ap.error("--tp without --continuous (generate() on the ranks): "
+                     "not ported yet (ROADMAP.md)")
+        online = [flag for flag, on in (
+            ("--priority", args.priority is not None),
+            ("--deadline-s", args.deadline_s is not None),
+            ("--preemption", args.preemption == "on"),
+            ("--chaos-plan", args.chaos_plan is not None),
+            ("--recovery-log", args.recovery_log is not None)) if on]
+        if online:
+            ap.error(f"--tp with {', '.join(online)}: not ported yet "
+                     f"(ROADMAP.md)")
+        if cfg.moe or cfg.cross_attn_every or cfg.family == "encdec":
+            ap.error(f"--tp with --arch {args.arch}: not ported yet (the "
+                     f"MoE and cross-attention configs; ROADMAP.md)")
+    return ap, args, cfg, faults, priorities
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ap, args, cfg, faults, priorities = _setup(argv)
     device = resolve_device(args.device)
+    if args.tp == 1:
+        report, out = _serve(ap, args, cfg, device, faults, priorities)
+        print(json.dumps(report))
+        return out
+    backend, devices = runtime.plan(args.tp, device)
+    ranks = runtime.spawn(_serve_rank, args.tp, (argv,), backend=backend,
+                          devices=devices)
+    report, tokens = ranks[0]
+    if any(t != tokens for _, t in ranks[1:]):
+        raise RuntimeError("the tensor-parallel ranks decoded different "
+                           "tokens")
+    report.update(tp=args.tp, tp_backend=backend, tp_devices=devices)
+    print(json.dumps(report))
+    return {"report": report, "tokens": tokens}
+
+
+def _serve_rank(group, argv):
+    """One rank of ``--tp``: the same serving run as one device, with its
+    shard of the engine; returns (report, tokens)."""
+    ap, args, cfg, faults, priorities = _setup(argv)
+    report, out = _serve(ap, args, cfg, group.device, faults, priorities,
+                         tp=group)
+    return report, [r.tokens.tolist() for r in out["results"]]
+
+
+def _serve(ap, args, cfg, device, faults, priorities, tp=None):
+    """Build the engine (``tp``: this rank's shard) and serve: (the JSON
+    report, the scheduler's or generate()'s output)."""
     # the lm and encdec families' projections are drawn straight into the
     # compute dtype the engine serves them in (full-width gemma2-27b would
     # not fit the card in float32)
@@ -260,7 +333,7 @@ def main(argv=None):
                           page_size=args.page_size, num_pages=args.num_pages,
                           paged_attn=args.paged_attn,
                           prefix_cache=args.prefix_cache,
-                          kv_dtype=args.kv_dtype, device=device)
+                          kv_dtype=args.kv_dtype, device=device, tp=tp)
         del params
         lo = min(2, args.prompt_len)
         reqs = [Request(uid=i,
@@ -295,6 +368,8 @@ def main(argv=None):
             "rejected": [(r.uid, r.reason) for r in out["rejected"]],
             "by_state": out["by_state"],
             "preemptions": out["preemptions"],
+            "tokens": [r.tokens.tolist() for r in out["results"]],
+            "tp": args.tp,
         }
         if args.page_size:
             report["cache"] = eng.cache_stats(sched.cache)
@@ -313,8 +388,7 @@ def main(argv=None):
         if args.recovery_log is not None:
             Path(args.recovery_log).write_text(
                 json.dumps(sched.recovery_log, indent=2) + "\n")
-        print(json.dumps(report))
-        return out
+        return report, out
 
     prompts = rng.integers(1, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)
@@ -322,11 +396,11 @@ def main(argv=None):
         (args.batch, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
         if cfg.frontend_tokens else None)
     eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.max_new + 1,
-                      device=device)
+                      device=device, tp=tp)
     del params
     out = eng.generate(prompts, max_new=args.max_new, frontend=frontend,
                        eos_id=args.eos_id)
-    print(json.dumps({
+    return {
         "arch": cfg.name,
         "device": str(device),
         "matmul": matmul_settings(),
@@ -334,8 +408,8 @@ def main(argv=None):
         "generated": out["tokens"][:2, :8].tolist(),
         "gen_len": out["gen_len"].tolist(),
         "tokens_per_s": round(out["tokens_per_s"], 2),
-    }))
-    return out
+        "tp": args.tp,
+    }, out
 
 
 if __name__ == "__main__":

@@ -29,6 +29,18 @@ CPU), which differ from its source where XLA's excess-precision rule drops
 a bfloat16 round trip before a float32 consumer, and where XLA's CPU
 ``exp`` and fused multiply-adds are not PyTorch's (``kernels/ref.py::exp``,
 ``ref.selective_scan``); see ``_ssm_branch`` and ``_fuse``.
+
+Under tensor parallelism (a ``TPGroup`` in the params as ``"tp"``, from
+the serving engine) the attention is the lm family's (the rank's block of
+heads where both head counts divide, else every head over replicated
+K/V); the SSM's ``w_in`` / ``w_delta`` / ``w_B`` / ``w_C``, ``w1`` / ``w3``
+and the head are the rank's column blocks and ``w_delta_up`` / ``w_out`` /
+``wo`` / ``w2`` whole (``distributed/sharding.py``).  The JAX package's
+``_pin`` hook becomes a gather (``sharding.gather``): of the low-rank
+delta and of B and C before the products over their width, of the scan's
+output before ``w_out``.  The selective scan runs on the rank's block of
+channels, whose SSM state the ``ssm`` leaf holds (cut on channels where the
+group's size divides ``d_model``, as the JAX package's rules cut it).
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 
@@ -155,23 +168,33 @@ def _state_matrix(a_log: torch.Tensor) -> torch.Tensor:
 
 
 def _ssm_branch(p, x: torch.Tensor, cfg: ModelConfig,
-                state: Optional[torch.Tensor] = None):
-    """x (B, T, d) -> (out (B, T, d), new state (B, d, N) float32)."""
+                state: Optional[torch.Tensor] = None, tp=None):
+    """x (B, T, d) -> (out (B, T, d), new state (B, d, N) float32); under
+    tensor parallelism the state and the scan hold the rank's channels."""
     sp = p["ssm"]
+    d = x.shape[-1]
+    N = sp["A_log"].shape[-1]
     h = L.silu(L.linear(x, sp["w_in"]))
-    delta = _softplus(L.linear(L.linear(x, sp["w_delta"]),
-                               sp["w_delta_up"])).to(torch.float32)
+    delta = _softplus(L.linear(
+        gather(L.linear(x, sp["w_delta"]), tp, L.in_width(sp["w_delta_up"])),
+        sp["w_delta_up"])).to(torch.float32)
     A = sp["A"] if "A" in sp else _state_matrix(sp["A_log"])
-    Bm = L.linear(x, sp["w_B"]).to(torch.float32)
-    Cm = L.linear(x, sp["w_C"]).to(torch.float32)
+    D = sp["D"]
+    if h.shape[-1] != d:
+        # the rank's channels of the whole-width delta, A and D
+        lo = tp.rank * h.shape[-1]
+        sl = slice(lo, lo + h.shape[-1])
+        delta, A, D = delta[..., sl], A[sl], D[sl]
+    Bm = gather(L.linear(x, sp["w_B"]), tp, N).to(torch.float32)
+    Cm = gather(L.linear(x, sp["w_C"]), tp, N).to(torch.float32)
     y, new_state = ops.selective_scan(h, delta, A, Bm, Cm, state,
                                       algorithm=cfg.ssm_scan)
-    y = y + h * sp["D"].to(h.dtype)
-    return L.linear(y, sp["w_out"]), new_state
+    y = y + h * D.to(h.dtype)
+    return L.linear(gather(y, tp, d), sp["w_out"]), new_state
 
 
 def _fuse(p, x: torch.Tensor, attn_out: torch.Tensor,
-          ssm_out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+          ssm_out: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
     """The hybrid-head tail shared by every path: per-branch norms, their
     average into the residual stream, the SwiGLU FFN.  The FFN's pre-norm
     reads the residual sum ``x + fused`` before it is rounded to the
@@ -184,19 +207,21 @@ def _fuse(p, x: torch.Tensor, attn_out: torch.Tensor,
     s = x.to(torch.float32) + fused.to(torch.float32)
     x = s.to(x.dtype)
     y = L.rmsnorm(s, p["ln_mlp"], eps).to(x.dtype)
-    return x + L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
+    return x + L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"],
+                        tp=tp)
 
 
-def _fuse_tail(p, x, xn, o, sstate, cfg: ModelConfig):
+def _fuse_tail(p, x, xn, o, sstate, cfg: ModelConfig, tp=None):
     """The decode tail of both cache layouts: attention-out projection, SSM
     branch from ``sstate``, :func:`_fuse`.  o: (B, Hq, 1, hd) -> (new x,
-    new SSM state)."""
+    new SSM state); under tensor parallelism a rank's block of heads is
+    gathered before ``wo``."""
     B = x.shape[0]
-    attn_out = L.linear(
-        o.transpose(1, 2).reshape(B, 1, cfg.num_heads * cfg.resolved_head_dim),
-        p["attn"]["wo"])
-    ssm_out, new_state = _ssm_branch(p, xn, cfg, state=sstate)
-    return _fuse(p, x, attn_out, ssm_out, cfg), new_state
+    o = gather(o.transpose(1, 2).reshape(B, 1, -1), tp,
+               cfg.num_heads * cfg.resolved_head_dim)
+    attn_out = L.linear(o, p["attn"]["wo"])
+    ssm_out, new_state = _ssm_branch(p, xn, cfg, state=sstate, tp=tp)
+    return _fuse(p, x, attn_out, ssm_out, cfg, tp), new_state
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -214,7 +239,8 @@ def _logits_head(params, x: torch.Tensor, cfg: ModelConfig,
     head = params.get("lm_head_f32")
     if head is None:
         head = params["lm_head"].to(x.dtype).to(torch.float32)
-    logits = x.to(torch.float32) @ head
+    logits = gather(x.to(torch.float32) @ head, params.get("tp"),
+                    cfg.vocab_size)
     return logits.to(x.dtype).to(torch.float32) if rounded else logits
 
 
@@ -257,10 +283,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def _decode_qkv(p, x, positions, cfg: ModelConfig):
+def _decode_qkv(p, x, positions, cfg: ModelConfig, tp=None):
     xn = L.rmsnorm(x, p["ln_in"], cfg.norm_eps)
     q, k, v = L.qkv_project(p["attn"], xn, cfg.num_heads, cfg.num_kv_heads,
-                            cfg.resolved_head_dim)
+                            cfg.resolved_head_dim, tp=tp)
     return xn, L.rope(q, positions, cfg.rope_theta), \
         L.rope(k, positions, cfg.rope_theta), v
 
@@ -275,19 +301,20 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     (``generate()``) or the ragged one (slots); ``write`` (B,) bool freezes
     the rows where it is False: their K/V, SSM state and ``len`` keep their
     values and their logits are to be ignored."""
+    tp = params.get("tp")
     x = _embed(params, tokens, cfg)[:, None, :]
     pos = cache["len"]
     positions = pos[:, None]
     aligned = cfg.parallel.aligned_decode
     for i, p in _layers(params):
         kc, vc = cache["k"][i], cache["v"][i]
-        xn, q, k, v = _decode_qkv(p, x, positions, cfg)
+        xn, q, k, v = _decode_qkv(p, x, positions, cfg, tp)
         S = kc.shape[2]
         idx = pos % S
         L.cache_write(kc, k, idx, aligned, write)
         L.cache_write(vc, v, idx, aligned, write)
         o = ops.decode_attention(q, kc, vc, torch.clamp(pos + 1, max=S))
-        x, new_state = _fuse_tail(p, x, xn, o, cache["ssm"][i], cfg)
+        x, new_state = _fuse_tail(p, x, xn, o, cache["ssm"][i], cfg, tp)
         L.store_rows(cache["ssm"][i], new_state, write)
     logits = _logits_head(params, x[:, 0], cfg)
     cache["len"] += 1 if write is None else write.to(torch.int32)
@@ -308,6 +335,8 @@ def paged_decode_step(params, cache, table: torch.Tensor,
     d, N) and, like ``len``, is frozen where ``write`` is False (a False
     row appends to the scratch page and gives logits to be ignored)."""
     del seq_axes        # hymba's K/V page whenever this entry point is used
+    tp = params.get("tp")
+    cut = head_cut(tp, cfg.num_heads, cfg.num_kv_heads)
     B = tokens.shape[0]
     if write is None:
         write = torch.ones((B,), dtype=torch.bool, device=tokens.device)
@@ -319,12 +348,12 @@ def paged_decode_step(params, cache, table: torch.Tensor,
     window = cfg.layer_pattern[0].window
     for i, p in _layers(params):
         kc, vc = cache["k"][i], cache["v"][i]
-        xn, q, k, v = _decode_qkv(p, x, positions, cfg)
+        xn, q, k, v = _decode_qkv(p, x, positions, cfg, tp)
         L.paged_append(kc, k[:, :, 0, :], page, off)
         L.paged_append(vc, v[:, :, 0, :], page, off)
         o = ops.paged_decode_attention(q, kc, vc, table, cache_len,
-                                       window=window)
-        x, new_state = _fuse_tail(p, x, xn, o, cache["ssm"][i], cfg)
+                                       window=window, tp=tp, head_cut=cut)
+        x, new_state = _fuse_tail(p, x, xn, o, cache["ssm"][i], cfg, tp)
         L.store_rows(cache["ssm"][i], new_state, write)
     logits = _logits_head(params, x[:, 0], cfg)
     cache["len"] += write.to(torch.int32)

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import quant
+from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops
 
 
@@ -45,6 +46,12 @@ def linear(x: torch.Tensor, w, reciprocal_scale: bool = False
                             packed=w.packed)
         return y.reshape(*shape, w.codes.shape[-1])
     return x @ w.to(x.dtype)
+
+
+def in_width(w) -> int:
+    """The input width of a raw (in, out) weight or a QuantizedLinear (a
+    whole weight: row-parallel weights are never cut)."""
+    return (w.codes if isinstance(w, quant.QuantizedLinear) else w).shape[-2]
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
@@ -85,26 +92,41 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def swiglu(x: torch.Tensor, w1, w3, w2, reciprocal_scale: bool = False
-           ) -> torch.Tensor:
-    """FFN(x) = W2 . (silu(W1 x) * (W3 x)) — eq. (4)/(5) of the paper."""
+def swiglu(x: torch.Tensor, w1, w3, w2, reciprocal_scale: bool = False,
+           tp=None) -> torch.Tensor:
+    """FFN(x) = W2 . (silu(W1 x) * (W3 x)) — eq. (4)/(5) of the paper.
+
+    Under tensor parallelism (``tp``, a ``TPGroup``) ``w1`` / ``w3`` are this
+    rank's column blocks and ``w2`` is whole: the hidden activation is
+    gathered before the W2 product (the JAX package's ``pin_fn``,
+    ``sharding.pin_tp_exact``), so no float sum crosses ranks."""
     r = reciprocal_scale
     h = silu(linear(x, w1, r)) * linear(x, w3, r)
-    return linear(h, w2, r)
+    return linear(gather(h, tp, in_width(w2)), w2, r)
 
 
 # ----------------------------------------------------------------------------
 # GQA attention projections
 # ----------------------------------------------------------------------------
 def qkv_project(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
-                head_dim: int, reciprocal_scale: bool = False):
+                head_dim: int, reciprocal_scale: bool = False, tp=None):
     """The ITA device phase of attention: static linear maps only.
-    x (B, T, d) -> q (B, Hq, T, hd), k and v (B, Hkv, T, hd)."""
+    x (B, T, d) -> q (B, Hq, T, hd), k and v (B, Hkv, T, hd).
+
+    Under tensor parallelism (``tp``) the projections are this rank's
+    column blocks: where both head counts divide by the group's size
+    (``sharding.head_cut``) the rank keeps its block of heads, else each
+    block is gathered and every rank holds every head (a KV head count
+    that the group does not divide replicates, as the JAX package's rules
+    make it)."""
     B, T, _ = x.shape
+    cut = head_cut(tp, num_heads, num_kv_heads)
 
     def heads(w, n):
-        return linear(x, w, reciprocal_scale).reshape(
-            B, T, n, head_dim).transpose(1, 2)
+        y = linear(x, w, reciprocal_scale)
+        if not cut:
+            y = gather(y, tp, n * head_dim)
+        return y.reshape(B, T, -1, head_dim).transpose(1, 2)
 
     return (heads(p["wq"], num_heads), heads(p["wk"], num_kv_heads),
             heads(p["wv"], num_kv_heads))

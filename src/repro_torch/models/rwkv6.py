@@ -22,6 +22,21 @@ trip where a float32 consumer follows): the time-mix residual sum reaches
 the channel-mix pre-norm in float32 (the residual stream itself is
 rounded), and ``decode_step``'s LM head product is not rounded to bfloat16
 before its float32 convert, while ``forward``'s is.
+
+Under tensor parallelism (a ``TPGroup`` in the params as ``"tp"``, from
+the serving engine) the projections ``wr`` / ``wk`` / ``wv`` / ``wg`` /
+``w_lora_a`` / ``cm_k`` and the head are the rank's column blocks and
+``wo`` / ``w_lora_b`` / ``cm_v`` are whole (``distributed/sharding.py``).
+The JAX package's ``_pin`` hook becomes a gather (``sharding.gather``)
+before each whole product and before the ``ln_x`` norm, whose mean runs
+over every channel.  Where the group's size divides the head count, the
+rank keeps its block of heads of r, k, v, the decay and the WKV state
+(the engine's rank cache, ``sharding.rank_cache``, cuts the ``wkv`` leaf
+so); else r, k and v are gathered and every rank carries every head.  The
+token-shift carries ``x_tm`` / ``x_cm`` stay whole on every rank (the one
+exception to the serve cache rules there): they are the pre-normed inputs,
+which every rank holds whole, and a cut would only force a gather at the
+next step.
 """
 from __future__ import annotations
 
@@ -31,9 +46,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import gather, head_cut, local_width
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (dense_init, linear, rmsnorm, silu,
-                                       store_rows)
+from repro_torch.models.layers import (dense_init, in_width, linear,
+                                       rmsnorm, silu, store_rows)
 
 HEAD_DIM = 64  # RWKV6 uses 64-wide heads
 LORA_DIM = 64
@@ -87,10 +103,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _layers(params):
-    """Per-layer views of the stacked block params, in layer order."""
+    """Per-layer views of the stacked block params, in layer order (with
+    the params' TP group, where they have one, as ``"tp"``)."""
     blocks = params["blocks"]
+    extra = {"tp": params["tp"]} if "tp" in params else {}
     for i in range(next(iter(blocks.values())).shape[0]):
-        yield i, {k: w[i] for k, w in blocks.items()}
+        yield i, {**{k: w[i] for k, w in blocks.items()}, **extra}
 
 
 def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor] = None
@@ -119,36 +137,53 @@ def decay(w0: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
 
 def _time_mix(p, x, cfg: ModelConfig, state=None, x_prev=None):
     """x (B, T, d), the pre-normed input -> (output (B, T, d), new WKV state,
-    x's last position: the next step's token-shift carry)."""
+    x's last position: the next step's token-shift carry).  ``p["tp"]``,
+    where present: the module docstring's tensor parallelism (the state of
+    the rank's heads where the group's size divides them)."""
+    tp = p.get("tp")
     B, T, d = x.shape
     H = d // HEAD_DIM
+    cut = head_cut(tp, H)
+    hl = local_width(H, tp)
     xs = _token_shift(x, x_prev)
     mix = p["mix"].to(x.dtype)
     xr, xk, xv, xg, xw = (x + mix[i] * (xs - x) for i in range(5))
-    r = _heads(linear(xr, p["wr"]), B, T, H)
-    k = _heads(linear(xk, p["wk"]), B, T, H)
-    v = _heads(linear(xv, p["wv"]), B, T, H)
-    g = silu(linear(xg, p["wg"]))
-    dw = linear(torch.tanh(linear(xw, p["w_lora_a"])), p["w_lora_b"])
-    w = _heads(decay(p["w0"], dw), B, T, H).to(r.dtype)
-    u = p["u"].to(torch.float32)
+
+    def heads(xi, w):
+        y = linear(xi, w)
+        return _heads(y if cut else gather(y, tp, d), B, T, hl)
+
+    r, k, v = heads(xr, p["wr"]), heads(xk, p["wk"]), heads(xv, p["wv"])
+    g = silu(gather(linear(xg, p["wg"]), tp, d))
+    dw = linear(gather(torch.tanh(linear(xw, p["w_lora_a"])), tp, LORA_DIM),
+                p["w_lora_b"])
+    w0, u = p["w0"], p["u"]
+    if cut:
+        # the rank's channels of the decay (elementwise) and its heads' u
+        lo = tp.rank * hl
+        w0 = w0[lo * HEAD_DIM:(lo + hl) * HEAD_DIM]
+        dw = dw[..., lo * HEAD_DIM:(lo + hl) * HEAD_DIM]
+        u = u[lo:lo + hl]
+    w = _heads(decay(w0, dw), B, T, hl).to(r.dtype)
+    u = u.to(torch.float32)
     if cfg.rwkv_chunk and T > 1:
         out, new_state = ops.rwkv6_chunked(r, k, v, w, u, state,
                                            chunk=cfg.rwkv_chunk)
     else:
         out, new_state = ops.rwkv6(r, k, v, w, u, state)
-    out = out.transpose(1, 2).reshape(B, T, d)
+    out = gather(out.transpose(1, 2).reshape(B, T, -1), tp, d)
     out = rmsnorm(out, p["ln_x"], cfg.norm_eps) * g
     return linear(out, p["wo"]), new_state, x[:, -1]
 
 
 def _channel_mix(p, x, x_prev=None):
     """x (B, T, d), the pre-normed input -> (output, x's last position)."""
+    tp = p.get("tp")
     xs = _token_shift(x, x_prev)
     mix = p["mix"].to(x.dtype)
     xk = x + mix[1] * (xs - x)
     h = torch.square(torch.relu(linear(xk, p["cm_k"])))
-    return linear(h, p["cm_v"]), x[:, -1]
+    return linear(gather(h, tp, in_width(p["cm_v"])), p["cm_v"]), x[:, -1]
 
 
 def _block(p, x, cfg: ModelConfig, state=None, x_tm=None, x_cm=None):
@@ -177,7 +212,8 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     head = params.get("lm_head_f32")
     if head is None:
         head = params["lm_head"].to(x.dtype).to(torch.float32)
-    return x.to(torch.float32) @ head
+    return gather(x.to(torch.float32) @ head, params.get("tp"),
+                  cfg.vocab_size)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, **_):

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -203,6 +204,15 @@ def _layers(params, cfg: ModelConfig):
                    pick(params["blocks"], g, j))
 
 
+def _head_cut(cfg: ModelConfig, tp) -> bool:
+    """Whether the ranks of ``tp`` hold blocks of heads: both head counts
+    divide by its size.  Otherwise the KV heads replicate (the JAX package's
+    rules cut an Hkv only where it divides), and every rank runs every
+    head's attention over them: a rank's own query heads alone would change
+    the GQA group of each call, and the sum shapes and bits with it."""
+    return head_cut(tp, cfg.num_heads, cfg.num_kv_heads)
+
+
 def _norm_input(x, h, at, slot):
     """What a layer's pre-attention norm reads: the residual stream ``x``
     at the first layer of a group, else the previous layer's output sum
@@ -214,20 +224,21 @@ def _norm_input(x, h, at, slot):
     return x if at[1] == 0 and slot == 0 else h
 
 
-def _block_qkv(pj, x, positions, cfg: ModelConfig):
+def _block_qkv(pj, x, positions, cfg: ModelConfig, tp=None):
     """Shared block head for prefill/decode: pre-norm, QKV projection, rope.
     ``x`` is the norm's input (:func:`_norm_input`), in the compute dtype
-    or float32."""
+    or float32.  Under tensor parallelism the heads are the rank's block
+    where both head counts divide (:func:`_head_cut`), else every head."""
     xn = L.rmsnorm(x, pj["ln_attn"], cfg.norm_eps).to(getattr(torch,
                                                               cfg.dtype))
     q, k, v = L.qkv_project(pj["attn"], xn, cfg.num_heads, cfg.num_kv_heads,
-                            cfg.resolved_head_dim)
+                            cfg.resolved_head_dim, tp=tp)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _block_tail(pj, x, o, cfg: ModelConfig):
+def _block_tail(pj, x, o, cfg: ModelConfig, tp=None):
     """Shared block tail for prefill/decode: attention-output projection,
     the FFN (dense, or MoE over every row of the call, its ``aux``
     discarded as in the reference), both residual adds.  o: (B, H, T, hd).
@@ -237,14 +248,18 @@ def _block_tail(pj, x, o, cfg: ModelConfig):
     do: XLA's excess-precision rule drops the round trip between that
     bf16 add and the norm's float32 convert.  The residual stream itself
     is rounded.  Returns the new residual stream and its float32 sum
-    before rounding (the next layer's norm input inside a group)."""
+    before rounding (the next layer's norm input inside a group).  Under
+    tensor parallelism a rank's block of heads is gathered before ``wo``
+    (``pin_tp_exact``), whole on every rank, as is ``w2``."""
     B, T = x.shape[:2]
-    o = o.transpose(1, 2).reshape(B, T, cfg.num_heads * cfg.resolved_head_dim)
-    x, h, _ = _residual_ffn(pj, x, L.linear(o, pj["attn"]["wo"]), cfg)
+    width = cfg.num_heads * cfg.resolved_head_dim
+    o = gather(o.transpose(1, 2).reshape(B, T, -1), tp, width)
+    x, h, _ = _residual_ffn(pj, x, L.linear(o, pj["attn"]["wo"]), cfg, tp=tp)
     return x, h
 
 
-def _residual_ffn(pj, x, a, cfg: ModelConfig, need_aux: bool = False):
+def _residual_ffn(pj, x, a, cfg: ModelConfig, need_aux: bool = False,
+                  tp=None):
     """The attention residual add of ``a`` (the attention block's output,
     after ``wo``), the FFN's pre-norm on the unrounded float32 sum
     (:func:`_block_tail`), the FFN and its residual add: (x, its float32
@@ -257,7 +272,8 @@ def _residual_ffn(pj, x, a, cfg: ModelConfig, need_aux: bool = False):
         ffn, aux = moe_mod.moe_apply(pj["moe"], y, cfg.moe,
                                      need_aux=need_aux)
     else:
-        ffn = L.swiglu(y, pj["mlp"]["w1"], pj["mlp"]["w3"], pj["mlp"]["w2"])
+        ffn = L.swiglu(y, pj["mlp"]["w1"], pj["mlp"]["w3"], pj["mlp"]["w2"],
+                       tp=tp)
     h = x.to(torch.float32) + ffn.to(torch.float32)
     return h.to(x.dtype), h, aux
 
@@ -353,7 +369,10 @@ def _logits_head(params, x: torch.Tensor, cfg: ModelConfig,
     rounds the head product to the compute dtype before the float32
     convert, and the head may be any params tree's (float32 draws,
     compute-dtype leaves or the engine's copy), so it is rounded to the
-    compute dtype here first (idempotent on the engine's copy)."""
+    compute dtype here first (idempotent on the engine's copy).
+
+    Under tensor parallelism an untied head is the rank's vocabulary block
+    and the logits are gathered; a tied head (the embedding) is whole."""
     dtype = getattr(torch, cfg.dtype)
     x = L.rmsnorm(x, params["ln_final"], cfg.norm_eps).to(torch.float32)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
@@ -363,7 +382,7 @@ def _logits_head(params, x: torch.Tensor, cfg: ModelConfig,
         logits = (head @ x.reshape(-1, x.shape[-1]).T).T.reshape(
             x.shape[:-1] + (head.shape[0],))
     else:
-        logits = x @ head
+        logits = gather(x @ head, params.get("tp"), cfg.vocab_size)
     if rounded:
         logits = logits.to(dtype).to(torch.float32)
     if cfg.final_softcap:
@@ -426,17 +445,18 @@ def prefill(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
     (``api.prefill`` checks both)."""
     _check_block_path(cfg, cross_ok=True)
     B, T = tokens.shape
+    tp = params.get("tp")
     x = _embed(params, tokens, cfg)
     positions = torch.arange(T, device=x.device)
     h = None
     for spec, slot, at, pj in _layers(params, cfg):
         q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
-                             cfg)
+                             cfg, tp)
         cache["k"][slot][at][:, :, :T] = k
         cache["v"][slot][at][:, :, :T] = v
         o = ops.attention(q, k, v, causal=True, window=spec.window,
                           softcap=cfg.softcap)
-        x, h = _block_tail(pj, x, o, cfg)
+        x, h = _block_tail(pj, x, o, cfg, tp)
         if _group_end(cfg, at, slot):
             cp, kv = _cross_at(params, cache, at[0])
             x = _cross_apply(cp, x, h, kv, cfg)
@@ -459,6 +479,7 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     values and their logits are garbage to be ignored.  A VLM runs its
     cross block after each group, the flash kernel at one query row."""
     _check_block_path(cfg, cross_ok=True)
+    tp = params.get("tp")
     x = _embed_decode(params, tokens, cfg)
     pos = cache["len"]
     positions = pos[:, None]
@@ -467,7 +488,7 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     for spec, slot, at, pj in _layers(params, cfg):
         kc, vc = cache["k"][slot][at], cache["v"][slot][at]
         q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
-                             cfg)
+                             cfg, tp)
         S = kc.shape[2]
         ring = bool(spec.window) and spec.window <= S
         idx = pos % S if ring else torch.clamp(pos, max=S - 1)
@@ -479,7 +500,7 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
         else:
             o = ops.decode_attention(q, kc, vc, pos + 1, window=spec.window,
                                      softcap=cfg.softcap)
-        x, h = _block_tail(pj, x, o, cfg)
+        x, h = _block_tail(pj, x, o, cfg, tp)
         if _group_end(cfg, at, slot):
             cp, kv = _cross_at(params, cache, at[0])
             x = _cross_apply(cp, x, h, kv, cfg)
@@ -508,6 +529,7 @@ def prefill_chunk(params, cache, tokens: torch.Tensor, true_len: int,
     chunks arrive full width and back to back, only the last one padded."""
     _check_block_path(cfg)
     B, W = tokens.shape
+    tp = params.get("tp")
     x = _embed(params, tokens, cfg)
     start = cache["len"]                                       # (B,)
     positions = start.to(torch.int64)[:, None] + torch.arange(
@@ -517,12 +539,12 @@ def prefill_chunk(params, cache, tokens: torch.Tensor, true_len: int,
     for spec, slot, at, pj in _layers(params, cfg):
         kc, vc = cache["k"][slot][at], cache["v"][slot][at]   # (B, Hkv, S, hd)
         q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
-                             cfg)
+                             cfg, tp)
         kc[rows, :, positions] = k.transpose(1, 2).to(kc.dtype)
         vc[rows, :, positions] = v.transpose(1, 2).to(vc.dtype)
         o = ops.chunk_attention(q, kc, vc, positions, window=spec.window,
                                 softcap=cfg.softcap)
-        x, h = _block_tail(pj, x, o, cfg)
+        x, h = _block_tail(pj, x, o, cfg, tp)
     cache["len"] += int(true_len)
     return cache
 
@@ -547,8 +569,13 @@ def paged_decode_step(params, cache, table: torch.Tensor,
     (gemma2's local layers).  ``seq_axes`` None pages every K/V leaf.
     table: (B, P) int32 physical page ids; tokens (B,); write: (B,) bool,
     where a False row appends to the scratch page, keeps its ring entries
-    and its ``len``, and gives logits to be ignored."""
+    and its ``len``, and gives logits to be ignored.  Under tensor
+    parallelism the paged attention takes the JAX package's TP dispatch
+    (``ops.paged_decode_attention(tp=)``): the kernel on the rank's block
+    of heads of a head-cut pool, else over every head of the whole pool."""
     _check_block_path(cfg)
+    tp = params.get("tp")
+    cut = _head_cut(cfg, tp)
     B = tokens.shape[0]
     if write is None:
         write = torch.ones((B,), dtype=torch.bool, device=tokens.device)
@@ -564,20 +591,21 @@ def paged_decode_step(params, cache, table: torch.Tensor,
     for spec, slot, at, pj in _layers(params, cfg):
         kc, vc = cache["k"][slot][at], cache["v"][slot][at]
         q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
-                             cfg)
+                             cfg, tp)
         if paged[slot]:
             L.paged_append(kc, k[:, :, 0, :], page, off)
             L.paged_append(vc, v[:, :, 0, :], page, off)
             o = ops.paged_decode_attention(q, kc, vc, table, cache_len,
                                            window=spec.window,
-                                           softcap=cfg.softcap)
+                                           softcap=cfg.softcap, tp=tp,
+                                           head_cut=cut)
         else:
             S = kc.shape[2]
             L.cache_write(kc, k, pos % S, aligned=False, write=write)
             L.cache_write(vc, v, pos % S, aligned=False, write=write)
             o = ops.decode_attention(q, kc, vc, torch.clamp(pos + 1, max=S),
                                      softcap=cfg.softcap)
-        x, h = _block_tail(pj, x, o, cfg)
+        x, h = _block_tail(pj, x, o, cfg, tp)
     logits = _logits_head(params, x[:, 0], cfg)
     cache["len"] += write.to(torch.int32)
     return logits, cache

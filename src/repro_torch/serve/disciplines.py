@@ -4,10 +4,14 @@ one-line description and the headline gate of each.
 
 ``python -m repro_torch.serve.disciplines`` prints the markdown table
 (:func:`markdown_table`); a test holds the tuple and the table equal to
-the JAX package's.  The port serves ``sequential`` (``generate()``),
-``continuous``, ``paged_gather``, ``paged``, ``prefix``, ``overload``
-(priorities, deadlines, preemption), ``chaos`` (fault injection and
-recovery) and ``kv_quant``; ``tp`` is not ported yet.
+the JAX package's.  The port serves every one of them: ``sequential``
+(``generate()``), ``continuous``, ``paged_gather``, ``paged``, ``prefix``,
+``overload`` (priorities, deadlines, preemption), ``tp`` (tensor-parallel
+serving over ``torch.distributed`` ranks, ``distributed/``), ``chaos``
+(fault injection and recovery) and ``kv_quant``.  The ``tp`` entry's text
+is the JAX package's: the port's split-brain engine takes the same
+column-only cut as the float engine instead of the Megatron row cuts it
+names (``distributed/sharding.py``).
 """
 from __future__ import annotations
 

@@ -70,6 +70,23 @@ float weights are cast once to the compute dtype (the JAX package casts
 them at every use; the values are the same); the embedding stays float32
 and is gathered, then cast.  The TrafficMeter replays eq.
 7-10 bytes per active token, as the reference does on one device.
+
+  tp            tensor-parallel serving (``tp=``, a ``TPGroup`` of the
+                ranks that run this engine, one process each): every rank
+                builds the engine over its shard of the weights (the serve
+                rules of ``distributed/sharding.py``: column blocks of the
+                up-projections, of the head and of the recurrent inputs,
+                the down-projections whole), its KV state cut on heads
+                where both head counts divide (else whole), and runs the
+                same scheduler on the same requests; the gathers of
+                ``pin_tp_exact`` before every whole product, and of the
+                logits, keep the ranks' tokens equal to one device's.  The
+                meter logs each crossing once per shard at ``width / tp``
+                (``traffic_shards``), so its totals do not change; the
+                pool's ``kv_shards`` says whether its KV heads are cut.  The
+                lm (dense and windowed), rwkv and hymba families serve under
+                TP through the slot protocol; ``generate()`` and the MoE
+                and cross-attention configs raise.
 """
 from __future__ import annotations
 
@@ -83,6 +100,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import exact_matmuls, resolve_device
 from repro_torch.core.splitbrain import TrafficMeter, TrafficModel
+from repro_torch.distributed import sharding
 from repro_torch.models import api
 from repro_torch.serve import pages as pages_mod
 from repro_torch.serve import slots as slots_mod
@@ -97,9 +115,13 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                  fused: bool = True, page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  paged_attn: str = "inplace", prefix_cache: str = "off",
-                 kv_dtype: str = "bf16", device="cuda"):
+                 kv_dtype: str = "bf16", device="cuda", tp=None):
         family = api.family_module(cfg)     # raises for an unported family
         self.device = resolve_device(device)
+        # one rank is the one-device engine, exactly
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        if self.tp is not None:
+            check_tp(cfg, self.tp, self.device)
         if self.device.type == "cuda":
             # the card's tokens equal the CPU's only under these settings
             exact_matmuls()
@@ -109,7 +131,12 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         self._ragged_cfg = dataclasses.replace(
             cfg, parallel=dataclasses.replace(cfg.parallel,
                                               aligned_decode=False))
-        self.params = family.serve_params(params, cfg, self.device)
+        # the rank's shard (the whole tree on one device), then the
+        # serving copy of it
+        self.params = family.serve_params(
+            sharding.shard_params(params, self.tp), cfg, self.device)
+        if self.tp is not None:
+            self.params["tp"] = self.tp
         self.max_len = max_len
         self.fused = fused
         # the MoE FFN couples a call's rows: feed the reference's padding
@@ -139,18 +166,36 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         return pages_mod.seq_axes(a, b, delta)
 
     # ----------------------------------------------------- traffic accounting
+    @property
+    def traffic_shards(self) -> int:
+        """How many ways the boundary-traffic accounting splits per token:
+        the TP degree when every counted width (d_model, kv_dim, vocab)
+        divides by it, else 1 (an approximate split would break the
+        exactness of the totals)."""
+        tp, tm = sharding.size_of(self.tp), self._traffic
+        if (tp > 1 and tm.d_model % tp == 0 and tm.kv_dim % tp == 0
+                and tm.vocab_size % tp == 0):
+            return tp
+        return 1
+
     def meter_tokens(self, n: int) -> None:
         """Replay ``n`` active tokens' boundary crossings on the meter, in
-        the reference's aggregate form for one model shard (same names, same
-        eq. 7-10 widths, bytes == n * TrafficModel.bytes_per_token())."""
+        the reference's aggregate form (same names, same eq. 7-10 widths,
+        bytes == n * TrafficModel.bytes_per_token()): one entry per model
+        shard at ``width / traffic_shards``."""
         n = int(n)
         if n <= 0:
             return
         tm = self._traffic
-        self.meter.h2d("x_qkv_in", (n, tm.num_layers, tm.d_model))
-        self.meter.d2h("kv_out", (n, tm.num_layers, 2, tm.kv_dim))
-        self.meter.h2d("attn_in", (n, tm.num_layers, tm.d_model))
-        self.meter.d2h("logits", (n, tm.vocab_size))
+        shards = self.traffic_shards
+        for _ in range(shards):
+            self.meter.h2d("x_qkv_in", (n, tm.num_layers,
+                                        tm.d_model // shards))
+            self.meter.d2h("kv_out", (n, tm.num_layers, 2,
+                                      tm.kv_dim // shards))
+            self.meter.h2d("attn_in", (n, tm.num_layers,
+                                       tm.d_model // shards))
+            self.meter.d2h("logits", (n, tm.vocab_size // shards))
 
     def measured_bytes(self, count_q: bool = False) -> Dict[str, int]:
         """Total metered boundary bytes (paper accounting: K/V + attention +
@@ -189,6 +234,10 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         ``eos_id`` past each request's stop, and ``gen_len`` reports the
         exact generated length (EOS inclusive, capped at ``max_new``).
         """
+        if self.tp is not None:
+            raise NotImplementedError(
+                "generate() on tensor-parallel ranks is not ported yet "
+                "(ROADMAP.md): serve through the slot protocol")
         if fused is None:
             fused = self.fused
         cfg = self.cfg
@@ -306,19 +355,31 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         ba, sa = self._ba, self._sa
         like = api.init_cache(self.cfg, n_slots, self.max_len,
                               device=torch.device("meta"))
-        self._note_slot_cache(n_slots, like, ba, sa)
         if not self._paging_active:
+            self._note_slot_cache(n_slots, like, ba, sa)
             if self._kv_dtype != "bf16":
                 raise ValueError(
                     f"kv_dtype={self._kv_dtype!r} requires a paging family: "
                     f"no cache leaf of this config scales with max_len, so "
                     f"there is no page pool to quantize")
-            return api.init_cache(self.cfg, n_slots, self.max_len,
-                                  device=self.device)
+            return self._rank_cache(n_slots, self.max_len)
         pool = self._pager.reset(n_slots)
-        return pages_mod.make_pool(like, ba, sa, pool.num_pages,
-                                   self.page_size, self.device,
-                                   kv_dtype=self._kv_dtype)
+        pcache, kv_shards = pages_mod.make_rank_pool(
+            like, ba, sa, pool.num_pages, self.page_size, self.device,
+            self._kv_dtype, self.tp)
+        self._note_slot_cache(n_slots, like, ba, sa, kv_shards)
+        return pcache
+
+    def _rank_cache(self, batch: int, max_len: int, device=None):
+        """A zeroed dense cache of ``batch`` rows as this rank holds it: the
+        family's cache on one device, else its whole shapes cut by the
+        serve cache rules (``sharding.rank_cache``)."""
+        device = self.device if device is None else device
+        if self.tp is None:
+            return api.init_cache(self.cfg, batch, max_len, device=device)
+        like = api.init_cache(self.cfg, batch, max_len,
+                              device=torch.device("meta"))
+        return sharding.rank_cache(like, self.tp, device)
 
     def _stats_seq_axes(self):
         return self._sa
@@ -348,7 +409,7 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                 "seeds decoding)")
         S = (pages_mod.round_len(T0 - 1, self.page_size)
              if self._paging_active and not self._pad_rows else self.max_len)
-        cache = api.init_cache(self.cfg, 1, S, device=self.device)
+        cache = self._rank_cache(1, S)
         if T0 > 1:
             _, cache = api.prefill_bucketed(
                 self.params, cache, self._tokens(self._body(prompt[None])),
@@ -369,14 +430,13 @@ class ServeEngine(pages_mod.PagedEngineMixin):
 
     def new_request_cache(self):
         """A fresh, empty B=1 ``max_len`` cache for chunked prefill."""
-        return api.init_cache(self.cfg, 1, self.max_len, device=self.device)
+        return self._rank_cache(1, self.max_len)
 
     def seed_request_cache(self, cache, slot: int, cached_len: int):
         """The prefix-aware prefill entry: a B=1 request cache holding the
         slot's matched prefix pages gathered (dequantized) from the pool,
         ``len = cached_len``; the tail chunks continue from there."""
-        like = api.init_cache(self.cfg, 1, self.max_len,
-                              device=torch.device("meta"))
+        like = self._rank_cache(1, self.max_len, torch.device("meta"))
         return self.paged_seed(cache, slot, cached_len, self._ba, self._sa,
                                like)
 
@@ -456,3 +516,26 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         ok = slots_mod.finite_logits(logits).to(torch.int32)
         host = torch.stack([nxt, ok]).cpu().numpy()
         return host[0], host[1].astype(bool), cache
+
+
+def check_tp(cfg: ModelConfig, tp, device) -> None:
+    """The tensor-parallel serving this slice covers: the lm family's dense
+    and windowed configs, rwkv and hymba on the rank's own device.  The
+    MoE and cross-attention configs and the sequence-cut dense decode
+    (``parallel.decode_attn="shard_map"``) are not ported to TP yet
+    (ROADMAP.md)."""
+    if cfg.moe or cfg.cross_attn_every or cfg.frontend_tokens \
+            or cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: tensor-parallel serving of the MoE and "
+            f"cross-attention configs is not ported yet (ROADMAP.md)")
+    if cfg.parallel.decode_attn == "shard_map":
+        raise ValueError(
+            f"{cfg.name}: parallel.decode_attn='shard_map' (a dense cache "
+            f"cut on the sequence) is not ported to tensor-parallel serving "
+            f"yet (ROADMAP.md); the engine's caches are cut on heads")
+    dev = torch.device(device)
+    if dev.type != tp.device.type or dev.index not in (None,
+                                                       tp.device.index):
+        raise ValueError(f"engine device {device} is not the rank's "
+                         f"device {tp.device}")

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quant import KV_DTYPES, QuantizedLeaf
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import (SCRATCH_PAGE, byte_view,
                                        fake_quant_pages, kv_pow2_scale,
                                        kv_quantize, page_offsets,
@@ -696,17 +697,50 @@ def page_token_bytes(pcache: Dict[str, object], sa: Dict[str, object],
 
 
 def kv_token_bytes(cache_like: Dict[str, object], ba: Dict[str, int],
-                   sa: Dict[str, object]) -> int:
+                   sa: Dict[str, object], kv_shards: int = 1) -> int:
     """Per-token-per-slot bytes of the sequence-scaling cache leaves, from
     the DENSE cache shapes (paged or not: the same KV bytes per token).  A
-    ring slot's K/V does not grow with the sequence and counts nothing."""
+    ring slot's K/V does not grow with the sequence and counts nothing.
+
+    ``kv_shards`` > 1: the bytes of ONE shard of a pool whose KV heads are
+    cut that many ways (tensor parallelism), exactly ``total / kv_shards``;
+    a total it does not divide raises, since per-shard figures would not
+    sum to it."""
     total = 0
     for name, entry in cache_like.items():
         for like, s_ax in zip(_leaves(entry), _leaf_axes(sa[name], entry)):
             if s_ax >= 0:
                 n = like.numel() // (like.shape[ba[name]] * like.shape[s_ax])
                 total += n * like.element_size()
+    kv_shards = int(kv_shards)
+    if kv_shards > 1:
+        if total % kv_shards != 0:
+            raise ValueError(
+                f"kv_token_bytes ({total}) not divisible by kv_shards "
+                f"({kv_shards}): per-shard accounting would not sum "
+                f"exactly; use kv_shards=1 (the replicated fallback)")
+        return total // kv_shards
     return total
+
+
+def make_rank_pool(cache_like: Dict[str, object], ba: Dict[str, int],
+                   sa: Dict[str, object], num_pages: int, page_size: int,
+                   device, kv_dtype: str, tp) -> Tuple[Dict[str, object], int]:
+    """The paged slot cache that a rank of ``tp`` (a ``TPGroup`` or None)
+    holds, and the pool's KV-head cut: the whole pool of ``cache_like``
+    (the whole model's dense shapes, :func:`make_pool`) cut leaf by leaf as
+    ``sharding.pool_cuts`` says (``sharding.rank_zeros``), and
+    ``sharding.pool_kv_cut`` of the same cuts.  One device: the whole pool
+    and 1."""
+    n = sharding.size_of(tp)
+    if n == 1:
+        return make_pool(cache_like, ba, sa, num_pages, page_size, device,
+                         kv_dtype=kv_dtype), 1
+    whole = make_pool(cache_like, ba, sa, num_pages, page_size,
+                      torch.device("meta"), kv_dtype=kv_dtype)
+    cuts = sharding.pool_cuts(whole, sa, n)
+    return (sharding.rank_zeros(whole, cuts, tp, device),
+            sharding.pool_kv_cut(cuts, sa, n))
 
 
 def kv_token_bytes_quant(cache_like: Dict[str, object], ba: Dict[str, int],
@@ -894,6 +928,7 @@ class PagedEngineMixin:
     _kv_dtype: str = "bf16"      # pool storage format
     _kv_tok_bytes: int = 0       # per-token-per-slot seq-scaling cache bytes
     _kv_quant_tok_bytes: Optional[float] = None   # a quantized pool's figure
+    _kv_shards: int = 1          # TP head cut of the pool (1 = whole)
     _slot_count: int = 0
 
     @property
@@ -946,13 +981,20 @@ class PagedEngineMixin:
                 f"prefix_cache must be 'on' or 'off', got {prefix_cache!r}")
         return prefix_cache == "on"
 
-    def _note_slot_cache(self, n_slots: int, cache_like, ba, sa) -> None:
+    def _note_slot_cache(self, n_slots: int, cache_like, ba, sa,
+                         kv_shards: int = 1) -> None:
         """Record the slot-cache geometry the KV byte accounting needs, and
         whether prefix reuse is sound: only when every leaf but ``len``
         pages (a ring or recurrent leaf is slot-private state a shared page
-        cannot restore)."""
+        cannot restore).  ``cache_like`` has the whole model's shapes, also
+        on a rank of a tensor-parallel engine, so the read accounting is
+        the one-device figure; ``kv_shards`` is the pool's KV-head cut,
+        whose per-shard bytes :meth:`cache_stats` reports."""
         self._slot_count = int(n_slots)
         self._kv_tok_bytes = kv_token_bytes(cache_like, ba, sa)
+        self._kv_shards = int(kv_shards)
+        if self._kv_shards > 1:      # validates exact divisibility
+            kv_token_bytes(cache_like, ba, sa, self._kv_shards)
         self._prefix_shareable = all(
             s_ax >= 0 for name, e in sa.items() if name != "len"
             for s_ax in _leaf_axes(e, cache_like[name]))
@@ -1129,7 +1171,9 @@ class PagedEngineMixin:
         (codes and scales of a quantized pool); ``peak_kv_bytes_in_use`` is
         what its pages held at peak (the whole allocation for the dense
         layout); the prefix index's hits, pages, evictions and CoW copies;
-        the pool's storage format and its bytes per stored token."""
+        the pool's storage format and its bytes per stored token.  On a
+        rank of a tensor-parallel engine the byte figures of the cache are
+        this rank's, and ``kv_shards`` the pool's KV-head cut."""
         total = sum(_nbytes(t) for e in cache.values() for t in _leaves(e))
         if not self._paging_active:
             return {"cache_bytes": total, "peak_kv_bytes_in_use": total}
@@ -1151,8 +1195,9 @@ class PagedEngineMixin:
                 "cached_index_pages": pool.cached_pages,
                 "evictions": pool.evictions,
                 "cow_copies": pool.cow_copies,
-                "kv_shards": 1,
-                "kv_token_bytes_per_shard": self._kv_tok_bytes,
+                "kv_shards": self._kv_shards,
+                "kv_token_bytes_per_shard": (self._kv_tok_bytes
+                                             // self._kv_shards),
                 "kv_dtype": self._kv_dtype,
                 "kv_token_bytes_stored": (
                     self._kv_quant_tok_bytes

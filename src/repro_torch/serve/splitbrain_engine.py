@@ -37,6 +37,20 @@ syncs every token and meters every executed step for the whole batch.
 The scheduler's steps (``prefill_slot``, ``decode_slots``) always follow
 the numerics of the reference's compiled programs, which the JAX package
 jits whatever ``jit`` says; ``decode_token`` is always the eager loop.
+
+Tensor-parallel serving (``tp=``, a ``TPGroup``): every rank quantizes the
+whole model (LAQ's per-channel codes and scales do not depend on the cut),
+keeps its column blocks of ``wq`` / ``wk`` / ``wv`` / ``w1`` / ``w3`` and of
+the head, each packed once for the W4A8 kernel at ``(K, N / tp)``, and
+holds ``wo`` / ``w2`` whole (the serve rules' column-only cut; the JAX
+package gives this engine the Megatron row cuts, whose exact cross-rank
+sum would need the kernel's int32 partial sums).  A column block of the
+kernel's output is bit-identical to the full product's columns, and the
+activations are gathered before each whole product and the logits after
+the head, so every rank's tokens are one device's.  The KV state is cut on
+heads where both head counts divide; the meter logs each crossing once per
+shard at ``width / tp`` (``traffic_shards``).  Under TP the engine serves
+through the slot protocol; ``generate()`` raises.
 """
 from __future__ import annotations
 
@@ -50,11 +64,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.quant import QuantizedLinear
 from repro_torch.core.splitbrain import TrafficMeter, TrafficModel
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models import api
 from repro_torch.models import layers as L
 from repro_torch.serve import pages as pages_mod
 from repro_torch.serve import slots as slots_mod
+from repro_torch.serve.engine import check_tp
 
 
 def traffic_model_for(cfg: ModelConfig) -> TrafficModel:
@@ -116,13 +132,20 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
                  quantize: bool = True, page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  paged_attn: str = "inplace", prefix_cache: str = "off",
-                 kv_dtype: str = "bf16", fused: bool = True, device="cuda"):
+                 kv_dtype: str = "bf16", fused: bool = True, device="cuda",
+                 tp=None):
         if cfg.family != "lm" or len(cfg.layer_pattern) != 1:
             raise ValueError(
                 "split-brain engine covers the paper's LM configs")
         if cfg.moe:
             raise ValueError("split-brain engine covers dense FFNs")
         self.device = resolve_device(device)
+        # one rank is the one-device engine, exactly
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        if self.tp is not None:
+            check_tp(cfg, self.tp, self.device)
+        self._cut = sharding.head_cut(self.tp, cfg.num_heads,
+                                      cfg.num_kv_heads)
         self.cfg = cfg
         self.meter = TrafficMeter()
         self.max_len = max_len
@@ -141,10 +164,13 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         else:
             dev = _float_weights(dev, self._dtype)
             head = head.to(self._dtype)
-        stacked = _pack(_stack_layers(
+        stacked = _stack_layers(
             {**dev, "ln_attn": blocks["ln_attn"], "ln_mlp": blocks["ln_mlp"]},
-            cfg.num_layers))
-        head = _pack(head)
+            cfg.num_layers)
+        # the rank's column blocks (the whole tree on one device), packed
+        shard = sharding.shard_params({"layers": stacked, "head": head},
+                                      self.tp)
+        stacked, head = _pack(shard["layers"]), _pack(shard["head"])
         # per-layer views, built once: the hot loop only indexes a list
         self._layers = [_layer(stacked, i) for i in range(cfg.num_layers)]
         self._embed = params["embed"]         # host-side float table
@@ -156,17 +182,34 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
                          kv_dtype)
 
     # ------------------------------------------------------------ accounting
+    @property
+    def traffic_shards(self) -> int:
+        """How many ways the boundary-traffic accounting splits per token:
+        the TP degree when every counted width (d_model, Hkv, Hq, vocab)
+        divides by it, else 1."""
+        cfg, tp = self.cfg, sharding.size_of(self.tp)
+        if (tp > 1 and cfg.d_model % tp == 0 and cfg.num_kv_heads % tp == 0
+                and cfg.num_heads % tp == 0 and cfg.vocab_size % tp == 0):
+            return tp
+        return 1
+
     def _meter_token(self, batch: int) -> None:
         """Replay one token's boundary crossings on the meter: per layer the
         QKV input (h2d), K and V out (d2h) and the attention output in
-        (h2d); then the logits out (d2h).  Names, order and sizes are those
-        of the JAX package's meter, so its totals are eq. 7-10's."""
+        (h2d); then the logits out (d2h), each once per model shard at
+        ``width / traffic_shards``.  Names, order and sizes are those of
+        the JAX package's meter, so its totals are eq. 7-10's."""
         cfg = self.cfg
+        s = self.traffic_shards
         for _ in range(self._n_layers):
-            self.meter.h2d("x_qkv_in", (batch, 1, cfg.d_model))
-            self.meter.d2h("kv_out", (2, batch, cfg.num_kv_heads, 1, self._hd))
-            self.meter.h2d("attn_in", (batch, 1, cfg.num_heads * self._hd))
-        self.meter.d2h("logits", (batch, 1, cfg.vocab_size))
+            for _ in range(s):
+                self.meter.h2d("x_qkv_in", (batch, 1, cfg.d_model // s))
+                self.meter.d2h("kv_out", (2, batch, cfg.num_kv_heads // s,
+                                          1, self._hd))
+                self.meter.h2d("attn_in", (batch, 1,
+                                           cfg.num_heads * self._hd // s))
+        for _ in range(s):
+            self.meter.d2h("logits", (batch, 1, cfg.vocab_size // s))
 
     def meter_tokens(self, n: int) -> None:
         """Replay ``n`` active tokens' boundary crossings (scheduler hook)."""
@@ -205,11 +248,12 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         for i, p in enumerate(self._layers):
             xn = L.rmsnorm(x, p["ln_attn"], cfg.norm_eps)
             q, k, v = L.qkv_project(p["attn"], xn, cfg.num_heads,
-                                    cfg.num_kv_heads, hd, compiled)
+                                    cfg.num_kv_heads, hd, compiled, self.tp)
             q = L.rope(q, positions, cfg.rope_theta)
             k = L.rope(k, positions, cfg.rope_theta)
             attn = kv_attend(i, q, k, v)
-            attn = attn.transpose(1, 2).reshape(B, 1, cfg.num_heads * hd)
+            attn = sharding.gather(attn.transpose(1, 2).reshape(B, 1, -1),
+                                   self.tp, cfg.num_heads * hd)
             o = L.linear(attn, p["attn"]["wo"], compiled)
             if compiled:
                 s = x.to(torch.float32) + o.to(torch.float32)
@@ -219,9 +263,10 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
                 x = x + o
                 y = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
             x = x + L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"],
-                             compiled)
+                             compiled, self.tp)
         x = L.rmsnorm(x, self._ln_final, cfg.norm_eps)
-        return L.linear(x, self._head, compiled)[:, 0]
+        return sharding.gather(L.linear(x, self._head, compiled)[:, 0],
+                               self.tp, cfg.vocab_size)
 
     def _token_step(self, k_cache, v_cache, length, token,
                     compiled: bool = False,
@@ -259,7 +304,8 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
             L.paged_cache_write(kc, k, table, pos, write)
             L.paged_cache_write(vc, v, table, pos, write)
             return ops.paged_decode_attention(q, kc, vc, table, cache_len,
-                                              softcap=self.cfg.softcap)
+                                              softcap=self.cfg.softcap,
+                                              tp=self.tp, head_cut=self._cut)
 
         return self._layer_sweep(pos, token, kv_attend, compiled=True)
 
@@ -268,10 +314,11 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
 
     # --------------------------------------------------------------- decoding
     def init_cache(self, batch: int) -> Dict[str, torch.Tensor]:
-        """Dense KV cache: (L, B, Hkv, S, hd) K and V, (B,) int32 lengths."""
-        like = self._cache_like(batch)
-        return {k: torch.zeros(t.shape, dtype=t.dtype, device=self.device)
-                for k, t in like.items()}
+        """Dense KV cache: (L, B, Hkv, S, hd) K and V, (B,) int32 lengths;
+        under tensor parallelism the rank's cut of it
+        (``sharding.rank_cache``)."""
+        return sharding.rank_cache(self._cache_like(batch), self.tp,
+                                   self.device)
 
     def decode_token_eager(self, cache: Dict[str, torch.Tensor], token):
         """One token through the split-brain loop on the dense cache, which
@@ -307,6 +354,10 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         bytes per ACTIVE token only (every prompt-forcing step for the
         whole batch).  ``decode_s`` / ``tokens_per_s`` cover prompt and
         decode, as in the JAX package."""
+        if self.tp is not None:
+            raise NotImplementedError(
+                "generate() on tensor-parallel ranks is not ported yet "
+                "(ROADMAP.md): serve through the slot protocol")
         prompts = np.asarray(prompts, np.int32)
         B, T0 = prompts.shape
         if T0 - 1 + max_new > self.max_len:
@@ -389,8 +440,8 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
                 "decode_s": dt}
 
     def _cache_like(self, batch: int) -> Dict[str, torch.Tensor]:
-        """Shapes and dtypes of the dense (L, B, Hkv, S, hd) cache, as meta
-        tensors (no allocation)."""
+        """Shapes and dtypes of the whole model's dense (L, B, Hkv, S, hd)
+        cache, as meta tensors (no allocation)."""
         cfg = self.cfg
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, self.max_len,
                  self._hd)
@@ -407,13 +458,15 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
     def init_slot_cache(self, n_slots: int) -> Dict[str, torch.Tensor]:
         like = self._cache_like(n_slots)
         ba, sa = self._SLOT_AXES, self._SEQ_AXES
-        self._note_slot_cache(n_slots, like, ba, sa)
         if not self._paging_active:
+            self._note_slot_cache(n_slots, like, ba, sa)
             return self.init_cache(n_slots)
         pool = self._pager.reset(n_slots)
-        return pages_mod.make_pool(like, ba, sa, pool.num_pages,
-                                   self.page_size, self.device,
-                                   kv_dtype=self._kv_dtype)
+        pcache, kv_shards = pages_mod.make_rank_pool(
+            like, ba, sa, pool.num_pages, self.page_size, self.device,
+            self._kv_dtype, self.tp)
+        self._note_slot_cache(n_slots, like, ba, sa, kv_shards)
+        return pcache
 
     def _stats_seq_axes(self):
         return self._SEQ_AXES
@@ -460,8 +513,10 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         """The prefix-aware prefill entry: a B=1 request cache holding the
         slot's matched prefix pages gathered (dequantized) from the pool,
         ``len = cached_len``; the tail chunks continue from there."""
+        like = sharding.rank_cache(self._cache_like(1), self.tp,
+                                   torch.device("meta"))
         return self.paged_seed(cache, slot, cached_len, self._SLOT_AXES,
-                               self._SEQ_AXES, self._cache_like(1))
+                               self._SEQ_AXES, like)
 
     def prefill_chunk_slot(self, cache: Dict[str, torch.Tensor],
                            chunk: np.ndarray, true_w: int):

@@ -938,3 +938,18 @@ def test_forward_on_card_matches_cpu_and_counts_launches(cuda, arch):
     rep = pick_report(fwd["cpu"], fwd["cuda"], fwd["cuda"].argmax(-1))
     tol = 2 * bf16_ulp_of(rep["max_abs_logit"])
     assert rep["max_abs_err"] <= tol and rep["shortfall"] <= 2 * tol, rep
+
+
+def test_tp_paged_head_cut_and_merge_on_card(cuda):
+    """The paged kernel's tensor-parallel dispatch on two gloo ranks that
+    share the card: the head cut (each rank's 16 query and 4 KV heads, the
+    unsharded split plan) bit for bit the unsharded kernel's heads, and the
+    page-split LSE merge within one bf16 ulp of the plain version plus the
+    order bound."""
+    from repro_torch.distributed import runtime
+    from torch_tp_cases import paged_card_rank
+    ranks = runtime.spawn(paged_card_rank, 2, (), backend="gloo",
+                          devices=["cuda:0"] * 2, timeout=300)
+    for r in ranks:
+        assert r["head_cut"], r
+        assert r["merge"], r

@@ -37,10 +37,13 @@ def test_static_scan_finds_no_jax_or_repro_import():
     assert not bad, bad
 
 
-# the jax-free modules the port copies, the hymba family, the MoE FFN and
-# the encoder-decoder family with their configs: they must be among the
-# modules the scan imports
-NEW_MODULES = ("repro_torch.serve.faults", "repro_torch.serve.server",
+# the jax-free modules the port copies, the hymba family, the MoE FFN,
+# the encoder-decoder family with their configs and the tensor-parallel
+# package: they must be among the modules the scan imports
+NEW_MODULES = ("repro_torch.distributed.runtime",
+               "repro_torch.distributed.sharding",
+               "repro_torch.distributed.collectives",
+               "repro_torch.serve.faults", "repro_torch.serve.server",
                "repro_torch.serve.disciplines", "repro_torch.models.hymba",
                "repro_torch.configs.hymba_1_5b", "repro_torch.models.moe",
                "repro_torch.configs.phi3_5_moe_42b_a6_6b",

@@ -1,8 +1,9 @@
 """The port's serving CLI, ``python -m repro_torch.launch.serve``, on the
 CPU at the reduced size: both modes print their JSON report, the KV-cache
-feature flags serve, the frontend configs serve through generate() only,
-flags of features the port does not have yet exit with "not ported yet",
-and the default device needs a card.  Imports neither JAX nor the JAX package."""
+feature flags serve, ``--tp 2`` serves on two gloo ranks with the tokens of
+``--tp 1``, the frontend configs serve through generate() only, flag
+combinations the port does not have yet exit with "not ported yet", and
+the default device needs a card.  Imports neither JAX nor the JAX package."""
 import json
 
 import pytest
@@ -69,13 +70,49 @@ def test_ported_feature_flags_serve(flags, capsys):
             assert [r.tokens.tolist() for r in out["results"]] == plain
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"]])
+@pytest.mark.parametrize("flags", [
+    ["--tp", "2", "--chaos-plan", "device_loss_at=4"],
+    ["--tp", "2", "--priority", "0,1"],
+    ["--tp", "2", "--arch", "phi3.5-moe-42b-a6.6b"]])
 def test_unported_flags_exit(flags, capsys):
+    """``--tp`` is ported; the combinations this slice does not serve under
+    it (the online and chaos flags, the MoE and cross-attention configs)
+    exit with "not ported yet", naming ROADMAP.md, before any rank
+    starts."""
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", "llama2-7b", *SMOKE, "--continuous",
                     "--page-size", "8", *flags])
     assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and "ROADMAP.md" in err
+
+
+def test_tp_without_continuous_exits(capsys):
+    """``generate()`` on tensor-parallel ranks is not covered by this
+    slice's tests: ``--tp`` without ``--continuous`` exits with "not ported
+    yet", naming ROADMAP.md, before any rank starts."""
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--arch", "llama2-7b", *SMOKE, "--tp", "2"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and "ROADMAP.md" in err
+
+
+def test_tp2_reports_the_tokens_of_tp1(capsys):
+    """``--tp 2`` on the CPU: two gloo ranks serve the same requests over
+    their shards, and rank 0's report has the tokens of ``--tp 1``, with
+    the group's backend and devices and the pool's KV heads cut in two."""
+    args = ["--arch", "llama2-7b", *SMOKE, "--continuous", "--requests",
+            "4", "--slots", "2", "--page-size", "8"]
+    serve.main(args + ["--tp", "1"])
+    one = _report(capsys)
+    out = serve.main(args + ["--tp", "2"])
+    two = _report(capsys)
+    assert one["tp"] == 1 and two["tp"] == 2
+    assert two["tp_backend"] == "gloo" and two["tp_devices"] == ["cpu"] * 2
+    assert two["tokens"] == one["tokens"] == out["tokens"]
+    assert two["gen_len"] == [4] * 4 and two["by_state"] == {"DONE": 4}
+    assert one["cache"]["kv_shards"] == 1 and two["cache"]["kv_shards"] == 2
 
 
 def test_unported_arch_exits(capsys):
