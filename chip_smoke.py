@@ -81,24 +81,28 @@ fails before printing any result):
              op of the decay path run on both devices from the same inputs
              is reported, and the decay (float64 exps) must match bit for
              bit
-  main_path  full-width tinyllama-1.1b (22 layers, random seeded weights,
-             LAQ W4A8 on the card), SplitBrainEngine(page_size=16,
+  main_path  full-width tinyllama-1.1b at 11 of its 22 layers (random
+             seeded weights, LAQ W4A8 on the card; MAIN_LAYERS, cut to
+             keep the script inside its time limit; the times rows keep
+             the 22-layer units), SplitBrainEngine(page_size=16,
              max_len=256) under the continuous-batching scheduler with 8
              slots: a warm-up run, then 16 seeded requests (prompts of 8-64
              tokens, 32 new tokens each) with the launch counts set to 0
              just before and read just after; every request DONE, launches
-             = 155 W4A8 per token step and 22 paged attentions per decode
-             step, eq. 7-10 meter exact, a second run token-identical;
-             then generate() on 4 prompts of 64 tokens with 32 new tokens:
-             155 W4A8 launches per token step, its tokens/s
+             = 78 W4A8 per token step (7 per layer and the head) and 11
+             paged attentions per decode step, eq. 7-10 meter exact, a
+             second run token-identical; then generate() on 4 prompts of 64
+             tokens with 32 new tokens: 78 W4A8 launches per token step,
+             its tokens/s
   tp_path    tensor-parallel serving on two ranks of a torch.distributed
              group sharing the one card over gloo (one process each; the
              ranks' devices and backend from ``runtime.plan``): (a) the main
-             path at tp 2, full-width tinyllama-1.1b split-brain (22 layers,
+             path at tp 2, full-width tinyllama-1.1b split-brain (main_path's
+             11 layers,
              LAQ W4A8 column blocks of wq/wk/wv/w1/w3 and the head, packed
              per rank; wo/w2 whole), page 16, 8 slots, 8 of main_path's
              requests with 32 new: tokens identical to main_path's (the tp 1
-             engine on the same requests), 155 W4A8 and 22 paged launches
+             engine on the same requests), 78 W4A8 and 11 paged launches
              per rank per token step, the meter's bytes per token eq.
              7-10's, kv_shards 2; (b) the float ServeEngine, llama2-7b at
              full width and 8 of its 32 layers (bf16 weights), 8 requests of
@@ -175,8 +179,8 @@ fails before printing any result):
   features_splitbrain  full-width tinyllama-1.1b split-brain on the main
              path's LAQ weights with an int8 prefix-shared pool (pages of
              16, chunks of 32) on the main path's traffic behind a shared
-             128-token prefix: 155 W4A8 launches per computed token step,
-             22 paged per decode step, meter exact; a short run on a dense
+             128-token prefix: 78 W4A8 launches per computed token step,
+             11 paged per decode step, meter exact; a short run on a dense
              slot cache (4 of the main path's requests, 8 new tokens) gives
              the tokens of a paged bf16 pool under the
              gather discipline (the same dense token step on the gathered
@@ -197,8 +201,8 @@ fails before printing any result):
              tokens or leaves them only at a near-tie (the two picks'
              logits, recomputed by the engine's own path from the common
              prefix, within NEAR_TIE_ULPS bf16 ulps of the largest), and
-             the launches are pinned per step: 155 W4A8 per computed
-             split-brain token step and 22 paged per decode step, 16 flash
+             the launches are pinned per step: 78 W4A8 per computed
+             split-brain token step and 11 paged per decode step, 16 flash
              per llama2-7b prefill and 16 paged per decode step (16 layers)
   reference_hymba  reduced hymba-1.5b on the card and on the CPU from the
              same weights on a wrapping ring and on a paged pool, and
@@ -278,9 +282,10 @@ fails before printing any result):
              one flash launch per layer (16, 46, 24, 8), finite logits, the
              last position's against the block prefill's (equal picks or a
              near-tie)
-  profile    torch.profiler over decode steps of each path: device time by
-             kernel and the device's busy share; on main_path the device
-             kernels per W4A8 call (must be 1)
+  profile    torch.profiler over 3 decode steps of each path
+             (PROFILE_STEPS): device time by kernel and
+             the device's busy share; on main_path the device kernels per
+             W4A8 call (must be 1)
   times      CUDA-event times of each kernel at its path's shapes, replayed
              from a CUDA graph so the host's launch overhead is out (the
              eager time is kept beside it), with its bound, its plain
@@ -311,12 +316,33 @@ fails before printing any result):
              encoder's 12 launches, the VLM's 8 cross launches in a
              prefill and in a decode step, non-causal; library: SDPA)
 
+  train_kernels  the flash and scan kernels' autograd Functions at the
+             training shapes (flash: B 8, 32/32 heads of 64, T 512, causal,
+             bf16; scan: B 1, H 64, T 128, D 64): one launch, the forward
+             the wrapper's output, every gradient the plain version's bit
+             for bit; each of the four wrappers refuses an operand that
+             requires grad in grad mode; the card's float32 sqrt correctly
+             rounded; flash's time over a train step's 24 launches (bound,
+             plain, SDPA) and the Functions' backward (the plain recompute)
+  train_path (a) stablelm-1.6b at full width and depth through
+             ``repro_torch.launch.train.main`` (24 steps of 8 x 512 tokens,
+             float32 params, bf16 compute), counts set to 0 just before and
+             read just after: 24 flash launches per step, the loss falls;
+             ms per step, tokens/s, mfu, busy share over two profiled
+             steps, peak memory.  (b) examples/train_e2e.py's kill-resume
+             demonstration (granite-8b --smoke, batch 16, seq 128, lr 3e-3,
+             a checkpoint every 20 steps, 300 steps): the first phase
+             preempted after step 149, the restored state bit-identical to
+             the saved one, the loss drop across the restart above 0.5, the
+             gap to an uninterrupted run; an int8-moment save and restore
+
 ``python3 chip_smoke.py --only moe`` runs the device and build phases and
 the MoE phases alone, and prints neither the kernels line nor the ok line;
 ``--only xattn`` does the same for the cross-attention phases (with the
 flash phase's cases at their shapes); ``--only tp`` for tp_path (with the
 w4a8, paged and flash phases' cases at its ranks' shapes; it then serves
-its tp 1 tokens of (a) itself).
+its tp 1 tokens of (a) itself); ``--only train`` for train_kernels and
+train_path (with the flash phase's case at the train step's shape).
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
@@ -355,8 +381,8 @@ from repro_torch.serve.scheduler import (
 from repro_torch.serve.server import OnlineServer
 from repro_torch.serve.splitbrain_engine import (
     SplitBrainEngine, traffic_model_for)
-from torch_cases import (bf16_ulp_of, feature_prompts, pick_report,
-                         record_prefills, replay_prefills,
+from torch_cases import (autograd_grads, bf16_ulp_of, feature_prompts,
+                         pick_report, record_prefills, replay_prefills,
                          rwkv_decay_bits_report, serve_staged,
                          teacher_forced_logits)
 
@@ -824,7 +850,8 @@ def phase_flash(dev, cases=None):
              ("gemma2-27b", (1, 32, 16, 4200, 4200, 128),
               dict(causal=True, window=4096, softcap=50.0))]
     if cases is None:
-        cases = llama + other + XATTN_FLASH_CASES + FLASH_TP_CASES
+        cases = (llama + other + XATTN_FLASH_CASES + FLASH_TP_CASES
+                 + [TRAIN_FLASH_CASE])
     worst, rows = 0.0, []
     for name, shape, opts in cases:
         for qd in (bf, f32):
@@ -1197,8 +1224,20 @@ class PhaseClock:
             eng.__dict__.pop(name, None)
 
 
+# the main path's tinyllama-1.1b at full width and MAIN_LAYERS of its 22
+# layers, to keep the script inside its time limit: its engine also carries
+# features_splitbrain, chaos_path (a) and tp_path (a), whose split-brain
+# prompt-token steps cost host time per layer
+MAIN_LAYERS = 11
+
+
+def main_cfg():
+    return dataclasses.replace(get_config("tinyllama-1.1b"),
+                               num_layers=MAIN_LAYERS)
+
+
 def phase_main_path(dev, smi_line):
-    cfg = get_config("tinyllama-1.1b")
+    cfg = main_cfg()
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                              device=dev)
@@ -1587,7 +1626,7 @@ def tp_rank(group, smi_line, t_spawn):
         mark[0] = now
 
     # (a) the main path: split-brain tinyllama, W4A8 column blocks
-    cfg = get_config("tinyllama-1.1b")
+    cfg = main_cfg()
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                              device=dev)
@@ -1646,9 +1685,9 @@ def phase_tp_path(dev, smi_line, clean=None):
     of the same depth built here."""
     from repro_torch.distributed import runtime
     t0 = time.perf_counter()
-    L = get_config("tinyllama-1.1b").num_layers
+    L = MAIN_LAYERS
     if clean is None:
-        cfg = get_config("tinyllama-1.1b")
+        cfg = main_cfg()
         params = api.init_params(
             cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
         eng = SplitBrainEngine(cfg, params, max_len=256, page_size=16,
@@ -1677,7 +1716,7 @@ def phase_tp_path(dev, smi_line, clean=None):
         check(a["kv_shards"] == TP and a["traffic_shards"] == TP,
               f"tp_path (a): kv_shards {a['kv_shards']}")
         check(a["meter_bytes_per_token"]
-              == traffic_model_for(get_config("tinyllama-1.1b"))
+              == traffic_model_for(main_cfg())
               .bytes_per_token(), "tp_path (a): meter bytes per token")
         b = r["b"]
         want = {"w4a8_matmul": 0, "flash_attention": TP_LAYERS * b["requests"],
@@ -1910,7 +1949,7 @@ def phase_features_splitbrain(main_eng, dev, smi_line):
     """Full-width tinyllama-1.1b split-brain (LAQ W4A8, the main path's
     weights) with an int8 prefix-shared pool, pages of 16, 8 slots and
     prefill chunks of 32, on the main path's traffic behind a shared
-    128-token prefix: 155 W4A8 launches per token step and 22 paged launches
+    128-token prefix: 78 W4A8 launches per token step and 11 paged launches
     per decode step; then a short run on a dense slot cache and one on a
     paged bf16 pool: the same tokens."""
     t_path = time.perf_counter()
@@ -2227,9 +2266,16 @@ def phase_gemma2_path(dev, smi_line):
     return eng, info
 
 
+# decode steps under torch.profiler in each path's profile phase, few to
+# keep the script inside its time limit (the trace's processing grows with
+# the steps' host ops)
+PROFILE_STEPS = 3
+
+
 def phase_profile(eng, dev, path, slots=8):
-    """Device time by kernel over decode steps of a path with all its
-    slots decoding, and the device's busy share of the host's wall time."""
+    """Device time by kernel over PROFILE_STEPS decode steps of a path with
+    all its slots decoding, and the device's busy share of the host's wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
     sched = ContinuousBatchingScheduler(eng, max_slots=slots)
     sched.begin()
@@ -2240,7 +2286,7 @@ def phase_profile(eng, dev, path, slots=8):
     for _ in range(2):
         sched.step()
     torch.cuda.synchronize()
-    n = 5
+    n = PROFILE_STEPS
     ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2408,9 +2454,14 @@ def causal_mask_mod(window):
 def phase_times(eng, dev, counts):
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     kernels, detail = [], []
-    # --- W4A8: one decode step's 155 launches at M = 8 on the model's codes
-    #     (1.03 GB, so every launch reads its codes from HBM, as decode does)
+    # --- W4A8: one decode step's 155 launches of the 22-layer model at M = 8
+    #     on the engine's codes (its MAIN_LAYERS layers' launches repeated
+    #     to 22 layers' worth, then the head: 1.03 GB, so every launch reads
+    #     its codes from HBM, as decode does)
     launches = w4a8_step_launches(eng, 8, gen, dev)
+    full = get_config("tinyllama-1.1b").num_layers
+    per_layer = launches[:-1] * -(-full // eng.cfg.num_layers)
+    launches = per_layer[:7 * full] + launches[-1:]
 
     def w4a8_step(fn, ls):
         return lambda: [fn(qx, xs, w.codes, w.scales, packed=w.packed)
@@ -2425,7 +2476,7 @@ def phase_times(eng, dev, counts):
     p_ms = graph_time_ms(plain_step(launches), iters=3)
     lib_ms = yardstick_ms(int_mm_yardstick(launches), 20, detail, "w4a8_library")
     # the head is one matrix: seven more of its shape (seeded random codes)
-    # make a graph of eight launches, as the layers' shapes have 22-44, so
+    # make a graph of eight launches, as the layers' shapes have 11-22, so
     # that no per-shape time is one replay's fixed cost
     K, N = eng._head.codes.shape
     heads = [eng._head] + [
@@ -2435,7 +2486,7 @@ def phase_times(eng, dev, counts):
     for M in (1, 8):
         per = w4a8_step_launches(eng, M, gen, dev)
         for (K, N) in W4A8_SHAPES:
-            # the 22 layers' distinct matrices of this shape (the 8 heads)
+            # the layers' distinct matrices of this shape (the 8 heads)
             same = [x for x in per if tuple(x[1].codes.shape) == (K, N)]
             if len(same) == 1:
                 same = [(same[0][0], h) for h in heads]
@@ -2450,8 +2501,10 @@ def phase_times(eng, dev, counts):
     kernels.append({"name": "w4a8_matmul", "route": "cuda", "source": W4A8_SRC[0],
                     "replaces": W4A8_SRC[1],
                     "launches": counts["w4a8_matmul"],
-                    "unit": "one decode step: 155 launches at M=8 on the "
-                            "model's codes, CUDA-graph replay",
+                    "unit": "one decode step of the 22-layer model: 155 "
+                            "launches at M=8 on the engine's codes (its "
+                            f"{eng.cfg.num_layers} layers' repeated), "
+                            "CUDA-graph replay",
                     "ms": k_ms, "plain_ms": p_ms,
                     "bound_ms": w4a8_bound_ms(launches), "bound_by": "bytes",
                     "bound_ms_int8_codes": w4a8_bound_ms(launches, code_bytes=1),
@@ -2462,10 +2515,11 @@ def phase_times(eng, dev, counts):
                     "library_note": "torch._int_mm, M padded to 17, plus the "
                                     "same scale epilogue",
                     "eager_ms": eager_ms})
-    # --- paged attention: one decode step's 22 launches (one per layer's
-    #     pool slice) at 8 slots of the main path's lengths
+    # --- paged attention: one decode step's 22 launches of the 22-layer
+    #     model (one per layer's pool slice) at 8 slots of the main path's
+    #     lengths
     lens = [9, 24, 40, 47, 63, 70, 88, 95]
-    t = paged_step_times(gen, dev, eng.cfg.num_layers, 32, 4, 64, 16, lens,
+    t = paged_step_times(gen, dev, full, 32, 4, 64, 16, lens,
                          detail, "paged_library")
     kernels.append({"name": "paged_decode_attention", "route": "cuda",
                     "source": PAGED_SRC[0], "replaces": PAGED_SRC[1],
@@ -4492,6 +4546,393 @@ def run_xattn(dev, smi):
     return vinfo["launches_total"], einfo["launches_total"], rows
 
 
+# ---------------------------------------------------------------- training
+# train_path (a): stablelm-1.6b at full width and depth through the training
+# CLI, as a user would call it; the profiled steps are kept out of the step
+# time; (b): examples/train_e2e.py's kill-resume demonstration
+TRAIN = dict(arch="stablelm-1.6b", steps=24, batch=8, seq=512)
+TRAIN_PROFILED = (20, 21)
+TRAIN_E2E = dict(arch="granite-8b", steps=300, batch=16, seq=128, lr=3e-3,
+                 every=20, kill_at=150)
+# the flash kernel at (a)'s shape (B 8, 32/32 heads of 64, T 512, causal),
+# and the scan at rwkv6-7b's heads (B 1, H 64, T 128, D 64)
+TRAIN_FLASH_CASE = ("stablelm-1.6b train step", (8, 32, 32, 512, 512, 64),
+                    dict(causal=True))
+TRAIN_SCAN_SHAPE = (1, 64, 128, 64)
+
+
+def phase_train_kernels(dev):
+    """(c) The kernels' autograd Functions at the training shapes: the
+    forward launches the kernel once and equals the wrapper's output, the
+    gradients equal the plain version's autograd bit for bit (the backward
+    runs the same plain computation on the same inputs); every kernel
+    wrapper refuses an operand that requires grad in grad mode; the card's
+    float32 ``torch.sqrt`` is correctly rounded (the optimizer relies on
+    it).  Then the flash kernel's time over one train step's 24 launches at
+    (a)'s shape (CUDA-graph replay) beside its bound, its plain version and
+    SDPA, and the cost of the Functions' backward (the plain recompute and
+    its gradients), eager."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    bf = torch.bfloat16
+    from repro_torch.kernels import rwkv_scan as krw
+    label, shape, opts = TRAIN_FLASH_CASE
+    q, k, v = flash_inputs(gen, dev, *shape, bf)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(bf)
+    ops.reset_launch_counts()
+    outs, grads = autograd_grads(lambda *x: ops.attention(*x, **opts),
+                                 (q, k, v), (dout,))
+    check(ops.launch_counts()["flash_attention"] == 1
+          and "FlashAttentionFn" in type(outs[0].grad_fn).__name__,
+          "ops.attention in grad mode: one kernel launch through the Function")
+    check(torch.equal(outs[0], kfa.flash_attention(q, k, v, **opts)),
+          "the flash Function's forward differs from the wrapper's output")
+    p_outs, p_grads = autograd_grads(
+        lambda *x: ref.flash_attention(*x, **opts), (q, k, v), (dout,))
+    flash_same = [bool(torch.equal(a, b)) for a, b in zip(grads, p_grads)]
+    flash_err = (outs[0].float() - p_outs[0].float()).abs()
+    check(bool((flash_err <= bf16_ulp(p_outs[0].float()) + 1e-5).all()),
+          "the flash Function's forward outside phase_flash's bound")
+    check(all(flash_same), f"flash dq, dk, dv against the plain version's "
+          f"gradients: {flash_same}")
+    r, kk, vv, w, u = rwkv_inputs(gen, dev, *TRAIN_SCAN_SHAPE, bf, "model")
+    B, H, _, D = TRAIN_SCAN_SHAPE
+    douts = (torch.randn(r.shape, generator=gen, device=dev).to(bf),
+             torch.randn((B, H, D, D), generator=gen, device=dev))
+    ops.reset_launch_counts()
+    s_outs, s_grads = autograd_grads(ops.rwkv6, (r, kk, vv, w, u), douts)
+    check(ops.launch_counts()["rwkv6_scan"] == 1,
+          "ops.rwkv6 in grad mode: one kernel launch through the Function")
+    k_out, k_state = krw.rwkv6_scan(r, kk, vv, w, u)
+    check(torch.equal(s_outs[0], k_out) and torch.equal(s_outs[1], k_state),
+          "the scan Function's forward differs from the wrapper's output")
+    p_outs, p_grads = autograd_grads(ref.rwkv6_scan, (r, kk, vv, w, u), douts)
+    scan_same = [bool(torch.equal(a, b)) for a, b in zip(s_grads, p_grads)]
+    check(all(scan_same) and torch.equal(s_outs[1], p_outs[1]),
+          f"scan dr, dk, dv, dw, du against the plain version's: "
+          f"{scan_same}")
+    # the wrappers refuse an operand that requires grad in grad mode
+    qx, xs_, codes = (torch.zeros((8, 64), dtype=torch.int8, device=dev),
+                      torch.ones((8, 1), device=dev),
+                      torch.zeros((64, 32), dtype=torch.int8, device=dev))
+    pc = paged_inputs(gen, dev, B=2, Hq=4, Hkv=2, D=64, ps=16, P=2,
+                      lens=[5, 20], qdtype=bf)
+    calls = {
+        "flash_attention": lambda: kfa.flash_attention(
+            q.detach().requires_grad_(True), k, v),
+        "rwkv6_scan": lambda: krw.rwkv6_scan(r, kk, vv, w,
+                                             u.detach().requires_grad_(True)),
+        "w4a8_matmul": lambda: kw.w4a8_matmul(
+            qx, xs_.detach().requires_grad_(True), codes,
+            torch.ones(32, device=dev), packed=kw.pack_codes(codes)),
+        "paged_decode_attention": lambda: run_paged(
+            dict(pc, q=pc["q"].detach().requires_grad_(True)),
+            kpa.paged_decode_attention)}
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "requires grad" in str(e)
+    check(all(refused.values()) and set(refused) == set(ops.KERNELS),
+          f"kernel wrappers in grad mode: {refused}")
+    x = torch.rand(1 << 22, generator=gen, device=dev) * 100
+    sqrt_exact = bool(torch.equal(torch.sqrt(x),
+                                  torch.sqrt(x.double()).float()))
+    check(sqrt_exact, "float32 torch.sqrt on the card is not correctly "
+          "rounded (the optimizer's sqrt relies on it)")
+    # times: one train step's 24 launches at (a)'s shape
+    L = get_config(TRAIN["arch"]).num_layers
+    launches = [flash_inputs(gen, dev, *shape, bf) for _ in range(L)]
+    douts_l = [torch.randn(q.shape, generator=gen, device=dev).to(bf)
+               for _ in range(L)]
+
+    def run(fn):
+        return lambda: [fn(a, b, c, **opts) for a, b, c in launches]
+
+    def plain_backward():
+        for (a, b, c), d in zip(launches, douts_l):
+            autograd_grads(lambda *t: ref.flash_attention(*t, **opts),
+                           (a, b, c), (d,))
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    detail = []
+    k_ms = graph_time_ms(run(ops.attention), iters=10)
+    p_ms = graph_time_ms(run(ref.flash_attention), iters=3)
+    lib_ms = yardstick_ms(
+        lambda: [sdpa(a, b, c, is_causal=True) for a, b, c in launches], 10,
+        detail, "flash_train_library")
+    bwd_ms = cuda_time_ms(plain_backward, iters=2, warmup=1)
+    sr = rwkv_inputs(gen, dev, *TRAIN_SCAN_SHAPE, bf, "model")
+    scan_fwd_ms = cuda_time_ms(lambda: ops.rwkv6(*sr), iters=10)
+    scan_bwd_ms = cuda_time_ms(
+        lambda: autograd_grads(ref.rwkv6_scan, sr, douts), iters=2, warmup=1)
+    bound_ms, bound_by = flash_bound(launches)
+    row = {"unit": f"one train step of {TRAIN['arch']}: {L} launches, B 8, "
+                   "32/32 heads, D 64, T 512, causal, bf16, CUDA-graph "
+                   "replay",
+           "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": lib_ms,
+           "library_note": "scaled_dot_product_attention(is_causal=True) on "
+                           "the same tensors",
+           "backward_plain_recompute_ms": bwd_ms,
+           "max_abs_err": flash_err.max().item()}
+    emit({"phase": "train_kernels", "flash": {**row, "grads_bit_identical":
+                                              flash_same},
+          "scan": {"B_H_T_D": TRAIN_SCAN_SHAPE, "grads_bit_identical":
+                   scan_same, "forward_kernel_ms": scan_fwd_ms,
+                   "backward_plain_recompute_ms": scan_bwd_ms},
+          "refused_grad": refused, "cuda_sqrt_correctly_rounded": sqrt_exact,
+          "detail": detail})
+    return row
+
+
+class _Killed(Exception):
+    """The preemption of train_path (b)'s first phase."""
+
+
+def _train_cli(args, record):
+    """``repro_torch.launch.train.main(args)`` with each train step timed
+    (synchronised) and its loss and flash launches recorded in ``record``,
+    the profiled steps of ``record["profile"]`` under torch.profiler; the
+    CLI's log lines are kept in ``record["log"]``, not printed."""
+    import contextlib
+    import io
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as train_cli
+    orig = train_cli.step_mod.make_train_step
+
+    def instrumented(cfg, optcfg):
+        fn = orig(cfg, optcfg)
+
+        def step(params, opt_state, batch):
+            i = len(record["ms"])
+            profiled = i in record.get("profile", ())
+            if profiled and "prof" not in record:
+                record["prof"] = profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                record["prof"].__enter__()
+            before = ops.launch_counts()["flash_attention"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(params, opt_state, batch)
+            loss = float(out[2]["loss"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            record["ms"].append(dt * 1e3)
+            record["loss"].append(loss)
+            record["flash"].append(ops.launch_counts()["flash_attention"]
+                                   - before)
+            if profiled:
+                record["prof_wall"] = record.get("prof_wall", 0.0) + dt
+                if i == max(record["profile"]):
+                    record["prof"].__exit__(None, None, None)
+            return out
+
+        return step
+
+    train_cli.step_mod.make_train_step = instrumented
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = train_cli.main(args)
+    finally:
+        train_cli.step_mod.make_train_step = orig
+        record["log"] = buf.getvalue().splitlines()
+    return result
+
+
+def phase_train_path(dev, smi_line):
+    """train_path: (a) stablelm-1.6b at full width and depth (24 layers, d
+    2048, 32/32 heads of 64, d_ff 5632, vocab 100,352; float32 params from
+    a seeded generator on the card, bf16 compute, remat none) through
+    ``launch.train.main`` for 24 steps of 8 x 512 tokens, counts set to 0
+    just before and read just after: 24 flash launches per step (one per
+    layer in the forward, none in the backward) and no other kernel, the
+    loss falls; ms per step, train tokens/s, mfu (6 N tokens per step over
+    the bf16 peak, N the params outside the input embedding), the device
+    busy share over two profiled steps, peak memory.  (b) examples/
+    train_e2e.py's demonstration: granite-8b --smoke, batch 16, seq 128, lr
+    3e-3, a checkpoint every 20 steps, 300 steps; the first phase is
+    preempted (an exception from the data loader) after step 149, the
+    restored state equals the saved one bit for bit, the second phase
+    resumes with --resume, and the loss drops by more than 0.5 across the
+    restart; an uninterrupted 300-step run gives the resumed steps' loss
+    gap (the embedding backward's atomics may part them); one save and
+    restore with int8 moments through the Python API."""
+    import shutil
+    import threading
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.data import pipeline as tpipe
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN["arch"])
+    # (a)
+    rec = {"ms": [], "loss": [], "flash": [], "profile": TRAIN_PROFILED}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = _train_cli(["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]),
+                      "--batch", str(TRAIN["batch"]), "--seq",
+                      str(TRAIN["seq"]), "--device", "cuda"], rec)
+    wall_a = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    want = {"w4a8_matmul": 0, "paged_decode_attention": 0, "rwkv6_scan": 0,
+            "flash_attention": L * TRAIN["steps"]}
+    check(counts == want, f"train_path (a) launches {counts} != {want}")
+    check(rec["flash"] == [L] * TRAIN["steps"],
+          f"train_path (a) flash launches per step {rec['flash']}")
+    check(out["steps"] == TRAIN["steps"]
+          and all(np.isfinite(rec["loss"]))
+          and out["last_loss"] < out["first_loss"],
+          f"train_path (a): the loss did not fall: {out}")
+    timed = [ms for i, ms in enumerate(rec["ms"])
+             if i >= 2 and i not in TRAIN_PROFILED]
+    ms = float(np.median(timed))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    n_params = cfg.param_count()
+    n_flops = n_params - cfg.vocab_size * cfg.d_model
+    prof = profile_summary(rec["prof"], rec["prof_wall"],
+                           len(TRAIN_PROFILED), "train_path")
+    flash_dev = sum(
+        getattr(ev, "self_device_time_total", 0.0)
+        for ev in rec["prof"].key_averages()
+        if str(getattr(ev, "device_type", "")).endswith("CUDA")
+        and "flash" in ev.key) / 1e3 / len(TRAIN_PROFILED)
+    info_a = {"config": cfg.name, "layers": L, "params": n_params,
+              "steps": out["steps"], "batch": TRAIN["batch"],
+              "seq": TRAIN["seq"], "first_loss": out["first_loss"],
+              "last_loss": out["last_loss"], "ms_per_step": ms,
+              "ms_per_step_min_max": [min(timed), max(timed)],
+              "first_steps_ms": rec["ms"][:2],
+              "train_tokens_per_s": tokens / (ms / 1e3),
+              "model_flops_per_step": 6 * n_flops * tokens,
+              "mfu": 6 * n_flops * tokens / (ms / 1e3) / BF16_FLOPS_PER_S,
+              "device_busy_share": prof["device_busy_share"],
+              "profiled_device_ms_per_step": prof["device_ms_per_step"],
+              "profiled_wall_ms_per_step": prof["wall_ms_per_step"],
+              "flash_device_ms_per_step": flash_dev,
+              "top_kernels": prof["top_kernels"],
+              "host_ops_per_step": prof["host_ops_per_step"],
+              "peak_memory_bytes": peak, "wall_s": wall_a,
+              "launches": counts, "log_tail": rec["log"][-3:]}
+    emit({"phase": "train_path", "run": "a", **info_a, "card": smi_line})
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b)
+    e2e = TRAIN_E2E
+    root = build.BUILD_DIR / "train_e2e"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def e2e_args(d, *extra):
+        return ["--arch", e2e["arch"], "--smoke", "--steps",
+                str(e2e["steps"]), "--batch", str(e2e["batch"]), "--seq",
+                str(e2e["seq"]), "--lr", str(e2e["lr"]), "--ckpt-dir",
+                str(root / d), "--ckpt-every", str(e2e["every"]), "--device",
+                "cuda", *extra]
+
+    saved = {}
+    orig_save, orig_next = CheckpointManager.save, tpipe.DataLoader.__next__
+
+    def recording_save(self, step, tree, metadata=None):
+        saved[step] = {k: t.detach().cpu().clone()
+                       for k, t in topt.leaves(tree)}
+        return orig_save(self, step, tree, metadata)
+
+    def preempted(self):
+        if self.step == e2e["kill_at"]:
+            raise _Killed
+        return orig_next(self)
+
+    t0 = time.perf_counter()
+    rec1 = {"ms": [], "loss": [], "flash": []}
+    CheckpointManager.save = recording_save
+    tpipe.DataLoader.__next__ = preempted
+    try:
+        _train_cli(e2e_args("cut"), rec1)
+        check(False, "train_path (b): the first phase was not preempted")
+    except _Killed:
+        pass
+    finally:
+        CheckpointManager.save = orig_save
+        tpipe.DataLoader.__next__ = orig_next
+    for t in threading.enumerate():            # the in-flight async save
+        if "_write_async" in t.name:
+            t.join()
+    mgr = CheckpointManager(str(root / "cut"))
+    last = mgr.latest_step()
+    ecfg = dataclasses.replace(get_config(e2e["arch"]).reduced())
+    like = {"params": api.init_params(ecfg, torch.Generator(dev).manual_seed(
+        SEED + 51), device=dev)}
+    like["opt"] = topt.init_state(like["params"], topt.AdamWConfig())
+    restored, meta = mgr.restore(like)
+    same = all(torch.equal(t.cpu(), saved[last][k]) and t.device == dev
+               for k, t in topt.leaves(restored))
+    check(last == e2e["kill_at"] - 11 and meta["step"] == last and same,
+          f"train_path (b): restored step {last} {meta} bit-identical "
+          f"{same}")
+    rec2 = {"ms": [], "loss": [], "flash": []}
+    r2 = _train_cli(e2e_args("cut", "--resume"), rec2)
+    drop = rec1["loss"][0] - r2["last_loss"]
+    check(r2["steps"] == e2e["steps"] - last - 1 and drop > 0.5,
+          f"train_path (b): loss {rec1['loss'][0]} -> {r2['last_loss']} "
+          f"(drop {drop}) across the restart")
+    rec3 = {"ms": [], "loss": [], "flash": []}
+    r3 = _train_cli(e2e_args("whole"), rec3)
+    gaps = np.abs(np.asarray(rec2["loss"])
+                  - np.asarray(rec3["loss"][last + 1:]))
+    pre = np.abs(np.asarray(rec1["loss"][:last + 1])
+                 - np.asarray(rec3["loss"][:last + 1]))
+    # int8 moments through the Python API: three steps, a save, a restore
+    qcfg = topt.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=4,
+                            quantize_moments=True)
+    qp = api.init_params(ecfg, torch.Generator(dev).manual_seed(SEED + 52),
+                         device=dev)
+    qs = topt.init_state(qp, qcfg)
+    qstep = tstep.make_train_step(ecfg, qcfg)
+    dcfg = tpipe.DataConfig(vocab_size=ecfg.vocab_size, seq_len=e2e["seq"],
+                            global_batch=e2e["batch"], seed=SEED)
+    for i in range(3):
+        qp, qs, qm = qstep(qp, qs, tpipe.global_batch_at_step(dcfg, i))
+    qmgr = CheckpointManager(str(root / "q8"), keep=1)
+    qmgr.save(2, {"params": qp, "opt": qs})
+    qlike = {"params": api.init_params(ecfg, torch.Generator(dev).manual_seed(
+        SEED + 53), device=dev)}
+    qlike["opt"] = topt.init_state(qlike["params"], qcfg)
+    qback, _ = qmgr.restore(qlike)
+    q_same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        topt.leaves(qback), topt.leaves({"params": qp, "opt": qs})))
+    check(q_same and isinstance(qback["opt"]["m"]["embed"], topt.QMoment),
+          "train_path (b): the int8-moment state did not restore bit for "
+          "bit")
+    info_b = {"config": ecfg.name, "first_phase_steps": len(rec1["loss"]),
+              "preempted_before_step": e2e["kill_at"],
+              "restored_step": last, "restored_bit_identical": same,
+              "resumed_steps": r2["steps"], "first_loss": rec1["loss"][0],
+              "last_loss": r2["last_loss"], "drop": drop,
+              "uninterrupted_last_loss": r3["last_loss"],
+              "resumed_vs_uninterrupted_max_gap": float(gaps.max()),
+              "resumed_vs_uninterrupted_last_gap": float(gaps[-1]),
+              "first_phase_vs_uninterrupted_max_gap": float(pre.max()),
+              "first_phase_bit_identical": bool((pre == 0).all()),
+              "ms_per_step": float(np.median(rec3["ms"][2:])),
+              "q8_restored_bit_identical": q_same,
+              "q8_loss_after_3_steps": float(qm["loss"]),
+              "seconds": time.perf_counter() - t0}
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train_path", "run": "b", **info_b, "card": smi_line})
+    seconds = time.perf_counter() - t_phase
+    check(seconds <= 90.0 * 1.2, f"train_path took {seconds:.1f} s")
+    return {"launches": counts, "a": info_a, "b": info_b,
+            "seconds": seconds}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # flex_attention's compiled kernels cache inside the checkout
@@ -4524,8 +4965,16 @@ def main(argv=None) -> int:
         run_xattn(dev, smi)
         emit({"subset": "xattn", "done": True})
         return 0
+    if argv == ["--only", "train"]:
+        # the training phases alone, with the flash kernel's check at the
+        # train step's shape
+        phase_flash(dev, cases=[TRAIN_FLASH_CASE])
+        phase_train_kernels(dev)
+        phase_train_path(dev, smi)
+        emit({"subset": "train", "done": True})
+        return 0
     check(not argv, f"unknown arguments {argv} (only `--only moe`, "
-          "`--only xattn` or `--only tp`)")
+          "`--only xattn`, `--only tp` or `--only train`)")
     phase_sanitizer()
     errs = {"w4a8_matmul": phase_w4a8(dev),
             "paged_decode_attention": phase_paged(dev),
@@ -4582,6 +5031,8 @@ def main(argv=None) -> int:
     flash_g, paged_g = phase_times_gemma2(dev, gemma2_info)
     moe_launches, moe_rows, fwd_moe = run_moe(dev, smi)
     vision_launches, encdec_launches, xattn_rows = run_xattn(dev, smi)
+    train_row = phase_train_kernels(dev)
+    train_info = phase_train_path(dev, smi)
     emit({"gemma2_path_summary": {
         key: gemma2_info[key] for key in (
             "decode_steps_per_s", "decode_tokens_per_s",
@@ -4636,7 +5087,8 @@ def main(argv=None) -> int:
             "encdec_path": encdec_launches[k["name"]],
             "lm_forward": (fwd_serve[k["name"]] + fwd_gemma2[k["name"]]
                            + fwd_moe[k["name"]]),
-            "tp_path": tp_info["launches"][k["name"]]}
+            "tp_path": tp_info["launches"][k["name"]],
+            "train_path": train_info["launches"][k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
     kernels[1]["llama2_decode_int8"] = paged_kv["int8"]
@@ -4651,6 +5103,9 @@ def main(argv=None) -> int:
     kernels[2]["qwen_moe_prefill"] = moe_rows["b"][0]
     for key, row in xattn_rows.items():
         kernels[2][key] = row
+    kernels[2]["train_step"] = {**train_row,
+                                "launches": train_info["launches"][
+                                    "flash_attention"]}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

@@ -41,6 +41,25 @@ def is_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def wants_grad(*tensors) -> bool:
+    """Whether grad mode is on and an operand (None: absent) requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if :func:`wants_grad`: a kernel wrapper's output has no
+    autograd history, so returning it would silently drop the operands'
+    gradients.  The differentiable forms are in ``kernels/ops.py`` (flash
+    attention and the RWKV6 scan); the other kernels serve inference
+    only."""
+    if wants_grad(*tensors):
+        raise RuntimeError(
+            f"{name} kernel: an operand requires grad and the kernel has no "
+            "backward; call it under torch.no_grad(), or through "
+            "kernels/ops.py where the op has a differentiable form")
+
+
 def find_nvcc() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on the PATH, or
     the toolkit's default location; raises when none exists."""

@@ -15,7 +15,12 @@ at any multiple of 16 up to 256 on the CUDA cores; bf16 at another D is
 refused.
 
 This wrapper takes CUDA tensors only and launches the kernel or raises;
-``kernels/ops.py`` routes a CPU tensor to the plain version.
+``kernels/ops.py`` routes a CPU tensor to the plain version.  The kernel
+has no backward: called in grad mode on an operand that requires grad, the
+wrapper raises rather than return an output without autograd history.
+:class:`FlashAttentionFn` is the differentiable form (``ops.attention``
+takes it for training): the kernel runs the forward, and the backward is
+the gradient of the plain version recomputed on the saved inputs.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     contiguous on one CUDA device; Hq % Hkv == 0; D in
     ``TENSOR_CORE_HEAD_DIMS`` for bf16, a multiple of 16 up to 256 for f32;
     ``kv_offset >= 0``.  Returns (B, Hq, Tq, D) in q's dtype."""
+    build.refuse_grad("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _require(build.is_cuda(t), f"{name} must be a CUDA tensor, got "
                  f"{t.device} (CPU tensors take the plain version in ops)")
@@ -105,3 +111,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient: the kernel computes the forward
+    (one launch, counted), and the backward recomputes the plain version
+    (``ref.flash_attention``) on the saved q, k, v and returns its
+    gradients.  The gradient is therefore the plain function's, the one
+    the JAX package's training differentiates (through its plain attention:
+    its Pallas kernel has no gradient either).  ``kw`` holds the keyword
+    arguments of :func:`flash_attention`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return flash_attention(q, k, v, **kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return ref_backward(ref.flash_attention, ctx, (dout,)) + (None,)
+
+
+def ref_backward(fn, ctx, douts):
+    """The gradients of the plain version ``fn`` at the saved inputs for the
+    output gradients ``douts`` (None for an output that got none), one per
+    saved input (None where it needs none)."""
+    saved = ctx.saved_tensors     # unpacked once (a checkpoint allows one)
+    needs = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        outs = fn(*xs, **ctx.kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, d) for o, d in zip(outs, douts) if d is not None]
+        wrt = [x for x, n in zip(xs, needs) if n]
+        got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                       wrt, [d for _, d in pairs],
+                                       allow_unused=True))
+    return tuple(next(got) if n else None for n in needs)

@@ -4,6 +4,13 @@ A CUDA tensor goes to the hand-written kernel's wrapper, which launches it
 or raises; a CPU tensor goes to the plain PyTorch version in
 ``kernels/ref.py``.  There is no switch that could pick the plain version
 for a tensor on the card, and no fallback when a kernel cannot be built.
+
+Training: in grad mode, where an operand requires grad, ``attention`` and
+``rwkv6`` on the card take their kernel's ``torch.autograd.Function``
+(the kernel runs the forward, the plain version's gradient is the
+backward); on the CPU the plain version is differentiated as it is.  The
+W4A8 and paged kernels serve inference only, and their wrappers raise on
+an operand that requires grad in grad mode.
 """
 from __future__ import annotations
 
@@ -51,13 +58,16 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None, scale: Optional[float] = None,
               kv_offset: int = 0) -> torch.Tensor:
     """Prefill attention, (B, H, T, D) operands: the flash kernel for a
-    CUDA tensor (operands made contiguous for it), the plain version for a
-    CPU tensor."""
+    CUDA tensor (operands made contiguous for it; through
+    ``FlashAttentionFn`` when a gradient is wanted), the plain version for
+    a CPU tensor."""
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               kv_offset=kv_offset)
     if build.is_cuda(q):
-        return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), **kw)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if build.wants_grad(q, k, v):
+            return _fa.FlashAttentionFn.apply(q, k, v, kw)
+        return _fa.flash_attention(q, k, v, **kw)
     return ref.flash_attention(q, k, v, **kw)
 
 
@@ -140,14 +150,16 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, cache_len, *,
 def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None):
     """The RWKV6 WKV recurrence, (B, H, T, D) operands: the CUDA kernel for a
     CUDA tensor with no carried state (the whole-sequence ``forward``,
-    operands made contiguous for it), the plain version otherwise.  Taking
+    operands made contiguous for it; through ``RWKV6ScanFn`` when a
+    gradient is wanted), the plain version otherwise.  Taking
     the plain version when a state is carried (each ``decode_step``) is the
     JAX package's own dispatch (``repro/kernels/ops.py::rwkv6``): its kernel
     starts from a zero state only."""
     if state is None and build.is_cuda(r):
-        return _rwkv.rwkv6_scan(r.contiguous(), k.contiguous(),
-                                v.contiguous(), w.contiguous(),
-                                u.contiguous())
+        args = [t.contiguous() for t in (r, k, v, w, u)]
+        if build.wants_grad(*args):
+            return _rwkv.RWKV6ScanFn.apply(*args)
+        return _rwkv.rwkv6_scan(*args)
     return ref.rwkv6_scan(r, k, v, w, u, state)
 
 

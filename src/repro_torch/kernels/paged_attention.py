@@ -98,6 +98,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _require(k_scale is not None and v_scale is not None,
                  "k_scale and v_scale come together")
         named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    build.refuse_grad("paged_decode_attention", q, k_pool, v_pool, k_scale,
+                      v_scale)
     for name, t in named:
         _require(build.is_cuda(t), f"{name} must be a CUDA tensor, got "
                  f"{t.device} (CPU tensors take the plain version in ops)")

@@ -47,7 +47,44 @@ _TANH_Q = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
 _TANH_CLAMP = 7.99881172180175781
 
 
+class _WithDerivative(torch.autograd.Function):
+    """An elementwise function whose gradient is JAX's rule for it, written
+    from the output ``y``: ``fn`` computes the value (no graph is built
+    through its op sequence), ``dfn(g, y)`` the input gradient."""
+
+    @staticmethod
+    def forward(ctx, x, fn, dfn):
+        y = fn(x)
+        ctx.save_for_backward(y)
+        ctx.dfn = dfn
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return ctx.dfn(g, y), None, None
+
+
+def _differentiable(fn, dfn, x: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _WithDerivative.apply(x, fn, dfn)
+    return fn(x)
+
+
 def tanh(x: torch.Tensor) -> torch.Tensor:
+    """float32 tanh as XLA computes it on the CPU (:func:`_tanh`), with JAX's
+    gradient ``(g + g y) (1 - y)`` from the output ``y`` (the derivative of
+    the rational approximation is not the function's)."""
+    return _differentiable(_tanh, lambda g, y: (g + g * y) * (1 - y), x)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp as XLA computes it on the CPU (:func:`_exp`), with JAX's
+    gradient ``g y``."""
+    return _differentiable(_exp, lambda g, y: g * y, x)
+
+
+def _tanh(x: torch.Tensor) -> torch.Tensor:
     """float32 tanh as the JAX package's compiled programs compute it on
     the CPU: XLA's rational approximation, Horner steps as fused
     multiply-adds (``addcmul``), one IEEE division, and x itself where
@@ -78,7 +115,7 @@ _EXP_LO, _EXP_HI = -88.3762626647949, 88.72283935546875
 _F32_MIN_NORMAL = 2.0 ** -126
 
 
-def exp(x: torch.Tensor) -> torch.Tensor:
+def _exp(x: torch.Tensor) -> torch.Tensor:
     """float32 exp as the JAX package's compiled programs compute it on the
     CPU: Cephes' range reduction and polynomial as fused multiply-adds
     (``addcmul``), the power of two applied as two exact scalings, and a

@@ -16,7 +16,10 @@ for bit.
 
 This wrapper takes CUDA tensors only and launches the kernel or raises;
 ``kernels/ops.py`` routes a CPU tensor, or a call that carries a state, to
-the plain version.
+the plain version.  The kernel has no backward: called in grad mode on an
+operand that requires grad, the wrapper raises.  :class:`RWKV6ScanFn` is
+the differentiable form (``ops.rwkv6`` takes it for training): the kernel
+runs the forward, the backward is the plain version's gradient.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import ref_backward
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +48,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u (H, D) f32, all contiguous on one CUDA device; D in {16, 32, 64};
     T >= 1.  Returns (out (B, H, T, D) in r's dtype, final state (B, H, D,
     D) f32)."""
+    build.refuse_grad("rwkv6_scan", r, k, v, w, u)
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
         _require(build.is_cuda(t), f"{name} must be a CUDA tensor, got "
                  f"{t.device} (CPU tensors take the plain version in ops)")
@@ -78,3 +83,21 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 rwkv6_scan.launches = 0
+
+
+class RWKV6ScanFn(torch.autograd.Function):
+    """The RWKV6 scan with a gradient: the kernel computes the forward (one
+    launch, counted), and the backward recomputes the plain version
+    (``ref.rwkv6_scan`` from a zero state) on the saved r, k, v, w, u and
+    returns its gradients, for the output and the final state alike."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.kw = {}
+        return rwkv6_scan(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        return ref_backward(ref.rwkv6_scan, ctx, (dout, dstate))

@@ -143,6 +143,7 @@ def w4a8_matmul(qx: torch.Tensor, x_scale: torch.Tensor, codes: torch.Tensor,
     CUDA device -> (M,N) out_dtype (bf16 or f32).  The kernel reads the
     codes from ``packed`` only; ``codes`` gives the shape and stays for the
     plain version."""
+    build.refuse_grad("w4a8_matmul", qx, x_scale, codes, w_scale)
     for name, t in (("qx", qx), ("x_scale", x_scale), ("codes", codes),
                     ("w_scale", w_scale)):
         _require(build.is_cuda(t), f"{name} must be a CUDA tensor, got "

@@ -1,7 +1,8 @@
 """Model API of the port: family dispatch (the lm, rwkv, hymba and encdec
-families), params, the whole-sequence forward, the serve path (cache,
-prefill, decode), LAQ model quantization, and the bridge that turns the JAX
-package's params (as numpy) into the port's."""
+families), params, the whole-sequence forward and the training loss, the
+serve path (cache, prefill, decode), LAQ model quantization, and the bridge
+that turns the JAX package's params and optimizer state (as numpy) into the
+port's."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -12,6 +13,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
 from repro_torch.models import encdec, hymba, rwkv6, transformer
+from repro_torch.train.optimizer import QMoment
 
 
 _FAMILIES = {"lm": transformer, "rwkv": rwkv6, "hymba": hymba,
@@ -41,6 +43,30 @@ def forward(params, tokens, cfg: ModelConfig, frontend=None):
     or encoder-decoder config, which need it."""
     kw = {} if frontend is None else {"frontend": frontend}
     return family_module(cfg).forward(params, tokens, cfg, **kw)
+
+
+def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
+            aux_weight: float = 0.01):
+    """Next-token cross-entropy over ``forward``'s float32 logits, plus
+    ``aux_weight`` times a MoE config's load-balancing ``aux``: (total, {
+    "loss", "aux"}), scalar float32 tensors.  ``batch`` holds ``tokens`` and
+    ``labels`` (B, T), an optional float ``mask`` (B, T) (the loss averages
+    over its sum, at least 1) and a VLM's or encoder-decoder's
+    ``frontend``.  The JAX package's ``api.loss_fn``; the log-softmax is
+    ``torch.log_softmax`` (the max is shifted out, as
+    ``jax.nn.log_softmax`` does, and its gradient is the same rule)."""
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          frontend=batch.get("frontend"))
+    labels = batch["labels"].to(torch.int64)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=logits.device)
+    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
 # ----------------------------------------------------------------------------
@@ -205,14 +231,47 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     ``(L, ...)``)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device) for v in tree)
     if hasattr(tree, "codes") and hasattr(tree, "scales"):
         packed = getattr(tree, "packed", None)      # the port's own, if any
         return quant.QuantizedLinear(
             codes=_tensor(tree.codes, device),
             scales=_tensor(tree.scales, device),
             packed=None if packed is None else _tensor(packed, device))
+    if isinstance(tree, (list, tuple)):
+        return _rebuild_sequence(tree, (params_from_numpy(v, device)
+                                        for v in tree))
     if isinstance(tree, (np.ndarray, np.generic)) or hasattr(tree, "__array__"):
         return _tensor(tree, device)
     return tree
+
+
+def _rebuild_sequence(seq, items):
+    """A list, tuple or NamedTuple of the same type holding ``items`` (a
+    NamedTuple takes its fields as arguments, not one iterable)."""
+    if hasattr(seq, "_fields"):
+        return type(seq)(*items)
+    return type(seq)(items)
+
+
+def opt_state_from_numpy(state: Dict[str, Any], device="cuda"
+                         ) -> Dict[str, Any]:
+    """Turn the JAX package's AdamW state into the port's
+    (``train/optimizer.py``), leaf for leaf.
+
+    ``state`` is ``jax.tree.map(np.asarray, opt_state)``: ``step`` (an
+    int32 scalar), and ``m`` / ``v`` mirroring the params, each moment a
+    float32 array or an int8 moment ``_QMoment(q, scale)``, recognised by
+    its ``q`` / ``scale`` fields (no import of the JAX package) and made an
+    ``optimizer.QMoment``.  Arrays become tensors on ``device``."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if hasattr(node, "q") and hasattr(node, "scale"):
+            return QMoment(_tensor(node.q, device), _tensor(node.scale,
+                                                            device))
+        if isinstance(node, (list, tuple)):
+            return _rebuild_sequence(node, (conv(v) for v in node))
+        return _tensor(node, device)
+
+    return {"step": _tensor(np.asarray(state["step"], np.int32), device),
+            "m": conv(state["m"]), "v": conv(state["v"])}

@@ -143,12 +143,17 @@ def encode(params, frontend: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     the FFN, then ``ln_enc``."""
     x = frontend.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.num_encoder_layers):
-        p = _layer(params["enc_blocks"], i)
+
+    def layer(x, p):
         h = _attn(p["attn"], _norm(x, p["ln_attn"], cfg), cfg, positions,
                   causal=False)
         x, s = _residual(x, h)
-        x = _mlp_tail(p, x, s, cfg)
+        return _mlp_tail(p, x, s, cfg)
+
+    layer = L.remat(layer, cfg.parallel.remat, policy=False)
+    at = L.layer_views(params["enc_blocks"])
+    for i in range(cfg.num_encoder_layers):
+        x = layer(x, at(i))
     return _norm(x, params["ln_enc"], cfg)
 
 
@@ -184,22 +189,29 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     and frontend (B, Tx, d) -> (logits (B, T, V) float32, 0.0).  The
     encoder, then per decoder layer causal self-attention with rope and
     non-causal cross-attention over that layer's projection of the encoder
-    output (three flash launches per layer pair on the card).  The
-    reference's ``remat`` and FSDP gathers change no value and are left
-    out."""
+    output (three flash launches per layer pair on the card).  Each
+    encoder and decoder layer runs under the config's ``parallel.remat``
+    (``layers.remat``; "dots" is "full" here, as in the reference), which
+    changes no value or gradient; the reference's FSDP gathers are left
+    out (a distributed matter)."""
     if frontend is None:
         raise ValueError(f"{cfg.name}: forward needs the frontend")
     enc = encode(params, frontend, cfg)
     x = params["embed"][tokens.to(torch.int64)].to(_dtype(cfg))
     positions = torch.arange(tokens.shape[1], device=x.device)
-    for i in range(cfg.num_layers):
-        p = _layer(params["dec_blocks"], i)
+
+    def layer(x, p, enc):
         h = _attn(p["self"], _norm(x, p["ln_self"], cfg), cfg, positions)
         x, s = _residual(x, h)
         h = _attn(p["cross"], _norm(s, p["ln_cross"], cfg), cfg, positions,
                   kv=_cross_kv(p, enc, cfg))
         x, s = _residual(x, h)
-        x = _mlp_tail(p, x, s, cfg)
+        return _mlp_tail(p, x, s, cfg)
+
+    layer = L.remat(layer, cfg.parallel.remat, policy=False)
+    at = L.layer_views(params["dec_blocks"])
+    for i in range(cfg.num_layers):
+        x = layer(x, at(i), enc)
     return _logits(params, x, cfg, rounded=True), 0.0
 
 

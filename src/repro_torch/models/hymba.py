@@ -248,19 +248,27 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, **_):
     """Whole-sequence logits: tokens (B, T) -> (logits (B, T, V) float32,
     aux 0.0).  Each layer's attention is ``layers.attn_apply`` with the
     config's window (the flash kernel on the card) and its SSM branch scans
-    from a zero state."""
+    from a zero state.  Each layer runs under the config's
+    ``parallel.remat`` (``layers.remat``; "dots" is "full" here, as in the
+    reference), which changes no value or gradient."""
     x = _embed(params, tokens, cfg)
     T = tokens.shape[1]
     positions = torch.arange(T, device=x.device)
     window = cfg.layer_pattern[0].window
-    for _, p in _layers(params):
+
+    def layer(x, p):
         xn = L.rmsnorm(x, p["ln_in"], cfg.norm_eps)
         attn_out = L.attn_apply(
             p["attn"], xn, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
             positions=positions, rope_theta=cfg.rope_theta, window=window)
         ssm_out, _ = _ssm_branch(p, xn, cfg)
-        x = _fuse(p, x, attn_out, ssm_out, cfg)
+        return _fuse(p, x, attn_out, ssm_out, cfg)
+
+    layer = L.remat(layer, cfg.parallel.remat, policy=False)
+    at = L.layer_views(params["blocks"])
+    for i in range(params["blocks"]["ln_in"].shape[0]):
+        x = layer(x, at(i))
     return _logits_head(params, x, cfg, rounded=True), 0.0
 
 

@@ -1,6 +1,6 @@
 """Shared building blocks in torch: norms, rope, linear (raw or LAQ W4A8),
-SwiGLU, the GQA projections, the in-place paged KV append and the KV page
-quantizer of int8 / fp8 pools.
+SwiGLU, the GQA projections, the in-place paged KV append, the KV page
+quantizer of int8 / fp8 pools, and the family forwards' ``remat``.
 
 Public functions keep the JAX package's layouts: activations are
 ``(B, H, T, D)`` after projection, pool slices ``(num_pages, page_size,
@@ -9,9 +9,10 @@ Hkv, D)``, weights ``(in, out)`` and W4A8 codes ``(K, N)``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import quant
 from repro_torch.distributed.sharding import gather, head_cut
@@ -168,6 +169,92 @@ def attn_apply(p: dict, x: torch.Tensor, *, num_heads: int,
 # Physical page 0 of every page pool is the reserved scratch page: writes for
 # inactive slots are routed there so a step never depends on the active set.
 SCRATCH_PAGE = 0
+
+
+def layer_views(tree, lead: int = 1) -> Callable:
+    """Per-layer views of a tree of stacked params (each tensor with
+    ``lead`` leading layer axes): ``at(*index)`` gives the tree of one
+    layer.  The views come from ``unbind``, one autograd node per leaf,
+    whose backward stacks the layers' gradients once; indexing a leaf per
+    layer would add a full-size, zero-padded gradient per layer instead
+    (quadratic in the depth).  The values are the same slices, and the
+    gradients the same sums."""
+    def split(t, n):
+        return t if n == 0 else [split(u, n - 1) for u in t.unbind(0)]
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return split(node, lead) if torch.is_tensor(node) else node
+
+    views = walk(tree)
+
+    def at(*index):
+        def get(node):
+            if isinstance(node, dict):
+                return {k: get(v) for k, v in node.items()}
+            if isinstance(node, list):
+                for i in index:
+                    node = node[i]
+            return node
+        return get(views)
+
+    return at
+
+
+# the matmuls whose outputs remat="dots" keeps: dot products with no batch
+# dimension, as JAX's ``dots_with_no_batch_dims_saveable`` policy keeps
+# (projections: ``x @ w`` lowers to ``mm``; the attention einsums are
+# ``bmm``, recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return _ckpt.create_selective_checkpoint_contexts(_save_dots)
+
+
+def _wants_grad(tree) -> bool:
+    if torch.is_tensor(tree):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (list, tuple)):
+        return False
+    return any(_wants_grad(v) for v in tree)
+
+
+def remat(fn: Callable, mode: str, policy: bool = True) -> Callable:
+    """``fn`` under the config's ``parallel.remat`` (the JAX package's
+    ``jax.checkpoint`` of a layer or a layer group): ``"none"`` keeps every
+    activation for the backward; ``"full"`` keeps only ``fn``'s inputs and
+    recomputes the rest in the backward
+    (``torch.utils.checkpoint.checkpoint``, non-reentrant); ``"dots"``
+    also keeps the outputs of the products without batch dims (a selective
+    checkpoint) where ``policy`` is set, as the lm family's group does,
+    and is ``"full"`` otherwise, as the other families' layers are in the
+    JAX package.  Values and gradients are those of ``"none"``: the
+    recomputation repeats the same ops.  ``fn`` runs as it is outside grad
+    mode and where no tensor among its arguments (walked through dicts,
+    lists and tuples: pass the params it reads) requires grad, as in
+    serving."""
+    if mode not in ("none", "full", "dots"):
+        raise ValueError(f"remat {mode!r} not in none/full/dots")
+    if mode == "none":
+        return fn
+    kw = ({"context_fn": _dots_context} if mode == "dots" and policy
+          else {})
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and _wants_grad(args)):
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
 
 
 def page_offsets(table: torch.Tensor, pos: torch.Tensor, write: torch.Tensor,

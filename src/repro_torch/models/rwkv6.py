@@ -48,8 +48,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import gather, head_cut, local_width
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (dense_init, in_width, linear,
-                                       rmsnorm, silu, store_rows)
+from repro_torch.models.layers import (dense_init, in_width, layer_views,
+                                       linear, remat, rmsnorm, silu,
+                                       store_rows)
 
 HEAD_DIM = 64  # RWKV6 uses 64-wide heads
 LORA_DIM = 64
@@ -221,10 +222,15 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, **_):
     aux 0.0).  Each layer's WKV recurrence is ``ops.rwkv6`` from a zero
     state (the CUDA kernel on the card).  The logits are rounded to the
     compute dtype before their float32 convert, as the JAX package's
-    compiled forward does."""
+    compiled forward does.  Each layer runs under the config's
+    ``parallel.remat`` (``layers.remat``; "dots" is "full" here, as in the
+    reference), which changes no value or gradient."""
     x = _embed(params, tokens, cfg)
-    for _, p in _layers(params):
-        x, _, _, _ = _block(p, x, cfg)
+    layer = remat(lambda x, p: _block(p, x, cfg)[0], cfg.parallel.remat,
+                  policy=False)
+    at = layer_views(params["blocks"])
+    for i in range(params["blocks"]["ln_tm"].shape[0]):
+        x = layer(x, at(i))
     logits = _head(params, x, cfg)
     return logits.to(x.dtype).to(torch.float32), 0.0
 

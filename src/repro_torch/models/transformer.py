@@ -190,18 +190,24 @@ def _layers(params, cfg: ModelConfig):
     ``(spec, slot, (g, j // P), params of layer (g, j))`` where ``slot`` is
     the layer-pattern slot whose cache leaf holds the layer at index
     ``(g, j // P)``."""
-    n_groups, group_size = group_layout(cfg)
+    for g in range(group_layout(cfg)[0]):
+        yield from _group_layers(params, cfg, g)
+
+
+def _group_layers(params, cfg: ModelConfig, g: int, at=None):
+    """:func:`_layers`' views of group ``g``'s layers; ``at(g, j)`` gives
+    layer (g, j)'s params (``layers.layer_views``), else they are indexed."""
+    group_size = group_layout(cfg)[1]
     P = len(cfg.layer_pattern)
 
-    def pick(node, g, j):
+    def pick(node, j):
         if isinstance(node, dict):
-            return {k: pick(v, g, j) for k, v in node.items()}
+            return {k: pick(v, j) for k, v in node.items()}
         return node[g, j]
 
-    for g in range(n_groups):
-        for j in range(group_size):
-            yield (cfg.layer_pattern[j % P], j % P, (g, j // P),
-                   pick(params["blocks"], g, j))
+    for j in range(group_size):
+        yield (cfg.layer_pattern[j % P], j % P, (g, j // P),
+               at(g, j) if at else pick(params["blocks"], j))
 
 
 def _head_cut(cfg: ModelConfig, tp) -> bool:
@@ -623,29 +629,42 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     :func:`_residual_ffn`); a MoE config's ``aux`` is summed over the
     layers (0.0 otherwise); a VLM runs its cross block after each group
     over its frontend's cross K/V, projected here (:func:`_cross_kv`);
-    the head product is rounded, as the compiled forward rounds it.  The
-    reference's ``remat`` and FSDP gathers (training and sharding matters
-    that change no value) are left out."""
+    the head product is rounded, as the compiled forward rounds it.  Each
+    layer group runs under the config's ``parallel.remat``
+    (``layers.remat``, the reference's ``_maybe_remat``), which changes no
+    value or gradient; the reference's FSDP gathers are left out (a
+    distributed matter)."""
     _check_block_path(cfg, cross_ok=True)
     if cfg.cross_attn_every and frontend is None:
         raise ValueError(f"{cfg.name}: forward needs the frontend")
     T = tokens.shape[1]
     dtype = getattr(torch, cfg.dtype)
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(T, device=x.device)
-    aux, h = 0.0, None
-    for spec, slot, at, pj in _layers(params, cfg):
-        xn = L.rmsnorm(_norm_input(x, h, at, slot), pj["ln_attn"],
-                       cfg.norm_eps).to(dtype)
-        a = L.attn_apply(pj["attn"], xn, num_heads=cfg.num_heads,
-                         num_kv_heads=cfg.num_kv_heads,
-                         head_dim=cfg.resolved_head_dim, positions=positions,
-                         rope_theta=cfg.rope_theta, window=spec.window,
-                         softcap=cfg.softcap)
-        x, h, layer_aux = _residual_ffn(pj, x, a, cfg, need_aux=True)
-        if cfg.moe:
-            aux = aux + layer_aux
-        if _group_end(cfg, at, slot):
-            cp = _cross_params(params, at[0])
+    positions = torch.arange(T, device=tokens.device)
+
+    def group(x, layers, cp):
+        aux, h = 0.0, None
+        for spec, slot, at, pj in layers:
+            xn = L.rmsnorm(_norm_input(x, h, at, slot), pj["ln_attn"],
+                           cfg.norm_eps).to(dtype)
+            a = L.attn_apply(pj["attn"], xn, num_heads=cfg.num_heads,
+                             num_kv_heads=cfg.num_kv_heads,
+                             head_dim=cfg.resolved_head_dim,
+                             positions=positions, rope_theta=cfg.rope_theta,
+                             window=spec.window, softcap=cfg.softcap)
+            x, h, layer_aux = _residual_ffn(pj, x, a, cfg, need_aux=True)
+            if cfg.moe:
+                aux = aux + layer_aux
+        if cp is not None:
             x = _cross_apply(cp, x, h, _cross_kv(cp, frontend, cfg), cfg)
+        return x, aux
+
+    group = L.remat(group, cfg.parallel.remat)
+    at = L.layer_views(params["blocks"], lead=2)
+    x = _embed(params, tokens, cfg)
+    aux = 0.0
+    for g in range(group_layout(cfg)[0]):
+        x, group_aux = group(
+            x, list(_group_layers(params, cfg, g, at)),
+            _cross_params(params, g) if cfg.cross_attn_every else None)
+        aux = aux + group_aux
     return _logits_head(params, x, cfg, rounded=True), aux

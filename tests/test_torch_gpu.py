@@ -38,10 +38,10 @@ from repro_torch.models import api, rwkv6
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 from repro_torch.serve.splitbrain_engine import SplitBrainEngine
-from torch_cases import (assert_within_bf16_ulp, bf16_ulp_of, paged_case,
-                         pick_report, run_paged, rwkv_case,
-                         rwkv_decay_bits_report, teacher_forced_logits,
-                         w4a8_case)
+from torch_cases import (assert_within_bf16_ulp, autograd_grads,
+                         bf16_ulp_of, paged_case, pick_report, run_paged,
+                         rwkv_case, rwkv_decay_bits_report,
+                         teacher_forced_logits, w4a8_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -953,3 +953,77 @@ def test_tp_paged_head_cut_and_merge_on_card(cuda):
     for r in ranks:
         assert r["head_cut"], r
         assert r["merge"], r
+
+
+# ----------------------------------------------------------------------------
+# training: the kernels refuse gradients, their Functions give the plain
+# versions' (the same plain computation runs on the same saved inputs, so
+# the gradients are expected bit for bit)
+# ----------------------------------------------------------------------------
+def _grad_case(cuda):
+    q, k, v = (torch.from_numpy(np.random.default_rng(i).standard_normal(
+        (2, h, 40, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+        for i, h in enumerate((8, 4, 4)))
+    r, kk, vv, w, u = (torch.from_numpy(a).to(cuda)
+                       for a in rwkv_case(1, 4, 40, 64))
+    qx, xs, codes, ws = (torch.from_numpy(a).to(cuda)
+                         for a in w4a8_case(2, 64, 32))
+    pc = {n: t.to(cuda) for n, t in paged_case(0, D=64).items()}
+    return {
+        "flash_attention": lambda g: kfa.flash_attention(
+            q.requires_grad_(g), k, v),
+        "rwkv6_scan": lambda g: krw.rwkv6_scan(r, kk, vv, w,
+                                               u.requires_grad_(g)),
+        "w4a8_matmul": lambda g: kw.w4a8_matmul(
+            qx, xs.requires_grad_(g), codes, ws,
+            packed=kw.pack_codes(codes)),
+        "paged_decode_attention": lambda g: kpa.paged_decode_attention(
+            pc["q"].requires_grad_(g), pc["k"], pc["v"], pc["table"],
+            pc["lens"])}
+
+
+@pytest.mark.parametrize("name", sorted(ops.KERNELS))
+def test_kernel_wrappers_refuse_grad_on_card(cuda, name):
+    call = _grad_case(cuda)[name]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call(True)
+    with torch.no_grad():
+        call(True)                                # launches: no grad wanted
+    call(False)
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(window=16, softcap=30.0),
+                                  dict(causal=False)])
+def test_ops_attention_gradients_are_the_plain_versions_on_card(cuda, opts):
+    rng = np.random.default_rng(3)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+        (2, h, 40, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+        for h in (8, 4, 4, 8))
+    ops.reset_launch_counts()
+    out_k, g_k = autograd_grads(lambda *x: ops.attention(*x, **opts),
+                                (q, k, v), (dout,))
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert "FlashAttentionFn" in type(out_k[0].grad_fn).__name__
+    out_r, g_r = autograd_grads(lambda *x: ref.flash_attention(*x, **opts),
+                           (q, k, v), (dout,))
+    assert torch.equal(out_k[0], kfa.flash_attention(q, k, v, **opts))
+    assert_within_bf16_ulp(out_k[0], out_r[0].detach().float().cpu(),
+                           atol=1e-5)
+    for a, b in zip(g_k, g_r):
+        assert torch.equal(a, b)
+
+
+def test_ops_rwkv6_gradients_are_the_plain_versions_on_card(cuda):
+    r, k, v, w, u = (torch.from_numpy(a).to(cuda)
+                     for a in rwkv_case(1, 4, 40, 64))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dout = torch.randn(r.shape, generator=g, device=cuda)
+    dstate = torch.randn((1, 4, 64, 64), generator=g, device=cuda)
+    for douts in ((dout, dstate), (dout, None)):
+        ops.reset_launch_counts()
+        out_k, g_k = autograd_grads(ops.rwkv6, (r, k, v, w, u), douts)
+        assert ops.launch_counts()["rwkv6_scan"] == 1
+        out_r, g_r = autograd_grads(ref.rwkv6_scan, (r, k, v, w, u), douts)
+        assert torch.equal(out_k[1], out_r[1])        # the state
+        for a, b in zip(g_k, g_r):
+            assert torch.equal(a, b)

@@ -38,8 +38,9 @@ def test_static_scan_finds_no_jax_or_repro_import():
 
 
 # the jax-free modules the port copies, the hymba family, the MoE FFN,
-# the encoder-decoder family with their configs and the tensor-parallel
-# package: they must be among the modules the scan imports
+# the encoder-decoder family with their configs, the tensor-parallel
+# package and the training path (data, optimizer, train step, checkpoints,
+# the training CLI): they must be among the modules the scan imports
 NEW_MODULES = ("repro_torch.distributed.runtime",
                "repro_torch.distributed.sharding",
                "repro_torch.distributed.collectives",
@@ -50,7 +51,10 @@ NEW_MODULES = ("repro_torch.distributed.runtime",
                "repro_torch.configs.qwen3_moe_235b_a22b",
                "repro_torch.models.encdec",
                "repro_torch.configs.seamless_m4t_medium",
-               "repro_torch.configs.llama_3_2_vision_11b")
+               "repro_torch.configs.llama_3_2_vision_11b",
+               "repro_torch.data.pipeline", "repro_torch.train.optimizer",
+               "repro_torch.train.step", "repro_torch.ckpt.manager",
+               "repro_torch.launch.train")
 
 
 def test_importing_every_module_loads_no_jax_or_repro():

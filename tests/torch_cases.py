@@ -101,6 +101,19 @@ def rwkv_case(B, H, T, D, seed=0):
     return r, k, v, w, u
 
 
+def autograd_grads(fn, inputs, douts):
+    """``fn``'s outputs on copies of ``inputs`` that require grad, and the
+    inputs' gradients for the output gradients ``douts`` (a tensor, or one
+    per output with None for an output that gets none)."""
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    douts = douts if isinstance(douts, tuple) else (douts,)
+    pairs = [(o, d) for o, d in zip(outs, douts) if d is not None]
+    return outs, torch.autograd.grad([o for o, _ in pairs], xs,
+                                     [d for _, d in pairs])
+
+
 def bf16_ulp_of(x: float) -> float:
     """One bf16 ulp at magnitude |x|: 2^(e-7) for |x| in [2^e, 2^(e+1))."""
     return float(2.0 ** (np.floor(np.log2(max(abs(x), 2.0 ** -126))) - 7))
