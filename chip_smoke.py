@@ -81,7 +81,7 @@ fails before printing any result):
              op of the decay path run on both devices from the same inputs
              is reported, and the decay (float64 exps) must match bit for
              bit
-  main_path  full-width tinyllama-1.1b at 11 of its 22 layers (random
+  main_path  full-width tinyllama-1.1b at 8 of its 22 layers (random
              seeded weights, LAQ W4A8 on the card; MAIN_LAYERS, cut to
              keep the script inside its time limit; the times rows keep
              the 22-layer units), SplitBrainEngine(page_size=16,
@@ -89,20 +89,20 @@ fails before printing any result):
              slots: a warm-up run, then 16 seeded requests (prompts of 8-64
              tokens, 32 new tokens each) with the launch counts set to 0
              just before and read just after; every request DONE, launches
-             = 78 W4A8 per token step (7 per layer and the head) and 11
+             = 57 W4A8 per token step (7 per layer and the head) and 8
              paged attentions per decode step, eq. 7-10 meter exact, a
              second run token-identical; then generate() on 4 prompts of 64
-             tokens with 32 new tokens: 78 W4A8 launches per token step,
+             tokens with 32 new tokens: 57 W4A8 launches per token step,
              its tokens/s
   tp_path    tensor-parallel serving on two ranks of a torch.distributed
              group sharing the one card over gloo (one process each; the
              ranks' devices and backend from ``runtime.plan``): (a) the main
              path at tp 2, full-width tinyllama-1.1b split-brain (main_path's
-             11 layers,
+             8 layers,
              LAQ W4A8 column blocks of wq/wk/wv/w1/w3 and the head, packed
              per rank; wo/w2 whole), page 16, 8 slots, 8 of main_path's
              requests with 32 new: tokens identical to main_path's (the tp 1
-             engine on the same requests), 78 W4A8 and 11 paged launches
+             engine on the same requests), 57 W4A8 and 8 paged launches
              per rank per token step, the meter's bytes per token eq.
              7-10's, kv_shards 2; (b) the float ServeEngine, llama2-7b at
              full width and 8 of its 32 layers (bf16 weights), 8 requests of
@@ -179,8 +179,8 @@ fails before printing any result):
   features_splitbrain  full-width tinyllama-1.1b split-brain on the main
              path's LAQ weights with an int8 prefix-shared pool (pages of
              16, chunks of 32) on the main path's traffic behind a shared
-             128-token prefix: 78 W4A8 launches per computed token step,
-             11 paged per decode step, meter exact; a short run on a dense
+             128-token prefix: 57 W4A8 launches per computed token step,
+             8 paged per decode step, meter exact; a short run on a dense
              slot cache (4 of the main path's requests, 8 new tokens) gives
              the tokens of a paged bf16 pool under the
              gather discipline (the same dense token step on the gathered
@@ -201,8 +201,8 @@ fails before printing any result):
              tokens or leaves them only at a near-tie (the two picks'
              logits, recomputed by the engine's own path from the common
              prefix, within NEAR_TIE_ULPS bf16 ulps of the largest), and
-             the launches are pinned per step: 78 W4A8 per computed
-             split-brain token step and 11 paged per decode step, 16 flash
+             the launches are pinned per step: 57 W4A8 per computed
+             split-brain token step and 8 paged per decode step, 16 flash
              per llama2-7b prefill and 16 paged per decode step (16 layers)
   reference_hymba  reduced hymba-1.5b on the card and on the CPU from the
              same weights on a wrapping ring and on a paged pool, and
@@ -336,13 +336,36 @@ fails before printing any result):
              the saved one, the loss drop across the restart above 0.5, the
              gap to an uninterrupted run; an int8-moment save and restore
 
+  dist_train_path  (a) granite-8b (arXiv:2405.04324) at full width and 3
+             of its 36 layers (DIST), float32 params, bf16 compute, trained
+             by a (2, 2) grid of four gloo ranks sharing the card
+             (``runtime.spawn`` of ``make_train_step(grid=)``, FSDP over
+             "data", Megatron's cuts over "model"), 6 steps of 8 x 512
+             tokens, counts set to 0 just before and read just after: 3
+             flash launches per rank per step and no other kernel, every
+             rank's losses the same and its leaves cut as
+             ``train_param_cuts`` says, step 1's loss within a relative 1e-3
+             of ``api.loss_fn`` on the whole params in one process, the loss
+             falls; ms per step, train tokens/s, per rank the seconds inside
+             collectives, the busy share over two profiled steps and the
+             peak memory, the peaks' sum.  (b) ``compressed_psum_mean`` of a
+             4096 x 4096 float32 leaf over the "data" subgroups:
+             bit-identical to a one-process replay, within 2 max|x| / 127
+             of the exact mean.  (c) ``pipeline_apply`` over the four ranks
+             (width 4096, 8 microbatches of 4, ``tanh(x @ W_s)``):
+             bit-identical to the sequential application; its bubble
+             fraction.  Then the flash kernel at a rank's shape (B 4, 16/4
+             heads of 128, T 512, causal, bf16; bound, plain, SDPA) and the
+             one-device step's first losses beside the grid's
+
 ``python3 chip_smoke.py --only moe`` runs the device and build phases and
 the MoE phases alone, and prints neither the kernels line nor the ok line;
 ``--only xattn`` does the same for the cross-attention phases (with the
 flash phase's cases at their shapes); ``--only tp`` for tp_path (with the
 w4a8, paged and flash phases' cases at its ranks' shapes; it then serves
-its tp 1 tokens of (a) itself); ``--only train`` for train_kernels and
-train_path (with the flash phase's case at the train step's shape).
+its tp 1 tokens of (a) itself); ``--only train`` for train_kernels,
+train_path and dist_train_path (with the flash phase's cases at the train
+step's and a grid rank's shapes).
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
@@ -851,7 +874,7 @@ def phase_flash(dev, cases=None):
               dict(causal=True, window=4096, softcap=50.0))]
     if cases is None:
         cases = (llama + other + XATTN_FLASH_CASES + FLASH_TP_CASES
-                 + [TRAIN_FLASH_CASE])
+                 + [TRAIN_FLASH_CASE, DIST_FLASH_CASE])
     worst, rows = 0.0, []
     for name, shape, opts in cases:
         for qd in (bf, f32):
@@ -1227,8 +1250,11 @@ class PhaseClock:
 # the main path's tinyllama-1.1b at full width and MAIN_LAYERS of its 22
 # layers, to keep the script inside its time limit: its engine also carries
 # features_splitbrain, chaos_path (a) and tp_path (a), whose split-brain
-# prompt-token steps cost host time per layer
-MAIN_LAYERS = 11
+# prompt-token steps cost host time per layer (at 11 layers, a host 1.3x
+# slower on the host-bound phases took 1,299 s to reach the end of
+# dist_train_path; at 6 the whole script took 797.5 s on one H100 host, and
+# 8 is the depth that keeps such a slow host under the limit: ROADMAP.md)
+MAIN_LAYERS = 8
 
 
 def main_cfg():
@@ -1600,6 +1626,15 @@ def tp_rank_paged(group, dev):
         # the K/V rows the lengths need, q and out, once: bytes-bound
         "rank_bound_ms": tp_paged_bound_ms(TP_HEADS, k.shape[2]),
         "unsharded_bound_ms": tp_paged_bound_ms(TP_HEADS, TP_HEADS["Hkv"])}
+    # the library call: SDPA (enable_gqa) on the already-gathered dense
+    # view of the rank's heads and of every head, as the other paged rows
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for key, view in (("rank_library_ms", dense_view(dict(case, q=q, k=k,
+                                                          v=v))),
+                      ("unsharded_library_ms", dense_view(case))):
+        out["head_cut"][key] = cuda_time_ms(
+            lambda: sdpa(view[0], view[1], view[2], attn_mask=view[3],
+                         enable_gqa=True), 50)
     group.barrier()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -1609,11 +1644,12 @@ def tp_rank_paged(group, dev):
     return out
 
 
-def tp_rank(group, smi_line, t_spawn):
-    """One rank of tp_path: (a), (b), (c) in turn, each engine freed before
-    the next.  Every check raises here, which fails the run.  ``t_spawn``:
-    the parent's ``time.time()`` at the spawn, for the rank's start-up
-    seconds."""
+def tp_rank(grid, smi_line, t_spawn):
+    """One rank of tp_path, on the ``(1, TP)`` grid's model group: (a),
+    (b), (c) in turn, each engine freed before the next.  Every check
+    raises here, which fails the run.  ``t_spawn``: the parent's
+    ``time.time()`` at the spawn, for the rank's start-up seconds."""
+    group = grid.model
     dev = group.device
     exact_matmuls()
     t_rank = time.perf_counter()
@@ -1699,8 +1735,8 @@ def phase_tp_path(dev, smi_line, clean=None):
         del eng
         gc.collect()
         torch.cuda.empty_cache()
-    backend, devices = runtime.plan(TP, dev)
-    ranks = runtime.spawn(tp_rank, TP, (smi_line, time.time()),
+    backend, devices = runtime.plan((1, TP), dev)
+    ranks = runtime.spawn(tp_rank, (1, TP), (smi_line, time.time()),
                           backend=backend, devices=devices, timeout=900)
     spawn_s = time.perf_counter() - t0
     for r in ranks:
@@ -1949,7 +1985,7 @@ def phase_features_splitbrain(main_eng, dev, smi_line):
     """Full-width tinyllama-1.1b split-brain (LAQ W4A8, the main path's
     weights) with an int8 prefix-shared pool, pages of 16, 8 slots and
     prefill chunks of 32, on the main path's traffic behind a shared
-    128-token prefix: 78 W4A8 launches per token step and 11 paged launches
+    128-token prefix: 57 W4A8 launches per token step and 8 paged launches
     per decode step; then a short run on a dense slot cache and one on a
     paged bf16 pool: the same tokens."""
     t_path = time.perf_counter()
@@ -2533,6 +2569,26 @@ def phase_times(eng, dev, counts):
     return kernels
 
 
+def dense_view(c):
+    """A paged case's pool gathered through its table into dense (B, Hkv,
+    S, D) bf16 K and V (dequantized for an int8 / fp8 pool), with the
+    lengths' (B, 1, 1, S) mask: the library call's operands, made before
+    it is timed.  Returns (q, K, V, mask)."""
+    B, P = c["table"].shape
+    _, ps, Hkv, D = c["k"].shape
+    S = P * ps
+    pid = c["table"].long()
+    kd, vd = (ref._fetch_pages(c[x], pid) for x in ("k", "v"))
+    if c.get("k_scale") is not None:
+        kd = kd * c["k_scale"][pid][:, :, None, :, None]
+        vd = vd * c["v_scale"][pid][:, :, None, :, None]
+    kd = kd.to(torch.bfloat16).reshape(B, S, Hkv, D).transpose(1, 2)
+    vd = vd.to(torch.bfloat16).reshape(B, S, Hkv, D).transpose(1, 2)
+    mask = (torch.arange(S, device=kd.device)[None, :]
+            < c["lens"][:, None])
+    return c["q"], kd.contiguous(), vd.contiguous(), mask[:, None, None, :]
+
+
 def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name,
                      kv=None, **opts):
     """One decode step's L paged launches (one per layer's pool slice) at
@@ -2574,19 +2630,7 @@ def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name,
                 else 2 * toks * Hkv * D + 2 * live_pages * Hkv * 4)
     nbytes = L * (kv_bytes + 2 * B * Hq * D * 2 + B * P * 4 + B * 4)
     flops = L * 2 * 2 * toks * Hq * D
-    dense = []
-    for c in cases:
-        S = P * ps
-        pid = c["table"].long()
-        kd, vd = (ref._fetch_pages(c[x], pid) for x in ("k", "v"))
-        if kv is not None:
-            kd = kd * c["k_scale"][pid][:, :, None, :, None]
-            vd = vd * c["v_scale"][pid][:, :, None, :, None]
-        kd = kd.to(torch.bfloat16).reshape(B, S, Hkv, D).transpose(1, 2)
-        vd = vd.to(torch.bfloat16).reshape(B, S, Hkv, D).transpose(1, 2)
-        mask = (torch.arange(S, device=dev)[None, :] < c["lens"][:, None])
-        dense.append((c["q"], kd.contiguous(), vd.contiguous(),
-                      mask[:, None, None, :]))
+    dense = [dense_view(c) for c in cases]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_ms = yardstick_ms(lambda: [sdpa(q, k, v, attn_mask=m,
                                          enable_gqa=True)
@@ -4702,8 +4746,8 @@ def _train_cli(args, record):
     from repro_torch.launch import train as train_cli
     orig = train_cli.step_mod.make_train_step
 
-    def instrumented(cfg, optcfg):
-        fn = orig(cfg, optcfg)
+    def instrumented(cfg, optcfg, grid=None):
+        fn = orig(cfg, optcfg, grid)
 
         def step(params, opt_state, batch):
             i = len(record["ms"])
@@ -4840,10 +4884,10 @@ def phase_train_path(dev, smi_line):
     saved = {}
     orig_save, orig_next = CheckpointManager.save, tpipe.DataLoader.__next__
 
-    def recording_save(self, step, tree, metadata=None):
+    def recording_save(self, step, tree, metadata=None, **kw):
         saved[step] = {k: t.detach().cpu().clone()
                        for k, t in topt.leaves(tree)}
-        return orig_save(self, step, tree, metadata)
+        return orig_save(self, step, tree, metadata, **kw)
 
     def preempted(self):
         if self.step == e2e["kill_at"]:
@@ -4933,6 +4977,416 @@ def phase_train_path(dev, smi_line):
             "seconds": seconds}
 
 
+# ------------------------------------------------------ distributed training
+# dist_train_path: granite-8b (arXiv:2405.04324) at full width (d 4096, 32/8
+# heads of 128, d_ff 14,336, vocab 49,152) and DIST["layers"] of its 36
+# layers on a (2, 2) grid of four gloo ranks sharing the card; each rank's
+# flash launch is its 16/4 heads over its 4 batch rows.  The ranks' gloo
+# traffic grows with the layers: at 4 the phase took 69 s on one host and
+# 97 s on a host 1.3x slower, so it runs 3
+DIST_SLACK = 1.2                   # host variance over the phase's 90 s
+DIST = dict(arch="granite-8b", layers=3, shape=(2, 2), steps=6, batch=8,
+            seq=512, profiled=2, lr=3e-4, warmup=10)
+DIST_FLASH_CASE = ("granite-8b grid rank", (4, 16, 4, 512, 512, 128),
+                   dict(causal=True))
+# the grid's step 1 gradient norm and step 2 loss against the one-device
+# step's (step 2's loss measured 4.5e-5 apart at 3 layers: bf16 sums in
+# other orders)
+DIST_ONE_DEVICE_RTOL = 1e-3
+DIST_WIDTH = 4096                  # (b)'s wo leaf and (c)'s stage width
+DIST_PIPE = dict(microbatches=8, mb=4)
+
+
+def dist_cfg():
+    cfg = get_config(DIST["arch"])
+    return dataclasses.replace(
+        cfg, num_layers=DIST["layers"],
+        parallel=dataclasses.replace(cfg.parallel, remat="none"))
+
+
+def dist_batches(cfg, n):
+    """The data pipeline's first ``n`` global batches (mask all ones, as the
+    training CLI feeds them)."""
+    from repro_torch.data import pipeline as tpipe
+    dcfg = tpipe.DataConfig(vocab_size=cfg.vocab_size, seq_len=DIST["seq"],
+                            global_batch=DIST["batch"], seed=SEED)
+    out = []
+    for i in range(n):
+        b = tpipe.global_batch_at_step(dcfg, i)
+        b["mask"] = np.ones_like(b["labels"], np.float32)
+        out.append(b)
+    return out
+
+
+def dist_rank_train(grid, dev):
+    """(a) on this rank: the grid's train step (``make_train_step(grid=)``,
+    as ``launch.train`` builds it, with its warmup of 10 steps and the
+    optimizer's default lr, 3e-4: at 1e-3 this width's loss jumps by half
+    within the warmup, both ways) on the rank's blocks of the seeded
+    float32 params: DIST["steps"] steps with the counts set to 0 just
+    before and read just after, the last DIST["profiled"] of them under
+    torch.profiler.  Rank 0 first computes ``api.loss_fn`` of the whole
+    params on step 1's global batch in this one process."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed import runtime
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    cfg = dist_cfg()
+    n = DIST["steps"]
+    batches = dist_batches(cfg, n)
+    marks, t0 = {}, time.perf_counter()
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t0
+
+    step = tstep.make_train_step(cfg, dist_opt(), grid)
+    lay = step.layout
+    whole = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 60), device=dev)
+    torch.cuda.synchronize()
+    mark("init_s")
+    out = {}
+    if grid.rank == 0:
+        with torch.no_grad():
+            out["one_process_loss"] = float(api.loss_fn(
+                whole, tstep.batch_to(batches[0], dev), cfg)[1]["loss"])
+    mark("one_process_loss_s")
+    with torch.no_grad():
+        params = lay.shard_tree(whole)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = topt.init_state(params, dist_opt(), layout=lay)
+    torch.cuda.synchronize()
+    mark("shard_s")
+    cuts = lay.flat_cuts()
+    dp, tp = grid.shape
+    bad = []
+    for k, t in topt.leaves(params):
+        want = list(lay.shapes[k])
+        m, d = cuts[k]
+        if m is not None:
+            want[m] //= tp
+        if d is not None:
+            want[d] //= dp
+        if list(t.shape) != want:
+            bad.append((k, list(t.shape), want))
+    check(not bad, f"dist_train_path (a) rank {grid.rank}: leaves not cut as "
+          f"train_param_cuts says: {bad[:4]}")
+    out["setup_s"] = marks
+    out["rank_params"] = sum(t.numel() for _, t in topt.leaves(params))
+    out["cut_leaves"] = {k: list(t.shape) for k, t in topt.leaves(params)
+                         if k in ("embed", "lm_head", "blocks/attn/wq",
+                                  "blocks/attn/wo", "blocks/mlp/w1",
+                                  "blocks/mlp/w2")}
+    torch.cuda.reset_peak_memory_stats()
+    grid.world.barrier()
+    runtime.collective_stats(reset=True)
+    ops.reset_launch_counts()
+    steps, prof, wall = [], None, 0.0
+    for i in range(n):
+        if i == n - DIST["profiled"]:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        flash0 = ops.launch_counts()["flash_attention"]
+        c0 = runtime.COLLECTIVES["seconds"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batches[i])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if prof is not None:
+            wall += dt
+        steps.append({"ms": dt * 1e3, "loss": loss,
+                      "grad_norm": float(m["grad_norm"]),
+                      "collective_s": runtime.COLLECTIVES["seconds"] - c0,
+                      "flash": ops.launch_counts()["flash_attention"]
+                      - flash0, "profiled": prof is not None})
+    prof.__exit__(None, None, None)
+    out["launches"] = ops.launch_counts()
+    out["collectives"] = runtime.collective_stats()
+    out["steps"] = steps
+    s = profile_summary(prof, wall, DIST["profiled"], "dist_train_path")
+    out["profile"] = {k: s[k] for k in (
+        "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+        "host_ops_per_step", "top_kernels")}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_opt():
+    from repro_torch.train import optimizer as topt
+    return topt.AdamWConfig(lr=DIST["lr"], warmup_steps=DIST["warmup"],
+                            total_steps=DIST["steps"])
+
+
+def dist_one_device(dev, n=2):
+    """The one-device train step on the same params and batches: its first
+    ``n`` steps' losses and gradient norms, which the grid's are held to
+    (past step 1 the two part only by the row cuts' and the data split's
+    sum orders)."""
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    cfg = dist_cfg()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 60), device=dev)
+    state = topt.init_state(params, dist_opt())
+    step = tstep.make_train_step(cfg, dist_opt())
+    losses, norms = [], []
+    for b in dist_batches(cfg, n):
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, norms
+
+
+def dist_rank_psum(grid, dev):
+    """(b) on this rank: ``compressed_psum_mean`` over its "data" subgroup
+    on a (4096, 4096) float32 leaf (granite-8b's ``wo``), each data rank's
+    input drawn from one seed, against a one-process replay of the same
+    arithmetic on every data rank's input (bit for bit) and the exact mean
+    (within the reference test's 2 max|x| / 127)."""
+    from repro_torch.distributed import collectives, runtime
+    data, n, block = grid.data, grid.data.size, 256
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    xs = torch.randn((n, DIST_WIDTH, DIST_WIDTH), generator=gen, device=dev)
+    xs *= torch.exp(torch.empty_like(xs).uniform_(-4, 1, generator=gen))
+    mine = xs[data.rank].clone()
+    got = collectives.compressed_psum_mean({"wo": mine}, data, block)["wo"]
+    # the replay: every rank's blocks, local scales, their max, the codes,
+    # the int32 sum, the dequantized mean
+    blocks = xs.reshape(n, -1, block)
+    scale = torch.clamp_min(blocks.abs().amax(dim=2, keepdim=True)
+                            * np.float32(1.0 / 127.0), 1e-20).amax(dim=0)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    q_sum = q.to(torch.int32).sum(dim=0)
+    replay = ((q_sum.to(torch.float32) * scale).reshape(-1)
+              .reshape(DIST_WIDTH, DIST_WIDTH) / n)
+    exact = xs.mean(dim=0)
+    err = (got - exact).abs().max().item()
+    bound = 2 * xs.abs().max().item() / 127
+    same = bool(torch.equal(got, replay))
+    check(same, f"dist_train_path (b) rank {grid.rank}: the int8 reduction "
+          "differs from the one-process replay")
+    check(err <= bound, f"dist_train_path (b): error {err} over the bound "
+          f"{bound}")
+    grid.world.barrier()
+    c0 = runtime.COLLECTIVES["seconds"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        collectives.compressed_psum_mean({"wo": mine}, data, block)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / 3 * 1e3
+    return {"shape": [DIST_WIDTH, DIST_WIDTH], "ranks": n, "block": block,
+            "bit_identical_to_replay": same, "max_abs_err_vs_mean": err,
+            "bound": bound, "wall_ms_per_call": ms,
+            "collective_ms_per_call":
+                (runtime.COLLECTIVES["seconds"] - c0) / 3 * 1e3}
+
+
+def dist_rank_pipe(grid, dev):
+    """(c) on this rank: ``pipeline_apply`` over the four ranks as a "pipe"
+    group (rank s holds stage s's weight), stage ``tanh(x @ W_s)`` in
+    float32 at width 4096, against the sequential application of the four
+    stages in this process (bit for bit)."""
+    from repro_torch.distributed import pipeline
+    world = grid.world
+    S, M, mb = world.size, DIST_PIPE["microbatches"], DIST_PIPE["mb"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 62)
+    ws = torch.randn((S, DIST_WIDTH, DIST_WIDTH), generator=gen,
+                     device=dev) / DIST_WIDTH ** 0.5
+    x = torch.randn((M, mb, DIST_WIDTH), generator=gen, device=dev)
+
+    def stage(w, h):
+        return torch.tanh(h @ w)
+
+    run = pipeline.pipeline_apply(world, stage, M)
+    got = run(ws[world.rank], x)
+    seq = []
+    for i in range(M):
+        h = x[i]
+        for w in ws:
+            h = stage(w, h)
+        seq.append(h)
+    seq = torch.stack(seq)
+    same = bool(torch.equal(got, seq))
+    check(same, f"dist_train_path (c) rank {grid.rank}: the pipeline differs "
+          "from the sequential application")
+    world.barrier()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run(ws[world.rank], x)
+    torch.cuda.synchronize()
+    return {"stages": S, "microbatches": M, "mb": mb, "width": DIST_WIDTH,
+            "bit_identical_to_sequential": same,
+            "wall_ms_per_call": (time.perf_counter() - t) * 1e3,
+            "bubble_fraction": pipeline.bubble_fraction(S, M)}
+
+
+def dist_rank(grid, t_spawn):
+    """One rank of dist_train_path: (a), (b), (c) in turn.  Every check
+    raises here, which fails the run."""
+    dev = grid.device
+    exact_matmuls()
+    t_rank = time.perf_counter()
+    res = {"rank": grid.rank, "data_rank": grid.data.rank,
+           "model_rank": grid.model.rank, "start_s": time.time() - t_spawn,
+           "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
+    res["a"] = dist_rank_train(grid, dev)
+    res["a_s"] = time.perf_counter() - t_rank
+    res["b"] = dist_rank_psum(grid, dev)
+    res["c"] = dist_rank_pipe(grid, dev)
+    res["wall_s"] = time.perf_counter() - t_rank
+    return res
+
+
+def phase_dist_train_path(dev, smi_line):
+    """dist_train_path: (a) granite-8b at full width and DIST["layers"]
+    layers trained by a (2, 2) grid of four gloo ranks on the one card
+    (FSDP over "data", Megatron's cuts over "model"; float32 params, bf16
+    compute, remat none, global batches of 8 x 512, 4 rows a data rank):
+    DIST["layers"] flash launches per rank per step and no other kernel,
+    every rank's losses the same, step 1's loss within a relative 1e-3 of
+    ``api.loss_fn`` on the whole params in one process, step 1's gradient
+    norm and step 2's loss (the first update's) within a relative
+    ``DIST_ONE_DEVICE_RTOL`` of the one-device train step's on the same
+    params and batches (``dist_one_device``), the loss falls;
+    ms per step and train tokens/s (the median of the steps after two,
+    the last two profiled), per rank the seconds inside collectives, the
+    busy share over the two profiled steps and the peak memory, and the
+    peaks' sum.  (b) the int8 reduction over the "data"
+    subgroups, (c) the pipeline over the four ranks.  The ranks start as
+    ``launch.train --dp 2 --tp 2`` starts them (``runtime.spawn``)."""
+    from repro_torch.distributed import runtime
+    t0 = time.perf_counter()
+    backend, devices = runtime.plan(DIST["shape"], dev)
+    ranks = runtime.spawn(dist_rank, DIST["shape"], (time.time(),),
+                          backend=backend, devices=devices, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    L, n = DIST["layers"], DIST["steps"]
+    losses = [s["loss"] for s in ranks[0]["a"]["steps"]]
+    norms = [s["grad_norm"] for s in ranks[0]["a"]["steps"]]
+    one = ranks[0]["a"]["one_process_loss"]
+    rel = abs(losses[0] - one) / abs(one)
+    t1 = time.perf_counter()
+    one_losses, one_norms = dist_one_device(dev)
+    one_device_s = time.perf_counter() - t1
+    rel_loss2 = abs(losses[1] - one_losses[1]) / abs(one_losses[1])
+    rel_norm1 = abs(norms[0] - one_norms[0]) / abs(one_norms[0])
+    # the median of the steps after two (the last two profiled)
+    ms = [float(np.median([s["ms"] for s in r["a"]["steps"][2:]]))
+          for r in ranks]
+    step_ms = max(ms)
+    tokens = DIST["batch"] * DIST["seq"]
+    per_rank = []
+    for r, m in zip(ranks, ms):
+        a = r["a"]
+        per_rank.append({
+            "rank": r["rank"], "data_rank": r["data_rank"],
+            "model_rank": r["model_rank"], "start_s": r["start_s"],
+            "wall_s": r["wall_s"], "a_s": r["a_s"],
+            "setup_s": a["setup_s"], "rank_params": a["rank_params"],
+            "cut_leaves": a["cut_leaves"], "ms_per_step": m,
+            "steps_ms": [s["ms"] for s in a["steps"]],
+            "collective_s_per_step": float(np.median(
+                [s["collective_s"] for s in a["steps"][2:]])),
+            "collective_calls_per_step": a["collectives"]["calls"] / n,
+            "profile": a["profile"], "peak_memory_bytes":
+                a["peak_memory_bytes"], "b": r["b"], "c": r["c"]})
+    cfg = dist_cfg()
+    seconds = time.perf_counter() - t0
+    info = {"phase": "dist_train_path", "config": cfg.name, "layers": L,
+            "grid": list(DIST["shape"]), "backend": backend,
+            "devices": devices, "params": cfg.param_count(),
+            "steps": n, "batch": DIST["batch"], "seq": DIST["seq"],
+            "losses": losses, "grad_norms": norms,
+            "one_process_loss": one, "step1_loss_rel_diff": rel,
+            "one_device_losses": one_losses,
+            "one_device_grad_norms": one_norms,
+            "step2_loss_rel_diff": rel_loss2,
+            "step1_grad_norm_rel_diff": rel_norm1,
+            "one_device_rtol": DIST_ONE_DEVICE_RTOL,
+            "one_device_s": one_device_s,
+            "ms_per_step": step_ms,
+            "train_tokens_per_s": tokens / (step_ms / 1e3),
+            "rank_alloc_conf": ranks[0]["alloc_conf"],
+            "launches_per_rank": ranks[0]["a"]["launches"],
+            "peak_memory_sum_bytes": sum(r["a"]["peak_memory_bytes"]
+                                         for r in ranks),
+            "ranks": per_rank, "b": {"bit_identical": all(
+                r["b"]["bit_identical_to_replay"] for r in ranks)},
+            "c": {"bit_identical": all(r["c"]["bit_identical_to_sequential"]
+                                       for r in ranks),
+                  "bubble_fraction": ranks[0]["c"]["bubble_fraction"]},
+            "spawn_s": spawn_s, "seconds": seconds, "card": smi_line}
+    emit(info)
+    want = {"w4a8_matmul": 0, "paged_decode_attention": 0, "rwkv6_scan": 0,
+            "flash_attention": L * n}
+    for r in ranks:
+        a = r["a"]
+        check(a["launches"] == want, f"dist_train_path (a) rank {r['rank']}:"
+              f" launches {a['launches']} != {want}")
+        check([s["flash"] for s in a["steps"]] == [L] * n,
+              f"dist_train_path (a) rank {r['rank']}: flash per step")
+        check([s["loss"] for s in a["steps"]] == losses,
+              "dist_train_path (a): the ranks' losses differ")
+    check(rel <= 1e-3, f"dist_train_path (a): step 1's loss {losses[0]} vs "
+          f"one process's {one} (relative {rel})")
+    check(rel_norm1 <= DIST_ONE_DEVICE_RTOL,
+          f"dist_train_path (a): step 1's gradient norm {norms[0]} vs the "
+          f"one-device step's {one_norms[0]} (relative {rel_norm1})")
+    check(rel_loss2 <= DIST_ONE_DEVICE_RTOL,
+          f"dist_train_path (a): step 2's loss {losses[1]} vs the "
+          f"one-device step's {one_losses[1]} (relative {rel_loss2})")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"dist_train_path (a): the loss did not fall: {losses}")
+    check(seconds <= 90.0 * DIST_SLACK,
+          f"dist_train_path took {seconds:.1f} s")
+    return {"launches": ranks[0]["a"]["launches"], "seconds": seconds,
+            "losses": losses}
+
+
+def phase_times_dist(dev, dist_info):
+    """The flash kernel at a dist_train_path rank's shape (B 4, 16/4 heads of
+    128, T 512, causal, bf16) over one step's DIST["layers"] launches:
+    kernel (CUDA-graph replay), plain version, bound and SDPA with
+    enable_gqa."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 63)
+    detail = []
+    label, shape, opts = DIST_FLASH_CASE
+    ls = [flash_inputs(gen, dev, *shape, torch.bfloat16)
+          for _ in range(DIST["layers"])]
+
+    def run(fn):
+        return lambda: [fn(q, k, v, **opts) for q, k, v in ls]
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound_ms, bound_by = flash_bound(ls)
+    row = {"unit": f"one {label} step: {DIST['layers']} launches, B 4, 16/4 "
+                   "heads, D 128, T 512, causal, bf16, CUDA-graph replay",
+           "ms": graph_time_ms(run(ops.attention), iters=20),
+           "plain_ms": graph_time_ms(run(ref.flash_attention), iters=3),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": yardstick_ms(
+               lambda: [sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                        for q, k, v in ls], 20, detail, "flash_dist_library"),
+           "library_note": "scaled_dot_product_attention(is_causal=True, "
+                           "enable_gqa=True) on the same tensors",
+           "launches": dist_info["launches"]["flash_attention"]}
+    emit({"phase": "times", "path": "dist_train_path", "flash": row,
+          "detail": detail})
+    return row
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # flex_attention's compiled kernels cache inside the checkout
@@ -4968,9 +5422,10 @@ def main(argv=None) -> int:
     if argv == ["--only", "train"]:
         # the training phases alone, with the flash kernel's check at the
         # train step's shape
-        phase_flash(dev, cases=[TRAIN_FLASH_CASE])
+        phase_flash(dev, cases=[TRAIN_FLASH_CASE, DIST_FLASH_CASE])
         phase_train_kernels(dev)
         phase_train_path(dev, smi)
+        phase_times_dist(dev, phase_dist_train_path(dev, smi))
         emit({"subset": "train", "done": True})
         return 0
     check(not argv, f"unknown arguments {argv} (only `--only moe`, "
@@ -5033,6 +5488,8 @@ def main(argv=None) -> int:
     vision_launches, encdec_launches, xattn_rows = run_xattn(dev, smi)
     train_row = phase_train_kernels(dev)
     train_info = phase_train_path(dev, smi)
+    dist_info = phase_dist_train_path(dev, smi)
+    dist_row = phase_times_dist(dev, dist_info)
     emit({"gemma2_path_summary": {
         key: gemma2_info[key] for key in (
             "decode_steps_per_s", "decode_tokens_per_s",
@@ -5088,7 +5545,8 @@ def main(argv=None) -> int:
             "lm_forward": (fwd_serve[k["name"]] + fwd_gemma2[k["name"]]
                            + fwd_moe[k["name"]]),
             "tp_path": tp_info["launches"][k["name"]],
-            "train_path": train_info["launches"][k["name"]]}
+            "train_path": train_info["launches"][k["name"]],
+            "dist_train_path": dist_info["launches"][k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
     kernels[1]["llama2_decode_int8"] = paged_kv["int8"]
@@ -5106,6 +5564,7 @@ def main(argv=None) -> int:
     kernels[2]["train_step"] = {**train_row,
                                 "launches": train_info["launches"][
                                     "flash_attention"]}
+    kernels[2]["dist_train_rank_step"] = dist_row
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

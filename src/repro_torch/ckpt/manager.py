@@ -21,6 +21,12 @@ Leaf keys are the JAX package's ``_flatten_with_paths`` strings: dict keys
 (sorted), list indices, and ``.q`` / ``.scale`` for an int8 moment
 (``train/optimizer.py::QMoment``).  Training state is float32, int8 and
 int32; any other leaf dtype raises (numpy has no bfloat16).
+
+A checkpoint of a training grid is layout-free, as the JAX package's is:
+``save(..., layout=, cuts=)`` gathers every leaf whole (every rank calls
+it) and rank 0 writes, and ``restore(..., layout=, cuts=)`` reads the
+whole leaves and keeps each rank's block.  So a state saved at ``(2, 2)``
+restores at ``(1, 1)``, and the reverse, bit for bit.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import flat_cuts
 from repro_torch.train.optimizer import leaves, rebuild
 
 _DTYPES = (torch.float32, torch.int8, torch.int32)
@@ -65,7 +72,17 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Dict[str, Any],
-             metadata: Optional[Dict[str, Any]] = None) -> str:
+             metadata: Optional[Dict[str, Any]] = None, layout=None,
+             cuts=None) -> str:
+        """Write ``tree`` as step ``step``.  ``layout`` / ``cuts`` (a
+        training grid's ``sharding.Layout`` and the cut tree of ``tree``):
+        the leaves are a rank's blocks; every rank calls this, the whole
+        leaves are gathered and rank 0 writes them."""
+        if layout is not None:
+            with torch.no_grad():
+                tree = layout.gather_tree(tree, cuts)
+            if layout.grid.rank != 0:
+                return os.path.join(self.directory, f"step_{step}")
         host = {k: _host(k, t) for k, t in leaves(tree)}
         if self.async_save:
             self.wait()  # one in-flight save at a time
@@ -130,11 +147,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Dict[str, Any], step: Optional[int] = None
+    def restore(self, like: Dict[str, Any], step: Optional[int] = None,
+                layout=None, cuts=None
                 ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         """Restore into the structure of ``like``: each leaf a new tensor
         with the like leaf's dtype and device (a dtype that differs
-        raises).  Returns (tree, the save's metadata)."""
+        raises).  Returns (tree, the save's metadata).  ``layout`` /
+        ``cuts``: ``like`` holds a grid rank's blocks, and each leaf is
+        read whole and cut to the rank's block."""
+        where = {} if layout is None else flat_cuts(cuts)
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -147,6 +168,8 @@ class CheckpointManager:
                 if key not in data:
                     raise KeyError(f"checkpoint missing leaf {key}")
                 got = torch.from_numpy(data[key])
+                if layout is not None:
+                    got = layout.block(got, where[key])
                 if got.dtype != t.dtype or tuple(got.shape) != tuple(t.shape):
                     raise ValueError(
                         f"checkpoint leaf {key} is {got.dtype} "

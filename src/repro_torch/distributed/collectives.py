@@ -1,5 +1,7 @@
-"""The decode-attention collectives of tensor-parallel serving, after the
-JAX package's ``distributed/collectives.py``.
+"""The collectives of the port, after the JAX package's
+``distributed/collectives.py``: the decode-attention collectives of
+tensor-parallel serving, Megatron's autograd collectives of tensor-parallel
+training, and the int8-compressed data-parallel gradient reduction.
 
 The JAX package builds each as a ``shard_map`` over a mesh axis; here each
 is the per-rank body, called on every rank with this rank's tensors and the
@@ -20,13 +22,33 @@ group (:class:`~repro_torch.distributed.runtime.TPGroup`):
                                      the sequence, combined the same way.
 
 A CUDA tensor takes the paged kernel, a CPU tensor its plain version, as in
-``kernels/ops.py``.  The merges are the only float sums that cross ranks;
-the JAX package's do the same.
+``kernels/ops.py``.  The merges are the only float sums that cross ranks
+in serving; the JAX package's do the same.
+
+Training (GSPMD inserts these in the JAX package; here each is an
+``autograd.Function`` over one group, a no-op on a group of one rank):
+
+``copy_to``      identity forward, all-reduce backward: the input of a
+                 column-cut projection (Megatron's f);
+``reduce_from``  all-reduce forward, identity backward: the row-cut
+                 projection's partial products, and the partial sums of a
+                 value every rank of the group computes alike (Megatron's
+                 g);
+``gather_from``  all-gather forward, the rank's slice backward: a block
+                 whose consumer runs alike on every rank;
+``gather_sum``   all-gather forward, reduce-scatter backward: the ZeRO-3
+                 weight gather over "data", whose consumers differ by rank
+                 (their batch rows);
+``scale_grad``   identity forward, the gradient times a constant.
+
+Every float reduction runs in float32 (or float64 for float64 inputs).  ``compressed_psum_mean`` and
+``dp_train_step_compressed`` are the int8 data-parallel reduction.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.runtime import TPGroup
@@ -130,3 +152,209 @@ def distributed_decode_attention(q, k_cache, v_cache, valid, tp: TPGroup, *,
     o_g = tp.all_reduce(o * corr, "sum")
     out = o_g / torch.clamp_min(l_g, 1e-30)
     return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Megatron's autograd collectives (training)
+# ----------------------------------------------------------------------------
+def _reduce32(x: torch.Tensor, group: TPGroup) -> torch.Tensor:
+    """The sum of every rank's ``x`` in float32 (float64 stays so), in
+    ``x``'s dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return group.all_reduce(x.to(acc).clone()).to(x.dtype)
+
+
+def _gather_cat(x: torch.Tensor, group: TPGroup, dim: int) -> torch.Tensor:
+    return torch.cat(group.all_gather(x), dim=dim)
+
+
+def _block(x: torch.Tensor, group: TPGroup, dim: int) -> torch.Tensor:
+    w = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * w, w).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce32(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduce32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, dtype):
+        ctx.group, ctx.dim, ctx.dtype = group, dim, x.dtype
+        return _gather_cat(x.to(dtype), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = torch.promote_types(torch.promote_types(g.dtype, ctx.dtype),
+                                  torch.float32)
+        g = ctx.group.reduce_scatter(g.to(acc), ctx.dim)
+        return g.to(ctx.dtype), None, None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _one(group: Optional[TPGroup]) -> bool:
+    return group is None or group.size == 1
+
+
+def copy_to(x: torch.Tensor, group: Optional[TPGroup]) -> torch.Tensor:
+    """Identity forward; the backward all-reduces the gradient over
+    ``group`` (float32): ``x`` feeds a computation that differs by rank."""
+    return x if _one(group) else _Copy.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: Optional[TPGroup]) -> torch.Tensor:
+    """The float32 sum of every rank's ``x`` (in ``x``'s dtype); identity
+    backward: every rank goes on alike from the sum."""
+    return x if _one(group) else _Reduce.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group: Optional[TPGroup], dim: int
+                ) -> torch.Tensor:
+    """Every rank's block of ``x`` concatenated along ``dim``; the backward
+    takes the rank's slice (the consumer runs alike on every rank)."""
+    return x if _one(group) else _Gather.apply(x, group, dim % x.dim())
+
+
+def gather_sum(x: torch.Tensor, group: Optional[TPGroup], dim: int,
+               dtype=None) -> torch.Tensor:
+    """Every rank's block of ``x`` concatenated along ``dim``; the backward
+    sums the ranks' gradients (float32) and takes the rank's slice, as a
+    reduce-scatter does.  ``dtype``: the blocks travel cast to it (a
+    weight that its consumer casts to the compute dtype anyway: the same
+    values, half the bytes of float32 at bf16), and the gradient comes
+    back in ``x``'s dtype, summed from the consumer's gradient as
+    without the cast."""
+    if _one(group):
+        return x if dtype is None else x.to(dtype)
+    return _GatherSum.apply(x, group, dim % x.dim(), dtype or x.dtype)
+
+
+def scale_grad(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x`` itself; its gradient times ``s``."""
+    return x if s == 1 else _ScaleGrad.apply(x, s)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       group: TPGroup) -> torch.Tensor:
+    """Cross-entropy over logits cut on the vocabulary: ``logits`` (..., V /
+    n) float32, this rank's block of columns ``[rank V/n, (rank + 1)
+    V/n)``; ``labels`` (...) global ids.  ``-log_softmax(logits)[label]``
+    from an all-reduce max (the shift, no gradient), the all-reduced sum of
+    exps and the all-reduced label logit (each rank adds the ones it
+    holds), so no rank holds the whole row; every rank returns the same
+    value and its own block's gradient."""
+    n = logits.shape[-1]
+    start = group.rank * n
+    m = group.all_reduce(logits.detach().amax(dim=-1).clone(), "max")
+    sumexp = reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1), group)
+    local = labels.to(torch.int64) - start
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    label_logit = reduce_from(torch.where(inside, picked, torch.zeros_like(
+        picked)), group)
+    return m + torch.log(sumexp) - label_logit
+
+
+# ----------------------------------------------------------------------------
+# int8-compressed data-parallel reduction
+# ----------------------------------------------------------------------------
+def compressed_psum_mean(tree, group: TPGroup, block: int = 256):
+    """Mean-reduce a tree of tensors over ``group`` with an int8 wire
+    format, the JAX package's arithmetic step for step: each leaf in
+    float32, flattened and zero-padded to blocks of ``block``; a local
+    per-block scale ``max(amax / 127, 1e-20)`` (``amax`` times the
+    float32 ``1/127``, as XLA compiles it); its all-reduce max (one
+    shared scale per block); ``clip(round(x / scale), -127, 127)`` (round
+    half to even) as int8; the exact int32 sum of the codes; ``q_sum *
+    scale`` unpadded, over the group's size.  The quantization error is the
+    local rounding, at most ``scale / 2`` per rank."""
+    n = group.size
+
+    def leaf(g):
+        g32 = g.to(torch.float32)
+        flat = g32.reshape(-1)
+        pad = (-flat.numel()) % block
+        blocks = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, block)
+        # XLA compiles the division by the constant 127 into a product by
+        # its float32 reciprocal, as the optimizer's int8 codec notes
+        local = torch.clamp_min(blocks.abs().amax(dim=1, keepdim=True)
+                                * np.float32(1.0 / 127.0), 1e-20)
+        scale = group.all_reduce(local, "max")
+        q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+        q_sum = group.all_reduce(q.to(torch.int32))
+        out = (q_sum.to(torch.float32) * scale).reshape(-1)[:g.numel()]
+        return out.reshape(g.shape) / n
+
+    return _map_tensors(leaf, tree)
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree)
+
+
+def dp_train_step_compressed(loss_fn: Callable, group: TPGroup,
+                             block: int = 256) -> Callable:
+    """A data-parallel gradient function with the int8 reduction: the
+    returned ``fn(params, batch)`` takes this rank's batch rows, and
+    returns ``(loss, grads)``: the mean of the ranks' ``loss_fn(params,
+    batch)`` (float32 all-reduce) and ``compressed_psum_mean`` of their
+    gradients over every tensor of ``params`` (the JAX package's
+    ``shard_map`` body).  ``loss_fn`` returns a scalar, or a tuple whose
+    first item is the one differentiated."""
+    from repro_torch.train.optimizer import leaves, rebuild
+
+    def fn(params, batch):
+        keys, flat = zip(*leaves(params))
+        for t in flat:
+            t.requires_grad_(True)
+        out = loss_fn(params, batch)
+        loss = out[0] if isinstance(out, tuple) else out
+        grads = dict(zip(keys, torch.autograd.grad(loss, flat)))
+        grads = compressed_psum_mean(rebuild(params, grads), group, block)
+        mean = group.all_reduce(loss.detach().to(torch.float32).clone()
+                                ) / group.size
+        return mean, grads
+
+    return fn

@@ -1,5 +1,6 @@
-"""The serve sharding rules of the JAX package's ``distributed/sharding.py``,
-for one process per model shard.
+"""The sharding rules of the JAX package's ``distributed/sharding.py``, for
+one process per shard: the serve rules of tensor-parallel serving and the
+training rules of the ``(data, model)`` grid.
 
 The JAX package maps each leaf's path to a ``PartitionSpec`` on a
 ``("data", "model")`` mesh; the port keeps its serve rules as they are and
@@ -35,9 +36,29 @@ does not divide stays whole, which is the Hkv < tp fallback.
 
 :func:`shard` takes a rank's block of a leaf, and :func:`gather` is
 ``pin_tp_exact``: the all-gather of a column-cut activation, which moves
-bits and adds nothing.  The training rules (``param_pspecs`` with FSDP,
-``gather_fsdp``, ``pin_batch``, ``batch_pspecs``, ``logits_pspec``) are
-not here: they belong to the training slice.
+bits and adds nothing.
+
+Training (``param_pspecs``, ``batch_pspecs``, ``logits_pspec``):
+:func:`train_param_cuts` gives each leaf ``(the dim on "model", the dim on
+"data")`` under ``_PARAM_RULES`` as they are (the Megatron column and row
+cuts, ``embed`` on the vocabulary, the MoE experts on "model"), ``fsdp``
+resolved to "data" only where ``cfg.parallel.fsdp_axis`` names it (ZeRO-3),
+each axis shape-checked on its own as ``_fit`` does (an axis of one rank
+places its dim too, as in the reference), with the reference's key
+rewriting for QuantizedLinear leaves and AdamW moment trees (``m/``,
+``v/``, an int8 moment's ``q`` / ``scale``).  :func:`batch_cuts` and
+:func:`logits_cut` are the batch's and the logits' cuts.
+:class:`Layout` binds a config's cuts to a :class:`~repro_torch.
+distributed.runtime.Grid`: a rank's block of a leaf (:meth:`Layout.block`,
+the model cut then the data cut), the whole leaf back
+(:meth:`Layout.gather_whole`), a rank's batch rows, and
+:meth:`Layout.gather_fsdp`, the ZeRO-3 weight gather (``gather_fsdp``):
+an all-gather over "data" whose backward is the reduce-scatter of the
+gradients (``collectives.gather_sum``).  The reference keeps the MoE
+expert stacks FSDP-cut at use, for GSPMD's contraction-parallel dots; an
+eager rank cannot contract over rows it does not hold, so the port gathers
+them like every other leaf (the values are the same).  :func:`pin_batch` is
+a no-op: each rank holds only its batch rows.
 """
 from __future__ import annotations
 
@@ -47,7 +68,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.quant import QuantizedLeaf, QuantizedLinear
-from repro_torch.distributed.runtime import TPGroup, size_of
+from repro_torch.distributed import collectives
+from repro_torch.distributed.runtime import Grid, TPGroup, size_of
 
 # param-name -> logical spec on the trailing dims, as in the JAX package
 _COL = ("fsdp", "model")     # (d_in, out): out split over TP
@@ -287,3 +309,226 @@ def gather(x: torch.Tensor, tp: Optional[TPGroup], width: int,
     if tp is None or tp.size == 1 or x.shape[dim] == width:
         return x
     return torch.cat(tp.all_gather(x), dim=dim)
+
+
+# ----------------------------------------------------------------------------
+# Training rules: (model dim, data dim) per leaf
+# ----------------------------------------------------------------------------
+def _train_fit(spec_tail, shape, dp: int, tp: int, fsdp: bool
+               ) -> Tuple[Optional[int], Optional[int]]:
+    """``_fit`` on the grid: the dims of ``shape`` that ``spec_tail``
+    (padded on the left) puts on "model" and on "data", each only where
+    that axis's size divides the dim (a size of 1 divides every dim)."""
+    ndim = len(shape)
+    tail = list(spec_tail[-ndim:]) if len(spec_tail) > ndim else list(spec_tail)
+    full = [None] * (ndim - len(tail)) + tail
+    model = data = None
+    for i, (dim, logical) in enumerate(zip(shape, full)):
+        if logical in ("model", "expert") and dim % tp == 0:
+            model = i
+        elif ((logical == "fsdp" and fsdp) or logical == "batch") \
+                and dim % dp == 0:
+            data = i
+    return model, data
+
+
+def _rule_key(path: str) -> Tuple[str, bool]:
+    """The reference's key rewriting: a QuantizedLinear's ``codes`` cut as
+    its weight and its ``scales`` on the out dim; a moment tree's ``m/`` /
+    ``v/`` prefix and an int8 moment's ``q`` / ``scale`` dropped."""
+    key = re.sub(r"/(codes)$", "", path)
+    is_scales = key.endswith("/scales")
+    key = re.sub(r"/scales$", "", key)
+    key = re.sub(r"^(m|v)/", "", key)
+    key = re.sub(r"/(q|scale)$", "", key)
+    return key, is_scales
+
+
+def train_param_cuts(tree, dp: int, tp: int, cfg):
+    """Per leaf of ``tree`` (params -- float or QuantizedLinear --, a moment
+    tree mirroring them, or ``{"step", "m", "v"}``): ``(model dim, data
+    dim)`` under ``_PARAM_RULES`` on a ``(dp, tp)`` grid (``param_pspecs``);
+    an int8 moment gets a ``QMoment`` of its two leaves' cuts, a
+    QuantizedLinear a ``(codes, scales)`` pair of them.  A leaf no rule
+    matches, or without a shape, is ``(None, None)``."""
+    from repro_torch.train.optimizer import QMoment
+    fsdp = cfg.parallel.fsdp_axis == "data"
+
+    def cut(path, leaf):
+        key, is_scales = _rule_key(path)
+        spec = _match(_PARAM_RULES, key)
+        if spec is None or not hasattr(leaf, "shape"):
+            return (None, None)
+        if is_scales:
+            spec = spec[-1:]
+        return _train_fit(spec, tuple(leaf.shape), dp, tp, fsdp)
+
+    def leaf_cut(path, leaf):
+        if isinstance(leaf, QMoment):
+            return QMoment(cut(path + "/q", leaf.q),
+                           cut(path + "/scale", leaf.scale))
+        if isinstance(leaf, QuantizedLinear):
+            return (cut(path + "/codes", leaf.codes),
+                    cut(path + "/scales", leaf.scales))
+        return cut(path, leaf)
+
+    return _map_paths(leaf_cut, tree)
+
+
+def batch_cuts(cfg, dp: int, tp: int, kind: str):
+    """``batch_pspecs``: per batch entry the dim cut over "data" (the rows)."""
+    keys = ["tokens"] + (["labels", "mask"] if kind == "train" else [])
+    if cfg.frontend_tokens:
+        keys.append("frontend")
+    return {k: 0 for k in keys}
+
+
+def logits_cut(cfg, dp: int, tp: int, kind: str
+               ) -> Tuple[Optional[int], Optional[int]]:
+    """``logits_pspec``: (the dim on "data", the dim on "model") of the
+    logits, (B, V) at decode and (B, T, V) otherwise: the rows, and the
+    vocabulary where ``tp`` divides it."""
+    v = (1 if kind == "decode" else 2) if cfg.vocab_size % tp == 0 else None
+    return 0, v
+
+
+def pin_batch(x: torch.Tensor, cfg=None) -> torch.Tensor:
+    """The reference pins the residual stream's batch sharding so that
+    GSPMD keeps the batch cut; a rank already holds only its rows."""
+    return x
+
+
+def flat_cuts(cuts):
+    """``{path: (model dim, data dim)}`` of a cut tree, paths as
+    ``train/optimizer.py::leaves`` writes them (an int8 moment's ``.q`` /
+    ``.scale``)."""
+    from repro_torch.train.optimizer import QMoment
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+        elif isinstance(node, QMoment):
+            walk(node.q, path + (".q",))
+            walk(node.scale, path + (".scale",))
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+        else:
+            out["/".join(path)] = node
+
+    walk(cuts, ())
+    return out
+
+
+class Layout:
+    """A config's training cuts on a grid: ``cuts`` is
+    :func:`train_param_cuts` of the whole params, ``shapes`` their whole
+    shapes by path (``models/api.py::train_layout`` builds both)."""
+
+    def __init__(self, cfg, grid: Grid, cuts, shapes):
+        self.cfg = cfg
+        self.grid = grid
+        self.cuts = cuts
+        self.shapes = shapes
+
+    # -- blocks ---------------------------------------------------------------
+    def block(self, t: torch.Tensor, cut) -> torch.Tensor:
+        """This rank's block of the whole leaf ``t`` under ``cut``: its
+        model block, then its data block (contiguous)."""
+        m, d = cut
+        t = shard(t, m, self.grid.model)
+        t = shard(t, d, self.grid.data)
+        return t.contiguous()
+
+    def gather_whole(self, t: torch.Tensor, cut) -> torch.Tensor:
+        """The whole leaf from every rank's block (no gradient)."""
+        m, d = cut
+        if d is not None and self.grid.data.size > 1:
+            t = torch.cat(self.grid.data.all_gather(t), dim=d)
+        if m is not None and self.grid.model.size > 1:
+            t = torch.cat(self.grid.model.all_gather(t), dim=m)
+        return t
+
+    def map(self, fn, tree, cuts):
+        """``fn(leaf, cut)`` over ``tree`` and its cut tree."""
+        from repro_torch.train.optimizer import QMoment
+        if isinstance(tree, dict):
+            return {k: self.map(fn, v, cuts[k]) for k, v in tree.items()}
+        if isinstance(tree, QMoment):
+            return QMoment(fn(tree.q, cuts.q), fn(tree.scale, cuts.scale))
+        if isinstance(tree, list):
+            return [self.map(fn, v, c) for v, c in zip(tree, cuts)]
+        return fn(tree, cuts) if torch.is_tensor(tree) else tree
+
+    def shard_tree(self, tree, cuts=None):
+        """This rank's blocks of a whole tree (params by default)."""
+        return self.map(self.block, tree, self.cuts if cuts is None else cuts)
+
+    def gather_tree(self, tree, cuts=None):
+        """The whole tree from every rank's blocks (every rank calls it)."""
+        return self.map(self.gather_whole, tree,
+                        self.cuts if cuts is None else cuts)
+
+    def state_cuts(self, opt_state):
+        """The cut tree of ``{"params", "opt"}``: float32 moments are cut as
+        their params; int8 moments are held whole on every rank
+        (``train/optimizer.py``)."""
+        from repro_torch.train.optimizer import QMoment
+
+        def moments(tree, cuts):
+            if isinstance(tree, dict):
+                return {k: moments(v, cuts[k]) for k, v in tree.items()}
+            if isinstance(tree, QMoment):
+                return QMoment((None, None), (None, None))
+            return cuts
+
+        return {"params": self.cuts,
+                "opt": {"step": (None, None),
+                        "m": moments(opt_state["m"], self.cuts),
+                        "v": moments(opt_state["v"], self.cuts)}}
+
+    # -- the forward ------------------------------------------------------------
+    def gather_fsdp(self, tree, cuts, lead: int = 0, dtype=None):
+        """ZeRO-3: every leaf of ``tree`` whole on "data", the model cut
+        kept (``gather_fsdp``); ``cuts`` is the matching subtree of
+        :attr:`cuts` and ``lead`` the leading layer dims that ``tree``'s
+        leaves (per-layer views) lack.  The backward reduce-scatters the
+        gradients over "data".  ``dtype``: the gathered leaves come back
+        cast to it (for leaves whose every use casts them so)."""
+        data = self.grid.data
+
+        def gather(t, cut):
+            d = cut[1]
+            if d is None or d < lead:
+                return t
+            return collectives.gather_sum(t, data, d - lead, dtype)
+
+        return self.map(gather, tree, cuts)
+
+    def batch_rows(self, batch):
+        """This data rank's rows of a global batch (a dict of arrays or
+        tensors, rows first): ``batch_cuts``."""
+        dp, r = self.grid.data.size, self.grid.data.rank
+        out = {}
+        for k, v in batch.items():
+            B = v.shape[0]
+            if B % dp:
+                raise ValueError(f"batch of {B} rows on {dp} data ranks")
+            out[k] = v[r * (B // dp):(r + 1) * (B // dp)]
+        return out
+
+    def flat_cuts(self):
+        """``{path: cut}`` of the params (:func:`flat_cuts`)."""
+        if not hasattr(self, "_flat"):
+            self._flat = flat_cuts(self.cuts)
+        return self._flat
+
+    def owns(self, cut) -> bool:
+        """True on the one rank of each replica set of a leaf: index 0 on
+        every axis that does not cut it (the global norm counts each
+        element once)."""
+        m, d = cut
+        return ((m is not None or self.grid.model.rank == 0)
+                and (d is not None or self.grid.data.rank == 0))

@@ -291,9 +291,9 @@ def main(argv=None):
         report, out = _serve(ap, args, cfg, device, faults, priorities)
         print(json.dumps(report))
         return out
-    backend, devices = runtime.plan(args.tp, device)
-    ranks = runtime.spawn(_serve_rank, args.tp, (argv,), backend=backend,
-                          devices=devices)
+    backend, devices = runtime.plan((1, args.tp), device)
+    ranks = runtime.spawn(_serve_rank, (1, args.tp), (argv,),
+                          backend=backend, devices=devices)
     report, tokens = ranks[0]
     if any(t != tokens for _, t in ranks[1:]):
         raise RuntimeError("the tensor-parallel ranks decoded different "
@@ -303,12 +303,12 @@ def main(argv=None):
     return {"report": report, "tokens": tokens}
 
 
-def _serve_rank(group, argv):
-    """One rank of ``--tp``: the same serving run as one device, with its
-    shard of the engine; returns (report, tokens)."""
+def _serve_rank(grid, argv):
+    """One rank of ``--tp`` (a ``(1, tp)`` grid): the same serving run as
+    one device, with its shard of the engine; returns (report, tokens)."""
     ap, args, cfg, faults, priorities = _setup(argv)
-    report, out = _serve(ap, args, cfg, group.device, faults, priorities,
-                         tp=group)
+    report, out = _serve(ap, args, cfg, grid.device, faults, priorities,
+                         tp=grid.model)
     return report, [r.tokens.tolist() for r in out["results"]]
 
 

@@ -2,7 +2,20 @@
 families), params, the whole-sequence forward and the training loss, the
 serve path (cache, prefill, decode), LAQ model quantization, and the bridge
 that turns the JAX package's params and optimizer state (as numpy) into the
-port's."""
+port's.
+
+Distributed training (``layout=``, a ``distributed/sharding.py::Layout`` of
+a ``(data, model)`` grid): ``params`` are a rank's blocks and the batch its
+rows.  The lm family gathers its FSDP blocks per layer and runs Megatron's
+cuts over "model" (``models/transformer.py``); the other families, and the
+MoE and cross-attention lm configs, train on ``(dp, 1)`` grids only (at
+``tp > 1`` they raise "not ported yet"), their FSDP blocks gathered whole
+before the forward.  The cross-entropy over logits cut on the vocabulary
+is the vocabulary-parallel one (``collectives.vocab_parallel_nll``: an
+all-reduce max, sum of exps and label logit; no rank holds a whole row),
+and the loss is the global batch's, ``all_reduce(sum(nll * mask)) /
+all_reduce(sum(mask))`` over "data", as GSPMD computes it, the same on
+every rank; each rank's gradient is its rows' part of it."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -12,8 +25,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
+from repro_torch.distributed import collectives, sharding
 from repro_torch.models import encdec, hymba, rwkv6, transformer
-from repro_torch.train.optimizer import QMoment
+from repro_torch.train.optimizer import QMoment, leaves, map_params
 
 
 _FAMILIES = {"lm": transformer, "rwkv": rwkv6, "hymba": hymba,
@@ -36,17 +50,56 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                           **kw)
 
 
-def forward(params, tokens, cfg: ModelConfig, frontend=None):
+def forward(params, tokens, cfg: ModelConfig, frontend=None, layout=None):
     """Whole-sequence logits: tokens (B, T) -> (logits (B, T, V) float32,
     aux: a MoE config's load-balancing loss summed over its layers, else
     0.0).  ``frontend`` (B, Tx, d): the stub modality embeddings of a VLM
-    or encoder-decoder config, which need it."""
+    or encoder-decoder config, which need it.  ``layout``: a training
+    grid's (module docstring); the logits are the rank's rows, and its
+    vocabulary block where the lm head is cut."""
     kw = {} if frontend is None else {"frontend": frontend}
+    if layout is not None:
+        check_grid(cfg, layout.grid.shape)
+        if cfg.family == "lm":
+            return transformer.forward(params, tokens, cfg, layout=layout,
+                                       **kw)
+        params = layout.gather_fsdp(params, layout.cuts)
     return family_module(cfg).forward(params, tokens, cfg, **kw)
 
 
+def check_grid(cfg: ModelConfig, shape) -> None:
+    """Raise for a grid this config does not train on: tensor parallelism
+    (``tp > 1``) covers the lm family's dense text configs."""
+    dp, tp = shape
+    if tp > 1 and (cfg.family != "lm" or cfg.moe or cfg.cross_attn_every):
+        raise NotImplementedError(
+            f"{cfg.name}: training at tp > 1 is not ported yet for this "
+            "config (the lm family's dense text configs only); train it on "
+            f"a (dp, 1) grid")
+
+
+def train_layout(cfg: ModelConfig, grid) -> sharding.Layout:
+    """``cfg``'s training cuts on ``grid`` (a ``runtime.Grid``), from the
+    whole params' shapes (meta tensors: nothing is allocated)."""
+    check_grid(cfg, grid.shape)
+    like = init_params(cfg, torch.Generator(), device="meta")
+    dp, tp = grid.shape
+    shapes = {k: tuple(t.shape) for k, t in leaves(like)}
+    return sharding.Layout(cfg, grid, sharding.train_param_cuts(
+        like, dp, tp, cfg), shapes)
+
+
+def train_params_from_numpy(tree: Any, layout: sharding.Layout,
+                            device="cuda") -> Any:
+    """One rank's blocks of the JAX package's params (numpy, whole): each
+    leaf cut by ``layout`` (:func:`params_from_numpy` of the rank's
+    blocks; the whole tree never reaches ``device``)."""
+    blocks = layout.shard_tree(params_from_numpy(tree, "cpu"))
+    return map_params(lambda t: t.to(device), blocks)
+
+
 def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, layout=None):
     """Next-token cross-entropy over ``forward``'s float32 logits, plus
     ``aux_weight`` times a MoE config's load-balancing ``aux``: (total, {
     "loss", "aux"}), scalar float32 tensors.  ``batch`` holds ``tokens`` and
@@ -54,19 +107,36 @@ def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
     over its sum, at least 1) and a VLM's or encoder-decoder's
     ``frontend``.  The JAX package's ``api.loss_fn``; the log-softmax is
     ``torch.log_softmax`` (the max is shifted out, as
-    ``jax.nn.log_softmax`` does, and its gradient is the same rule)."""
+    ``jax.nn.log_softmax`` does, and its gradient is the same rule).
+
+    ``layout``: on a training grid, ``batch`` is this rank's rows and the
+    loss the global batch's (module docstring).  A MoE ``aux`` is computed
+    alike on every data rank from the whole batch's routing, so its
+    gradient is scaled by ``1 / dp``: the data ranks' gradients add up to
+    one."""
     logits, aux = forward(params, batch["tokens"], cfg,
-                          frontend=batch.get("frontend"))
+                          frontend=batch.get("frontend"), layout=layout)
     labels = batch["labels"].to(torch.int64)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    if layout is not None and logits.shape[-1] != cfg.vocab_size:
+        nll = collectives.vocab_parallel_nll(logits, labels,
+                                             layout.grid.model)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=logits.device)
-    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
-    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
+    if layout is None:
+        loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        return loss + aux_weight * aux, {"loss": loss, "aux": aux}
+    data = layout.grid.data
+    num = collectives.reduce_from(torch.sum(nll * mask), data)
+    den = data.all_reduce(torch.sum(mask).detach().to(torch.float32).clone())
+    loss = num / torch.clamp_min(den, 1.0)
+    total = loss + aux_weight * collectives.scale_grad(aux, 1.0 / data.size)
+    return total, {"loss": loss, "aux": aux}
 
 
 # ----------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Shared building blocks in torch: norms, rope, linear (raw or LAQ W4A8),
 SwiGLU, the GQA projections, the in-place paged KV append, the KV page
-quantizer of int8 / fp8 pools, and the family forwards' ``remat``.
+quantizer of int8 / fp8 pools, the family forwards' ``remat``, and the
+building blocks of tensor-parallel training (:func:`row_linear`,
+:func:`tp_swiglu`, :func:`tp_attn_apply`, :func:`vocab_embed`).
 
 Public functions keep the JAX package's layouts: activations are
 ``(B, H, T, D)`` after projection, pool slices ``(num_pages, page_size,
@@ -15,6 +17,8 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import quant
+from repro_torch.distributed.collectives import (copy_to, gather_from,
+                                                 reduce_from)
 from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops
 
@@ -161,6 +165,90 @@ def attn_apply(p: dict, x: torch.Tensor, *, num_heads: int,
     o = ops.attention(q, k, v, causal=causal, window=window, softcap=softcap)
     o = o.transpose(1, 2).reshape(B, T, num_heads * head_dim)
     return linear(o, p["wo"])
+
+
+# ----------------------------------------------------------------------------
+# Tensor-parallel training (Megatron's cuts over the grid's "model" group)
+# ----------------------------------------------------------------------------
+# A rank holds the column blocks of the ``_COL`` weights and the row blocks
+# of the ``_ROW`` weights where the rules cut them (the group's size divides
+# the dim): a weight narrower than its whole width is a block.  The residual
+# stream is whole on every rank.  A column-cut projection's input passes
+# ``copy_to`` (its gradient is the ranks' sum); a row-cut projection's
+# partial products meet in ``reduce_from``, summed in float32 and rounded
+# once to the compute dtype.
+def row_linear(x: torch.Tensor, w: torch.Tensor, model) -> torch.Tensor:
+    """``x @ w`` for ``x`` a rank's column block of the input and ``w`` the
+    matching row block: the ranks' partial products summed in float32,
+    then ``x``'s dtype."""
+    partial = linear(x, w)
+    acc = torch.promote_types(partial.dtype, torch.float32)
+    return reduce_from(partial.to(acc), model).to(x.dtype)
+
+
+def tp_swiglu(x: torch.Tensor, w1, w3, w2, model, d_ff: int) -> torch.Tensor:
+    """:func:`swiglu` with ``w1`` / ``w3`` column-cut and ``w2`` row-cut on
+    ``d_ff`` (each rank its block of the hidden units); whole weights (a
+    ``d_ff`` the group does not divide) run whole on every rank."""
+    if w1.shape[-1] == d_ff:
+        return swiglu(x, w1, w3, w2)
+    xc = copy_to(x, model)
+    h = silu(linear(xc, w1)) * linear(xc, w3)
+    return row_linear(h, w2, model)
+
+
+def tp_attn_apply(p: dict, x: torch.Tensor, model, *, num_heads: int,
+                  num_kv_heads: int, head_dim: int, positions: torch.Tensor,
+                  rope_theta: float, window: Optional[int] = None,
+                  softcap: Optional[float] = None) -> torch.Tensor:
+    """:func:`attn_apply` (causal self-attention) over the model group.
+    Where both head counts divide by its size (``sharding.head_cut``) a rank
+    projects, ropes and attends its own ``Hq/tp`` query heads over its
+    ``Hkv/tp`` KV heads (contiguous blocks keep each GQA group whole:
+    ``ops.attention``, the flash kernel on the card) and ``wo``'s row block
+    takes its heads' output (:func:`row_linear`).  Otherwise the cut
+    weights are gathered (``gather_from``) and every rank runs every head,
+    as the serve path does where the KV heads do not divide."""
+    if not head_cut(model, num_heads, num_kv_heads):
+        widths = {"wq": num_heads, "wk": num_kv_heads, "wv": num_kv_heads}
+        whole = {k: (gather_from(p[k], model, -1)
+                     if p[k].shape[-1] != n * head_dim else p[k])
+                 for k, n in widths.items()}
+        wo = p["wo"]
+        whole["wo"] = (gather_from(wo, model, -2)
+                       if wo.shape[-2] != num_heads * head_dim else wo)
+        return attn_apply(whole, x, num_heads=num_heads,
+                          num_kv_heads=num_kv_heads, head_dim=head_dim,
+                          positions=positions, rope_theta=rope_theta,
+                          window=window, softcap=softcap)
+    B, T, _ = x.shape
+    xc = copy_to(x, model)
+
+    def heads(w):
+        return linear(xc, w).reshape(B, T, -1, head_dim).transpose(1, 2)
+
+    q = rope(heads(p["wq"]), positions, rope_theta)
+    k = rope(heads(p["wk"]), positions, rope_theta)
+    o = ops.attention(q, k, heads(p["wv"]), causal=True, window=window,
+                      softcap=softcap)
+    return row_linear(o.transpose(1, 2).reshape(B, T, -1), p["wo"], model)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, model,
+                vocab: int) -> torch.Tensor:
+    """Float32 embedding rows of ``tokens`` from ``table``: the whole (V, d)
+    table, or a rank's block of ``V / tp`` rows (vocabulary-parallel: a
+    rank looks up the ids it holds, zeroes the rest, and the ranks' rows
+    are summed, which adds only zeros: the rows are exact)."""
+    idx = tokens.to(torch.int64)
+    if table.shape[0] == vocab:
+        return table[idx]
+    n = table.shape[0]
+    local = idx - model.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return reduce_from(rows, model)
 
 
 # ----------------------------------------------------------------------------

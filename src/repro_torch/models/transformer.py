@@ -23,6 +23,16 @@ cross-attention config runs through ``forward``, the block ``prefill`` and
 the dense ``decode_step`` only (the JAX package serves it through
 ``generate()`` alone); the split-brain slice's token loop lives in
 ``serve/splitbrain_engine.py``.
+
+On a training grid (``forward(layout=)``, ``distributed/sharding.py::
+Layout``) the params are a rank's blocks: each layer gathers its FSDP
+blocks over "data" inside the remat'd group (``Layout.gather_fsdp``), and
+over "model" the dense text configs run Megatron's cuts
+(``layers.tp_attn_apply``, ``layers.tp_swiglu``, the vocabulary-parallel
+``layers.vocab_embed`` and head); the residual stream is whole on every
+model rank and the logits come out cut on the vocabulary.  Under data
+parallelism a MoE FFN routes the whole batch's rows (all-gathered), so its
+capacity, drops and ``aux`` are the one-device program's.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import copy_to, gather_sum
 from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
@@ -265,18 +276,28 @@ def _block_tail(pj, x, o, cfg: ModelConfig, tp=None):
 
 
 def _residual_ffn(pj, x, a, cfg: ModelConfig, need_aux: bool = False,
-                  tp=None):
+                  tp=None, grid=None):
     """The attention residual add of ``a`` (the attention block's output,
     after ``wo``), the FFN's pre-norm on the unrounded float32 sum
     (:func:`_block_tail`), the FFN and its residual add: (x, its float32
-    sum before rounding, the MoE ``aux`` or None)."""
+    sum before rounding, the MoE ``aux`` or None).  ``grid`` (training):
+    the dense FFN over its "model" group, a MoE FFN over the "data"
+    group's rows."""
     s = x.to(torch.float32) + a.to(torch.float32)
     x = s.to(x.dtype)
     y = L.rmsnorm(s, pj["ln_mlp"], cfg.norm_eps).to(x.dtype)
     aux = None
-    if cfg.moe:
+    if cfg.moe and grid is not None and grid.data.size > 1:
+        B = y.shape[0]
+        ffn, aux = moe_mod.moe_apply(pj["moe"], gather_sum(y, grid.data, 0),
+                                     cfg.moe, need_aux=need_aux)
+        ffn = ffn.narrow(0, grid.data.rank * B, B)
+    elif cfg.moe:
         ffn, aux = moe_mod.moe_apply(pj["moe"], y, cfg.moe,
                                      need_aux=need_aux)
+    elif grid is not None:
+        ffn = L.tp_swiglu(y, pj["mlp"]["w1"], pj["mlp"]["w3"],
+                          pj["mlp"]["w2"], grid.model, cfg.d_ff)
     else:
         ffn = L.swiglu(y, pj["mlp"]["w1"], pj["mlp"]["w3"], pj["mlp"]["w2"],
                        tp=tp)
@@ -341,9 +362,17 @@ def _cross_at(params, cache, g):
                                       cache["cross_v"][g])
 
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gather float32 embedding rows, then the compute dtype."""
-    x = params["embed"][tokens.to(torch.int64)].to(getattr(torch, cfg.dtype))
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+           model=None) -> torch.Tensor:
+    """Gather float32 embedding rows, then the compute dtype; ``model`` (a
+    training grid's group): the table may be the rank's vocabulary block
+    (``layers.vocab_embed``)."""
+    if model is not None:
+        x = L.vocab_embed(params["embed"], tokens, model, cfg.vocab_size)
+        x = x.to(getattr(torch, cfg.dtype))
+    else:
+        x = params["embed"][tokens.to(torch.int64)].to(
+            getattr(torch, cfg.dtype))
     if cfg.tie_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
@@ -355,7 +384,7 @@ def _embed_decode(params, tokens: torch.Tensor, cfg: ModelConfig):
 
 
 def _logits_head(params, x: torch.Tensor, cfg: ModelConfig,
-                 rounded: bool = False) -> torch.Tensor:
+                 rounded: bool = False, model=None) -> torch.Tensor:
     """Shared logits tail: final norm, (tied) LM head, final softcap; float32
     logits.
 
@@ -378,12 +407,18 @@ def _logits_head(params, x: torch.Tensor, cfg: ModelConfig,
     compute dtype here first (idempotent on the engine's copy).
 
     Under tensor parallelism an untied head is the rank's vocabulary block
-    and the logits are gathered; a tied head (the embedding) is whole."""
+    and the logits are gathered; a tied head (the embedding) is whole.  On
+    a training grid (``model``, its group) the head, tied or not, may be
+    the rank's vocabulary block: its input then passes ``copy_to`` and the
+    logits stay cut on the vocabulary."""
     dtype = getattr(torch, cfg.dtype)
     x = L.rmsnorm(x, params["ln_final"], cfg.norm_eps).to(torch.float32)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     if rounded:
         head = head.to(dtype).to(torch.float32)
+    if model is not None and head.shape[
+            0 if cfg.tie_embeddings else -1] != cfg.vocab_size:
+        x = copy_to(x, model)
     if cfg.tie_embeddings:
         logits = (head @ x.reshape(-1, x.shape[-1]).T).T.reshape(
             x.shape[:-1] + (head.shape[0],))
@@ -621,7 +656,7 @@ def paged_decode_step(params, cache, table: torch.Tensor,
 # Forward: the whole sequence
 # ----------------------------------------------------------------------------
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-            frontend: Optional[torch.Tensor] = None):
+            frontend: Optional[torch.Tensor] = None, layout=None):
     """Whole-sequence logits: tokens (B, T) -> (logits (B, T, V) float32,
     aux).  Every layer is ``layers.attn_apply`` (causal, the config's window
     and softcap: one flash launch per layer on the card) and the FFN, with
@@ -632,39 +667,72 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     the head product is rounded, as the compiled forward rounds it.  Each
     layer group runs under the config's ``parallel.remat``
     (``layers.remat``, the reference's ``_maybe_remat``), which changes no
-    value or gradient; the reference's FSDP gathers are left out (a
-    distributed matter)."""
+    value or gradient.
+
+    ``layout`` (a training grid's ``sharding.Layout``): ``params`` are this
+    rank's blocks and ``tokens`` its rows; each layer's FSDP blocks are
+    gathered inside the remat'd group (the reference's
+    ``gather_fsdp_weights``), the embedding and head before the first;
+    the projections and an untied head travel in the compute dtype (each
+    is cast to it at its use: the same values, half the bytes at bf16),
+    the embedding in float32; the logits (B, T, V / tp) are this rank's
+    vocabulary block where the head is cut (module docstring)."""
     _check_block_path(cfg, cross_ok=True)
     if cfg.cross_attn_every and frontend is None:
         raise ValueError(f"{cfg.name}: forward needs the frontend")
     T = tokens.shape[1]
     dtype = getattr(torch, cfg.dtype)
     positions = torch.arange(T, device=tokens.device)
+    grid = None if layout is None else layout.grid
+    model = None if grid is None or grid.model.size == 1 else grid.model
+
+    def attention(pa, xn, spec):
+        kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                  head_dim=cfg.resolved_head_dim, positions=positions,
+                  rope_theta=cfg.rope_theta, window=spec.window,
+                  softcap=cfg.softcap)
+        if model is not None:
+            return L.tp_attn_apply(pa, xn, model, **kw)
+        return L.attn_apply(pa, xn, **kw)
 
     def group(x, layers, cp):
         aux, h = 0.0, None
         for spec, slot, at, pj in layers:
+            if layout is not None:
+                pj = layout.gather_fsdp(pj, layout.cuts["blocks"], lead=2,
+                                        dtype=dtype)
             xn = L.rmsnorm(_norm_input(x, h, at, slot), pj["ln_attn"],
                            cfg.norm_eps).to(dtype)
-            a = L.attn_apply(pj["attn"], xn, num_heads=cfg.num_heads,
-                             num_kv_heads=cfg.num_kv_heads,
-                             head_dim=cfg.resolved_head_dim,
-                             positions=positions, rope_theta=cfg.rope_theta,
-                             window=spec.window, softcap=cfg.softcap)
-            x, h, layer_aux = _residual_ffn(pj, x, a, cfg, need_aux=True)
+            a = attention(pj["attn"], xn, spec)
+            x, h, layer_aux = _residual_ffn(pj, x, a, cfg, need_aux=True,
+                                            grid=grid)
             if cfg.moe:
                 aux = aux + layer_aux
         if cp is not None:
+            if layout is not None:
+                cp = layout.gather_fsdp(cp, layout.cuts["cross"], lead=1,
+                                        dtype=dtype)
             x = _cross_apply(cp, x, h, _cross_kv(cp, frontend, cfg), cfg)
         return x, aux
 
     group = L.remat(group, cfg.parallel.remat)
     at = L.layer_views(params["blocks"], lead=2)
-    x = _embed(params, tokens, cfg)
+    top = params
+    if layout is not None:
+        # the embedding's lookup accumulates its gradient rows in the
+        # table's dtype: it stays float32
+        top = dict(layout.gather_fsdp(
+            {"embed": params["embed"]}, {"embed": layout.cuts["embed"]}),
+            ln_final=params["ln_final"])
+        if "lm_head" in params:
+            top.update(layout.gather_fsdp(
+                {"lm_head": params["lm_head"]},
+                {"lm_head": layout.cuts["lm_head"]}, dtype=dtype))
+    x = _embed(top, tokens, cfg, model)
     aux = 0.0
     for g in range(group_layout(cfg)[0]):
         x, group_aux = group(
             x, list(_group_layers(params, cfg, g, at)),
             _cross_params(params, g) if cfg.cross_attn_every else None)
         aux = aux + group_aux
-    return _logits_head(params, x, cfg, rounded=True), aux
+    return _logits_head(top, x, cfg, rounded=True, model=model), aux

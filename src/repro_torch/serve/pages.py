@@ -765,9 +765,12 @@ def gather_view(pool, table: torch.Tensor, b_ax: int,
     """Reassemble one paged leaf into its dense ``(..., B, ..., S, ...)``
     view through the page table ``(B, P)`` (a new tensor: the O(B x
     max_len) transient the in-place discipline avoids; the gather
-    discipline and the prefix seed only).  A ``QuantizedLeaf`` gathers
-    codes and scales together and dequantizes, ``codes * scale`` in float32
-    rounded once to its ``out_dtype``."""
+    discipline and the prefix seed only), contiguous in the dense layout:
+    the dense token step then reads it as it reads a slot cache (on the
+    card a strided view can take another GEMM algorithm, whose last bits
+    differ).  A ``QuantizedLeaf`` gathers codes and scales together and
+    dequantizes, ``codes * scale`` in float32 rounded once to its
+    ``out_dtype``."""
     B, P = table.shape
     idx = table.to(torch.int64)
     if isinstance(pool, QuantizedLeaf):
@@ -778,11 +781,11 @@ def gather_view(pool, table: torch.Tensor, b_ax: int,
         gs = gs.reshape((B, P, 1) + tuple(gs.shape[2:]) + (1,))
         d = (g * gs).to(pool.out_dtype)
         d = d.reshape((B, P * cl.shape[1]) + tuple(cl.shape[2:]))
-        return torch.movedim(d, (0, 1), (b_ax, s_ax))
+        return torch.movedim(d, (0, 1), (b_ax, s_ax)).contiguous()
     pl = _pages_leading(pool, b_ax, s_ax)
     g = pl[idx]                                         # (B, P, ps, *rest)
     g = g.reshape((B, P * pl.shape[1]) + tuple(pl.shape[2:]))
-    return torch.movedim(g, (0, 1), (b_ax, s_ax))
+    return torch.movedim(g, (0, 1), (b_ax, s_ax)).contiguous()
 
 
 def gather_tree(pcache: Dict[str, object], table: torch.Tensor,

@@ -24,6 +24,17 @@ State layout mirrors the params: ``{"step": int32 0-d tensor, "m": tree,
 (blocks, block), scale float32 (blocks, 1))``.  ``apply_updates`` writes
 the new values into the param and moment tensors IN PLACE (the reference
 donates them to its jitted step).
+
+On a training grid (``layout=``, ``distributed/sharding.py::Layout``) the
+params and gradients are a rank's blocks.  The update is elementwise, so a
+float32 moment is the block of its param; the global norm sums each
+element's square once over the grid (each rank the leaves it owns,
+``Layout.owns``, then one all-reduce).  An int8 moment's blocks of 256 run
+over the WHOLE flattened leaf, which a rank's block does not tile, so int8
+moments are held whole on every rank and updated on the gathered leaf: the
+rank gathers the leaf's gradient, every rank computes the same new codes
+and scales, and takes its block of the update -- the reference's block
+layout, bit for bit, at the cost of one gather of each gradient.
 """
 from __future__ import annotations
 
@@ -166,11 +177,18 @@ def dq8(m: QMoment, shape, size: int) -> torch.Tensor:
     return (m.q.to(torch.float32) * m.scale).reshape(-1)[:size].reshape(shape)
 
 
-def init_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
+def init_state(params, cfg: AdamWConfig, layout=None) -> Dict[str, Any]:
     """Zero moments (int8 codes and 1e-20 scales with
-    ``quantize_moments``) on each param's device, and step 0."""
+    ``quantize_moments``) on each param's device, and step 0.  ``layout``:
+    ``params`` are a grid rank's blocks, and an int8 moment is the whole
+    leaf's (module docstring)."""
+    keys = {id(t): k for k, t in leaves(params)}
+
     def zeros(p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        shape = p.shape
+        if layout is not None and cfg.quantize_moments:
+            shape = layout.shapes[keys[id(p)]]
+        z = torch.zeros(shape, dtype=torch.float32, device=p.device)
         return q8(z, cfg.moment_block) if cfg.quantize_moments else z
 
     device = next(t for _, t in leaves(params)).device
@@ -179,26 +197,36 @@ def init_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
             "v": map_params(zeros, params)}
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, layout=None) -> torch.Tensor:
     """sqrt of the sum of the per-leaf float32 sums of squares, the leaves
-    in flatten order (sorted dict keys)."""
+    in flatten order (sorted dict keys).  ``layout``: a grid rank's blocks;
+    each rank adds the leaves it owns and the sum is all-reduced."""
+    if layout is None:
+        sums = [torch.sum(torch.square(g.to(torch.float32)))
+                for _, g in leaves(grads)]
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    cuts = layout.flat_cuts()
     sums = [torch.sum(torch.square(g.to(torch.float32)))
-            for _, g in leaves(grads)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+            * (1.0 if layout.owns(cuts[k]) else 0.0)
+            for k, g in leaves(grads)]
+    return torch.sqrt(layout.grid.world.all_reduce(torch.sum(torch.stack(
+        sums))))
 
 
 # ----------------------------------------------------------------------------
 # The update
 # ----------------------------------------------------------------------------
 @torch.no_grad()
-def apply_updates(params, grads, state: Dict[str, Any], cfg: AdamWConfig):
+def apply_updates(params, grads, state: Dict[str, Any], cfg: AdamWConfig,
+                  layout=None):
     """One AdamW step, in place: the params' and moments' tensors take the
     new values and ``state["step"]`` advances.  Returns (params, state,
     {"grad_norm", "lr"}), the metrics float32 0-d tensors on the params'
     device.  Reads ``state["step"]`` to the host once (the schedule is host
-    arithmetic)."""
+    arithmetic).  ``layout``: a grid rank's blocks (module docstring)."""
     step = int(state["step"])
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
+    cuts = None if layout is None else layout.flat_cuts()
     clip = torch.clamp_max(
         cfg.grad_clip / torch.clamp_min(gnorm, 1e-12), 1.0)
     lr = lr_schedule(cfg, step)
@@ -215,21 +243,28 @@ def apply_updates(params, grads, state: Dict[str, Any], cfg: AdamWConfig):
     for key, p in ps.items():
         g = gs[key].to(torch.float32) * clip
         m, v = _get(state["m"], key), _get(state["v"], key)
+        whole = p
+        if layout is not None and cfg.quantize_moments:
+            g = layout.gather_whole(g, cuts[key])
+            whole = g
         # the compiled program fuses one product of each moment's sum into
         # a fused multiply-add (addcmul on the CPU and the card): the
         # moment's for float32 moments; for int8 moments the product it
         # fuses varies with the leaf's shape and padding, and the port
         # takes the gradient's, its most frequent choice
         if cfg.quantize_moments:
-            m_f = torch.addcmul(b1 * dq8(m, p.shape, p.numel()), g,
+            m_f = torch.addcmul(b1 * dq8(m, whole.shape, whole.numel()), g,
                                 _scalar(c1, g))
-            v_f = torch.addcmul(b2 * dq8(v, p.shape, p.numel()), c2 * g, g)
+            v_f = torch.addcmul(b2 * dq8(v, whole.shape, whole.numel()),
+                                c2 * g, g)
         else:
             m_f = torch.addcmul(c1 * g, m, _scalar(b1, g))
             v_f = torch.addcmul(c2 * g * g, v, _scalar(b2, g))
         # (m / bc1) / (sqrt(v / bc2) + eps), which XLA compiles to one
         # division by a product
         delta = m_f / (bc1 * (_sqrt(v_f / bc2) + eps))
+        if whole is not p:
+            delta = layout.block(delta, cuts[key])
         decay = _F32(cfg.weight_decay) if p.dim() >= 2 else _F32(0.0)
         keep = _scalar(_F32(1) - lr * decay, g)
         new_p = torch.addcmul(-(lr_f * delta), p.to(torch.float32), keep)

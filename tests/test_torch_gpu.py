@@ -948,7 +948,7 @@ def test_tp_paged_head_cut_and_merge_on_card(cuda):
     order bound."""
     from repro_torch.distributed import runtime
     from torch_tp_cases import paged_card_rank
-    ranks = runtime.spawn(paged_card_rank, 2, (), backend="gloo",
+    ranks = runtime.spawn(paged_card_rank, (1, 2), (), backend="gloo",
                           devices=["cuda:0"] * 2, timeout=300)
     for r in ranks:
         assert r["head_cut"], r
@@ -1027,3 +1027,41 @@ def test_ops_rwkv6_gradients_are_the_plain_versions_on_card(cuda):
         assert torch.equal(out_k[1], out_r[1])        # the state
         for a, b in zip(g_k, g_r):
             assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------------
+# distributed training: a (2, 2) grid of gloo ranks sharing the card
+# ----------------------------------------------------------------------------
+def test_grid_train_step_on_card(cuda):
+    """One train step of granite-8b reduced (bf16 compute, 2 layers, each
+    rank's flash launch on its 2/1 heads of 16, its config's remat "full")
+    on a (2, 2) grid of ranks sharing the card: every rank's metrics the
+    same, two flash launches per layer per rank (the forward, and its
+    recomputation in the backward, which re-runs the layer's FSDP gathers
+    and Megatron collectives in the same order on every rank) and no other
+    kernel, the loss within a relative 1e-3 and the grad norm within 1e-2
+    of the one-device step's on the card (the row cuts and the data split
+    sum in other orders)."""
+    from repro_torch.distributed import runtime
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    from torch_dist_cases import OPT, card_step_rank, numpy_batch, port_cfg
+    cfg = port_cfg()
+    batch = numpy_batch(cfg.vocab_size, B=4, T=32)
+    ranks = runtime.spawn(card_step_rank, (2, 2), (batch,), backend="gloo",
+                          devices=["cuda:0"] * 4, timeout=300)
+    assert cfg.parallel.remat == "full"
+    want = {"w4a8_matmul": 0, "paged_decode_attention": 0, "rwkv6_scan": 0,
+            "flash_attention": 2 * cfg.num_layers}
+    for r in ranks:
+        assert r["launches"] == want, r
+        assert r["metrics"] == ranks[0]["metrics"]
+    ocfg = topt.AdamWConfig(**OPT)
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    _, _, m = tstep.make_train_step(cfg, ocfg)(
+        params, topt.init_state(params, ocfg), batch)
+    got = ranks[0]["metrics"]
+    np.testing.assert_allclose(got["loss"], float(m["loss"]), rtol=1e-3)
+    np.testing.assert_allclose(got["grad_norm"], float(m["grad_norm"]),
+                               rtol=1e-2)

@@ -39,8 +39,9 @@ def test_static_scan_finds_no_jax_or_repro_import():
 
 # the jax-free modules the port copies, the hymba family, the MoE FFN,
 # the encoder-decoder family with their configs, the tensor-parallel
-# package and the training path (data, optimizer, train step, checkpoints,
-# the training CLI): they must be among the modules the scan imports
+# package, the training path (data, optimizer, train step, checkpoints,
+# the training CLI) and distributed training (the grids, the pipeline):
+# they must be among the modules the scan imports
 NEW_MODULES = ("repro_torch.distributed.runtime",
                "repro_torch.distributed.sharding",
                "repro_torch.distributed.collectives",
@@ -54,7 +55,8 @@ NEW_MODULES = ("repro_torch.distributed.runtime",
                "repro_torch.configs.llama_3_2_vision_11b",
                "repro_torch.data.pipeline", "repro_torch.train.optimizer",
                "repro_torch.train.step", "repro_torch.ckpt.manager",
-               "repro_torch.launch.train")
+               "repro_torch.launch.train", "repro_torch.launch.mesh",
+               "repro_torch.distributed.pipeline")
 
 
 def test_importing_every_module_loads_no_jax_or_repro():

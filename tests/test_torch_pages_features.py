@@ -120,6 +120,11 @@ def test_gather_tree_bit_identical(kv):
         assert ov[name].dtype == torch.bfloat16
         np.testing.assert_array_equal(ov[name].float().numpy(),
                                       np.asarray(rv[name].astype(jnp.float32)))
+        # laid out as a dense slot cache: the dense token step reads it with
+        # the slot cache's kernels (a strided view can take another GEMM
+        # algorithm on the card, and part from the dense cache's tokens)
+        assert ov[name].is_contiguous()
+        assert ov[name].shape == (NL, B, HKV, S, HD)
     assert ov["len"] is ours["len"]          # dense leaves pass through
 
 

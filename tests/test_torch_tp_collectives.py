@@ -70,7 +70,7 @@ def _want(c):
 @pytest.mark.parametrize("tp", [2, 4])
 def test_collectives_match_the_jax_package(tp):
     cases = _cases(tp)
-    ranks = runtime.spawn(paged_rank, tp, (cases,), backend="gloo",
+    ranks = runtime.spawn(paged_rank, (1, tp), (cases,), backend="gloo",
                           devices=["cpu"] * tp, timeout=300)
     for name, c in cases.items():
         want = np.asarray(_want(c))
@@ -86,5 +86,5 @@ def test_a_failing_rank_fails_the_run():
     """A rank that raises ends the run with its traceback, and no rank goes
     on: ``spawn`` raises in the caller."""
     with pytest.raises(RuntimeError, match="rank 1 raised"):
-        runtime.spawn(fail_on_rank_1, 2, (), backend="gloo",
+        runtime.spawn(fail_on_rank_1, (1, 2), (), backend="gloo",
                       devices=["cpu"] * 2, timeout=120)

@@ -199,7 +199,7 @@ def _ranks(setup, tp):
         prompts = feature_prompts(128, seed=3, page=8)
         for n in (2, 4):
             setup["ranks"][n] = runtime.spawn(
-                tp_rank, n, (specs, _feature_specs(specs, n), prompts),
+                tp_rank, (1, n), (specs, _feature_specs(specs, n), prompts),
                 backend="gloo", devices=["cpu"] * n, timeout=600)
         # the feature cases' one-device tokens, also before any wait
         setup["one_device"] = {

@@ -106,12 +106,13 @@ def features_rank(group, specs, prompts):
     return out
 
 
-def paged_rank(group, cases):
+def paged_rank(grid, cases):
     """The paged and dense decode-attention collectives on this rank: each
     case (a dict of numpy arrays and options) cut as the serving engines
     cut it, through ``ops``' tensor-parallel dispatch; the rank's outputs
     gathered over heads where they are cut.  {name: output (numpy)}."""
     torch.set_num_threads(1)
+    group = grid.model
     dev = group.device
     out = {}
     for name, c in cases.items():
@@ -149,20 +150,21 @@ def paged_rank(group, cases):
     return out
 
 
-def fail_on_rank_1(group):
+def fail_on_rank_1(grid):
     """Rank 1 raises; rank 0 waits at a barrier for it."""
-    if group.rank == 1:
+    if grid.rank == 1:
         raise ValueError("rank 1 fails on purpose")
-    group.barrier()
+    grid.world.barrier()
 
 
-def tp_rank(group, specs, feature_specs, prompts):
-    """:func:`serve_rank` and :func:`features_rank` in one spawn."""
-    return (serve_rank(group, specs),
-            features_rank(group, feature_specs, prompts))
+def tp_rank(grid, specs, feature_specs, prompts):
+    """:func:`serve_rank` and :func:`features_rank` in one spawn, on the
+    ``(1, tp)`` grid's model group."""
+    return (serve_rank(grid.model, specs),
+            features_rank(grid.model, feature_specs, prompts))
 
 
-def paged_card_rank(group):
+def paged_card_rank(grid):
     """The head-cut and merge cases of the paged kernel's TP dispatch on
     this rank's card (bf16, 32 query heads of 128 over 8 KV heads and over
     one): the head cut bit for bit the unsharded kernel's heads, the merge
@@ -172,6 +174,7 @@ def paged_card_rank(group):
     from repro_torch.kernels import paged_attention as kpa
     from repro_torch.kernels import ref
     from torch_cases import paged_case
+    group = grid.model
     dev = group.device
     res = {}
     for name, hkv in (("head_cut", 8), ("merge", 1)):
