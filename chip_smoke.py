@@ -114,13 +114,38 @@ fails before printing any result):
              up to 1,024) within phase_paged's bf16 bound of the plain
              version, and the head cut (32/8 heads, the rank's 16/4) bit for
              bit the unsharded kernel's heads and within the same bound of
-             the plain version on the rank's inputs.  The ranks' kernel
-             shapes are also held to the plain versions in the kernel
-             phases: w4a8 at (a)'s column blocks (W4A8_TP), paged at (a)'s
-             and (b)'s head-cut pools (PAGED_TP_CASES), flash at (b)'s
-             16/16-head prefill (FLASH_TP_CASES).  Per rank: wall time and
-             its parts' seconds, decode steps/s and its device busy share
-             over 5 profiled decode steps (its share of the card)
+             the plain version on the rank's inputs; (d) qwen3-moe-235b-a22b
+             at full width and 4 of its 94 layers (128 experts, top-8, whole
+             on every rank), moe_path (b)'s 8 requests of 32-256 tokens with
+             16 new on a paged pool: 4 flash launches per prefill and 4
+             paged per decode step per rank, the ranks' picks and drop logs
+             equal, tokens against a tp 1 engine of the same depth served
+             here (identical, or at the first differing pick a near-tie in
+             its logits); (e) llama-3.2-vision-11b at full width and 10 of
+             its 40 layers (2 gated cross blocks, seeded gates): fused
+             generate() on 2 x 64 with 16 new (12 flash launches per
+             prefill, 2 per decode step) and stepwise on 2 x 16 with 8 new
+             (2 per step), tokens against tp 1 by the same rule; (f)
+             seamless-m4t-medium at full width, its 12 encoder and 6 of its
+             12 decoder layers: fused generate() on 4 x 64 with 16 new (12
+             flash launches, the encoder on the rank's 8 of 16 heads),
+             tokens against tp 1; (g) on (a)'s
+             engine fused and eager generate() on 4 x 16 with 8 new (57
+             W4A8 launches per token step, the meter's bytes per token eq.
+             7-10's, tokens identical to tp 1), and on (b)'s engine one
+             scheduler run on two slots with priorities, preemption, a
+             deadline and the chaos plan TP_ONLINE, rank 1 sleeping 4 ms an
+             iteration so that its own clock runs apart: the ranks' tokens,
+             request states and recovery events equal (the group's loop
+             clock), every planned fault fired.  The ranks' kernel shapes
+             are also held to the plain versions in the kernel phases:
+             w4a8 at (a)'s column blocks (W4A8_TP), paged at (a)'s, (b)'s
+             and (d)'s head-cut pools (PAGED_TP_CASES), flash at (b)'s,
+             (d)'s, (e)'s and (f)'s rank shapes (FLASH_TP_CASES), and the
+             times phase times the new rank shapes.  Per rank: wall time
+             and each part's seconds and peak memory, decode steps/s and
+             its device busy share over profiled decode steps (its share
+             of the card)
   serve_path full-width llama2-7b at 16 of its 32 layers (d_model 4096,
              bf16 weights from a seeded generator on the card), the float
              ServeEngine (page_size=16, max_len=1024) under the scheduler
@@ -772,12 +797,17 @@ LLAMA2_SERVE = dict(LLAMA2, P=64, lens=[0, 1, 143, 208, 300, 431, 527, 1024])
 GEMMA2 = dict(B=4, Hq=32, Hkv=16, D=128, ps=16, P=512,
               lens=[0, 1000, 4096, 4117])
 # tp_path's head-cut pools on each of its two ranks: (a) tinyllama's 16/2
-# heads on main_path's table, (b) llama2-7b's 16/16 on its serve table
+# heads on main_path's table, (b) llama2-7b's 16/16 on its serve table,
+# (d) qwen3-moe's 32/2 heads of 64 (group 16, run as slices of 8) on its
+# table (max_len 512)
+QWEN_TP = dict(B=8, Hq=32, Hkv=2, D=64, ps=16, P=32,
+               lens=[0, 1, 31, 64, 100, 180, 257, 271])
 PAGED_TP_CASES = [
     ("tinyllama tp 2 rank", dict(TINY, Hq=16, Hkv=2), torch.bfloat16, None,
      {}),
     ("llama2-7b serve tp 2 rank", dict(LLAMA2_SERVE, Hq=16, Hkv=16),
-     torch.bfloat16, None, {})]
+     torch.bfloat16, None, {}),
+    ("qwen3-moe tp 2 rank", QWEN_TP, torch.bfloat16, None, {})]
 
 
 def phase_paged(dev, cases=None):
@@ -847,10 +877,25 @@ XATTN_FLASH_CASES = [
      dict(causal=False)),
     ("llama-3.2-vision-11b cross decode", (4, 32, 8, 1, 1600, 128),
      dict(causal=False))]
-# tp_path (b)'s block prefill on each of its two ranks: llama2-7b's 16/16
-# heads of 128 over prompts of 64-256 tokens
-FLASH_TP_CASES = [("llama2-7b tp 2 rank", (1, 16, 16, T, T, 128),
-                   dict(causal=True)) for T in (100, 256)]
+# tp_path's flash launches on each of its two ranks: (b)'s block prefill
+# (llama2-7b's 16/16 heads of 128 over prompts of 64-256 tokens), (d)'s
+# bucketed prefill (qwen3-moe's 32/2 heads of 64 at every bucket it
+# reaches), (e)'s VLM prefill and cross blocks (16/4 heads of 128, a
+# 63-row prompt body, 1,600 frontend tokens) and (f)'s seamless encoder
+# (8/8 heads of 64 over 960 frames)
+FLASH_TP_CASES = (
+    [("llama2-7b tp 2 rank", (1, 16, 16, T, T, 128), dict(causal=True))
+     for T in (100, 256)]
+    + [("qwen3-moe tp 2 rank", (1, 32, 2, T, T, 64), dict(causal=True))
+       for T in (1, 32, 64, 128, 256)]
+    + [("llama-3.2-vision-11b tp 2 rank", (2, 16, 4, 63, 63, 128),
+        dict(causal=True)),
+       ("llama-3.2-vision-11b cross prefill tp 2 rank",
+        (2, 16, 4, 63, 1600, 128), dict(causal=False)),
+       ("llama-3.2-vision-11b cross decode tp 2 rank",
+        (2, 16, 4, 1, 1600, 128), dict(causal=False)),
+       ("seamless-m4t-medium encoder tp 2 rank", (4, 8, 8, 960, 960, 64),
+        dict(causal=False))])
 
 
 def phase_flash(dev, cases=None):
@@ -1487,12 +1532,13 @@ def tp_serve_requests(vocab, n=8, max_new=16):
                     max_new=max_new) for i in range(n)]
 
 
-def tp_rank_profile(eng, slots=8, n=5):
-    """This rank's device time over ``n`` decode steps with every slot
-    decoding (prompts of 2 tokens, so that admission is one token step
-    each), and its busy share of the rank's wall time: its share of the
-    card."""
+def tp_rank_profile(eng, slots=8, n=None):
+    """This rank's device time over ``n`` (PROFILE_STEPS) decode steps with
+    every slot decoding (prompts of 2 tokens, so that admission is one
+    token step each), and its busy share of the rank's wall time: its share
+    of the card."""
     from torch.profiler import ProfilerActivity, profile
+    n = PROFILE_STEPS if n is None else n
     sched = ContinuousBatchingScheduler(eng, max_slots=slots)
     sched.begin()
     for r in main_requests(eng.cfg.vocab_size, n=slots, max_new=n + 6):
@@ -1644,6 +1690,258 @@ def tp_rank_paged(group, dev):
     return out
 
 
+# (d)-(g): the rest of the registry and of the entry points on the ranks.
+# (d) qwen3-moe-235b-a22b at full width and TP_MOE["layers"] of its 94
+# layers (every rank holds every expert: the column-only serve cut leaves
+# the expert stacks whole, 4.83 GB of bf16 a layer), moe_path (b)'s 8
+# requests; (e) llama-3.2-vision-11b at full width and 10 of its 40 layers
+# (two gated cross blocks, seeded gates); (f) seamless-m4t-medium at full
+# width, its 12 encoder layers and 6 of its 12 decoder layers (its
+# per-token prefill takes ~37 gloo gathers a step at full depth: 27.7 s of
+# a rank's time, over the new parts' budget; ROADMAP.md's ground rules);
+# (g) split-brain generate() on (a)'s engine and the
+# online layer under a seeded chaos plan on (b)'s, rank 1 sleeping
+# TP_ONLINE["sleep_s"] an iteration so that its own clock runs apart.
+TP_MOE = dict(arch="qwen3-moe-235b-a22b", layers=4, max_len=512, requests=8,
+              prompt=(32, 256), new=16, seed=SEED + 31)   # moe_path (b)'s
+TP_VISION = dict(arch="llama-3.2-vision-11b", layers=10, fused=(2, 64, 16),
+                 step=(2, 16, 8), seed=SEED + 40)
+TP_ENCDEC = dict(arch="seamless-m4t-medium", layers=6, fused=(4, 64, 16),
+                 seed=SEED + 41)
+TP_SB_GEN = (4, 16, 8)              # split-brain generate(): B, T0, new
+TP_ONLINE = dict(plan=dict(step_corrupt_at=4, step_corrupt_iters=2,
+                           device_loss_at=10),
+                 requests=4, new=8, sleep_s=0.004)
+
+
+def tp_part_cfg(spec):
+    cfg = get_config(spec["arch"])
+    if "layers" in spec:
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    return cfg
+
+
+def tp_part_params(cfg, dev):
+    """A part's seeded bf16 weights on ``dev``; a VLM's cross gates seeded
+    non-zero (``xattn_gates``).  Every rank and the tp 1 engine draw the
+    same tree."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = api.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    if cfg.cross_attn_every:
+        params["cross"]["gate"] = xattn_gates(
+            cfg.num_layers // cfg.cross_attn_every, gen)
+    return params
+
+
+def tp_part_engine(spec, dev, tp=None, **kw):
+    cfg = tp_part_cfg(spec)
+    params = tp_part_params(cfg, dev)
+    eng = ServeEngine(cfg, params, device=dev, tp=tp, **kw)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eng
+
+
+def tp_gen_inputs(cfg, spec, dev, shape):
+    """(B, T0) seeded prompts and, for a frontend config, B seeded
+    frontends (float32 on ``dev``)."""
+    B, T0 = shape
+    rng = np.random.default_rng(spec["seed"])
+    prompts = rng.integers(1, cfg.vocab_size, (B, T0)).astype(np.int32)
+    fe = None
+    if cfg.frontend_tokens:
+        fgen = torch.Generator(device=dev).manual_seed(spec["seed"])
+        fe = torch.randn((B, cfg.frontend_tokens, cfg.d_model),
+                         generator=fgen, device=dev)
+    return prompts, fe
+
+
+def tp_generate(eng, prompts, fe, new, fused, keep_logits=False):
+    """One counted ``generate()`` (counts set to 0 just before, read just
+    after, meter reset): (tokens, launches, decode_s, meter bytes, the
+    decode steps' logits or None)."""
+    eng.meter.reset()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+
+    def call():
+        if isinstance(eng, SplitBrainEngine):
+            eng.fused = fused
+            return eng.generate(prompts, max_new=new)
+        return eng.generate(prompts, max_new=new, frontend=fe, fused=fused)
+    if keep_logits:
+        out, logits = _capture_decode_logits(call)
+    else:
+        out, logits = call(), None
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    return (out["tokens"].tolist(), counts, out["decode_s"],
+            eng.meter.measured_bytes()["total"], logits)
+
+
+def tp_rank_moe(group, dev):
+    """(d) on this rank: qwen3-moe at TP_MOE's depth under the scheduler on
+    a paged pool with 8 slots; its tokens, every decode step's picks, the
+    drop log's (rows, capacity, dropped) per call, launches and rates."""
+    from repro_torch.models import moe
+    spec = TP_MOE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = tp_part_engine(spec, dev, group, max_len=spec["max_len"],
+                         page_size=MOE_PAGE)
+    setup_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    sched = ContinuousBatchingScheduler(eng, max_slots=MOE_SLOTS)
+    sched.warmup(prompt_len=64, max_new=4)
+    picks, decode = [], eng.decode_slots
+
+    def record(cache, tokens, active, corrupt=None):
+        nxt, ok, cache = decode(cache, tokens, active, corrupt)
+        picks.append((np.asarray(nxt).tolist(), np.asarray(active).tolist()))
+        return nxt, ok, cache
+    eng.decode_slots = record
+    clock = PhaseClock(eng)
+    reqs = moe_requests(cfg.vocab_size, spec)
+    log = moe.drop_log()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = sched.run(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    drops = [(e["rows"], e["capacity"], int(e["dropped"])) for e in log]
+    moe.drop_log(False)
+    PhaseClock.detach(eng)
+    res = sorted(out["results"], key=lambda r: r.uid)
+    check(all(r.state == "DONE" for r in res),
+          f"tp_path (d): not every request DONE: {out['by_state']}")
+    prof = tp_rank_profile(eng)
+    meter = eng.meter.measured_bytes()["total"]
+    ntok = out["prefill_tokens"] + out["decoded_tokens"]
+    check(meter == traffic_model_for(cfg).bytes_per_token() * ntok,
+          f"tp_path (d): meter {meter} != eq. 7-10 x {ntok} tokens")
+    info = {"layers": cfg.num_layers, "experts": cfg.moe.num_experts,
+            "top_k": cfg.moe.top_k, "requests": len(reqs),
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "prefills": clock.calls["prefill_slot"],
+            "decode_steps": out["steps"], "launches": counts,
+            "kv_shards": eng.cache_stats(sched.cache)["kv_shards"],
+            "setup_s": setup_s, "decode_s": clock.decode_s,
+            "admit_s": clock.admit_s,
+            "decode_steps_per_s": out["steps"] / clock.decode_s,
+            "dropped_per_call": drops,
+            "expert_bytes_per_layer": expert_bytes(cfg),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "profile": prof, "tokens": [r.tokens.tolist() for r in res],
+            "picks": picks}
+    del eng, sched
+    return info
+
+
+def tp_rank_xattn(group, dev, spec):
+    """(e) or (f) on this rank: fused ``generate()`` (and stepwise where
+    ``spec`` has a ``step``), counted, with the decode steps' rate and a
+    profile of three decode steps."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    B, T0, new = spec["fused"]
+    cfg = tp_part_cfg(spec)
+    eng = tp_part_engine(spec, dev, group, max_len=T0 + new)
+    setup_s = time.perf_counter() - t0
+    prompts, fe = tp_gen_inputs(cfg, spec, dev, (B, T0))
+    # warm-up: seamless prefills one decode step per prompt token, so it
+    # warms up (and is profiled below) on 2-token prompts; its encoder's
+    # launches are the same
+    short = prompts[:, :2] if cfg.family == "encdec" else prompts
+    eng.generate(short, max_new=2, frontend=fe)
+    toks, counts, dec_s, meter, _ = tp_generate(eng, prompts, fe, new, True)
+    ntok = B * (T0 - 1) + B * new
+    check(meter == traffic_model_for(cfg).bytes_per_token() * ntok,
+          f"tp_path {spec['arch']}: meter {meter} != eq. 7-10 x {ntok}")
+    info = {"layers": cfg.num_layers, "fused": {
+        "shape": spec["fused"], "tokens": toks, "launches": counts,
+        "decode_s": dec_s, "decode_steps_per_s": new / dec_s}}
+    if "step" in spec:
+        sb, st, sn = spec["step"]
+        stoks, scounts, sdec, _, _ = tp_generate(
+            eng, prompts[:sb, :st], None if fe is None else fe[:sb], sn,
+            False)
+        info["stepwise"] = {"shape": spec["step"], "tokens": stoks,
+                            "launches": scounts, "decode_s": sdec}
+    prof = profile_generate(eng, dev, f"tp_path rank {group.rank}", short,
+                            fe, n=PROFILE_STEPS)
+    info.update(setup_s=setup_s,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                profile={k: prof[k] for k in (
+                    "wall_ms_per_step", "device_ms_per_step",
+                    "device_busy_share", "host_ops_per_step")})
+    return info
+
+
+def tp_rank_sb_generate(eng):
+    """(g) on (a)'s engine: fused and eager ``generate()`` on TP_SB_GEN's
+    prompts: tokens, launches, the meter's bytes per token."""
+    B, T0, new = TP_SB_GEN
+    rng = np.random.default_rng(SEED + 23)
+    prompts = rng.integers(1, eng.cfg.vocab_size, (B, T0)).astype(np.int32)
+    out = {}
+    for fused in (True, False):
+        toks, counts, dec_s, meter, _ = tp_generate(eng, prompts, None, new,
+                                                    fused)
+        out["fused" if fused else "eager"] = {
+            "tokens": toks, "launches": counts, "decode_s": dec_s,
+            "token_steps_per_s": (T0 - 1 + new) / dec_s,
+            "meter_bytes_per_token": meter / (B * (T0 - 1 + new))}
+    eng.fused = True
+    return out
+
+
+def tp_rank_online(eng, group):
+    """(g) on (b)'s engine: two slots, priorities with preemption, a
+    deadline and TP_ONLINE's chaos plan, the open-loop api as chaos_path
+    (c) drives it; rank 1 sleeps TP_ONLINE["sleep_s"] at the top of every
+    iteration, so its own clock runs apart from rank 0's, whose reading the
+    group's loop clock broadcasts.  Returns what the ranks must agree on
+    and what fired."""
+    reqs = tp_serve_requests(eng.cfg.vocab_size, n=TP_ONLINE["requests"],
+                             max_new=TP_ONLINE["new"])
+    inj = FaultInjector(FaultPlan(**TP_ONLINE["plan"]), seed=SEED)
+    if group.rank == 1:
+        on_step = inj.on_step
+
+        def late(sched):
+            time.sleep(TP_ONLINE["sleep_s"])
+            on_step(sched)
+        inj.on_step = late
+    sched = ContinuousBatchingScheduler(eng, max_slots=2, preemption=True,
+                                        backoff_steps=1, faults=inj)
+    sched.begin()
+    for r in reqs[:2]:
+        sched.submit(Request(uid=r.uid, prompt=r.prompt, max_new=r.max_new,
+                             priority=0))
+    while len(sched.decoding_uids()) < 2:
+        sched.step()
+    for _ in range(2):
+        sched.step()
+    sched.submit(Request(uid=reqs[2].uid, prompt=reqs[2].prompt,
+                         max_new=reqs[2].max_new, priority=5))
+    sched.submit(Request(uid=reqs[3].uid, prompt=reqs[3].prompt,
+                         max_new=reqs[3].max_new, priority=0,
+                         deadline_s=sched.clock() + 0.05))
+    while sched.has_work():
+        sched.step()
+        check(sched._iterations < 2000, "tp_path (g) did not drain")
+    torch.cuda.synchronize()
+    res = sorted(sched.poll(), key=lambda r: r.uid)
+    return {"tokens": [r.tokens.tolist() for r in res],
+            "states": [r.state for r in res],
+            "preemptions": [r.preemptions for r in res],
+            "events": [{k: v for k, v in e.items() if k != "recovery_s"}
+                       for e in sched.recovery_log],
+            "fired": sorted({e[0] for e in inj.events}),
+            "iterations": sched._iterations}
+
+
 def tp_rank(grid, smi_line, t_spawn):
     """One rank of tp_path, on the ``(1, TP)`` grid's model group: (a),
     (b), (c) in turn, each engine freed before the next.  Every check
@@ -1654,12 +1952,18 @@ def tp_rank(grid, smi_line, t_spawn):
     exact_matmuls()
     t_rank = time.perf_counter()
     res = {"rank": group.rank, "start_s": time.time() - t_spawn}
-    parts, mark = {}, [t_rank]
+    parts, peaks, mark = {}, {}, [t_rank]
 
     def part(name):
         now = time.perf_counter()
         parts[name] = now - mark[0]
+        peaks[name] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         mark[0] = now
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # (a) the main path: split-brain tinyllama, W4A8 column blocks
     cfg = main_cfg()
@@ -1681,6 +1985,8 @@ def tp_rank(grid, smi_line, t_spawn):
                 "head_codes": tuple(eng._head.codes.shape),
                 "profile": tp_rank_profile(eng), "tokens": toks}
     part("a_profile")
+    res["g_generate"] = tp_rank_sb_generate(eng)
+    part("g_generate")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1703,13 +2009,24 @@ def tp_rank(grid, smi_line, t_spawn):
                 "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                 "profile": tp_rank_profile(eng), "tokens": toks}
     part("b_profile")
+    res["g_online"] = tp_rank_online(eng, group)
+    part("g_online")
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     res["c"] = tp_rank_paged(group, dev)
     part("c")
+    res["d"] = tp_rank_moe(group, dev)
+    free()
+    part("d")
+    res["e"] = tp_rank_xattn(group, dev, TP_VISION)
+    free()
+    part("e")
+    res["f"] = tp_rank_xattn(group, dev, TP_ENCDEC)
+    free()
+    part("f")
     res["wall_s"] = time.perf_counter() - t_rank
     res["parts_s"] = parts
+    res["parts_peak_memory_bytes"] = peaks
     return res
 
 
@@ -1784,12 +2101,17 @@ def phase_tp_path(dev, smi_line, clean=None):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    new_parts, tp1_s = tp_path_new_parts(ranks, dev)
     per_rank = []
     for r in ranks:
         row = {"rank": r["rank"], "wall_s": r["wall_s"],
-               "start_s": r["start_s"], "parts_s": r["parts_s"]}
-        for part in ("a", "b"):
-            row[part] = {k: v for k, v in r[part].items() if k != "tokens"}
+               "start_s": r["start_s"], "parts_s": r["parts_s"],
+               "parts_peak_memory_bytes": r["parts_peak_memory_bytes"]}
+        for part in ("a", "b", "d", "e", "f"):
+            row[part] = {k: v for k, v in r[part].items()
+                         if k not in ("tokens", "picks", "dropped_per_call")}
+        row["g_generate"] = {m: {k: v for k, v in g.items() if k != "tokens"}
+                             for m, g in r["g_generate"].items()}
         row["c"] = r["c"]
         per_rank.append(row)
     info = {"phase": "tp_path", "tp": TP, "backend": backend,
@@ -1802,13 +2124,212 @@ def phase_tp_path(dev, smi_line, clean=None):
                   "tokens_identical_to_tp1": not ties,
                   "first_divergences": ties},
             "c": {"merge": TP_MERGE, "head_cut": TP_HEADS},
+            **new_parts, "tp1_s": tp1_s,
             "seconds": time.perf_counter() - t0, "spawn_s": spawn_s,
             "card": smi_line}
     emit(info)
-    info["launches"] = {k: ranks[0]["a"]["launches"][k]
-                        + ranks[0]["b"]["launches"][k]
-                        for k in ranks[0]["a"]["launches"]}
+    r0 = ranks[0]
+    info["launches"] = {k: r0["a"]["launches"][k] + r0["b"]["launches"][k]
+                        + r0["d"]["launches"][k]
+                        + sum(r0[p][m]["launches"][k]
+                              for p, m in (("e", "fused"), ("e", "stepwise"),
+                                           ("f", "fused"),
+                                           ("g_generate", "fused"),
+                                           ("g_generate", "eager")))
+                        for k in r0["a"]["launches"]}
+    info["prompt_lens_d"] = r0["d"]["prompt_lens"]
+    info["launches_rank0"] = {
+        "d": r0["d"]["launches"],
+        "e": {k: r0["e"]["fused"]["launches"][k]
+              + r0["e"]["stepwise"]["launches"][k]
+              for k in r0["e"]["fused"]["launches"]},
+        "f": r0["f"]["fused"]["launches"]}
     return info
+
+
+def tp_tie(logits, a, b):
+    """The gap between picks ``a`` and ``b`` in one row of the tp 1 run's
+    logits, and whether it is a near-tie (``tie_report``'s rule: within
+    NEAR_TIE_ULPS bf16 ulps of the row's largest |logit|)."""
+    row = logits.float().cpu()
+    gap = abs(row[a].item() - row[b].item())
+    tol = NEAR_TIE_ULPS * bf16_ulp_of(row.abs().max().item())
+    return {"tp1": a, "rank": b, "gap": gap, "tolerance": tol,
+            "near_tie": gap <= tol}
+
+
+def tp_hold_generate(name, want, got, logits, new):
+    """A rank's ``generate()`` tokens against the tp 1 run's: identical, or
+    every row's first differing pick a near-tie in the tp 1 run's logits
+    of that step (``logits``: its decode steps, the last ``new`` of them
+    the generated tokens')."""
+    want, got = np.asarray(want), np.asarray(got)
+    ties = []
+    for row in np.flatnonzero((want != got).any(axis=1)):
+        j = int(np.flatnonzero(want[row] != got[row])[0])
+        rep = tp_tie(logits[-new:][j][row], int(want[row, j]),
+                     int(got[row, j]))
+        rep.update(row=int(row), step=j)
+        check(rep["near_tie"], f"tp_path {name}: row {row} left the tp 1 "
+              f"tokens at a pick that is no near-tie: {rep}")
+        ties.append(rep)
+    return ties
+
+
+def tp_path_new_parts(ranks, dev):
+    """tp_path (d)-(g) in the parent, after the ranks have finished: each
+    part's pins per rank, the ranks' agreement, and the tp 1 engines of
+    the same depth built here, one at a time, against rank 0's tokens.
+    Returns (the parts' report, the tp 1 runs' seconds)."""
+    r0, L = ranks[0], MAIN_LAYERS
+    B, T0, new = TP_SB_GEN
+    for r in ranks:
+        d = r["d"]
+        Ld = TP_MOE["layers"]
+        want = {"w4a8_matmul": 0, "flash_attention": Ld * d["prefills"],
+                "paged_decode_attention": Ld * d["decode_steps"],
+                "rwkv6_scan": 0}
+        check(d["launches"] == want, f"tp_path (d) rank {r['rank']}: "
+              f"launches {d['launches']} != {want}")
+        check(d["kv_shards"] == TP, f"tp_path (d): kv_shards {d['kv_shards']}")
+        Lv = TP_VISION["layers"]
+        G = Lv // get_config(TP_VISION["arch"]).cross_attn_every
+        vn = TP_VISION["fused"][2]
+        _, st, sn = TP_VISION["step"]
+        for mode, flash in (("fused", Lv + G + G * vn),
+                            ("stepwise", G * (st - 1 + sn))):
+            want = {"w4a8_matmul": 0, "flash_attention": flash,
+                    "paged_decode_attention": 0, "rwkv6_scan": 0}
+            check(r["e"][mode]["launches"] == want, f"tp_path (e) {mode} "
+                  f"rank {r['rank']}: {r['e'][mode]['launches']} != {want}")
+        enc = get_config(TP_ENCDEC["arch"]).num_encoder_layers
+        want = {"w4a8_matmul": 0, "flash_attention": enc,
+                "paged_decode_attention": 0, "rwkv6_scan": 0}
+        check(r["f"]["fused"]["launches"] == want, f"tp_path (f) rank "
+              f"{r['rank']}: {r['f']['fused']['launches']} != {want}")
+        for mode in ("fused", "eager"):
+            g = r["g_generate"][mode]
+            want = {"w4a8_matmul": (7 * L + 1) * (T0 - 1 + new),
+                    "paged_decode_attention": 0, "flash_attention": 0,
+                    "rwkv6_scan": 0}
+            check(g["launches"] == want, f"tp_path (g) {mode} generate() "
+                  f"rank {r['rank']}: {g['launches']} != {want}")
+            check(g["meter_bytes_per_token"]
+                  == traffic_model_for(main_cfg()).bytes_per_token(),
+                  f"tp_path (g) {mode}: meter bytes per token")
+    def tokens_of(part):
+        return {m: v["tokens"] for m, v in part.items()
+                if isinstance(v, dict) and "tokens" in v}
+    for r in ranks[1:]:
+        check(r["g_online"] == r0["g_online"], "tp_path (g): the ranks' "
+              "tokens, request states or recovery events differ")
+        check(r["d"]["tokens"] == r0["d"]["tokens"]
+              and r["d"]["picks"] == r0["d"]["picks"]
+              and r["d"]["dropped_per_call"] == r0["d"]["dropped_per_call"],
+              "tp_path (d): the ranks' tokens, picks or drop logs differ")
+        for key in ("e", "f", "g_generate"):
+            check(tokens_of(r[key]) == tokens_of(r0[key]),
+                  f"tp_path ({key}): the ranks decoded different tokens")
+    online = r0["g_online"]
+    check(set(TP_ONLINE["plan"]) >= {"step_corrupt_at", "device_loss_at"}
+          and {"step_corrupt", "device_loss"} <= set(online["fired"]),
+          f"tp_path (g): a planned fault never fired: {online['fired']}")
+    out, tp1_s = {}, {}
+    # (g) split-brain generate() against tp 1
+    t0 = time.perf_counter()
+    cfg = main_cfg()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    eng = SplitBrainEngine(cfg, params, max_len=256, page_size=16,
+                           quantize=True, device=dev)
+    del params
+    one = tp_rank_sb_generate(eng)
+    del eng
+    for mode in ("fused", "eager"):
+        check(r0["g_generate"][mode]["tokens"] == one[mode]["tokens"],
+              f"tp_path (g): {mode} generate() tokens differ from tp 1's")
+    tp1_s["g_generate"] = time.perf_counter() - t0
+    # (d) qwen3-moe against tp 1, every decode step's logits kept
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.serve import engine as engine_mod
+    eng = tp_part_engine(TP_MOE, dev, max_len=TP_MOE["max_len"],
+                         page_size=MOE_PAGE)
+    sched = ContinuousBatchingScheduler(eng, max_slots=MOE_SLOTS)
+    sched.warmup(prompt_len=64, max_new=4)
+    kept, corrupt = [], engine_mod.slots_mod.corrupt_logits
+
+    def keep(logits, bad):
+        kept.append(logits.clone())
+        return corrupt(logits, bad)
+    engine_mod.slots_mod.corrupt_logits = keep
+    try:
+        res = sched.run(moe_requests(eng.cfg.vocab_size, TP_MOE))
+    finally:
+        engine_mod.slots_mod.corrupt_logits = corrupt
+    one = [r.tokens.tolist() for r in sorted(res["results"],
+                                             key=lambda r: r.uid)]
+    tie = None
+    if one != r0["d"]["tokens"]:
+        picks = [torch.argmax(k, dim=-1).tolist() for k in kept]
+        for k, (got, active) in enumerate(r0["d"]["picks"]):
+            bad = [i for i, a in enumerate(active)
+                   if a and got[i] != picks[k][i]]
+            if bad:
+                i = bad[0]
+                tie = tp_tie(kept[k][i], picks[k][i], got[i])
+                tie.update(decode_step=k, slot=i)
+                break
+        check(tie is not None and tie["near_tie"], f"tp_path (d): the "
+              f"tokens left tp 1's at a pick that is no near-tie: {tie}")
+    out["d"] = {"config": eng.cfg.name, "layers": TP_MOE["layers"],
+                "tokens_identical_to_tp1": tie is None,
+                "first_divergence": tie,
+                "identical_requests": sum(a == b for a, b in
+                                          zip(one, r0["d"]["tokens"])),
+                "ranks_drop_logs_equal": True,
+                "dropped_assignments": sum(c[2] for c in
+                                           r0["d"]["dropped_per_call"])}
+    del eng, sched, kept
+    tp1_s["d"] = time.perf_counter() - t0
+    # (e), (f) generate() against tp 1
+    for key, spec in (("e", TP_VISION), ("f", TP_ENCDEC)):
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        Bx, Tx, nx = spec["fused"]
+        eng = tp_part_engine(spec, dev, max_len=Tx + nx)
+        cfg = eng.cfg
+        prompts, fe = tp_gen_inputs(cfg, spec, dev, (Bx, Tx))
+        toks, _, _, _, logits = tp_generate(eng, prompts, fe, nx, True,
+                                            keep_logits=True)
+        ties = tp_hold_generate(f"({key}) fused", toks,
+                                r0[key]["fused"]["tokens"], logits, nx)
+        part = {"config": cfg.name, "layers": cfg.num_layers,
+                "fused": {"tokens_identical_to_tp1": not ties,
+                          "first_divergences": ties}}
+        if "step" in spec:
+            sb, st, sn = spec["step"]
+            stoks, _, _, _, slog = tp_generate(
+                eng, prompts[:sb, :st], fe[:sb], sn, False, keep_logits=True)
+            ties = tp_hold_generate(f"({key}) stepwise", stoks,
+                                    r0[key]["stepwise"]["tokens"], slog, sn)
+            part["stepwise"] = {"tokens_identical_to_tp1": not ties,
+                                "first_divergences": ties}
+        out[key] = part
+        del eng, logits
+        tp1_s[key] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["g"] = {"generate": {"config": main_cfg().name,
+                             "tokens_identical_to_tp1": True,
+                             "launches_per_token_step": 7 * L + 1},
+                "online": {k: online[k] for k in (
+                    "states", "preemptions", "events", "fired",
+                    "iterations")},
+                "online_ranks_equal": True}
+    return out, tp1_s
 
 
 FEATURE_PAGE, FEATURE_LEN, FEATURE_CHUNK, FEATURE_SLOTS = 16, 1024, 64, 8
@@ -4225,7 +4746,7 @@ def profile_generate(eng, dev, path, prompts, fe, n=5):
     toks = torch.as_tensor(prompts, device=dev)
     B, T0 = prompts.shape
     cache = api.init_cache(cfg, B, eng.max_len, frontend=fe,
-                           params=eng.params, device=dev)
+                           params=eng.params, device=dev, tp=eng.tp)
     _, cache = api.prefill_bucketed(eng.params, cache, toks[:, :-1], T0 - 1,
                                     cfg)
     tok = toks[:, -1]
@@ -4520,10 +5041,8 @@ def phase_times_xattn(dev, vinfo, einfo):
     of 128) and in a decode step (8 launches, Tq 1); non-causal.  The
     library call is SDPA on the same tensors (with enable_gqa at 32/8)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 42)
-    bf = torch.bfloat16
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     detail, rows = [], {}
-    for key, n, (label, shape, opts), launched in (
+    for key, n, case, launched in (
             ("encdec_encoder", einfo["encoder_layers"], XATTN_FLASH_CASES[0],
              einfo["launches_total"]["flash_attention"]),
             ("vision_cross_prefill", vinfo["cross_blocks"],
@@ -4532,36 +5051,92 @@ def phase_times_xattn(dev, vinfo, einfo):
             ("vision_cross_decode", vinfo["cross_blocks"],
              XATTN_FLASH_CASES[2],
              vinfo["launches_total"]["flash_attention"])):
-        launches = [flash_inputs(gen, dev, *shape, bf) for _ in range(n)]
-        q0, k0, v0 = launches[0]
-        got = ops.attention(q0, k0, v0, **opts).float()
-        plain = ref.flash_attention(q0, k0, v0, **opts).float()
-        err = (got - plain).abs()
-        check(bool((err <= bf16_ulp(plain) + 1e-5).all()),
-              f"flash at the {label} shape outside tolerance "
-              f"({err.max().item()})")
-
-        def run(fn, ls):
-            return lambda: [fn(q, k, v, **opts) for q, k, v in ls]
-        gqa = shape[1] != shape[2]
-        k_ms = graph_time_ms(run(ops.attention, launches), iters=20)
-        eager_ms = cuda_time_ms(run(ops.attention, launches), iters=3)
-        p_ms = graph_time_ms(run(ref.flash_attention, launches), iters=3)
-        lib_ms = yardstick_ms(
-            lambda: [sdpa(q, k, v, enable_gqa=gqa) for q, k, v in launches],
-            20, detail, f"flash_{key}_library")
-        bound_ms, bound_by = flash_bound(launches, causal=False)
-        B, Hq, Hkv, Tq, Tk, D = shape
-        rows[key] = {
-            "unit": f"{label}: {n} launches, B {B}, {Hq}/{Hkv} heads, D {D}, "
-                    f"Tq {Tq}, Tk {Tk}, non-causal, bf16, CUDA-graph replay",
-            "launches": launched, "ms": k_ms, "eager_ms": eager_ms,
-            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "max_abs_err": err.max().item(),
-            "library_note": "scaled_dot_product_attention(enable_gqa="
-                            f"{gqa}) on the same tensors"}
+        rows[key] = flash_case_times(gen, dev, n, *case, launched, detail,
+                                     f"flash_{key}_library")
     emit({"phase": "times", "path": "vision_path, encdec_path", **rows,
           "detail": detail})
+    return rows
+
+
+def flash_case_times(gen, dev, n, label, shape, opts, launched, detail,
+                     key):
+    """The flash kernel over ``n`` launches at ``shape`` (B, Hq, Hkv, Tq,
+    Tk, D) with ``opts``, bf16: the first launch held against the plain
+    version, then CUDA-graph replay of the kernel, its eager and plain
+    times, the bound and SDPA on the same tensors (``enable_gqa`` where the
+    head counts differ; ``is_causal`` for a causal case).  ``launched``:
+    the path's count of launches, reported beside."""
+    launches = [flash_inputs(gen, dev, *shape, torch.bfloat16)
+                for _ in range(n)]
+    q0, k0, v0 = launches[0]
+    got = ops.attention(q0, k0, v0, **opts).float()
+    plain = ref.flash_attention(q0, k0, v0, **opts).float()
+    err = (got - plain).abs()
+    check(bool((err <= bf16_ulp(plain) + 1e-5).all()),
+          f"flash at the {label} shape outside tolerance "
+          f"({err.max().item()})")
+
+    def run(fn):
+        return lambda: [fn(q, k, v, **opts) for q, k, v in launches]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = shape[1] != shape[2]
+    causal = bool(opts.get("causal"))
+    B, Hq, Hkv, Tq, Tk, D = shape
+    bound_ms, bound_by = flash_bound(launches, causal=causal)
+    return {"unit": f"{label}: {n} launches, B {B}, {Hq}/{Hkv} heads, D {D}, "
+                    f"Tq {Tq}, Tk {Tk}, {'causal' if causal else 'non-causal'}"
+                    ", bf16, CUDA-graph replay",
+            "launches": launched,
+            "ms": graph_time_ms(run(ops.attention), iters=20),
+            "eager_ms": cuda_time_ms(run(ops.attention), iters=3),
+            "plain_ms": graph_time_ms(run(ref.flash_attention), iters=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": yardstick_ms(
+                lambda: [sdpa(q, k, v, is_causal=causal, enable_gqa=gqa)
+                         for q, k, v in launches], 20, detail, key),
+            "max_abs_err": err.max().item(),
+            "library_note": f"scaled_dot_product_attention(is_causal="
+                            f"{causal}, enable_gqa={gqa}) on the same "
+                            "tensors"}
+
+
+def phase_times_tp(dev, tp_info):
+    """The kernels at tp_path (d)-(f)'s rank shapes, timed here by one
+    process on the whole card (the ranks shared it): the paged kernel over
+    one qwen3-moe decode step on a rank (4 launches, 8 slots, 32/2 heads of
+    64 at (d)'s lengths 16 tokens into their decode) and the flash kernel
+    over (d)'s 256-token prefill (4 launches), (e)'s prefill's causal and
+    cross launches (10 and 2), a decode step's cross launches (2) and
+    (f)'s encoder (12), each per rank."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    detail, rows = [], {}
+    launches = tp_info["launches_rank0"]
+    lens = [n - 1 + 16 for n in tp_info["prompt_lens_d"][:MOE_SLOTS]]
+    Ld = TP_MOE["layers"]
+    paged = paged_step_times(gen, dev, Ld, 32, 2, 64,
+                             TP_MOE["max_len"] // MOE_PAGE, lens, detail,
+                             "paged_qwen_moe_tp_rank_library")
+    paged.update(unit=f"one qwen3-moe decode step on a tp 2 rank: {Ld} "
+                      f"launches, {MOE_SLOTS} slots, 32/2 heads, D 64, "
+                      f"lengths {lens}, CUDA-graph replay",
+                 launches=launches["d"]["paged_decode_attention"])
+    rows["paged_qwen_moe_tp_rank"] = paged
+    Lv = TP_VISION["layers"]
+    G = Lv // get_config(TP_VISION["arch"]).cross_attn_every
+    fl_d = launches["d"]["flash_attention"]
+    fl_e = launches["e"]["flash_attention"]
+    for key, n, (label, shape, opts), launched in (
+            ("flash_qwen_moe_tp_rank_prefill", Ld, FLASH_TP_CASES[6], fl_d),
+            ("flash_vision_tp_rank_prefill", Lv, FLASH_TP_CASES[7], fl_e),
+            ("flash_vision_tp_rank_cross_prefill", G, FLASH_TP_CASES[8],
+             fl_e),
+            ("flash_vision_tp_rank_cross_decode", G, FLASH_TP_CASES[9], fl_e),
+            ("flash_encdec_tp_rank_encoder",
+             get_config(TP_ENCDEC["arch"]).num_encoder_layers,
+             FLASH_TP_CASES[10], launches["f"]["flash_attention"])):
+        rows[key] = flash_case_times(gen, dev, n, label, shape, opts,
+                                     launched, detail, key + "_library")
+    emit({"phase": "times", "path": "tp_path", **rows, "detail": detail})
     return rows
 
 
@@ -5409,7 +5984,7 @@ def main(argv=None) -> int:
         phase_w4a8(dev, shapes=W4A8_TP)
         phase_paged(dev, cases=PAGED_TP_CASES)
         phase_flash(dev, cases=FLASH_TP_CASES)
-        phase_tp_path(dev, smi)
+        phase_times_tp(dev, phase_tp_path(dev, smi))
         emit({"subset": "tp", "done": True})
         return 0
     if argv == ["--only", "xattn"]:
@@ -5447,6 +6022,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp_info = phase_tp_path(dev, smi, main_info["_tokens"][:8])
+    tp_rows = phase_times_tp(dev, tp_info)
     eng, serve_info = phase_serve_path(dev, smi)
     phase_profile(eng, dev, "serve_path")
     fwd_serve = phase_lm_forward(eng, dev, "serve_path")
@@ -5565,6 +6141,8 @@ def main(argv=None) -> int:
                                 "launches": train_info["launches"][
                                     "flash_attention"]}
     kernels[2]["dist_train_rank_step"] = dist_row
+    for key, row in tp_rows.items():
+        kernels[1 if key.startswith("paged") else 2][key] = row
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

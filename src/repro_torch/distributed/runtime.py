@@ -141,6 +141,27 @@ class TPGroup:
             dist.reduce_scatter_tensor(out, xm, group=self.group)
         return out.movedim(0, dim)
 
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``x`` (its rank in this group) on every rank, in
+        place on a contiguous ``x``, which is returned."""
+        x = x.contiguous()
+        if self.size == 1:
+            return x
+        with _timed():
+            dist.broadcast(x, src=dist.get_global_rank(self.group, src),
+                           group=self.group)
+        return x
+
+    def clock(self, source: Optional[Callable[[], float]] = None) -> float:
+        """Rank 0's reading of ``source`` (default ``time.perf_counter``),
+        the same on every rank: the loop clock of a scheduler that the ranks
+        run in lockstep (every rank calls it at the same point of the
+        loop)."""
+        dev = self.device if self.backend == "nccl" else "cpu"
+        t = torch.tensor([(source or time.perf_counter)()],
+                         dtype=torch.float64, device=dev)
+        return float(self.broadcast(t)[0])
+
     def barrier(self) -> None:
         if self.size > 1:
             dist.barrier(group=self.group)

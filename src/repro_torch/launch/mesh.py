@@ -19,6 +19,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.distributed import runtime
 
 AXES = ("data", "model")
@@ -64,15 +65,18 @@ def make_production_mesh(shape=(16, 16)) -> MeshPlan:
 
 
 def make_test_mesh(devices: Optional[Sequence[str]] = None, shape=None, *,
-                   device="cpu") -> MeshPlan:
-    """Small ("data", "model") grid (CPU tests, the shared card).
+                   device="cuda") -> MeshPlan:
+    """Small ("data", "model") grid (the shared card, CPU tests).
 
     Default shape is ``(1, n)``, n the number of ``devices`` (one rank
     without them): all ranks on the model axis.  Pass an explicit
     ``(dp, tp)`` to split them; the product must match the device count
     (without ``devices``, the shape sets it).  The ranks are placed by
-    :func:`runtime.plan` on the type of ``devices`` (else ``device``)."""
+    :func:`runtime.plan` on the type of ``devices``, else of ``device``:
+    the card by default, which raises without one (pass
+    ``device="cpu"``)."""
     if devices is None:
+        device = str(resolve_device(device))
         devices = [device] * (1 if shape is None else math.prod(shape))
     n = len(devices)
     if shape is None:

@@ -42,6 +42,8 @@ the float ``ServeEngine``, on the card unless asked otherwise.
   # with one card both ranks share it over gloo, with two or more NCCL)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --smoke --device cpu --continuous --page-size 8 --tp 2
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-11b --smoke --device cpu --tp 2
 
 Without ``--continuous`` it runs ``ServeEngine.generate`` on ``--batch``
 prompts of ``--prompt-len`` tokens (with, for a VLM or encoder-decoder
@@ -65,14 +67,14 @@ process each (``distributed/runtime.py``): every rank builds the engine
 over its shard of the same seeded weights and serves the same requests;
 rank 0's report is printed, with ``tp``, ``tp_backend`` and
 ``tp_devices``, and the run fails if any rank raises or if the ranks'
-tokens differ.  The ranks share ``cuda:0`` over gloo where the host has
-fewer than N cards, and take one card each over NCCL otherwise.  Under
-``--tp`` the lm (dense and windowed), rwkv and hymba configs serve through
-the continuous scheduler with every KV-cache flag; ``generate()`` (no
-``--continuous``), the MoE and cross-attention configs and the online and
-chaos flags (``--priority``, ``--deadline-s``, ``--preemption``,
-``--chaos-plan``, ``--recovery-log``) are refused as not ported to TP yet
-(ROADMAP.md).
+tokens, request states (``by_state``) or recovery events (the
+``--recovery-log`` stream without its seconds) differ.  The ranks share
+``cuda:0`` over gloo where the host has fewer than N cards, and take one
+card each over NCCL otherwise.  Every config and every flag serves under
+``--tp``: ``generate()`` without ``--continuous``, and the continuous
+scheduler with the KV-cache, online and chaos flags, its deadlines and
+arrivals decided on rank 0's loop clock (``serve/scheduler.py``).  Only
+rank 0 writes ``--recovery-log``.
 
 The MoE configs at full depth do not fit one 80 GB card (phi3.5-moe-42b-a6.6b
 holds 2.6 GB of bf16 weights per layer, 83 GB at its 32 layers;
@@ -264,22 +266,6 @@ def _setup(argv):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    if args.tp > 1:
-        if not args.continuous:
-            ap.error("--tp without --continuous (generate() on the ranks): "
-                     "not ported yet (ROADMAP.md)")
-        online = [flag for flag, on in (
-            ("--priority", args.priority is not None),
-            ("--deadline-s", args.deadline_s is not None),
-            ("--preemption", args.preemption == "on"),
-            ("--chaos-plan", args.chaos_plan is not None),
-            ("--recovery-log", args.recovery_log is not None)) if on]
-        if online:
-            ap.error(f"--tp with {', '.join(online)}: not ported yet "
-                     f"(ROADMAP.md)")
-        if cfg.moe or cfg.cross_attn_every or cfg.family == "encdec":
-            ap.error(f"--tp with --arch {args.arch}: not ported yet (the "
-                     f"MoE and cross-attention configs; ROADMAP.md)")
     return ap, args, cfg, faults, priorities
 
 
@@ -294,22 +280,36 @@ def main(argv=None):
     backend, devices = runtime.plan((1, args.tp), device)
     ranks = runtime.spawn(_serve_rank, (1, args.tp), (argv,),
                           backend=backend, devices=devices)
-    report, tokens = ranks[0]
-    if any(t != tokens for _, t in ranks[1:]):
-        raise RuntimeError("the tensor-parallel ranks decoded different "
-                           "tokens")
+    report, lock = ranks[0]
+    for what, name in (("tokens", "decoded different tokens"),
+                       ("by_state", "ended requests in different states"),
+                       ("events", "logged different recovery events")):
+        if any(other[what] != lock[what] for _, other in ranks[1:]):
+            raise RuntimeError(f"the tensor-parallel ranks {name}")
     report.update(tp=args.tp, tp_backend=backend, tp_devices=devices)
     print(json.dumps(report))
-    return {"report": report, "tokens": tokens}
+    return {"report": report, "tokens": lock["tokens"],
+            "by_state": lock["by_state"], "events": lock["events"],
+            "log_writers": [r for r, (rep, _) in enumerate(ranks)
+                            if "recovery_log" in rep]}
 
 
 def _serve_rank(grid, argv):
     """One rank of ``--tp`` (a ``(1, tp)`` grid): the same serving run as
-    one device, with its shard of the engine; returns (report, tokens)."""
+    one device, with its shard of the engine; returns (report, what the
+    ranks must agree on: the tokens, the request states and the recovery
+    events without their seconds)."""
     ap, args, cfg, faults, priorities = _setup(argv)
     report, out = _serve(ap, args, cfg, grid.device, faults, priorities,
                          tp=grid.model)
-    return report, [r.tokens.tolist() for r in out["results"]]
+    if not args.continuous:
+        return report, {"tokens": out["tokens"].tolist(), "by_state": None,
+                        "events": None}
+    return report, {
+        "tokens": [r.tokens.tolist() for r in out["results"]],
+        "by_state": out["by_state"],
+        "events": [{k: v for k, v in e.items() if k != "recovery_s"}
+                   for e in out["recovery_log"]]}
 
 
 def _serve(ap, args, cfg, device, faults, priorities, tp=None):
@@ -350,7 +350,7 @@ def _serve(ap, args, cfg, device, faults, priorities, tp=None):
             prefill_chunk=args.prefill_chunk,
             preemption=args.preemption == "on", faults=faults)
         try:
-            out = sched.run(reqs)
+            out = dict(sched.run(reqs), recovery_log=sched.recovery_log)
         except ValueError as e:      # the engine refuses this config's slots
             ap.error(f"--continuous --arch {args.arch}: {e}")
         report = {
@@ -385,9 +385,10 @@ def _serve(ap, args, cfg, device, faults, priorities, tp=None):
                 "recoveries": out["recoveries"],
                 "last_recovery_s": round(out["last_recovery_s"], 4),
             }
-        if args.recovery_log is not None:
+        if args.recovery_log is not None and (tp is None or tp.rank == 0):
             Path(args.recovery_log).write_text(
                 json.dumps(sched.recovery_log, indent=2) + "\n")
+            report["recovery_log"] = args.recovery_log
         return report, out
 
     prompts = rng.integers(1, cfg.vocab_size,

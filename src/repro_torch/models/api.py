@@ -143,14 +143,28 @@ def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig,
 # Serve path
 # ----------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, frontend=None,
-               params=None, device="cuda"):
+               params=None, device="cuda", tp=None):
     """The family's zeroed serve cache; a VLM or encoder-decoder config
     given ``frontend`` (batch, Tx, d) and its serving ``params`` also holds
-    the per-request cross K/V (the encoder runs here)."""
+    the per-request cross K/V (the encoder runs here).
+
+    ``tp`` (a ``TPGroup`` of more than one rank): the cache as this rank
+    holds it.  The zeroed leaves are the whole cache's shapes cut by the
+    serve cache rules (``sharding.rank_cache``, the one source of a rank's
+    layout), and the cross K/V are projected by the rank's own blocks of
+    the serving ``params`` (the family's ``cross_cache``), never projected
+    whole and sliced.  ``generate()`` and the slot protocol both take their
+    caches from here."""
+    mod = family_module(cfg)
     kw = ({} if frontend is None
           else {"frontend": frontend, "params": params})
-    return family_module(cfg).init_cache(cfg, batch, max_len, device=device,
-                                         **kw)
+    if sharding.size_of(tp) == 1:
+        return mod.init_cache(cfg, batch, max_len, device=device, **kw)
+    like = mod.init_cache(cfg, batch, max_len, device=torch.device("meta"))
+    cache = sharding.rank_cache(like, tp, device)
+    if frontend is not None and params is not None:
+        cache.update(mod.cross_cache(params, frontend, cfg))
+    return cache
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, *, write=None):

@@ -15,6 +15,17 @@ updated IN PLACE.  Numerics follow the compiled reference: each layer is a
 scan body, inside which the residual sums reach the next norm in float32
 (:func:`_residual`); the decode head product stays float32, ``forward``'s
 is rounded.
+
+Tensor-parallel serving (a ``TPGroup`` in the serving params as ``"tp"``,
+set by the engine): the params are the rank's shard under the serve rules
+(column blocks of every ``wq`` / ``wk`` / ``wv`` / ``w1`` / ``w3`` and of
+the head where the vocabulary divides; ``wo``, ``w2``, the embedding and
+the norms whole).  Each rank runs the whole encoder with its own heads'
+attention, the heads and the FFN's hidden units gathered before each
+whole product (``sharding.gather``, the JAX package's ``pin_tp_exact``), so
+the encoder output is whole on every rank; the cross K/V and the self
+cache hold the rank's KV heads, and the logits are gathered over the
+vocabulary.  No float sum crosses ranks, so the tokens are one device's.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -129,26 +141,27 @@ def _attn(p, xn, cfg: ModelConfig, positions, **kw):
                         rope_theta=cfg.rope_theta, **kw)
 
 
-def _mlp_tail(p, x, s, cfg: ModelConfig):
+def _mlp_tail(p, x, s, cfg: ModelConfig, tp=None):
     """The FFN's pre-norm of the float32 sum ``s``, SwiGLU, residual add:
     the layer's output (rounded: the scan carry)."""
     y = _norm(s, p["ln_mlp"], cfg)
-    out = L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"])
+    out = L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"], tp=tp)
     return _residual(x, out)[0]
 
 
 def encode(params, frontend: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frontend (B, Tx, d) stub audio embeddings -> (B, Tx, d): each layer
-    non-causal self-attention with rope (one flash launch on the card) and
-    the FFN, then ``ln_enc``."""
+    non-causal self-attention with rope (one flash launch on the card, on
+    a tensor-parallel rank's own heads) and the FFN, then ``ln_enc``."""
+    tp = params.get("tp")
     x = frontend.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
 
     def layer(x, p):
         h = _attn(p["attn"], _norm(x, p["ln_attn"], cfg), cfg, positions,
-                  causal=False)
+                  causal=False, tp=tp)
         x, s = _residual(x, h)
-        return _mlp_tail(p, x, s, cfg)
+        return _mlp_tail(p, x, s, cfg, tp)
 
     layer = L.remat(layer, cfg.parallel.remat, policy=False)
     at = L.layer_views(params["enc_blocks"])
@@ -157,17 +170,19 @@ def encode(params, frontend: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _norm(x, params["ln_enc"], cfg)
 
 
-def _cross_kv(p, enc: torch.Tensor, cfg: ModelConfig):
+def _cut(cfg: ModelConfig, tp) -> bool:
+    """Whether the ranks of ``tp`` hold blocks of heads (both counts
+    divide; else every rank runs every head)."""
+    return head_cut(tp, cfg.num_heads, cfg.num_kv_heads)
+
+
+def _cross_kv(p, enc: torch.Tensor, cfg: ModelConfig, tp=None):
     """One decoder layer's cross K and V of the encoder output, each (B,
-    Hkv, Tx, hd)."""
-    B, Tx, _ = enc.shape
-    hd = cfg.resolved_head_dim
-
-    def heads(w):
-        return L.linear(enc, w).reshape(B, Tx, cfg.num_kv_heads,
-                                        hd).transpose(1, 2)
-
-    return heads(p["cross"]["wk"]), heads(p["cross"]["wv"])
+    Hkv, Tx, hd): on a tensor-parallel rank its own KV heads, projected by
+    its column blocks."""
+    return tuple(L.project_heads(enc, p["cross"][w], cfg.num_kv_heads,
+                                 cfg.resolved_head_dim, tp, _cut(cfg, tp))
+                 for w in ("wk", "wv"))
 
 
 def _logits(params, x, cfg: ModelConfig, rounded: bool):
@@ -179,7 +194,8 @@ def _logits(params, x, cfg: ModelConfig, rounded: bool):
     head = params["lm_head"]
     if rounded:
         head = head.to(_dtype(cfg)).to(torch.float32)
-    logits = _norm(x, params["ln_final"], cfg).to(torch.float32) @ head
+    logits = gather(_norm(x, params["ln_final"], cfg).to(torch.float32)
+                    @ head, params.get("tp"), cfg.vocab_size)
     return logits.to(_dtype(cfg)).to(torch.float32) if rounded else logits
 
 
@@ -231,14 +247,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if frontend is not None and params is not None:
-        enc = encode(params, frontend, cfg)
-        shape = (Ld, batch, cfg.num_kv_heads, enc.shape[1], hd)
-        cache["cross_k"] = torch.empty(shape, dtype=dtype, device=device)
-        cache["cross_v"] = torch.empty(shape, dtype=dtype, device=device)
-        for i in range(Ld):
-            cache["cross_k"][i], cache["cross_v"][i] = _cross_kv(
-                _layer(params["dec_blocks"], i), enc, cfg)
+        cache.update(cross_cache(params, frontend, cfg))
     return cache
+
+
+def cross_cache(params, frontend: torch.Tensor, cfg: ModelConfig
+                ) -> Dict[str, torch.Tensor]:
+    """The encoder run once (:func:`encode`) and each decoder layer's cross
+    K/V of its output, ``cross_k`` / ``cross_v`` (L, batch, Hkv, Tx, hd);
+    on a tensor-parallel rank (``params["tp"]``) its own KV heads."""
+    enc = encode(params, frontend, cfg)
+    tp = params.get("tp")
+    out = {}
+    for i in range(cfg.num_layers):
+        for name, t in zip(("cross_k", "cross_v"), _cross_kv(
+                _layer(params["dec_blocks"], i), enc, cfg, tp)):
+            if name not in out:
+                out[name] = torch.empty((cfg.num_layers,) + t.shape,
+                                        dtype=t.dtype, device=t.device)
+            out[name][i] = t
+    return out
 
 
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -256,31 +284,37 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
             "with init_cache(..., frontend=, params=)")
     B = tokens.shape[0]
     hd, Hq = cfg.resolved_head_dim, cfg.num_heads
+    tp = params.get("tp")
+    cut = _cut(cfg, tp)
     x = params["embed"][tokens.to(torch.int64)][:, None, :].to(_dtype(cfg))
     pos = cache["len"]
     positions = pos[:, None]
     aligned = cfg.parallel.aligned_decode
     Tx = cache["cross_k"].shape[3]
     cross_len = torch.full((B,), Tx, dtype=torch.int32, device=x.device)
+
+    def heads_out(o, w):
+        # a rank's heads gathered before the whole output projection
+        return L.linear(gather(o.transpose(1, 2).reshape(B, 1, -1), tp,
+                               Hq * hd), w)
+
     for i in range(cfg.num_layers):
         p = _layer(params["dec_blocks"], i)
         q, k, v = L.qkv_project(p["self"], _norm(x, p["ln_self"], cfg), Hq,
-                                cfg.num_kv_heads, hd)
+                                cfg.num_kv_heads, hd, tp=tp)
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
         kc, vc = cache["k"][i], cache["v"][i]
         L.cache_write(kc, k, pos, aligned, write)
         L.cache_write(vc, v, pos, aligned, write)
         o = ops.decode_attention(q, kc, vc, pos + 1)
-        x, s = _residual(x, L.linear(o.transpose(1, 2).reshape(B, 1, Hq * hd),
-                                     p["self"]["wo"]))
-        qx = L.linear(_norm(s, p["ln_cross"], cfg), p["cross"]["wq"]).reshape(
-            B, 1, Hq, hd).transpose(1, 2)
+        x, s = _residual(x, heads_out(o, p["self"]["wo"]))
+        qx = L.project_heads(_norm(s, p["ln_cross"], cfg), p["cross"]["wq"],
+                             Hq, hd, tp, cut)
         o = ops.decode_attention(qx, cache["cross_k"][i],
                                  cache["cross_v"][i], cross_len)
-        x, s = _residual(x, L.linear(o.transpose(1, 2).reshape(B, 1, Hq * hd),
-                                     p["cross"]["wo"]))
-        x = _mlp_tail(p, x, s, cfg)
+        x, s = _residual(x, heads_out(o, p["cross"]["wo"]))
+        x = _mlp_tail(p, x, s, cfg, tp)
     logits = _logits(params, x[:, 0], cfg, rounded=False)
     cache["len"] += 1 if write is None else write.to(torch.int32)
     return logits, cache

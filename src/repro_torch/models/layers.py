@@ -124,25 +124,33 @@ def qkv_project(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
     block is gathered and every rank holds every head (a KV head count
     that the group does not divide replicates, as the JAX package's rules
     make it)."""
-    B, T, _ = x.shape
     cut = head_cut(tp, num_heads, num_kv_heads)
+    return tuple(project_heads(x, p[w], n, head_dim, tp, cut,
+                               reciprocal_scale)
+                 for w, n in (("wq", num_heads), ("wk", num_kv_heads),
+                              ("wv", num_kv_heads)))
 
-    def heads(w, n):
-        y = linear(x, w, reciprocal_scale)
-        if not cut:
-            y = gather(y, tp, n * head_dim)
-        return y.reshape(B, T, -1, head_dim).transpose(1, 2)
 
-    return (heads(p["wq"], num_heads), heads(p["wk"], num_kv_heads),
-            heads(p["wv"], num_kv_heads))
+def project_heads(x: torch.Tensor, w, n: int, head_dim: int, tp=None,
+                  cut: bool = False, reciprocal_scale: bool = False
+                  ) -> torch.Tensor:
+    """x (B, T, d) through ``w`` into heads (B, heads, T, hd): ``n`` heads
+    on one device; under tensor parallelism (``tp``) ``w`` is this rank's
+    column block, whose heads the rank keeps where ``cut`` (both head
+    counts divide, ``sharding.head_cut``), else gathered into all ``n``."""
+    B, T, _ = x.shape
+    y = linear(x, w, reciprocal_scale)
+    if not cut:
+        y = gather(y, tp, n * head_dim)
+    return y.reshape(B, T, -1, head_dim).transpose(1, 2)
 
 
 def attn_apply(p: dict, x: torch.Tensor, *, num_heads: int,
                num_kv_heads: int, head_dim: int, positions: torch.Tensor,
                rope_theta: float, window: Optional[int] = None,
                softcap: Optional[float] = None,
-               causal: bool = True, kv: Optional[tuple] = None
-               ) -> torch.Tensor:
+               causal: bool = True, kv: Optional[tuple] = None,
+               tp=None) -> torch.Tensor:
     """Full attention block over a whole sequence (the forward path): QKV
     projection, rope at ``positions``, ``ops.attention`` (the flash kernel
     on the card, its plain version on the CPU) with ``causal`` / ``window``
@@ -151,19 +159,24 @@ def attn_apply(p: dict, x: torch.Tensor, *, num_heads: int,
     ``kv = (k, v)``, each (B, Hkv, Tk, hd), is cross-attention: keys and
     values from another sequence, no rope, ``causal`` and ``window`` off.
     The JAX package projects ``wk`` / ``wv`` of ``x`` there too and drops
-    them; the port skips those two products (the result is the same)."""
+    them; the port skips those two products (the result is the same).
+
+    Serving under tensor parallelism (``tp``): the projections are the
+    rank's column blocks and ``kv`` the rank's heads (:func:`qkv_project`'s
+    cut), and the heads' output is gathered before the whole ``wo``
+    (``pin_tp_exact``)."""
     B, T, _ = x.shape
     if kv is None:
-        q, k, v = qkv_project(p, x, num_heads, num_kv_heads, head_dim)
+        q, k, v = qkv_project(p, x, num_heads, num_kv_heads, head_dim, tp=tp)
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
     else:
-        q = linear(x, p["wq"]).reshape(B, T, num_heads,
-                                       head_dim).transpose(1, 2)
+        q = project_heads(x, p["wq"], num_heads, head_dim, tp,
+                          head_cut(tp, num_heads, num_kv_heads))
         k, v = kv
         causal, window = False, None
     o = ops.attention(q, k, v, causal=causal, window=window, softcap=softcap)
-    o = o.transpose(1, 2).reshape(B, T, num_heads * head_dim)
+    o = gather(o.transpose(1, 2).reshape(B, T, -1), tp, num_heads * head_dim)
     return linear(o, p["wo"])
 
 

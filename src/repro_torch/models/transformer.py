@@ -313,21 +313,20 @@ def _group_end(cfg: ModelConfig, at, slot) -> bool:
         at[1] * P + slot == group_layout(cfg)[1] - 1)
 
 
-def _cross_kv(p, frontend: torch.Tensor, cfg: ModelConfig):
+def _cross_kv(p, frontend: torch.Tensor, cfg: ModelConfig, tp=None):
     """Project stub modality embeddings (B, Tx, d) to one cross block's K and
-    V, each (B, Hkv, Tx, hd) in the compute dtype (a device-phase op)."""
-    B, Tx, _ = frontend.shape
-    hd = cfg.resolved_head_dim
+    V, each (B, Hkv, Tx, hd) in the compute dtype (a device-phase op).
+    Under tensor parallelism the rank's column blocks of ``wk`` / ``wv``
+    give its own KV heads where the heads are cut (:func:`_head_cut`),
+    else they are gathered into every head."""
     x = frontend.to(getattr(torch, cfg.dtype))
-
-    def heads(w):
-        return L.linear(x, w).reshape(B, Tx, cfg.num_kv_heads,
-                                      hd).transpose(1, 2)
-
-    return heads(p["attn"]["wk"]), heads(p["attn"]["wv"])
+    cut = _head_cut(cfg, tp)
+    return tuple(L.project_heads(x, p["attn"][w], cfg.num_kv_heads,
+                                 cfg.resolved_head_dim, tp, cut)
+                 for w in ("wk", "wv"))
 
 
-def _cross_apply(p, x, h, cross_kv, cfg: ModelConfig):
+def _cross_apply(p, x, h, cross_kv, cfg: ModelConfig, tp=None):
     """The gated cross-attention block after a group: x (B, T, d) is the
     residual stream and ``h`` its float32 sum before rounding (the group's
     last layer's, :func:`_block_tail`), which the block's norm reads as the
@@ -335,13 +334,16 @@ def _cross_apply(p, x, h, cross_kv, cfg: ModelConfig):
     ``layers.attn_apply(kv=)`` (no rope, not causal: the flash kernel on the
     card, also at T = 1 in a decode step), then ``x + tanh(gate) * out``
     with XLA's tanh of the float32 gate cast to the compute dtype.
-    Returns the new residual stream (the group's output, rounded)."""
+    Returns the new residual stream (the group's output, rounded).  Under
+    tensor parallelism the rank attends its own heads over its cross K/V
+    and the heads are gathered before the whole ``wo``, so the gated
+    residual runs on whole tensors."""
     dtype = x.dtype
     xn = L.rmsnorm(h, p["ln"], cfg.norm_eps).to(dtype)
     out = L.attn_apply(
         p["attn"], xn, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-        positions=None, rope_theta=cfg.rope_theta, kv=cross_kv)
+        positions=None, rope_theta=cfg.rope_theta, kv=cross_kv, tp=tp)
     return x + ref.tanh(p["gate"]).to(dtype) * out
 
 
@@ -441,10 +443,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape ``(n_groups, group_size // P, batch, Hkv, S, hd)`` in the compute
     dtype (S = max_len, or the window for a windowed slot), and ``len``
     (batch,) int32.  A cross-attention config given ``frontend`` (batch, Tx,
-    d) and ``params`` also holds ``cross_k`` / ``cross_v`` (n_groups, batch,
-    Hkv, Tx, hd): each group's cross projections of the frontend, made once
-    per request here (:func:`_cross_kv`), group by group into the leaves,
-    so each group's slice is contiguous for the flash kernel."""
+    d) and ``params`` also holds ``cross_k`` / ``cross_v``
+    (:func:`cross_cache`)."""
     _check_block_path(cfg, cross_ok=True)
     n_groups, group_size = group_layout(cfg)
     P = len(cfg.layer_pattern)
@@ -461,14 +461,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     cache = {"k": [leaf(S) for S in sizes], "v": [leaf(S) for S in sizes],
              "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.cross_attn_every and frontend is not None and params is not None:
-        Tx = frontend.shape[1]
-        shape = (n_groups, batch, cfg.num_kv_heads, Tx, hd)
-        cache["cross_k"] = torch.empty(shape, dtype=dtype, device=device)
-        cache["cross_v"] = torch.empty(shape, dtype=dtype, device=device)
-        for g in range(n_groups):
-            cache["cross_k"][g], cache["cross_v"][g] = _cross_kv(
-                _cross_params(params, g), frontend, cfg)
+        cache.update(cross_cache(params, frontend, cfg))
     return cache
+
+
+def cross_cache(params, frontend: torch.Tensor, cfg: ModelConfig
+                ) -> Dict[str, torch.Tensor]:
+    """A VLM's ``cross_k`` / ``cross_v`` (n_groups, batch, Hkv, Tx, hd):
+    each group's cross projections of ``frontend`` (:func:`_cross_kv`),
+    made once per request, group by group into the leaves, so each group's
+    slice is contiguous for the flash kernel.  On a tensor-parallel rank
+    (``params["tp"]``) the rank's blocks project its own KV heads."""
+    tp = params.get("tp")
+    out = {}
+    for g in range(group_layout(cfg)[0]):
+        for name, t in zip(("cross_k", "cross_v"), _cross_kv(
+                _cross_params(params, g), frontend, cfg, tp)):
+            if name not in out:
+                out[name] = torch.empty((group_layout(cfg)[0],) + t.shape,
+                                        dtype=t.dtype, device=t.device)
+            out[name][g] = t
+    return out
 
 
 def prefill(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
@@ -500,7 +513,7 @@ def prefill(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
         x, h = _block_tail(pj, x, o, cfg, tp)
         if _group_end(cfg, at, slot):
             cp, kv = _cross_at(params, cache, at[0])
-            x = _cross_apply(cp, x, h, kv, cfg)
+            x = _cross_apply(cp, x, h, kv, cfg, tp)
     n = T if true_len is None else int(true_len)
     logits = _logits_head(params, x[:, n - 1], cfg)
     cache["len"] += n
@@ -544,7 +557,7 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
         x, h = _block_tail(pj, x, o, cfg, tp)
         if _group_end(cfg, at, slot):
             cp, kv = _cross_at(params, cache, at[0])
-            x = _cross_apply(cp, x, h, kv, cfg)
+            x = _cross_apply(cp, x, h, kv, cfg, tp)
     logits = _logits_head(params, x[:, 0], cfg)
     cache["len"] += 1 if write is None else write.to(torch.int32)
     return logits, cache

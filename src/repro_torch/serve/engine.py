@@ -83,10 +83,18 @@ and is gathered, then cast.  The TrafficMeter replays eq.
                 logits, keep the ranks' tokens equal to one device's.  The
                 meter logs each crossing once per shard at ``width / tp``
                 (``traffic_shards``), so its totals do not change; the
-                pool's ``kv_shards`` says whether its KV heads are cut.  The
-                lm (dense and windowed), rwkv and hymba families serve under
-                TP through the slot protocol; ``generate()`` and the MoE
-                and cross-attention configs raise.
+                pool's ``kv_shards`` says whether its KV heads are cut.
+                Every config serves under TP, through ``generate()`` (its
+                cache, cross K/V included, from ``api.init_cache(tp=)``)
+                and, where the reference allows it, the slot protocol.  A
+                MoE config's experts and router stay whole on every rank
+                (the column-only cut drops the expert cut), so each rank
+                runs the whole ``moe_apply`` on the whole hidden, which the
+                head-cut attention gathers before ``wo``: its padding and
+                drops are the same on every rank.  A VLM's cross blocks and
+                an encoder-decoder's attention are cut on heads like the
+                self-attention.  A scheduler over a TP engine decides by
+                one loop clock for the group, rank 0's (``TPGroup.clock``).
 """
 from __future__ import annotations
 
@@ -233,11 +241,9 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         ``eos_id``: per-request stop token.  Output rows are padded with
         ``eos_id`` past each request's stop, and ``gen_len`` reports the
         exact generated length (EOS inclusive, capped at ``max_new``).
+        On tensor-parallel ranks every rank calls it with the same
+        arguments; the cache is the rank's (``api.init_cache(tp=)``).
         """
-        if self.tp is not None:
-            raise NotImplementedError(
-                "generate() on tensor-parallel ranks is not ported yet "
-                "(ROADMAP.md): serve through the slot protocol")
         if fused is None:
             fused = self.fused
         cfg = self.cfg
@@ -261,7 +267,7 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                 f"max_len={self.max_len}")
         cache = api.init_cache(cfg, prompts.shape[0], self.max_len,
                                frontend=frontend, params=self.params,
-                               device=self.device)
+                               device=self.device, tp=self.tp)
         if not fused:
             return self._generate_stepwise(cache, prompts, max_new, eos_id)
         toks = self._tokens(prompts)
@@ -371,15 +377,11 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         return pcache
 
     def _rank_cache(self, batch: int, max_len: int, device=None):
-        """A zeroed dense cache of ``batch`` rows as this rank holds it: the
-        family's cache on one device, else its whole shapes cut by the
-        serve cache rules (``sharding.rank_cache``)."""
-        device = self.device if device is None else device
-        if self.tp is None:
-            return api.init_cache(self.cfg, batch, max_len, device=device)
-        like = api.init_cache(self.cfg, batch, max_len,
-                              device=torch.device("meta"))
-        return sharding.rank_cache(like, self.tp, device)
+        """A zeroed dense cache of ``batch`` rows as this rank holds it
+        (``api.init_cache(tp=)``)."""
+        return api.init_cache(self.cfg, batch, max_len,
+                              device=self.device if device is None else device,
+                              tp=self.tp)
 
     def _stats_seq_axes(self):
         return self._sa
@@ -519,16 +521,10 @@ class ServeEngine(pages_mod.PagedEngineMixin):
 
 
 def check_tp(cfg: ModelConfig, tp, device) -> None:
-    """The tensor-parallel serving this slice covers: the lm family's dense
-    and windowed configs, rwkv and hymba on the rank's own device.  The
-    MoE and cross-attention configs and the sequence-cut dense decode
-    (``parallel.decode_attn="shard_map"``) are not ported to TP yet
-    (ROADMAP.md)."""
-    if cfg.moe or cfg.cross_attn_every or cfg.frontend_tokens \
-            or cfg.family == "encdec":
-        raise ValueError(
-            f"{cfg.name}: tensor-parallel serving of the MoE and "
-            f"cross-attention configs is not ported yet (ROADMAP.md)")
+    """Tensor-parallel serving covers every config of the registry on the
+    rank's own device; the sequence-cut dense decode
+    (``parallel.decode_attn="shard_map"``, which no config sets) is not
+    ported to TP yet (ROADMAP.md)."""
     if cfg.parallel.decode_attn == "shard_map":
         raise ValueError(
             f"{cfg.name}: parallel.decode_attn='shard_map' (a dense cache "

@@ -70,6 +70,16 @@ re-prefill after eviction, even chunks computed by a job that later failed
 ``(prefill_tokens + decoded_tokens) * bytes_per_token`` and, for runs with
 no eviction/abort, the classic per-request identity
 ``sum(T0 - 1 - cached + gen)`` (tests/test_scheduler.py).
+
+The loop clock (``clock=``): deadlines and realtime arrivals are decided
+against one reading of the clock per iteration, taken at the top of
+``step()`` (and before a realtime idle sleep).  Over a tensor-parallel
+engine (``engine.tp``) the default clock is the group's
+(``TPGroup.clock``: rank 0's ``perf_counter`` broadcast to every rank), so
+every rank's scheduler expires and admits the same requests at the same
+iteration and the ranks keep decoding the same batches; on one device it
+is ``time.perf_counter``.  The results' times (admission, first token,
+finish) and ``wall_s`` are each process's own ``perf_counter``.
 """
 from __future__ import annotations
 
@@ -192,7 +202,10 @@ class ContinuousBatchingScheduler:
     ``backoff_steps``/``backoff_cap`` bound the evicted victim's
     exponential re-admission backoff in scheduler iterations.  ``faults``
     takes a :class:`repro_torch.serve.faults.FaultInjector` whose seeded
-    failure points the loop must absorb gracefully.
+    failure points the loop must absorb gracefully.  ``clock`` (seconds,
+    monotonic) is the loop clock of the deadline and arrival decisions
+    (module docstring); by default the engine's TP group's, else
+    ``time.perf_counter``.
     """
 
     def __init__(self, engine, max_slots: int = 8,
@@ -203,8 +216,13 @@ class ContinuousBatchingScheduler:
                  backoff_steps: int = 2,
                  backoff_cap: int = 32,
                  max_strikes: int = 3,
-                 faults=None):
+                 faults=None,
+                 clock: Optional[Callable[[], float]] = None):
         self.engine = engine
+        if clock is None:
+            tp = getattr(engine, "tp", None)
+            clock = time.perf_counter if tp is None else tp.clock
+        self._clock = clock
         self.max_slots = int(max_slots)
         self.eos_id = eos_id
         if prefill_chunk is not None and prefill_chunk < 1:
@@ -262,7 +280,9 @@ class ContinuousBatchingScheduler:
         self.recovery_log: List[Dict[str, Any]] = []
         self._unmetered = 0
         self._slept_s = 0.0
-        self._t_start = time.perf_counter()
+        self._t_local = time.perf_counter()
+        self._t_start = self._clock()
+        self._t_loop = 0.0            # this iteration's loop clock reading
         self._began = True
 
     def _ensure_began(self) -> None:
@@ -270,13 +290,20 @@ class ContinuousBatchingScheduler:
             self.begin()
 
     def _now(self) -> float:
-        return time.perf_counter() - self._t_start
+        """This process's seconds since ``begin`` (the results' times)."""
+        return time.perf_counter() - self._t_local
+
+    def _tick(self) -> None:
+        """Read the loop clock once: the reading every deadline and arrival
+        decision until the next one uses."""
+        self._t_loop = self._clock() - self._t_start
 
     def clock(self) -> float:
         """The loop clock (seconds since ``begin``): the timebase of
-        ``arrival_s`` and ``deadline_s``."""
+        ``arrival_s`` and ``deadline_s``, read now (over a TP group every
+        rank must call it at the same point)."""
         self._ensure_began()
-        return self._now()
+        return self._clock() - self._t_start
 
     def has_work(self) -> bool:
         """Anything queued, prefilling or decoding."""
@@ -440,7 +467,7 @@ class ContinuousBatchingScheduler:
             self._finish_slot(slot, RequestState.CANCELLED)
 
     def _expire_deadlines(self) -> None:
-        now = self._now()
+        now = self._t_loop
 
         def expired(req: Request) -> bool:
             return req.deadline_s is not None and now > req.deadline_s
@@ -522,9 +549,9 @@ class ContinuousBatchingScheduler:
     # ------------------------------------------------------------- admission
     def _pick_pending(self, realtime: bool) -> Optional[_ReqRecord]:
         """Highest-priority eligible record (ties: earliest arrival, then
-        uid).  Realtime gates on the wall clock; backoff gates evicted
+        uid).  Realtime gates on the loop clock; backoff gates evicted
         victims on the iteration clock either way."""
-        now = self._now() if realtime else 0.0
+        now = self._t_loop if realtime else 0.0
         best = None
         for rec in self._pending:
             if realtime and rec.req.arrival_s > now:
@@ -828,6 +855,7 @@ class ContinuousBatchingScheduler:
         step.  Returns the results that reached a terminal state during
         this iteration (they also stay queued for ``poll()``)."""
         self._ensure_began()
+        self._tick()
         n0 = len(self._results)
         if self.faults is not None:
             self.faults.on_step(self)
@@ -874,7 +902,8 @@ class ContinuousBatchingScheduler:
             if (realtime and not self._active.any()
                     and not self._prefilling and self._pending):
                 nxt = min(r.req.arrival_s for r in self._pending)
-                dt = nxt - self._now()
+                self._tick()
+                dt = nxt - self._t_loop
                 if dt > 0:
                     t0 = time.perf_counter()
                     time.sleep(dt)

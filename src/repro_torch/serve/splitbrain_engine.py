@@ -49,8 +49,10 @@ kernel's output is bit-identical to the full product's columns, and the
 activations are gathered before each whole product and the logits after
 the head, so every rank's tokens are one device's.  The KV state is cut on
 heads where both head counts divide; the meter logs each crossing once per
-shard at ``width / tp`` (``traffic_shards``).  Under TP the engine serves
-through the slot protocol; ``generate()`` raises.
+shard at ``width / tp`` (``traffic_shards``), so the bytes per token are
+one device's.  Under TP the engine serves through the slot protocol and
+``generate()`` (fused and eager), every rank called with the same
+arguments, with the same launches per token step as one device.
 """
 from __future__ import annotations
 
@@ -354,10 +356,6 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         bytes per ACTIVE token only (every prompt-forcing step for the
         whole batch).  ``decode_s`` / ``tokens_per_s`` cover prompt and
         decode, as in the JAX package."""
-        if self.tp is not None:
-            raise NotImplementedError(
-                "generate() on tensor-parallel ranks is not ported yet "
-                "(ROADMAP.md): serve through the slot protocol")
         prompts = np.asarray(prompts, np.int32)
         B, T0 = prompts.shape
         if T0 - 1 + max_new > self.max_len:

@@ -170,6 +170,18 @@ def test_mesh_plans():
     assert (plan.backend, list(plan.devices)) == runtime.plan((2, 2), "cpu")
 
 
+def test_make_test_mesh_defaults_to_the_card(monkeypatch):
+    """An entry point of the port: without ``device=`` (and without
+    ``devices``) the grid is placed on the card, so a host without one
+    raises; the CPU is asked for explicitly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"shape": (1, 2)}, {"shape": (2, 2)}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmesh.make_test_mesh(**kw)
+    assert tmesh.make_test_mesh(shape=(1, 2), device="cpu").devices == (
+        "cpu", "cpu")
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("name", ["llama2-7b", "tinyllama-1.1b"])
 def test_quantized_param_cuts_equal_param_pspecs(name, shape):

@@ -955,6 +955,89 @@ def test_tp_paged_head_cut_and_merge_on_card(cuda):
         assert r["merge"], r
 
 
+# the kernels at tensor-parallel ranks' shapes: qwen3-moe's head-cut pool
+# (32/2 heads of 64 on a 32-page table) and flash at qwen3-moe's bucketed
+# prefill (32/2 x 64), the VLM's prefill and cross blocks (16/4 x 128, a
+# 63-row body, 1,600 frontend tokens) and seamless's encoder (8/8 x 64)
+TP_RANK_CASES = [
+    ("paged", dict(B=8, Hq=32, Hkv=2, D=64, ps=16, P=32,
+                   lens=(0, 1, 31, 64, 100, 180, 257, 271)), {}),
+    ("flash", (1, 32, 2, 256, 256, 64), dict(causal=True)),
+    ("flash", (2, 16, 4, 63, 63, 128), dict(causal=True)),
+    ("flash", (2, 16, 4, 63, 1600, 128), dict(causal=False)),
+    ("flash", (2, 16, 4, 1, 1600, 128), dict(causal=False)),
+    ("flash", (4, 8, 8, 960, 960, 64), dict(causal=False))]
+
+
+@pytest.mark.parametrize("case", range(len(TP_RANK_CASES)))
+def test_kernels_at_tp_rank_shapes(cuda, case):
+    """bf16, one launch each: paged within one bf16 ulp of the plain value
+    plus the order bound of two sum orders, flash within one bf16 ulp plus
+    1e-5."""
+    kind, geom, opts = TP_RANK_CASES[case]
+    if kind == "paged":
+        c = {k: v.to(cuda) if torch.is_tensor(v) else v
+             for k, v in paged_case(70, dtype=torch.bfloat16,
+                                    **geom).items()}
+        n0 = kpa.paged_decode_attention.launches
+        out = ops.paged_decode_attention(c["q"], c["k"], c["v"], c["table"],
+                                         c["lens"])
+        plain = ref.paged_decode_attention(c["q"], c["k"], c["v"],
+                                           c["table"], c["lens"]).float()
+        bound = ref.paged_decode_order_bound(c["q"], c["k"], c["v"],
+                                             c["table"], c["lens"])
+        torch.cuda.synchronize()
+        assert kpa.paged_decode_attention.launches == n0 + 1
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.clamp_min(plain.abs(), 2.0 ** -126))) - 7)
+        assert bool(((out.float() - plain).abs() <= ulp + bound).all())
+        return
+    q, k, v = _flash_inputs(*geom, torch.bfloat16, cuda, seed=80 + case)
+    n0 = kfa.flash_attention.launches
+    out = ops.attention(q, k, v, **opts)
+    plain = ref.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == n0 + 1
+    assert_within_bf16_ulp(out, plain.float().cpu().numpy(), atol=1e-5)
+
+
+def test_vlm_generate_on_two_ranks_on_card(cuda, monkeypatch):
+    """llama-3.2-vision-11b at full width and 5 layers (one gated cross
+    block) on two gloo ranks sharing the card: fused ``generate()`` on 2 x
+    32 with 4 new gives both ranks the same tokens and the flash launches
+    of one device on the rank's heads (a prefill's 5 causal and 1 cross,
+    one cross per decode step), and the tp 1 engine's tokens, or at a
+    row's first differing pick a near-tie in its logits (within 4 bf16
+    ulps of the largest: the ranks' half-width GEMMs may round apart)."""
+    from repro_torch.distributed import runtime
+    from repro_torch.serve import engine as engine_mod
+    from torch_tp_cases import vlm_card_case, vlm_card_rank
+    layers, B, T0, new = 5, 2, 32, 4
+    ranks = runtime.spawn(vlm_card_rank, (1, 2), (layers, B, T0, new),
+                          backend="gloo", devices=["cuda:0"] * 2,
+                          timeout=600)
+    (toks, counts), (toks1, _) = ranks
+    assert np.array_equal(toks, toks1)
+    assert counts == {"w4a8_matmul": 0, "paged_decode_attention": 0,
+                      "flash_attention": layers + 1 + new, "rwkv6_scan": 0}
+    cfg, params, prompts, fe = vlm_card_case(layers, B, T0, cuda)
+    eng = ServeEngine(cfg, params, max_len=T0 + new, device=cuda)
+    del params
+    kept, step = [], engine_mod.api.decode_step
+
+    def spy(*a, **kw):
+        logits, cache = step(*a, **kw)
+        kept.append(logits.float().cpu())
+        return logits, cache
+    monkeypatch.setattr(engine_mod.api, "decode_step", spy)
+    want = eng.generate(prompts, max_new=new, frontend=fe)["tokens"]
+    for row in np.flatnonzero((want != toks).any(axis=1)):
+        j = int(np.flatnonzero(want[row] != toks[row])[0])
+        logits = kept[j][row]
+        gap = abs(logits[int(want[row, j])] - logits[int(toks[row, j])])
+        assert gap <= 4 * bf16_ulp_of(logits.abs().max().item()), (row, j)
+
+
 # ----------------------------------------------------------------------------
 # training: the kernels refuse gradients, their Functions give the plain
 # versions' (the same plain computation runs on the same saved inputs, so

@@ -1,9 +1,11 @@
 """The port's serving CLI, ``python -m repro_torch.launch.serve``, on the
 CPU at the reduced size: both modes print their JSON report, the KV-cache
 feature flags serve, ``--tp 2`` serves on two gloo ranks with the tokens of
-``--tp 1``, the frontend configs serve through generate() only, flag
-combinations the port does not have yet exit with "not ported yet", and
-the default device needs a card.  Imports neither JAX nor the JAX package."""
+``--tp 1`` (with the online and chaos flags, the MoE configs and
+``generate()`` too; only rank 0 writes ``--recovery-log``), the frontend
+configs serve through generate() only, a name outside the registry exits
+with "not ported yet", and the default device needs a card.  Imports
+neither JAX nor the JAX package."""
 import json
 
 import pytest
@@ -75,27 +77,58 @@ def test_ported_feature_flags_serve(flags, capsys):
     ["--tp", "2", "--priority", "0,1"],
     ["--tp", "2", "--arch", "phi3.5-moe-42b-a6.6b"]])
 def test_unported_flags_exit(flags, capsys):
-    """``--tp`` is ported; the combinations this slice does not serve under
-    it (the online and chaos flags, the MoE and cross-attention configs)
-    exit with "not ported yet", naming ROADMAP.md, before any rank
-    starts."""
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", "llama2-7b", *SMOKE, "--continuous",
-                    "--page-size", "8", *flags])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md" in err
+    """The combinations that earlier slices refused under ``--tp`` (the
+    online and chaos flags, the MoE configs) serve on two gloo ranks now:
+    rank 0's report has the tokens and request states of ``--tp 1`` (a
+    device loss recovered on both ranks alike)."""
+    args = ["--arch", "llama2-7b", *SMOKE, "--continuous", "--requests",
+            "4", "--slots", "2", "--page-size", "8", *flags[2:]]
+    serve.main(args)
+    one = _report(capsys)
+    out = serve.main(args + flags[:2])
+    two = _report(capsys)
+    assert two["tp"] == 2 and two["tokens"] == one["tokens"] == out["tokens"]
+    assert two["by_state"] == one["by_state"] == {"DONE": 4}
+    assert two.get("chaos") is None or (
+        two["chaos"]["fired"] == one["chaos"]["fired"] == {"device_loss": 1})
 
 
 def test_tp_without_continuous_exits(capsys):
-    """``generate()`` on tensor-parallel ranks is not covered by this
-    slice's tests: ``--tp`` without ``--continuous`` exits with "not ported
-    yet", naming ROADMAP.md, before any rank starts."""
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", "llama2-7b", *SMOKE, "--tp", "2"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md" in err
+    """``--tp 2`` without ``--continuous`` runs ``generate()`` on the two
+    ranks: rank 0's report has the tokens of ``--tp 1``."""
+    args = ["--arch", "llama2-7b", *SMOKE, "--batch", "3"]
+    one = serve.main(args)
+    rep1 = _report(capsys)
+    out = serve.main(args + ["--tp", "2"])
+    rep2 = _report(capsys)
+    assert out["tokens"] == one["tokens"].tolist()
+    assert rep2["generated"] == rep1["generated"] and rep2["tp"] == 2
+
+
+def test_tp_recovery_log_written_once_by_rank_0(capsys, tmp_path):
+    """Under ``--tp 2`` only rank 0 writes ``--recovery-log``; its events
+    are those of ``--tp 1`` (without their seconds), and the ranks agree
+    on them."""
+    log = tmp_path / "events.json"
+    args = ["--arch", "llama2-7b", *SMOKE, "--continuous", "--requests",
+            "4", "--slots", "2", "--page-size", "8", "--chaos-plan",
+            "step_corrupt_at=2,step_corrupt_iters=2,device_loss_at=6",
+            "--recovery-log", str(log)]
+    serve.main(args)
+    _report(capsys)
+    one = json.loads(log.read_text())
+    log.unlink()
+    out = serve.main(args + ["--tp", "2"])
+    rep = _report(capsys)
+    assert out["log_writers"] == [0] and rep["recovery_log"] == str(log)
+    two = json.loads(log.read_text())
+
+    def strip(events):
+        return [{k: v for k, v in e.items() if k != "recovery_s"}
+                for e in events]
+
+    assert strip(two) == strip(one) == out["events"]
+    assert {e["event"] for e in two} == {"quarantine", "recover"}
 
 
 def test_tp2_reports_the_tokens_of_tp1(capsys):

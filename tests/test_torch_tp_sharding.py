@@ -3,7 +3,9 @@ against the JAX package's ``serve_param_pspecs``, ``serve_cache_pspecs``,
 ``pool_pspecs`` and ``pool_kv_cut``, leaf by leaf, at tp 2 and 4 on an
 ``AbstractMesh`` (no devices needed), over the four slot-cache families of
 ``tests/test_sharding_serve.py`` built as that file builds them, with a
-bf16 and an int8 pool.  The one intended difference is the split-brain
+bf16 and an int8 pool, and over a MoE config (whose expert stacks and
+router every rank holds whole) and the cross-attention configs (their
+caches with a frontend's cross K/V).  The one intended difference is the split-brain
 engine's layout: the port gives its stacked W4A8 weights the column-only
 serve cut, where the JAX package gives them the Megatron row cuts
 (``param_pspecs``) too."""
@@ -31,7 +33,9 @@ from repro_torch.serve import pages
 from repro_torch.serve.engine import ServeEngine
 
 MAX_LEN, PS = 32, 8
-FAMILIES = ["llama2-7b", "gemma2-27b", "hymba-1.5b", "rwkv6-7b"]
+FAMILIES = ["llama2-7b", "gemma2-27b", "hymba-1.5b", "rwkv6-7b",
+            "phi3.5-moe-42b-a6.6b", "llama-3.2-vision-11b",
+            "seamless-m4t-medium"]
 TPS = [2, 4]
 
 
@@ -109,6 +113,20 @@ def _build(name):
     tsa = pages.seq_axes(tcache, api.init_cache(tcfg, 2, MAX_LEN + PS,
                                                 device=meta), PS)
     tba = api.family_module(tcfg).BATCH_AXES
+    if cfg.frontend_tokens:
+        # the cut tests take a request's cache with its frontend's cross
+        # K/V (each package's init_cache with a frontend and params)
+        fe = (2, cfg.frontend_tokens, cfg.d_model)
+        cache = jax.eval_shape(lambda: japi.init_cache(
+            cfg, 2, MAX_LEN, frontend=jax.numpy.zeros(fe),
+            params=japi.init_params(cfg, jax.random.PRNGKey(0))))
+        real = api.init_cache(
+            tcfg, 2, MAX_LEN, device="cpu", frontend=torch.zeros(fe),
+            params=api.init_params(tcfg, torch.Generator().manual_seed(0),
+                                   "cpu"))
+        tcache = sharding._map_paths(
+            lambda p, t: torch.empty(t.shape, dtype=t.dtype, device=meta),
+            real)
     return dict(name=name, cfg=cfg, params=params, cache=cache, ba=ba, sa=sa,
                 tcfg=tcfg, tparams=tparams, tcache=tcache, tsa=tsa, tba=tba)
 

@@ -200,3 +200,138 @@ def paged_card_rank(grid):
         res["merge_err"] = diff.max().item()
         res["merge_vs_unsharded"] = (got.float() - whole.float()).abs().max().item()
     return res
+
+
+# ----------------------------------------------------------------------------
+# The rest of the registry and entry points under TP (MoE, cross-attention,
+# generate(), the online layer with one loop clock)
+# ----------------------------------------------------------------------------
+def generate_run(eng, prompts, fused, frontend=None, max_new=6):
+    """``generate()`` on ``prompts`` (fused or stepwise) with the meter
+    reset first: (tokens, the meter's bytes) -- the split-brain engine's
+    per-token bytes at batch 1, as the JAX package reports them."""
+    eng.meter.reset()
+    if isinstance(eng, SplitBrainEngine):
+        eng.fused = fused
+        out = eng.generate(prompts, max_new=max_new)
+        return out["tokens"], eng.measured_bytes_per_token()
+    out = eng.generate(prompts, max_new=max_new, frontend=frontend,
+                       fused=fused)
+    return out["tokens"], eng.measured_bytes()
+
+
+def _shapes(tree):
+    out = {}
+    sharding._map_paths(lambda p, t: out.__setitem__(p, list(t.shape)), tree)
+    return out
+
+
+class StepClock:
+    """A clock source that advances ``dt`` seconds per reading, from
+    ``t0``: the scheduler's decisions then depend on its iterations alone,
+    and two ranks given different ones run apart."""
+
+    def __init__(self, dt, t0=0.0):
+        self.dt, self.t = dt, t0 - dt
+
+    def __call__(self):
+        self.t += self.dt
+        return self.t
+
+
+def lockstep_run(eng, spec, source, group=None):
+    """The online layer on ``eng``: priorities, preemption, a deadline and
+    a seeded chaos plan (``spec``: requests as (prompt, priority,
+    deadline_s), ``plan``, ``slots``, ``max_new``), its loop clock read
+    from ``source`` -- through the group's ``TPGroup.clock`` on ranks
+    (rank 0's reading), as the scheduler's default clock reads it.
+    Returns the tokens by uid, the request states, the recovery events
+    without their seconds, the fired faults and the preemptions."""
+    from repro_torch.serve.faults import FaultInjector, FaultPlan
+    faults = FaultInjector(FaultPlan(**spec["plan"]), seed=0)
+    clock = source if group is None else (lambda: group.clock(source))
+    sched = ContinuousBatchingScheduler(
+        eng, max_slots=spec["slots"], preemption=True, faults=faults,
+        clock=clock)
+    out = sched.run([Request(uid=i, prompt=p, max_new=spec["max_new"],
+                             priority=prio, deadline_s=dl)
+                     for i, (p, prio, dl) in enumerate(spec["requests"])])
+    res = sorted(out["results"], key=lambda r: r.uid)
+    return {"tokens": [r.tokens.tolist() for r in res],
+            "states": [r.state for r in res],
+            "events": [{k: v for k, v in e.items() if k != "recovery_s"}
+                       for e in sched.recovery_log],
+            "fired": [e[0] for e in faults.events],
+            "preemptions": out["preemptions"]}
+
+
+def families_rank(grid, moe_specs, gen_specs, fused_only, sched_spec,
+                  skew):
+    """One rank of ``tests/test_torch_tp_serve_families.py``: the MoE
+    configs through the slot protocol (tokens, bytes, kv_shards and the
+    drop log's (rows, capacity, dropped) per call), the ``gen_specs``
+    through ``generate()`` fused and stepwise (except the names in
+    ``fused_only``; each case's ``frontend``) with the rank's cache shapes
+    of a frontend case, and, with ``sched_spec``, :func:`lockstep_run`
+    with rank 1's clock source ``skew`` (dt, t0) apart from rank 0's."""
+    from repro_torch.models import moe
+    torch.set_num_threads(1)
+    group = grid.model
+    dev = str(group.device)
+    out = {"moe": {}, "gen": {}, "cache": {}, "sched": None}
+    for name, spec in moe_specs.items():
+        eng = build_engine(spec, group, dev)
+        log = moe.drop_log()
+        toks, nbytes, stats = slot_run(eng)
+        drops = [(e["rows"], e["capacity"], int(e["dropped"])) for e in log]
+        moe.drop_log(False)
+        out["moe"][name] = (toks, nbytes, stats.get("kv_shards"), drops)
+    for name, spec in gen_specs.items():
+        eng = build_engine(spec, group, dev)
+        fe = spec.get("frontend")
+        fe = None if fe is None else torch.from_numpy(fe)
+        out["gen"][name] = {
+            fused: generate_run(eng, spec["prompts"], fused, fe)
+            for fused in ((True,) if name in fused_only else (True, False))}
+        if fe is not None:
+            out["cache"][name] = _shapes(api.init_cache(
+                eng.cfg, len(spec["prompts"]), eng.max_len, frontend=fe,
+                params=eng.params, device=dev, tp=group))
+    if sched_spec is not None:
+        eng = build_engine(sched_spec, group, dev)
+        source = StepClock(*((0.01, 0.0) if group.rank == 0 else skew))
+        out["sched"] = lockstep_run(eng, sched_spec, source, group)
+    return out
+
+
+def vlm_card_case(layers, B, T0, dev):
+    """llama-3.2-vision-11b at full width and ``layers`` layers (bf16
+    weights from a seeded generator on ``dev``, every cross gate 0.7: a
+    zero gate hides the cross path), B seeded prompts of T0 tokens and B
+    seeded frontends: (cfg, params, prompts, frontend)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b"),
+                              num_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = api.init_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    params["cross"]["gate"] = torch.full(
+        (layers // cfg.cross_attn_every,), 0.7, device=dev)
+    prompts = np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (B, T0)).astype(np.int32)
+    fe = torch.randn((B, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                     device=dev)
+    return cfg, params, prompts, fe
+
+
+def vlm_card_rank(grid, layers, B, T0, new):
+    """The VLM's fused ``generate()`` on this rank's card (its shard of
+    :func:`vlm_card_case`'s weights): (tokens, launch counts)."""
+    dev = grid.model.device
+    cfg, params, prompts, fe = vlm_card_case(layers, B, T0, dev)
+    eng = ServeEngine(cfg, params, max_len=T0 + new, device=dev,
+                      tp=grid.model)
+    del params
+    ops.reset_launch_counts()
+    out = eng.generate(prompts, max_new=new, frontend=fe)
+    torch.cuda.synchronize()
+    return out["tokens"], ops.launch_counts()
