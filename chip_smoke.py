@@ -81,7 +81,7 @@ fails before printing any result):
              op of the decay path run on both devices from the same inputs
              is reported, and the decay (float64 exps) must match bit for
              bit
-  main_path  full-width tinyllama-1.1b at 8 of its 22 layers (random
+  main_path  full-width tinyllama-1.1b at 6 of its 22 layers (random
              seeded weights, LAQ W4A8 on the card; MAIN_LAYERS, cut to
              keep the script inside its time limit; the times rows keep
              the 22-layer units), SplitBrainEngine(page_size=16,
@@ -89,20 +89,20 @@ fails before printing any result):
              slots: a warm-up run, then 16 seeded requests (prompts of 8-64
              tokens, 32 new tokens each) with the launch counts set to 0
              just before and read just after; every request DONE, launches
-             = 57 W4A8 per token step (7 per layer and the head) and 8
+             = 43 W4A8 per token step (7 per layer and the head) and 6
              paged attentions per decode step, eq. 7-10 meter exact, a
              second run token-identical; then generate() on 4 prompts of 64
-             tokens with 32 new tokens: 57 W4A8 launches per token step,
+             tokens with 32 new tokens: 43 W4A8 launches per token step,
              its tokens/s
   tp_path    tensor-parallel serving on two ranks of a torch.distributed
              group sharing the one card over gloo (one process each; the
              ranks' devices and backend from ``runtime.plan``): (a) the main
              path at tp 2, full-width tinyllama-1.1b split-brain (main_path's
-             8 layers,
+             6 layers,
              LAQ W4A8 column blocks of wq/wk/wv/w1/w3 and the head, packed
              per rank; wo/w2 whole), page 16, 8 slots, 8 of main_path's
              requests with 32 new: tokens identical to main_path's (the tp 1
-             engine on the same requests), 57 W4A8 and 8 paged launches
+             engine on the same requests), 43 W4A8 and 6 paged launches
              per rank per token step, the meter's bytes per token eq.
              7-10's, kv_shards 2; (b) the float ServeEngine, llama2-7b at
              full width and 8 of its 32 layers (bf16 weights), 8 requests of
@@ -130,7 +130,7 @@ fails before printing any result):
              12 decoder layers: fused generate() on 4 x 64 with 16 new (12
              flash launches, the encoder on the rank's 8 of 16 heads),
              tokens against tp 1; (g) on (a)'s
-             engine fused and eager generate() on 4 x 16 with 8 new (57
+             engine fused and eager generate() on 4 x 16 with 8 new (43
              W4A8 launches per token step, the meter's bytes per token eq.
              7-10's, tokens identical to tp 1), and on (b)'s engine one
              scheduler run on two slots with priorities, preemption, a
@@ -204,8 +204,8 @@ fails before printing any result):
   features_splitbrain  full-width tinyllama-1.1b split-brain on the main
              path's LAQ weights with an int8 prefix-shared pool (pages of
              16, chunks of 32) on the main path's traffic behind a shared
-             128-token prefix: 57 W4A8 launches per computed token step,
-             8 paged per decode step, meter exact; a short run on a dense
+             128-token prefix: 43 W4A8 launches per computed token step,
+             6 paged per decode step, meter exact; a short run on a dense
              slot cache (4 of the main path's requests, 8 new tokens) gives
              the tokens of a paged bf16 pool under the
              gather discipline (the same dense token step on the gathered
@@ -226,8 +226,8 @@ fails before printing any result):
              tokens or leaves them only at a near-tie (the two picks'
              logits, recomputed by the engine's own path from the common
              prefix, within NEAR_TIE_ULPS bf16 ulps of the largest), and
-             the launches are pinned per step: 57 W4A8 per computed
-             split-brain token step and 8 paged per decode step, 16 flash
+             the launches are pinned per step: 43 W4A8 per computed
+             split-brain token step and 6 paged per decode step, 16 flash
              per llama2-7b prefill and 16 paged per decode step (16 layers)
   reference_hymba  reduced hymba-1.5b on the card and on the CPU from the
              same weights on a wrapping ring and on a paged pool, and
@@ -365,7 +365,7 @@ fails before printing any result):
              of its 36 layers (DIST), float32 params, bf16 compute, trained
              by a (2, 2) grid of four gloo ranks sharing the card
              (``runtime.spawn`` of ``make_train_step(grid=)``, FSDP over
-             "data", Megatron's cuts over "model"), 6 steps of 8 x 512
+             "data", Megatron's cuts over "model"), 4 steps of 8 x 512
              tokens, counts set to 0 just before and read just after: 3
              flash launches per rank per step and no other kernel, every
              rank's losses the same and its leaves cut as
@@ -382,6 +382,31 @@ fails before printing any result):
              fraction.  Then the flash kernel at a rank's shape (B 4, 16/4
              heads of 128, T 512, causal, bf16; bound, plain, SDPA) and the
              one-device step's first losses beside the grid's
+  tp_train_grads  the flash and scan kernels' autograd Functions at every
+             tp_train_path rank shape (TP_TRAIN_FLASH, TP_TRAIN_SCAN), as
+             train_kernels holds them: one launch, the forward the
+             wrapper's output, the gradients bit for bit
+  tp_train_path  the families beyond the lm family's dense text configs:
+             rwkv6-7b, hymba-1.5b, seamless-m4t-medium, llama-3.2-vision-11b
+             and phi3.5-moe-42b-a6.6b (its experts cut over "model"), each
+             at full width and a cut depth (TP_TRAIN), float32 params, bf16
+             compute, remat "none", trained by a (1, 2) grid of two gloo
+             ranks sharing the card (one ``runtime.spawn``), each released
+             before the next: 3 steps with the counts set to 0 just before
+             and read just after, the flash and scan launches a rank a step
+             exactly as TP_TRAIN pins them (the scan at rwkv6-7b's 32 of 64
+             heads) and no W4A8 or paged launch, every rank's losses the
+             same and its leaves cut as ``train_param_cuts`` says, step 1's
+             loss within a relative 1e-3 of ``api.loss_fn`` on the whole
+             params in one process, step 1's grad norm and step 2's loss
+             within ``DIST_ONE_DEVICE_RTOL`` of the one-device step's run
+             here after the spawn (hymba's grad norm within its
+             ``grad_rtol``, beside the one-device norm's own move under
+             other roundings, ``tp_train_rounding_probe``), the MoE's aux
+             the same and its drop log equal on both ranks; ms per step,
+             per rank the seconds inside collectives, the busy share over
+             one profiled step (its kernels) and the peak memory.  Then the kernels at the ranks' shapes (bound,
+             plain, SDPA with a window mask for hymba)
 
 ``python3 chip_smoke.py --only moe`` runs the device and build phases and
 the MoE phases alone, and prints neither the kernels line nor the ok line;
@@ -389,8 +414,9 @@ the MoE phases alone, and prints neither the kernels line nor the ok line;
 flash phase's cases at their shapes); ``--only tp`` for tp_path (with the
 w4a8, paged and flash phases' cases at its ranks' shapes; it then serves
 its tp 1 tokens of (a) itself); ``--only train`` for train_kernels,
-train_path and dist_train_path (with the flash phase's cases at the train
-step's and a grid rank's shapes).
+tp_train_grads, train_path, dist_train_path and tp_train_path (with the
+flash phase's cases at the train step's and the grids' rank shapes, and
+the rwkv phase's at tp_train_path's).
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
@@ -919,7 +945,8 @@ def phase_flash(dev, cases=None):
               dict(causal=True, window=4096, softcap=50.0))]
     if cases is None:
         cases = (llama + other + XATTN_FLASH_CASES + FLASH_TP_CASES
-                 + [TRAIN_FLASH_CASE, DIST_FLASH_CASE])
+                 + [TRAIN_FLASH_CASE, DIST_FLASH_CASE]
+                 + tp_train_flash_cases())
     worst, rows = 0.0, []
     for name, shape, opts in cases:
         for qd in (bf, f32):
@@ -970,17 +997,22 @@ def rwkv_inputs(gen, dev, B, H, T, D, dtype, decay):
 RWKV_FWD = (4, 64, 512, 64)        # rwkv6-7b's forward: B 4, H 64, T 512, D 64
 
 
-def phase_rwkv(dev):
+def phase_rwkv(dev, cases=None):
+    """The scan kernel against its plain version at every case (``cases``
+    given: those alone)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     bf, f32 = torch.bfloat16, torch.float32
     B, H, _, D = RWKV_FWD
-    cases = ([("rwkv6-7b forward", (B, H, T, D), bf, "model")
-              for T in (1, 37, 512)]
-             + [("jax kernel test", shape, f32, "jax")
-                for shape in ((2, 3, 64, 16), (1, 2, 128, 32), (1, 1, 32, 64))]
-             + [("rwkv6-7b, B 1", (1, H, 100, D), bf, "model")]
-             + [("B 1, odd H", shape, bf, "model")
-                for shape in ((1, 3, 37, 16), (1, 5, 512, 32))])
+    if cases is None:
+        cases = ([("rwkv6-7b forward", (B, H, T, D), bf, "model")
+                  for T in (1, 37, 512)]
+                 + [("jax kernel test", shape, f32, "jax")
+                    for shape in ((2, 3, 64, 16), (1, 2, 128, 32),
+                                  (1, 1, 32, 64))]
+                 + [("rwkv6-7b, B 1", (1, H, 100, D), bf, "model")]
+                 + [("B 1, odd H", shape, bf, "model")
+                    for shape in ((1, 3, 37, 16), (1, 5, 512, 32))]
+                 + [TP_TRAIN_SCAN_CASE])
     worst, rows = 0.0, []
     for name, shape, dt, decay in cases:
         r, k, v, w, u = rwkv_inputs(gen, dev, *shape, dt, decay)
@@ -1297,9 +1329,10 @@ class PhaseClock:
 # features_splitbrain, chaos_path (a) and tp_path (a), whose split-brain
 # prompt-token steps cost host time per layer (at 11 layers, a host 1.3x
 # slower on the host-bound phases took 1,299 s to reach the end of
-# dist_train_path; at 6 the whole script took 797.5 s on one H100 host, and
-# 8 is the depth that keeps such a slow host under the limit: ROADMAP.md)
-MAIN_LAYERS = 8
+# dist_train_path; at 6 the whole script took 797.5 s on one H100 host; 8
+# kept such a slow host under the limit until tp_train_path came, and 6
+# pays for it: ROADMAP.md)
+MAIN_LAYERS = 6
 
 
 def main_cfg():
@@ -2506,7 +2539,7 @@ def phase_features_splitbrain(main_eng, dev, smi_line):
     """Full-width tinyllama-1.1b split-brain (LAQ W4A8, the main path's
     weights) with an int8 prefix-shared pool, pages of 16, 8 slots and
     prefill chunks of 32, on the main path's traffic behind a shared
-    128-token prefix: 57 W4A8 launches per token step and 8 paged launches
+    128-token prefix: 43 W4A8 launches per token step and 6 paged launches
     per decode step; then a short run on a dense slot cache and one on a
     paged bf16 pool: the same tokens."""
     t_path = time.perf_counter()
@@ -2865,7 +2898,8 @@ def profile_summary(prof, wall, n, path, w4a8_calls=0):
     W4A8 call must be one device kernel."""
     rows = []
     dev_total, w4a8_kernels = 0.0, 0
-    for ev in prof.key_averages():
+    events = prof.key_averages()       # aggregated once: it walks every event
+    for ev in events:
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue                   # host-side ops (their kernels count below)
         if "w4a8" in ev.key:
@@ -2880,7 +2914,7 @@ def profile_summary(prof, wall, n, path, w4a8_calls=0):
               f"kernels for {w4a8_calls} calls")
     rows.sort(reverse=True)
     host = sorted(((getattr(ev, "self_cpu_time_total", 0.0), ev.key, ev.count)
-                   for ev in prof.key_averages()
+                   for ev in events
                    if not str(getattr(ev, "device_type", "")).endswith("CUDA")),
                   reverse=True)
     busy = dev_total / 1e6 / wall if wall else 0.0
@@ -5081,23 +5115,35 @@ def flash_case_times(gen, dev, n, label, shape, opts, launched, detail,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gqa = shape[1] != shape[2]
     causal = bool(opts.get("causal"))
+    window = opts.get("window")
     B, Hq, Hkv, Tq, Tk, D = shape
-    bound_ms, bound_by = flash_bound(launches, causal=causal)
+    bound_ms, bound_by = flash_bound(launches, causal=causal,
+                                     windows=[window] * n)
+    if window is None:
+        lib_kw = dict(is_causal=causal)
+        lib_note = f"is_causal={causal}, enable_gqa={gqa}"
+    else:
+        pos = torch.arange(Tq, device=dev)
+        lib_kw = dict(attn_mask=((pos[None, :] <= pos[:, None])
+                                 & (pos[None, :] > pos[:, None] - window))
+                      [None, None])
+        lib_note = (f"enable_gqa={gqa}, a boolean causal {window}-window "
+                    "mask")
     return {"unit": f"{label}: {n} launches, B {B}, {Hq}/{Hkv} heads, D {D}, "
                     f"Tq {Tq}, Tk {Tk}, {'causal' if causal else 'non-causal'}"
-                    ", bf16, CUDA-graph replay",
+                    + (f", window {window}" if window else "")
+                    + ", bf16, CUDA-graph replay",
             "launches": launched,
             "ms": graph_time_ms(run(ops.attention), iters=20),
             "eager_ms": cuda_time_ms(run(ops.attention), iters=3),
             "plain_ms": graph_time_ms(run(ref.flash_attention), iters=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": yardstick_ms(
-                lambda: [sdpa(q, k, v, is_causal=causal, enable_gqa=gqa)
+                lambda: [sdpa(q, k, v, enable_gqa=gqa, **lib_kw)
                          for q, k, v in launches], 20, detail, key),
             "max_abs_err": err.max().item(),
-            "library_note": f"scaled_dot_product_attention(is_causal="
-                            f"{causal}, enable_gqa={gqa}) on the same "
-                            "tensors"}
+            "library_note": f"scaled_dot_product_attention({lib_note}) on "
+                            "the same tensors"}
 
 
 def phase_times_tp(dev, tp_info):
@@ -5560,7 +5606,7 @@ def phase_train_path(dev, smi_line):
 # traffic grows with the layers: at 4 the phase took 69 s on one host and
 # 97 s on a host 1.3x slower, so it runs 3
 DIST_SLACK = 1.2                   # host variance over the phase's 90 s
-DIST = dict(arch="granite-8b", layers=3, shape=(2, 2), steps=6, batch=8,
+DIST = dict(arch="granite-8b", layers=3, shape=(2, 2), steps=4, batch=8,
             seq=512, profiled=2, lr=3e-4, warmup=10)
 DIST_FLASH_CASE = ("granite-8b grid rank", (4, 16, 4, 512, 512, 128),
                    dict(causal=True))
@@ -5962,6 +6008,502 @@ def phase_times_dist(dev, dist_info):
     return row
 
 
+# ---------------------------------------------- tensor-parallel training
+# tp_train_path: the families beyond the lm family's dense text configs
+# (rwkv, hymba, the encoder-decoder, the VLM, a MoE config), each at full
+# width on a (1, 2) grid of two gloo ranks sharing the card
+# (Megatron's cuts over "model", a MoE config's experts cut over it; float32
+# params, bf16 compute, remat "none"), each config in turn, each released
+# before the next.  Depth is cut for memory and time; per config: its
+# layers (seamless: decoder and encoder), the global batch and length, and
+# the flash and scan launches a rank makes per step (all in the forward,
+# through the kernels' Functions; the backward recomputes the plain
+# version).  rwkv6-7b's scan runs at 32 of its 64 heads a rank; hymba-1.5b's
+# 25/5 heads do not divide by 2, so every rank runs every head (window
+# 1,024, bound at T 2,048), and its selective scan takes the config's
+# associative form (the JAX package's log-depth scan, ``ssm_scan``): the
+# sequential form's 2,048 steps took 16-20 s a step a rank; the VLM's 5
+# layers hold its first cross block; phi3.5-moe runs 1 of its 32 layers
+# (at 2 a rank's experts, moments and the optimizer's float32 temporaries
+# took 35 GB, and the two ranks ran out of the card's memory); rwkv6-7b
+# runs 1 (at 2 its rank took 32 s, 15 of them in the profile of its plain
+# scan backward's small ops).  ``grad_rtol``: step 1's grad norm against
+# the one-device step's where DIST_ONE_DEVICE_RTOL is out of reach in bf16:
+# hymba's one-device norm itself moves by 1.2e-3 when its projections are
+# rounded once from float32 GEMMs instead (``tp_train_rounding_probe``,
+# reported), and the grid's partial sums round as differently
+TP_TRAIN_PROBE = ("hymba-1.5b",)
+TP_TRAIN = {
+    "rwkv6-7b": dict(layers=1, batch=4, seq=256, flash=0, scan=1),
+    "hymba-1.5b": dict(layers=4, batch=2, seq=2048, flash=4, scan=0,
+                       ssm_scan="associative", grad_rtol=5e-3),
+    "seamless-m4t-medium": dict(layers=2, encoder_layers=2, batch=4,
+                                seq=256, flash=6, scan=0),
+    "llama-3.2-vision-11b": dict(layers=5, batch=4, seq=256, flash=6,
+                                 scan=0),
+    "phi3.5-moe-42b-a6.6b": dict(layers=1, batch=4, seq=256, flash=1,
+                                 scan=0),
+}
+TP_TRAIN_SHAPE = (1, 2)
+TP_TRAIN_STEPS = 3
+TP_TRAIN_SECONDS = 60.0            # on a host like the faster one
+# the kernels at a tp_train_path rank's shapes (B, Hq, Hkv, Tq, Tk, D):
+# (key, config, launches a rank a step, label, shape, options)
+TP_TRAIN_FLASH = [
+    ("flash_moe_tp_train_rank", "phi3.5-moe-42b-a6.6b", 1,
+     "phi3.5-moe tp-train rank", (4, 16, 4, 256, 256, 128),
+     dict(causal=True)),
+    ("flash_vision_tp_train_rank", "llama-3.2-vision-11b", 5,
+     "llama-3.2-vision-11b tp-train rank", (4, 16, 4, 256, 256, 128),
+     dict(causal=True)),
+    ("flash_vision_tp_train_rank_cross", "llama-3.2-vision-11b", 1,
+     "llama-3.2-vision-11b tp-train rank cross", (4, 16, 4, 256, 1600, 128),
+     dict(causal=False)),
+    ("flash_encdec_tp_train_rank_encoder", "seamless-m4t-medium", 2,
+     "seamless-m4t-medium tp-train rank encoder", (4, 8, 8, 960, 960, 64),
+     dict(causal=False)),
+    ("flash_encdec_tp_train_rank_self", "seamless-m4t-medium", 2,
+     "seamless-m4t-medium tp-train rank decoder", (4, 8, 8, 256, 256, 64),
+     dict(causal=True)),
+    ("flash_encdec_tp_train_rank_cross", "seamless-m4t-medium", 2,
+     "seamless-m4t-medium tp-train rank cross", (4, 8, 8, 256, 960, 64),
+     dict(causal=False)),
+    ("flash_hymba_tp_train_rank", "hymba-1.5b", 4,
+     "hymba-1.5b tp-train rank (every head)", (2, 25, 5, 2048, 2048, 64),
+     dict(causal=True, window=1024)),
+]
+TP_TRAIN_SCAN = (4, 32, 256, 64)   # rwkv6-7b's rank: B 4, H 32, T 256, D 64
+TP_TRAIN_SCAN_CASE = ("rwkv6-7b tp-train rank", TP_TRAIN_SCAN,
+                      torch.bfloat16, "model")
+
+
+def tp_train_flash_cases():
+    """TP_TRAIN_FLASH as phase_flash's cases, each shape once (the seamless
+    encoder's is also FLASH_TP_CASES')."""
+    out, seen = [], {(shape, tuple(sorted(opts.items())))
+                     for _, shape, opts in FLASH_TP_CASES}
+    for _, _, _, label, shape, opts in TP_TRAIN_FLASH:
+        key = (shape, tuple(sorted(opts.items())))
+        if key not in seen:
+            seen.add(key)
+            out.append((label, shape, opts))
+    return out
+
+
+def phase_tp_train_grads(dev):
+    """The kernels' autograd Functions at every tp_train_path rank shape, as
+    train_kernels holds them at theirs: one launch in grad mode through the
+    Function, its forward the wrapper's output, the gradients the plain
+    version's autograd bit for bit."""
+    from repro_torch.kernels import rwkv_scan as krw
+    gen = torch.Generator(device=dev).manual_seed(SEED + 72)
+    bf = torch.bfloat16
+    rows = []
+    seen = set()
+    for _, _, _, label, shape, opts in TP_TRAIN_FLASH:
+        key = (shape, tuple(sorted(opts.items())))
+        if key in seen:
+            continue
+        seen.add(key)
+        q, k, v = flash_inputs(gen, dev, *shape, bf)
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(bf)
+        ops.reset_launch_counts()
+        outs, grads = autograd_grads(lambda *x: ops.attention(*x, **opts),
+                                     (q, k, v), (dout,))
+        one = (ops.launch_counts()["flash_attention"] == 1
+               and "FlashAttentionFn" in type(outs[0].grad_fn).__name__)
+        fwd = bool(torch.equal(outs[0], kfa.flash_attention(q, k, v,
+                                                            **opts)))
+        _, p_grads = autograd_grads(
+            lambda *x: ref.flash_attention(*x, **opts), (q, k, v), (dout,))
+        same = [bool(torch.equal(a, b)) for a, b in zip(grads, p_grads)]
+        rows.append({"kernel": "flash", "case": label, "shape": shape,
+                     **opts, "one_launch": one, "forward_is_wrapper": fwd,
+                     "grads_bit_identical": same})
+        del q, k, v, dout, outs, grads, p_grads
+    r, kk, vv, w, u = rwkv_inputs(gen, dev, *TP_TRAIN_SCAN, bf, "model")
+    B, H, _, D = TP_TRAIN_SCAN
+    douts = (torch.randn(r.shape, generator=gen, device=dev).to(bf),
+             torch.randn((B, H, D, D), generator=gen, device=dev))
+    ops.reset_launch_counts()
+    s_outs, s_grads = autograd_grads(ops.rwkv6, (r, kk, vv, w, u), douts)
+    one = ops.launch_counts()["rwkv6_scan"] == 1
+    k_out, k_state = krw.rwkv6_scan(r, kk, vv, w, u)
+    fwd = bool(torch.equal(s_outs[0], k_out)
+               and torch.equal(s_outs[1], k_state))
+    _, p_grads = autograd_grads(ref.rwkv6_scan, (r, kk, vv, w, u), douts)
+    same = [bool(torch.equal(a, b)) for a, b in zip(s_grads, p_grads)]
+    rows.append({"kernel": "rwkv6_scan", "case": TP_TRAIN_SCAN_CASE[0],
+                 "shape": TP_TRAIN_SCAN, "one_launch": one,
+                 "forward_is_wrapper": fwd, "grads_bit_identical": same})
+    emit({"phase": "tp_train_grads", "cases": rows})
+    for row in rows:
+        check(row["one_launch"] and row["forward_is_wrapper"]
+              and all(row["grads_bit_identical"]),
+              f"tp_train_grads: {row}")
+
+
+def tp_train_cfg(arch):
+    spec = TP_TRAIN[arch]
+    cfg = get_config(arch)
+    kw = {"num_layers": spec["layers"]}
+    for key, name in (("encoder_layers", "num_encoder_layers"),
+                      ("ssm_scan", "ssm_scan")):
+        if key in spec:
+            kw[name] = spec[key]
+    return dataclasses.replace(
+        cfg, parallel=dataclasses.replace(cfg.parallel, remat="none"), **kw)
+
+
+def tp_train_batches(cfg, spec, n):
+    """The data pipeline's first ``n`` global batches at the config's batch
+    and length (mask all ones, a VLM's or seamless's frontend included, as
+    the training CLI feeds them)."""
+    from repro_torch.data import pipeline as tpipe
+    dcfg = tpipe.DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                            global_batch=spec["batch"], seed=SEED,
+                            frontend_tokens=cfg.frontend_tokens,
+                            d_model=cfg.d_model)
+    out = []
+    for i in range(n):
+        b = tpipe.global_batch_at_step(dcfg, i)
+        b["mask"] = np.ones_like(b["labels"], np.float32)
+        out.append(b)
+    return out
+
+
+def tp_train_opt():
+    from repro_torch.train import optimizer as topt
+    return topt.AdamWConfig(lr=DIST["lr"], warmup_steps=DIST["warmup"],
+                            total_steps=TP_TRAIN_STEPS)
+
+
+def tp_train_family(grid, dev, arch):
+    """One config on this rank: the grid's train step on the rank's blocks
+    of the seeded float32 params, TP_TRAIN_STEPS steps with the counts set
+    to 0 just before and read just after, the last under torch.profiler;
+    rank 0 first computes ``api.loss_fn`` of the whole params on step 1's
+    global batch in this one process.  A MoE config's drop log is kept."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed import runtime
+    from repro_torch.models import moe
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    cfg = tp_train_cfg(arch)
+    spec = TP_TRAIN[arch]
+    t0 = time.perf_counter()
+    batches = tp_train_batches(cfg, spec, TP_TRAIN_STEPS)
+    step = tstep.make_train_step(cfg, tp_train_opt(), grid)
+    lay = step.layout
+    whole = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 70), device=dev)
+    out = {}
+    if grid.rank == 0:
+        with torch.no_grad():
+            out["one_process_loss"] = float(api.loss_fn(
+                whole, tstep.batch_to(batches[0], dev), cfg)[1]["loss"])
+    with torch.no_grad():
+        params = lay.shard_tree(whole)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = topt.init_state(params, tp_train_opt(), layout=lay)
+    cuts = lay.flat_cuts()
+    bad = []
+    for k, t in topt.leaves(params):
+        want = list(lay.shapes[k])
+        m, d = cuts[k]
+        if m is not None:
+            want[m] //= grid.model.size
+        if d is not None:
+            want[d] //= grid.data.size
+        if list(t.shape) != want:
+            bad.append((k, list(t.shape), want))
+    check(not bad, f"tp_train_path {arch} rank {grid.rank}: leaves not cut "
+          f"as train_param_cuts says: {bad[:4]}")
+    out["rank_params"] = sum(t.numel() for _, t in topt.leaves(params))
+    out["model_cut_leaves"] = sum(1 for c in cuts.values()
+                                  if c[0] is not None)
+    out["setup_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grid.world.barrier()
+    runtime.collective_stats(reset=True)
+    log = moe.drop_log() if cfg.moe else None
+    ops.reset_launch_counts()
+    steps, prof, wall = [], None, 0.0
+    for i in range(TP_TRAIN_STEPS):
+        if i == TP_TRAIN_STEPS - 1:
+            # the device's kernels only: the host ops' events of a plain
+            # scan backward took 15 s to summarize
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        before = ops.launch_counts()
+        c0 = runtime.COLLECTIVES["seconds"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batches[i])
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if prof is not None:
+            wall += dt
+        after = ops.launch_counts()
+        steps.append({"ms": dt * 1e3, "loss": loss,
+                      "grad_norm": float(m["grad_norm"]),
+                      "aux": float(m["aux"]),
+                      "collective_s": runtime.COLLECTIVES["seconds"] - c0,
+                      "launches": {k: after[k] - before[k] for k in after},
+                      "profiled": prof is not None})
+    t1 = time.perf_counter()
+    prof.__exit__(None, None, None)
+    out["launches"] = ops.launch_counts()
+    if log is not None:
+        out["drops"] = [int(e["dropped"]) for e in log]
+        moe.drop_log(False)
+    out["collectives"] = runtime.collective_stats()
+    out["steps"] = steps
+    t2 = time.perf_counter()
+    s = profile_summary(prof, wall, 1, f"tp_train_path {arch}")
+    out["profile_s"] = {"exit": t2 - t1, "summary": time.perf_counter() - t2}
+    out["profile"] = {k: s[k] for k in (
+        "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+        "top_kernels")}
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t0
+    if grid.rank == 0:
+        emit({"tp_train_rank0": arch, "seconds": out["seconds"],
+              "setup_s": out["setup_s"], "profile_s": out["profile_s"],
+              "steps_ms": [s["ms"] for s in steps],
+              "peak_memory_bytes": out["peak_memory_bytes"]})
+    del params, state, step, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_rank(grid, t_spawn):
+    """One rank of tp_train_path: every config of TP_TRAIN in turn."""
+    dev = grid.device
+    exact_matmuls()
+    res = {"rank": grid.rank, "start_s": time.time() - t_spawn}
+    t = time.perf_counter()
+    for arch in TP_TRAIN:
+        res[arch] = tp_train_family(grid, dev, arch)
+    res["wall_s"] = time.perf_counter() - t
+    return res
+
+
+def tp_train_one_device(dev, arch, n=2):
+    """The one-device train step of the same config on the same params and
+    batches: its first ``n`` steps' losses, gradient norms and ``aux``."""
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    cfg = tp_train_cfg(arch)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 70), device=dev)
+    state = topt.init_state(params, tp_train_opt())
+    step = tstep.make_train_step(cfg, tp_train_opt())
+    hist = []
+    for b in tp_train_batches(cfg, TP_TRAIN[arch], n):
+        params, state, m = step(params, state, b)
+        hist.append({k: float(m[k]) for k in ("loss", "grad_norm", "aux")})
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist
+
+
+def tp_train_rounding_probe(dev, arch):
+    """The one-device step-1 gradient norm of ``arch`` (its TP_TRAIN depth,
+    params and first batch), as the step computes it and with every
+    projection of ``layers.linear`` taken as a float32 GEMM of the
+    compute-dtype values rounded once to the compute dtype (the same
+    function, other roundings): (norm, perturbed norm)."""
+    from repro_torch.models import layers
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    cfg = tp_train_cfg(arch)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 70), device=dev)
+    batch = tstep.batch_to(tp_train_batches(cfg, TP_TRAIN[arch], 1)[0], dev)
+    flat = [t.requires_grad_(True) for _, t in topt.leaves(params)]
+    plain = layers.linear
+
+    def f32_linear(x, w, reciprocal_scale=False):
+        return (x.float() @ w.to(x.dtype).float()).to(x.dtype)
+
+    norms = []
+    for fn in (plain, f32_linear):
+        layers.linear = fn
+        try:
+            grads = torch.autograd.grad(api.loss_fn(params, batch, cfg)[0],
+                                        flat)
+        finally:
+            layers.linear = plain
+        norms.append(float(torch.sqrt(sum((g.float() ** 2).sum()
+                                          for g in grads))))
+        del grads
+    del params, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return norms
+
+
+def phase_tp_train_path(dev, smi_line):
+    """tp_train_path: each config of TP_TRAIN trained at full width by a
+    (1, 2) grid of two gloo ranks on the one card (one ``runtime.spawn``,
+    as ``launch.train --tp 2`` starts them), then its one-device step in
+    this process.  Per config: every rank's losses the same; step 1's loss
+    within a relative 1e-3 of ``api.loss_fn`` on the whole params in one
+    process; step 1's gradient norm and step 2's loss within
+    ``DIST_ONE_DEVICE_RTOL`` of the one-device step's; the flash and scan
+    launches a rank a step exactly as pinned and no W4A8 or paged launch;
+    a MoE config's ``aux`` at step 1 within the same bound of the one-device
+    value and its drop log the same on both ranks.  Reported per config:
+    ms per step (step 2, the first after warm-up), per rank the seconds
+    inside collectives in that step, the busy share over the profiled
+    step 3, and the peak memory."""
+    from repro_torch.distributed import runtime
+    t0 = time.perf_counter()
+    backend, devices = runtime.plan(TP_TRAIN_SHAPE, dev)
+    ranks = runtime.spawn(tp_train_rank, TP_TRAIN_SHAPE, (time.time(),),
+                          backend=backend, devices=devices, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    per_cfg, one_device_s = {}, 0.0
+    held = []                 # every check, raised after the phase's line
+
+    def hold(cond, msg):
+        held.append((bool(cond), msg))
+
+    launches = {k: 0 for k in ops.KERNELS}
+    for arch, spec in TP_TRAIN.items():
+        t1 = time.perf_counter()
+        one = tp_train_one_device(dev, arch)
+        one_device_s += time.perf_counter() - t1
+        runs = [r[arch] for r in ranks]
+        a = runs[0]
+        losses = [s["loss"] for s in a["steps"]]
+        norms = [s["grad_norm"] for s in a["steps"]]
+        rel = abs(losses[0] - a["one_process_loss"]) / abs(
+            a["one_process_loss"])
+        rel_loss2 = abs(losses[1] - one[1]["loss"]) / abs(one[1]["loss"])
+        rel_norm1 = abs(norms[0] - one[0]["grad_norm"]) / abs(
+            one[0]["grad_norm"])
+        want = {"w4a8_matmul": 0, "paged_decode_attention": 0,
+                "flash_attention": spec["flash"], "rwkv6_scan": spec["scan"]}
+        for r in runs:
+            hold(all(s["launches"] == want for s in r["steps"]),
+                 f"tp_train_path {arch}: launches a rank a step "
+                 f"{[s['launches'] for s in r['steps']]} != {want}")
+            hold([s["loss"] for s in r["steps"]] == losses,
+                 f"tp_train_path {arch}: the ranks' losses differ")
+        for k in launches:
+            launches[k] += a["launches"][k]
+        hold(rel <= 1e-3, f"tp_train_path {arch}: step 1's loss "
+             f"{losses[0]} vs one process's {a['one_process_loss']} "
+             f"(relative {rel})")
+        grad_rtol = spec.get("grad_rtol", DIST_ONE_DEVICE_RTOL)
+        hold(rel_norm1 <= grad_rtol,
+             f"tp_train_path {arch}: step 1's gradient norm {norms[0]} vs "
+             f"the one-device step's {one[0]['grad_norm']} ({rel_norm1})")
+        hold(rel_loss2 <= DIST_ONE_DEVICE_RTOL,
+             f"tp_train_path {arch}: step 2's loss {losses[1]} vs the "
+             f"one-device step's {one[1]['loss']} ({rel_loss2})")
+        hold(all(np.isfinite(losses)), f"tp_train_path {arch}: {losses}")
+        row = {"config": arch, "layers": spec["layers"],
+               "batch": spec["batch"], "seq": spec["seq"],
+               "losses": losses, "grad_norms": norms,
+               "one_process_loss": a["one_process_loss"],
+               "step1_loss_rel_diff": rel,
+               "one_device": one, "step2_loss_rel_diff": rel_loss2,
+               "step1_grad_norm_rel_diff": rel_norm1,
+               "ms_per_step": max(r["steps"][1]["ms"] for r in runs),
+               "steps_ms": [[s["ms"] for s in r["steps"]] for r in runs],
+               "collective_s_per_step": [r["steps"][1]["collective_s"]
+                                         for r in runs],
+               "collective_calls_per_step": [
+                   r["collectives"]["calls"] / TP_TRAIN_STEPS for r in runs],
+               "busy_share": [r["profile"]["device_busy_share"]
+                              for r in runs],
+               "profile": [r["profile"] for r in runs],
+               "peak_memory_bytes": [r["peak_memory_bytes"] for r in runs],
+               "rank_params": [r["rank_params"] for r in runs],
+               "model_cut_leaves": a["model_cut_leaves"],
+               "setup_s": [r["setup_s"] for r in runs],
+               "seconds": [r["seconds"] for r in runs],
+               "launches_per_rank_step": want,
+               "step1_grad_norm_rtol": grad_rtol}
+        if arch in TP_TRAIN_PROBE:
+            t1 = time.perf_counter()
+            base, f32 = tp_train_rounding_probe(dev, arch)
+            one_device_s += time.perf_counter() - t1
+            row["one_device_rounding_probe"] = {
+                "grad_norm": base, "grad_norm_f32_projections": f32,
+                "rel": abs(f32 - base) / abs(base)}
+        if get_config(arch).moe:
+            aux = [s["aux"] for s in a["steps"]]
+            rel_aux = abs(aux[0] - one[0]["aux"]) / abs(one[0]["aux"])
+            hold(all([s["aux"] for s in r["steps"]] == aux for r in runs)
+                 and rel_aux <= DIST_ONE_DEVICE_RTOL,
+                 f"tp_train_path {arch}: aux {aux} vs the one-device "
+                 f"{one[0]['aux']} ({rel_aux})")
+            hold(all(r["drops"] == a["drops"] for r in runs),
+                 f"tp_train_path {arch}: the ranks' drop logs differ")
+            row.update(aux=aux, step1_aux_rel_diff=rel_aux,
+                       drops_per_call=a["drops"],
+                       ranks_drop_logs_equal=True)
+        per_cfg[arch] = row
+    seconds = time.perf_counter() - t0
+    info = {"phase": "tp_train_path", "grid": list(TP_TRAIN_SHAPE),
+            "backend": backend, "devices": devices, "steps": TP_TRAIN_STEPS,
+            "configs": per_cfg, "launches_per_rank": launches,
+            "spawn_s": spawn_s, "one_device_s": one_device_s,
+            "rank_wall_s": [r["wall_s"] for r in ranks],
+            "seconds": seconds, "card": smi_line}
+    emit(info)
+    for cond, msg in held:
+        check(cond, msg)
+    check(seconds <= TP_TRAIN_SECONDS * DIST_SLACK,
+          f"tp_train_path took {seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds}
+
+
+def phase_times_tp_train(dev, info):
+    """The kernels at a tp_train_path rank's shapes, timed here by one
+    process on the whole card (the ranks shared it): the flash kernel over
+    each shape's launches of one rank step (TP_TRAIN_FLASH), and the scan
+    over rwkv6-7b's two (B 4, H 32, T 256, D 64)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    detail, rows = [], {}
+    for key, arch, n, label, shape, opts in TP_TRAIN_FLASH:
+        rows[key] = flash_case_times(gen, dev, n, label, shape, opts,
+                                     n * TP_TRAIN_STEPS, detail,
+                                     key + "_library")
+    bf = torch.bfloat16
+    n = TP_TRAIN["rwkv6-7b"]["scan"]
+    launches = [rwkv_inputs(gen, dev, *TP_TRAIN_SCAN, bf, "model")
+                for _ in range(n)]
+
+    def fwd(fn):
+        return lambda: [fn(*a) for a in launches]
+
+    bound_ms, bound_by = rwkv_bound(*TP_TRAIN_SCAN, 2, launches=n)
+    rows["scan_tp_train_rank"] = {
+        "unit": f"one rwkv6-7b tp-train rank step: {n} launches, B 4, H 32, "
+                "T 256, D 64, bf16, CUDA-graph replay; plain timed eagerly",
+        "launches": info["launches"]["rwkv6_scan"],
+        "ms": graph_time_ms(fwd(ops.rwkv6), iters=20),
+        "eager_ms": cuda_time_ms(fwd(ops.rwkv6), iters=3),
+        "plain_ms": cuda_time_ms(fwd(ref.rwkv6_scan), iters=1, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library_note": "none: no single PyTorch call computes the WKV "
+                        "recurrence"}
+    emit({"phase": "times", "path": "tp_train_path", **rows,
+          "detail": detail})
+    return rows
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # flex_attention's compiled kernels cache inside the checkout
@@ -5997,10 +6539,14 @@ def main(argv=None) -> int:
     if argv == ["--only", "train"]:
         # the training phases alone, with the flash kernel's check at the
         # train step's shape
-        phase_flash(dev, cases=[TRAIN_FLASH_CASE, DIST_FLASH_CASE])
+        phase_flash(dev, cases=[TRAIN_FLASH_CASE, DIST_FLASH_CASE]
+                    + tp_train_flash_cases())
+        phase_rwkv(dev, cases=[TP_TRAIN_SCAN_CASE])
         phase_train_kernels(dev)
+        phase_tp_train_grads(dev)
         phase_train_path(dev, smi)
         phase_times_dist(dev, phase_dist_train_path(dev, smi))
+        phase_times_tp_train(dev, phase_tp_train_path(dev, smi))
         emit({"subset": "train", "done": True})
         return 0
     check(not argv, f"unknown arguments {argv} (only `--only moe`, "
@@ -6063,9 +6609,12 @@ def main(argv=None) -> int:
     moe_launches, moe_rows, fwd_moe = run_moe(dev, smi)
     vision_launches, encdec_launches, xattn_rows = run_xattn(dev, smi)
     train_row = phase_train_kernels(dev)
+    phase_tp_train_grads(dev)
     train_info = phase_train_path(dev, smi)
     dist_info = phase_dist_train_path(dev, smi)
     dist_row = phase_times_dist(dev, dist_info)
+    tp_train_info = phase_tp_train_path(dev, smi)
+    tp_train_rows = phase_times_tp_train(dev, tp_train_info)
     emit({"gemma2_path_summary": {
         key: gemma2_info[key] for key in (
             "decode_steps_per_s", "decode_tokens_per_s",
@@ -6122,7 +6671,8 @@ def main(argv=None) -> int:
                            + fwd_moe[k["name"]]),
             "tp_path": tp_info["launches"][k["name"]],
             "train_path": train_info["launches"][k["name"]],
-            "dist_train_path": dist_info["launches"][k["name"]]}
+            "dist_train_path": dist_info["launches"][k["name"]],
+            "tp_train_path": tp_train_info["launches"][k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
     kernels[1]["llama2_decode_int8"] = paged_kv["int8"]
@@ -6143,6 +6693,8 @@ def main(argv=None) -> int:
     kernels[2]["dist_train_rank_step"] = dist_row
     for key, row in tp_rows.items():
         kernels[1 if key.startswith("paged") else 2][key] = row
+    for key, row in tp_train_rows.items():
+        kernels[3 if key.startswith("scan") else 2][key] = row
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

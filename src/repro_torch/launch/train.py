@@ -19,6 +19,12 @@ batches, and rank 0 prints the log lines and writes the checkpoints
       --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \\
       --smoke --device cpu --dp 2 --tp 2 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --smoke --device cpu --tp 2 --steps 4
+
+Every config of the registry trains at any ``--dp`` / ``--tp``; a VLM's
+or seamless's batches carry their frontend (``DataConfig(
+frontend_tokens=)``).
 
 Prints the log lines and, last, ``{"first_loss", "last_loss", "steps"}``
 as JSON (returned by :func:`main` too).

@@ -6,11 +6,15 @@ port's.
 
 Distributed training (``layout=``, a ``distributed/sharding.py::Layout`` of
 a ``(data, model)`` grid): ``params`` are a rank's blocks and the batch its
-rows.  The lm family gathers its FSDP blocks per layer and runs Megatron's
-cuts over "model" (``models/transformer.py``); the other families, and the
-MoE and cross-attention lm configs, train on ``(dp, 1)`` grids only (at
-``tp > 1`` they raise "not ported yet"), their FSDP blocks gathered whole
-before the forward.  The cross-entropy over logits cut on the vocabulary
+rows.  Every config of the registry trains on any grid the JAX package's
+rules allow: none is refused.  The lm family gathers its FSDP blocks per
+layer (``models/transformer.py``); the other families gather theirs whole
+over "data" before the forward, keeping the model cut.  Over "model" every
+family runs Megatron's column and row cuts (``forward(model=)`` of
+``rwkv6``, ``hymba`` and ``encdec``), a MoE config's experts are cut over
+it (expert parallelism), and a dim that the group's size does not divide
+stays whole, as the reference's ``_fit`` keeps it, with every rank running
+that part whole.  The cross-entropy over logits cut on the vocabulary
 is the vocabulary-parallel one (``collectives.vocab_parallel_nll``: an
 all-reduce max, sum of exps and label logit; no rank holds a whole row),
 and the loss is the global batch's, ``all_reduce(sum(nll * mask)) /
@@ -59,23 +63,24 @@ def forward(params, tokens, cfg: ModelConfig, frontend=None, layout=None):
     vocabulary block where the lm head is cut."""
     kw = {} if frontend is None else {"frontend": frontend}
     if layout is not None:
-        check_grid(cfg, layout.grid.shape)
         if cfg.family == "lm":
             return transformer.forward(params, tokens, cfg, layout=layout,
                                        **kw)
         params = layout.gather_fsdp(params, layout.cuts)
+        kw["model"] = layout.grid.model
     return family_module(cfg).forward(params, tokens, cfg, **kw)
 
 
 def check_grid(cfg: ModelConfig, shape) -> None:
-    """Raise for a grid this config does not train on: tensor parallelism
-    (``tp > 1``) covers the lm family's dense text configs."""
-    dp, tp = shape
-    if tp > 1 and (cfg.family != "lm" or cfg.moe or cfg.cross_attn_every):
-        raise NotImplementedError(
-            f"{cfg.name}: training at tp > 1 is not ported yet for this "
-            "config (the lm family's dense text configs only); train it on "
-            f"a (dp, 1) grid")
+    """Raise for a grid shape that is not ``(dp, tp)`` of positive sizes.
+    No config is refused a grid: the JAX package trains every one on any
+    ``(data, model)`` mesh, and so does the port (a dim that the group's
+    size does not divide stays whole)."""
+    shape = tuple(shape)
+    if len(shape) != 2 or not all(isinstance(n, int) and n >= 1
+                                  for n in shape):
+        raise ValueError(f"{cfg.name}: a training grid is (dp, tp) of "
+                         f"positive sizes, got {shape}")
 
 
 def train_layout(cfg: ModelConfig, grid) -> sharding.Layout:

@@ -26,6 +26,12 @@ whole product (``sharding.gather``, the JAX package's ``pin_tp_exact``), so
 the encoder output is whole on every rank; the cross K/V and the self
 cache hold the rank's KV heads, and the logits are gathered over the
 vocabulary.  No float sum crosses ranks, so the tokens are one device's.
+
+Training on a grid (``forward(model=)``) takes Megatron's cuts instead:
+head-cut attention everywhere (``layers.tp_attn_apply``), row-cut ``wo``
+and ``w2`` summed over the group, the encoder output whole on every rank
+and cut into each decoder layer's KV heads, the embedding and head
+vocabulary-parallel.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import copy_to
 from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -134,34 +141,51 @@ def _norm(x, gamma, cfg: ModelConfig):
     return L.rmsnorm(x, gamma, cfg.norm_eps).to(_dtype(cfg))
 
 
-def _attn(p, xn, cfg: ModelConfig, positions, **kw):
-    return L.attn_apply(p, xn, num_heads=cfg.num_heads,
-                        num_kv_heads=cfg.num_kv_heads,
-                        head_dim=cfg.resolved_head_dim, positions=positions,
-                        rope_theta=cfg.rope_theta, **kw)
+def _attn(p, xn, cfg: ModelConfig, positions, model=None, source=None,
+          **kw):
+    """One attention block: ``layers.attn_apply`` (``kw``: ``causal``,
+    ``kv``, a serving ``tp``), or on a training grid's group (``model``)
+    ``layers.tp_attn_apply``, cross-attention there taking its K/V from
+    ``source``."""
+    dims = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, positions=positions,
+                rope_theta=cfg.rope_theta)
+    if model is not None:
+        return L.tp_attn_apply(p, xn, model, source=source, **dims, **kw)
+    return L.attn_apply(p, xn, **dims, **kw)
 
 
-def _mlp_tail(p, x, s, cfg: ModelConfig, tp=None):
+def _mlp_tail(p, x, s, cfg: ModelConfig, tp=None, model=None):
     """The FFN's pre-norm of the float32 sum ``s``, SwiGLU, residual add:
-    the layer's output (rounded: the scan carry)."""
+    the layer's output (rounded: the scan carry).  ``model``: the FFN's
+    Megatron cut on a training grid (``layers.tp_swiglu``)."""
     y = _norm(s, p["ln_mlp"], cfg)
-    out = L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"], tp=tp)
+    mlp = p["mlp"]
+    if model is not None:
+        out = L.tp_swiglu(y, mlp["w1"], mlp["w3"], mlp["w2"], model,
+                          cfg.d_ff)
+    else:
+        out = L.swiglu(y, mlp["w1"], mlp["w3"], mlp["w2"], tp=tp)
     return _residual(x, out)[0]
 
 
-def encode(params, frontend: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encode(params, frontend: torch.Tensor, cfg: ModelConfig,
+           model=None) -> torch.Tensor:
     """frontend (B, Tx, d) stub audio embeddings -> (B, Tx, d): each layer
     non-causal self-attention with rope (one flash launch on the card, on
-    a tensor-parallel rank's own heads) and the FFN, then ``ln_enc``."""
+    a tensor-parallel rank's own heads) and the FFN, then ``ln_enc``.
+    ``model`` (a training grid's group): Megatron's cuts, the output whole
+    on every rank."""
     tp = params.get("tp")
     x = frontend.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
 
     def layer(x, p):
         h = _attn(p["attn"], _norm(x, p["ln_attn"], cfg), cfg, positions,
-                  causal=False, tp=tp)
+                  model=model, causal=False,
+                  **({} if model is not None else {"tp": tp}))
         x, s = _residual(x, h)
-        return _mlp_tail(p, x, s, cfg, tp)
+        return _mlp_tail(p, x, s, cfg, tp, model)
 
     layer = L.remat(layer, cfg.parallel.remat, policy=False)
     at = L.layer_views(params["enc_blocks"])
@@ -185,22 +209,28 @@ def _cross_kv(p, enc: torch.Tensor, cfg: ModelConfig, tp=None):
                  for w in ("wk", "wv"))
 
 
-def _logits(params, x, cfg: ModelConfig, rounded: bool):
+def _logits(params, x, cfg: ModelConfig, rounded: bool, model=None):
     """Final norm and the LM head as a float32 product of compute-dtype
     values.  The decode step's head must already hold compute-dtype values
     in float32 (:func:`serve_params`), so no step copies it; ``rounded``
     (``forward``, on any params tree) rounds the head here first and the
-    product to the compute dtype after, as the compiled forward does."""
+    product to the compute dtype after, as the compiled forward does.
+    ``model`` (a training grid's group): a head cut on the vocabulary
+    takes its input through ``copy_to`` and the logits stay the rank's
+    block."""
     head = params["lm_head"]
     if rounded:
         head = head.to(_dtype(cfg)).to(torch.float32)
-    logits = gather(_norm(x, params["ln_final"], cfg).to(torch.float32)
-                    @ head, params.get("tp"), cfg.vocab_size)
+    xn = _norm(x, params["ln_final"], cfg).to(torch.float32)
+    if model is not None and head.shape[-1] != cfg.vocab_size:
+        logits = copy_to(xn, model) @ head
+    else:
+        logits = gather(xn @ head, params.get("tp"), cfg.vocab_size)
     return logits.to(_dtype(cfg)).to(torch.float32) if rounded else logits
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-            frontend: Optional[torch.Tensor] = None):
+            frontend: Optional[torch.Tensor] = None, model=None):
     """Teacher-forced decode over the whole target sequence: tokens (B, T)
     and frontend (B, Tx, d) -> (logits (B, T, V) float32, 0.0).  The
     encoder, then per decoder layer causal self-attention with rope and
@@ -209,26 +239,45 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     encoder and decoder layer runs under the config's ``parallel.remat``
     (``layers.remat``; "dots" is "full" here, as in the reference), which
     changes no value or gradient; the reference's FSDP gathers are left
-    out (a distributed matter)."""
+    out (a distributed matter).
+
+    ``model`` (a training grid's "model" group of more than one rank;
+    ``params`` the rank's blocks, whole on "data"): every attention is
+    head-cut (``layers.tp_attn_apply``: the encoder's non-causal, the
+    decoder's causal self-attention, and its cross-attention with the
+    rank's KV heads of the encoder output, which passes ``copy_to`` at each
+    use, so its gradient is every layer's and every rank's sum), every FFN
+    Megatron's, the embedding and head vocabulary-parallel where the rules
+    cut them; the residual sums keep their roundings, and the logits are
+    the rank's vocabulary block."""
     if frontend is None:
         raise ValueError(f"{cfg.name}: forward needs the frontend")
-    enc = encode(params, frontend, cfg)
-    x = params["embed"][tokens.to(torch.int64)].to(_dtype(cfg))
+    if model is not None and model.size == 1:
+        model = None
+    enc = encode(params, frontend, cfg, model)
+    if model is not None:
+        x = L.vocab_embed(params["embed"], tokens, model,
+                          cfg.vocab_size).to(_dtype(cfg))
+    else:
+        x = params["embed"][tokens.to(torch.int64)].to(_dtype(cfg))
     positions = torch.arange(tokens.shape[1], device=x.device)
 
     def layer(x, p, enc):
-        h = _attn(p["self"], _norm(x, p["ln_self"], cfg), cfg, positions)
+        h = _attn(p["self"], _norm(x, p["ln_self"], cfg), cfg, positions,
+                  model=model)
         x, s = _residual(x, h)
+        cross = ({"source": enc} if model is not None
+                 else {"kv": _cross_kv(p, enc, cfg)})
         h = _attn(p["cross"], _norm(s, p["ln_cross"], cfg), cfg, positions,
-                  kv=_cross_kv(p, enc, cfg))
+                  model=model, **cross)
         x, s = _residual(x, h)
-        return _mlp_tail(p, x, s, cfg)
+        return _mlp_tail(p, x, s, cfg, model=model)
 
     layer = L.remat(layer, cfg.parallel.remat, policy=False)
     at = L.layer_views(params["dec_blocks"])
     for i in range(cfg.num_layers):
         x = layer(x, at(i), enc)
-    return _logits(params, x, cfg, rounded=True), 0.0
+    return _logits(params, x, cfg, rounded=True, model=model), 0.0
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",

@@ -41,6 +41,15 @@ delta and of B and C before the products over their width, of the scan's
 output before ``w_out``.  The selective scan runs on the rank's block of
 channels, whose SSM state the ``ssm`` leaf holds (cut on channels where the
 group's size divides ``d_model``, as the JAX package's rules cut it).
+
+On a training grid (``forward(model=)``, the grid's "model" group; the
+params a rank's blocks under the training rules, which cut ``A_log`` on
+its channels and ``w_delta_up`` / ``w_out`` on their rows besides the
+serve cut's columns) the attention is ``layers.tp_attn_apply`` (at
+hymba-1.5b's 25/5 heads every head on every rank), the SSM branch runs
+the rank's ``d / tp`` channels (:func:`_tp_ssm_branch`), the FFN is
+Megatron's and the two branch norms and their average run on whole
+tensors.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.distributed.collectives import copy_to, gather_from, gather_sum
 from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
@@ -193,22 +203,77 @@ def _ssm_branch(p, x: torch.Tensor, cfg: ModelConfig,
     return L.linear(gather(y, tp, d), sp["w_out"]), new_state
 
 
+def _tp_ssm_branch(p, x: torch.Tensor, cfg: ModelConfig, model):
+    """:func:`_ssm_branch` of a whole sequence from a zero state on a
+    training grid's "model" group, the rank holding ``d / tp`` channels:
+    ``w_in``'s column block gives its channels of h and ``A_log``'s row
+    block their state matrix; the low-rank ``delta`` pair is gathered
+    whole (``layers.whole_weight``), so ``delta`` is one device's, of which
+    the rank keeps its channels (and of ``D``, ``layers.own_slice``);
+    ``w_B`` / ``w_C``, cut on the state dim N, give (B, T, N / tp) blocks
+    that are gathered to every N in float32 (``gather_sum``: every
+    channel's scan reads all of them, so the gradient is the ranks' sum,
+    rounded once); the scan runs on the rank's channels; ``w_out``'s row
+    block sums their output (``layers.row_linear``).  The input passes
+    ``copy_to``.  A group whose size does not divide ``d`` runs the whole
+    branch on every rank."""
+    sp = p["ssm"]
+    d = x.shape[-1]
+    ssm = cfg.ssm or SSMConfig()
+    N, R = ssm.state_dim, ssm.dt_rank
+    if sp["w_in"].shape[-1] == d:
+        whole = dict(sp)
+        for k, dim, n in (("w_delta", -1, R), ("w_delta_up", -2, R),
+                          ("w_B", -1, N), ("w_C", -1, N)):
+            if sp[k].shape[dim] != n:
+                whole[k] = gather_from(sp[k], model, dim)
+        return _ssm_branch(dict(p, ssm=whole), x, cfg)[0]
+    width = sp["w_in"].shape[-1]
+    xc = copy_to(x, model)
+    h = L.silu(L.linear(xc, sp["w_in"]))
+    w_delta = L.whole_weight(sp["w_delta"], model, -1, R)
+    w_delta_up = L.whole_weight(sp["w_delta_up"], model, -2, R)
+    delta = _softplus(L.linear(L.linear(xc, w_delta), w_delta_up).narrow(
+        -1, model.rank * width, width)).to(torch.float32)
+    A = _state_matrix(sp["A_log"])
+    D = L.own_slice(sp["D"], model, width)
+
+    def state_proj(w):
+        # the blocks travel in float32, so the ranks' gradients of them are
+        # summed before their one rounding to the compute dtype
+        if w.shape[-1] == N:
+            return L.linear(xc, copy_to(w, model)).to(torch.float32)
+        return gather_sum(L.linear(xc, w), model, -1, torch.float32)
+
+    y, _ = ops.selective_scan(h, delta, A, state_proj(sp["w_B"]),
+                              state_proj(sp["w_C"]), None,
+                              algorithm=cfg.ssm_scan)
+    y = y + h * D.to(h.dtype)
+    return L.row_linear(y, sp["w_out"], model)
+
+
 def _fuse(p, x: torch.Tensor, attn_out: torch.Tensor,
-          ssm_out: torch.Tensor, cfg: ModelConfig, tp=None) -> torch.Tensor:
+          ssm_out: torch.Tensor, cfg: ModelConfig, tp=None,
+          model=None) -> torch.Tensor:
     """The hybrid-head tail shared by every path: per-branch norms, their
     average into the residual stream, the SwiGLU FFN.  The FFN's pre-norm
     reads the residual sum ``x + fused`` before it is rounded to the
     compute dtype, as the JAX package's compiled programs do (XLA drops
     that bfloat16 round trip before the norm's float32 convert); the
-    residual stream itself is rounded."""
+    residual stream itself is rounded.  ``model`` (a training grid's
+    group): the FFN is ``layers.tp_swiglu``; the norms run on the whole
+    branch outputs, as on one device."""
     eps = cfg.norm_eps
     fused = 0.5 * (L.rmsnorm(attn_out, p["ln_attn_out"], eps)
                    + L.rmsnorm(ssm_out, p["ln_ssm_out"], eps))
     s = x.to(torch.float32) + fused.to(torch.float32)
     x = s.to(x.dtype)
     y = L.rmsnorm(s, p["ln_mlp"], eps).to(x.dtype)
-    return x + L.swiglu(y, p["mlp"]["w1"], p["mlp"]["w3"], p["mlp"]["w2"],
-                        tp=tp)
+    mlp = p["mlp"]
+    if model is not None:
+        return x + L.tp_swiglu(y, mlp["w1"], mlp["w3"], mlp["w2"], model,
+                               cfg.d_ff)
+    return x + L.swiglu(y, mlp["w1"], mlp["w3"], mlp["w2"], tp=tp)
 
 
 def _fuse_tail(p, x, xn, o, sstate, cfg: ModelConfig, tp=None):
@@ -224,52 +289,79 @@ def _fuse_tail(p, x, xn, o, sstate, cfg: ModelConfig, tp=None):
     return _fuse(p, x, attn_out, ssm_out, cfg, tp), new_state
 
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+           model=None) -> torch.Tensor:
+    """Embedding rows in the compute dtype; ``model`` (a training grid's
+    group): the table may be the rank's vocabulary block
+    (``layers.vocab_embed``)."""
+    if model is not None:
+        x = L.vocab_embed(params["embed"], tokens, model, cfg.vocab_size)
+        return x.to(getattr(torch, cfg.dtype))
     return params["embed"][tokens.to(torch.int64)].to(getattr(torch, cfg.dtype))
 
 
 def _logits_head(params, x: torch.Tensor, cfg: ModelConfig,
-                 rounded: bool = False) -> torch.Tensor:
+                 rounded: bool = False, model=None) -> torch.Tensor:
     """Final norm and the LM head as a float32 product of compute-dtype
     values: float32 logits.  The decode steps' compiled programs keep that
     product unrounded; ``forward``'s round it to the compute dtype first
     (``rounded``).  The head is the serving engine's ``lm_head_f32`` where
-    present, else ``lm_head`` rounded to the compute dtype here."""
+    present, else ``lm_head`` rounded to the compute dtype here.
+    ``model`` (a training grid's group): a head cut on the vocabulary takes
+    its input through ``copy_to`` and the logits stay the rank's block."""
     x = L.rmsnorm(x, params["ln_final"], cfg.norm_eps)
     head = params.get("lm_head_f32")
     if head is None:
         head = params["lm_head"].to(x.dtype).to(torch.float32)
-    logits = gather(x.to(torch.float32) @ head, params.get("tp"),
-                    cfg.vocab_size)
+    x32 = x.to(torch.float32)
+    if model is not None and head.shape[-1] != cfg.vocab_size:
+        logits = copy_to(x32, model) @ head
+    else:
+        logits = gather(x32 @ head, params.get("tp"), cfg.vocab_size)
     return logits.to(x.dtype).to(torch.float32) if rounded else logits
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig, **_):
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, model=None,
+            **_):
     """Whole-sequence logits: tokens (B, T) -> (logits (B, T, V) float32,
     aux 0.0).  Each layer's attention is ``layers.attn_apply`` with the
     config's window (the flash kernel on the card) and its SSM branch scans
     from a zero state.  Each layer runs under the config's
     ``parallel.remat`` (``layers.remat``; "dots" is "full" here, as in the
-    reference), which changes no value or gradient."""
-    x = _embed(params, tokens, cfg)
+    reference), which changes no value or gradient.
+
+    ``model`` (a training grid's "model" group of more than one rank;
+    ``params`` the rank's blocks, whole on "data"): the attention is
+    ``layers.tp_attn_apply`` with the window (the rank's heads where both
+    head counts divide, else every head on every rank: hymba-1.5b's 25/5),
+    the SSM branch :func:`_tp_ssm_branch`, the FFN ``layers.tp_swiglu``,
+    the embedding and head vocabulary-parallel where the rules cut them
+    (not at a vocabulary of 32,001), and the logits the rank's block."""
+    if model is not None and model.size == 1:
+        model = None
+    x = _embed(params, tokens, cfg, model)
     T = tokens.shape[1]
     positions = torch.arange(T, device=x.device)
     window = cfg.layer_pattern[0].window
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+              head_dim=cfg.resolved_head_dim, positions=positions,
+              rope_theta=cfg.rope_theta, window=window)
 
     def layer(x, p):
         xn = L.rmsnorm(x, p["ln_in"], cfg.norm_eps)
-        attn_out = L.attn_apply(
-            p["attn"], xn, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            positions=positions, rope_theta=cfg.rope_theta, window=window)
-        ssm_out, _ = _ssm_branch(p, xn, cfg)
-        return _fuse(p, x, attn_out, ssm_out, cfg)
+        if model is None:
+            attn_out = L.attn_apply(p["attn"], xn, **kw)
+            ssm_out, _ = _ssm_branch(p, xn, cfg)
+        else:
+            attn_out = L.tp_attn_apply(p["attn"], xn, model, **kw)
+            ssm_out = _tp_ssm_branch(p, xn, cfg, model)
+        return _fuse(p, x, attn_out, ssm_out, cfg, model=model)
 
     layer = L.remat(layer, cfg.parallel.remat, policy=False)
     at = L.layer_views(params["blocks"])
     for i in range(params["blocks"]["ln_in"].shape[0]):
         x = layer(x, at(i))
-    return _logits_head(params, x, cfg, rounded=True), 0.0
+    return _logits_head(params, x, cfg, rounded=True, model=model), 0.0
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

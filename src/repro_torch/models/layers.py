@@ -2,7 +2,10 @@
 SwiGLU, the GQA projections, the in-place paged KV append, the KV page
 quantizer of int8 / fp8 pools, the family forwards' ``remat``, and the
 building blocks of tensor-parallel training (:func:`row_linear`,
-:func:`tp_swiglu`, :func:`tp_attn_apply`, :func:`vocab_embed`).
+:func:`tp_swiglu`, :func:`tp_attn_apply` -- causal or not, self- or
+cross-attention --, :func:`vocab_embed`, and for a rank's own channels of
+whole leaves or whole-width products :func:`own_slice`,
+:func:`whole_weight` and :func:`cut_rmsnorm`).
 
 Public functions keep the JAX package's layouts: activations are
 ``(B, H, T, D)`` after projection, pool slices ``(num_pages, page_size,
@@ -18,7 +21,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import quant
 from repro_torch.distributed.collectives import (copy_to, gather_from,
-                                                 reduce_from)
+                                                 gather_sum, reduce_from)
 from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops
 
@@ -192,11 +195,17 @@ def attn_apply(p: dict, x: torch.Tensor, *, num_heads: int,
 # once to the compute dtype.
 def row_linear(x: torch.Tensor, w: torch.Tensor, model) -> torch.Tensor:
     """``x @ w`` for ``x`` a rank's column block of the input and ``w`` the
-    matching row block: the ranks' partial products summed in float32,
-    then ``x``'s dtype."""
-    partial = linear(x, w)
-    acc = torch.promote_types(partial.dtype, torch.float32)
-    return reduce_from(partial.to(acc), model).to(x.dtype)
+    matching row block: each rank's partial product is taken in float32
+    from the compute-dtype values of ``x`` and ``w`` (exact products and
+    float32 sums, as the compute dtype's GEMM accumulates before it
+    rounds), the ranks' partials are summed in float32, and the sum is
+    rounded once to ``x``'s dtype, as one device rounds the whole product
+    once (a partial rounded to the compute dtype before the sum rounds
+    twice, and where the partials cancel the second rounding's error is
+    large against the sum)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    partial = x.to(acc) @ w.to(x.dtype).to(acc)
+    return reduce_from(partial, model).to(x.dtype)
 
 
 def tp_swiglu(x: torch.Tensor, w1, w3, w2, model, d_ff: int) -> torch.Tensor:
@@ -213,15 +222,22 @@ def tp_swiglu(x: torch.Tensor, w1, w3, w2, model, d_ff: int) -> torch.Tensor:
 def tp_attn_apply(p: dict, x: torch.Tensor, model, *, num_heads: int,
                   num_kv_heads: int, head_dim: int, positions: torch.Tensor,
                   rope_theta: float, window: Optional[int] = None,
-                  softcap: Optional[float] = None) -> torch.Tensor:
-    """:func:`attn_apply` (causal self-attention) over the model group.
-    Where both head counts divide by its size (``sharding.head_cut``) a rank
-    projects, ropes and attends its own ``Hq/tp`` query heads over its
-    ``Hkv/tp`` KV heads (contiguous blocks keep each GQA group whole:
+                  softcap: Optional[float] = None, causal: bool = True,
+                  source: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`attn_apply` over the model group: self-attention with rope
+    (``causal`` or not: the decoders, and the encoder), or, given
+    ``source`` (B, Tk, d), cross-attention whose K/V are projected from it
+    (no rope, not causal, no window), as :func:`attn_apply` with ``kv=``.
+    Where both head counts divide by the group's size
+    (``sharding.head_cut``) a rank projects its own ``Hq/tp`` query heads
+    and ``Hkv/tp`` KV heads (contiguous blocks keep each GQA group whole:
     ``ops.attention``, the flash kernel on the card) and ``wo``'s row block
-    takes its heads' output (:func:`row_linear`).  Otherwise the cut
-    weights are gathered (``gather_from``) and every rank runs every head,
-    as the serve path does where the KV heads do not divide."""
+    takes its heads' output (:func:`row_linear`); ``x`` and ``source``
+    pass ``copy_to``, so their gradients are the ranks' sums.  Otherwise
+    the cut weights are gathered (``gather_from``) and every rank runs
+    every head, as the serve path does where the KV heads do not divide."""
+    if source is not None:
+        causal, window = False, None
     if not head_cut(model, num_heads, num_kv_heads):
         widths = {"wq": num_heads, "wk": num_kv_heads, "wv": num_kv_heads}
         whole = {k: (gather_from(p[k], model, -1)
@@ -230,21 +246,69 @@ def tp_attn_apply(p: dict, x: torch.Tensor, model, *, num_heads: int,
         wo = p["wo"]
         whole["wo"] = (gather_from(wo, model, -2)
                        if wo.shape[-2] != num_heads * head_dim else wo)
+        kv = None if source is None else tuple(
+            project_heads(source, whole[w], num_kv_heads, head_dim)
+            for w in ("wk", "wv"))
         return attn_apply(whole, x, num_heads=num_heads,
                           num_kv_heads=num_kv_heads, head_dim=head_dim,
                           positions=positions, rope_theta=rope_theta,
-                          window=window, softcap=softcap)
+                          window=window, softcap=softcap, causal=causal,
+                          kv=kv)
     B, T, _ = x.shape
     xc = copy_to(x, model)
 
-    def heads(w):
-        return linear(xc, w).reshape(B, T, -1, head_dim).transpose(1, 2)
+    def heads(a, w):
+        return linear(a, w).reshape(a.shape[0], a.shape[1], -1,
+                                    head_dim).transpose(1, 2)
 
-    q = rope(heads(p["wq"]), positions, rope_theta)
-    k = rope(heads(p["wk"]), positions, rope_theta)
-    o = ops.attention(q, k, heads(p["wv"]), causal=True, window=window,
-                      softcap=softcap)
+    q = heads(xc, p["wq"])
+    if source is None:
+        q = rope(q, positions, rope_theta)
+        k = rope(heads(xc, p["wk"]), positions, rope_theta)
+        v = heads(xc, p["wv"])
+    else:
+        sc = copy_to(source, model)
+        k, v = heads(sc, p["wk"]), heads(sc, p["wv"])
+    o = ops.attention(q, k, v, causal=causal, window=window, softcap=softcap)
     return row_linear(o.transpose(1, 2).reshape(B, T, -1), p["wo"], model)
+
+
+def own_slice(t: torch.Tensor, model, width: int, dim: int = -1
+              ) -> torch.Tensor:
+    """A rank's block of a leaf that every rank holds whole (a norm scale,
+    a decay base, a per-head bonus: no rule cuts it), for a computation on
+    the rank's own channels or heads: ``t`` passes ``copy_to`` first, so
+    its gradient, which each rank gives only on its block, is the ranks'
+    sum.  ``width``: the rank's block's size along ``dim``."""
+    return copy_to(t, model).narrow(dim, model.rank * width, width)
+
+
+def whole_weight(w: torch.Tensor, model, dim: int, width: int
+                 ) -> torch.Tensor:
+    """A weight whole on every rank for a computation whose consumer
+    differs by rank (each rank keeps its own channels of the product):
+    a block cut on ``dim`` (narrower than ``width``) is gathered with
+    ``gather_sum`` (the backward sums the ranks' gradients and keeps the
+    rank's block), a whole one passes ``copy_to`` (its gradient is the
+    ranks' sum)."""
+    if w.shape[dim] == width:
+        return copy_to(w, model)
+    return gather_sum(w, model, dim)
+
+
+def cut_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, width: int, model,
+                eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm` over ``width`` channels of which ``x`` holds the
+    rank's block (``gamma`` its block of the scale): each rank's float32
+    sum of squares is all-reduced (``reduce_from``, then ``copy_to``: the
+    total's gradient, which each rank gives for its own channels, is
+    summed back), and each rank normalizes its block."""
+    x32 = x.to(torch.float32)
+    ss = copy_to(reduce_from(torch.sum(x32 * x32, dim=-1, keepdim=True),
+                             model), model)
+    out = (x32 * torch.rsqrt(ss / width + eps)) * (
+        1.0 + gamma.to(torch.float32))
+    return out.to(x.dtype)
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, model,

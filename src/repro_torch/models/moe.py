@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import quant
+from repro_torch.distributed.collectives import copy_to, gather_from
 from repro_torch.kernels import build, ops, ref
 
 
@@ -258,8 +259,8 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + e))
 
 
-def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, need_aux: bool = True
-              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, need_aux: bool = True,
+              model=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x: (B, T, d) -> (out (B, T, d) in x's dtype, aux f32 scalar, or None
     with ``need_aux=False``: the block tail discards it, as the compiled
     reference's dead-code elimination does).
@@ -269,9 +270,22 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, need_aux: bool = True
     takes every dropped assignment and is never read); each expert's
     SwiGLU runs on its ``C`` rows; the combine sums each token's kept
     outputs, weighted by its gates and rounded to x's dtype one by one,
-    in the reference's scatter order."""
+    in the reference's scatter order.
+
+    ``model`` (a training grid's "model" group) with expert stacks cut on
+    their expert dim (``w1`` / ``w3`` / ``w2`` holding ``E / tp`` experts,
+    the training rules' "expert" cut): expert parallelism.  Every rank
+    routes and dispatches the whole of ``x`` (the same rows on every rank,
+    so the same capacity, drops and ``aux``), runs its own experts' rows
+    of the ``(E, C, d)`` buffer, and the ``(E / tp, C, d)`` outputs are
+    gathered over the group (``gather_from``) before the combine, which
+    every rank runs alike.  Only the dispatch reads ``x`` through
+    ``copy_to`` (each rank's gradient covers its experts' rows, summed over
+    the group); the router reads it as it is (its gradient is the same on
+    every rank)."""
     B, T, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
+    ep = model is not None and model.size > 1 and p["w1"].shape[0] != E
     xt = x.reshape(-1, d)
     n = xt.shape[0]
     C = capacity(n, cfg)
@@ -288,11 +302,17 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, need_aux: bool = True
                           "min_gap": (top[:, k - 1] - top[:, -1]).min()})
 
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[dest] = xt[tok]
+    buf[dest] = (copy_to(xt, model) if ep else xt)[tok]
     eb = buf[:-1].reshape(E, C, d)
+    if ep:
+        n_local = p["w1"].shape[0]
+        eb = eb.narrow(0, model.rank * n_local, n_local)
     h = _expert_matmul(eb, p["w1"])
     g = _expert_matmul(eb, p["w3"])
-    y = _expert_matmul(_silu(h) * g, p["w2"]).reshape(E * C, d)
+    y = _expert_matmul(_silu(h) * g, p["w2"])
+    if ep:
+        y = gather_from(y, model, 0)
+    y = y.reshape(E * C, d)
 
     # combine: contributions in sorted (expert) order, then each token's k
     # of them added in that order

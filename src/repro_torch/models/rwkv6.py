@@ -37,6 +37,17 @@ token-shift carries ``x_tm`` / ``x_cm`` stay whole on every rank (the one
 exception to the serve cache rules there): they are the pre-normed inputs,
 which every rank holds whole, and a cut would only force a gather at the
 next step.
+
+On a training grid (``forward(model=)``, the grid's "model" group; the
+params a rank's blocks under the training rules: ``wr`` / ``wk`` / ``wv``
+/ ``wg`` / ``w_lora_a`` / ``cm_k`` column-cut, ``wo`` / ``w_lora_b`` /
+``cm_v`` row-cut, the embedding and head on the vocabulary) each layer is
+Megatron's (:func:`_tp_block`): the rank runs the scan on its ``H / tp``
+heads (the kernel on the card, through ``RWKV6ScanFn``), gathers the
+decay's LoRA pair whole so that ``dw`` keeps one device's sum order,
+reduces ``ln_x``'s float32 sum of squares over the group, and sums ``wo``'s
+and ``cm_v``'s row blocks; a group whose size does not divide the heads
+runs the whole layer on every rank.
 """
 from __future__ import annotations
 
@@ -46,11 +57,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import copy_to, gather_from
 from repro_torch.distributed.sharding import gather, head_cut, local_width
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (dense_init, in_width, layer_views,
-                                       linear, remat, rmsnorm, silu,
-                                       store_rows)
+from repro_torch.models.layers import (cut_rmsnorm, dense_init, in_width,
+                                       layer_views, linear, own_slice, remat,
+                                       rmsnorm, row_linear, silu, store_rows,
+                                       vocab_embed, whole_weight)
 
 HEAD_DIM = 64  # RWKV6 uses 64-wide heads
 LORA_DIM = 64
@@ -166,15 +179,102 @@ def _time_mix(p, x, cfg: ModelConfig, state=None, x_prev=None):
         dw = dw[..., lo * HEAD_DIM:(lo + hl) * HEAD_DIM]
         u = u[lo:lo + hl]
     w = _heads(decay(w0, dw), B, T, hl).to(r.dtype)
-    u = u.to(torch.float32)
-    if cfg.rwkv_chunk and T > 1:
-        out, new_state = ops.rwkv6_chunked(r, k, v, w, u, state,
-                                           chunk=cfg.rwkv_chunk)
-    else:
-        out, new_state = ops.rwkv6(r, k, v, w, u, state)
+    out, new_state = _wkv(r, k, v, w, u, cfg, state)
     out = gather(out.transpose(1, 2).reshape(B, T, -1), tp, d)
     out = rmsnorm(out, p["ln_x"], cfg.norm_eps) * g
     return linear(out, p["wo"]), new_state, x[:, -1]
+
+
+def _wkv(r, k, v, w, u, cfg: ModelConfig, state=None):
+    """The WKV recurrence of (B, H, T, 64) heads: the chunked form where the
+    config asks for it, else ``ops.rwkv6`` (the scan kernel on the card
+    from a zero state)."""
+    u = u.to(torch.float32)
+    if cfg.rwkv_chunk and r.shape[2] > 1:
+        return ops.rwkv6_chunked(r, k, v, w, u, state, chunk=cfg.rwkv_chunk)
+    return ops.rwkv6(r, k, v, w, u, state)
+
+
+def _tp_time_mix(p, x, cfg: ModelConfig, model):
+    """:func:`_time_mix` of a whole sequence on a training grid's "model"
+    group, the rank holding ``H / tp`` heads: its column blocks of ``wr`` /
+    ``wk`` / ``wv`` / ``wg`` give its heads' r, k, v and its channels of g
+    (each mixed input through ``copy_to``); the decay's LoRA pair is
+    gathered whole (``layers.whole_weight``) so that ``dw`` is one
+    device's, with its sum order (a changed rounding there flips decays
+    near 1), and the rank keeps its channels of it, of ``w0``, of ``u``'s
+    heads and of ``ln_x`` (``layers.own_slice``); the scan runs on the
+    rank's heads (``ops.rwkv6``: the kernel on the card); ``ln_x``, a norm
+    over all d channels, sums the ranks' float32 squares
+    (``layers.cut_rmsnorm``); ``wo``'s row block sums the heads' output
+    (``layers.row_linear``)."""
+    B, T, d = x.shape
+    hl = d // HEAD_DIM // model.size
+    width = hl * HEAD_DIM
+    xs = _token_shift(x)
+    mix = p["mix"].to(x.dtype)
+    xr, xk, xv, xg, xw = (copy_to(x + mix[i] * (xs - x), model)
+                          for i in range(5))
+    r = _heads(linear(xr, p["wr"]), B, T, hl)
+    k = _heads(linear(xk, p["wk"]), B, T, hl)
+    v = _heads(linear(xv, p["wv"]), B, T, hl)
+    g = silu(linear(xg, p["wg"]))
+    lora_a = whole_weight(p["w_lora_a"], model, -1, LORA_DIM)
+    lora_b = whole_weight(p["w_lora_b"], model, -2, LORA_DIM)
+    dw = linear(torch.tanh(linear(xw, lora_a)), lora_b)
+    dw = dw.narrow(-1, model.rank * width, width)
+    w = _heads(decay(own_slice(p["w0"], model, width), dw), B, T,
+               hl).to(r.dtype)
+    out, _ = _wkv(r, k, v, w, own_slice(p["u"], model, hl, 0), cfg)
+    out = cut_rmsnorm(out.transpose(1, 2).reshape(B, T, width),
+                      own_slice(p["ln_x"], model, width), d, model,
+                      cfg.norm_eps) * g
+    return row_linear(out, p["wo"], model)
+
+
+def _tp_channel_mix(p, x, model):
+    """:func:`_channel_mix` on a training grid's "model" group: ``cm_k``'s
+    column block and ``cm_v``'s row block (Megatron's MLP)."""
+    xs = _token_shift(x)
+    xk = copy_to(x + p["mix"].to(x.dtype)[1] * (xs - x), model)
+    h = torch.square(torch.relu(linear(xk, p["cm_k"])))
+    return row_linear(h, p["cm_v"], model)
+
+
+# a rank's leaves cut on their last dim / on the one before, by the
+# training rules
+_COL_KEYS = ("wr", "wk", "wv", "wg", "w_lora_a", "cm_k")
+_ROW_KEYS = ("wo", "w_lora_b", "cm_v")
+
+
+def _whole_layer(p, cfg: ModelConfig, model):
+    """A layer's params whole on every rank (``gather_from``: the one-device
+    block runs alike on every rank), for a group whose size does not
+    divide the heads."""
+    width = {"wr": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
+             "wg": cfg.d_model, "w_lora_a": LORA_DIM, "cm_k": cfg.d_ff,
+             "wo": cfg.d_model, "w_lora_b": LORA_DIM, "cm_v": cfg.d_ff}
+    out = dict(p)
+    for key in _COL_KEYS + _ROW_KEYS:
+        dim = -1 if key in _COL_KEYS else -2
+        if p[key].shape[dim] != width[key]:
+            out[key] = gather_from(p[key], model, dim)
+    return out
+
+
+def _tp_block(p, x, cfg: ModelConfig, model):
+    """:func:`_block` of a whole sequence on a training grid's "model"
+    group (module docstring): Megatron's cuts where the group's size
+    divides the heads (the channel mix where it divides ``d_ff``), else
+    every rank runs the whole layer."""
+    if not head_cut(model, cfg.d_model // HEAD_DIM) or \
+            p["cm_k"].shape[-1] == cfg.d_ff:
+        return _block(_whole_layer(p, cfg, model), x, cfg)[0]
+    h = _tp_time_mix(p, rmsnorm(x, p["ln_tm"], cfg.norm_eps), cfg, model)
+    s = x.to(torch.float32) + h.to(torch.float32)
+    x = s.to(x.dtype)
+    return x + _tp_channel_mix(
+        p, rmsnorm(s, p["ln_cm"], cfg.norm_eps).to(x.dtype), model)
 
 
 def _channel_mix(p, x, x_prev=None):
@@ -200,38 +300,62 @@ def _block(p, x, cfg: ModelConfig, state=None, x_tm=None, x_cm=None):
     return x + h, new_state, last_tm, last_cm
 
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+           model=None) -> torch.Tensor:
+    """Embedding rows in the compute dtype; ``model`` (a training grid's
+    group): the table may be the rank's vocabulary block
+    (``layers.vocab_embed``)."""
+    if model is not None:
+        x = vocab_embed(params["embed"], tokens, model, cfg.vocab_size)
+        return x.to(getattr(torch, cfg.dtype))
     return params["embed"][tokens.to(torch.int64)].to(getattr(torch, cfg.dtype))
 
 
-def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _head(params, x: torch.Tensor, cfg: ModelConfig,
+          model=None) -> torch.Tensor:
     """Final norm and the LM head as a float32 product of compute-dtype
     values: float32 logits.  The head is rounded to the compute dtype here,
     unless the params hold it so already as ``lm_head_f32`` (the serving
-    engine's copy, so that no step casts it)."""
+    engine's copy, so that no step casts it).  ``model`` (a training
+    grid's group): a head cut on the vocabulary takes its input through
+    ``copy_to`` and the logits stay the rank's vocabulary block."""
     x = rmsnorm(x, params["ln_final"], cfg.norm_eps)
     head = params.get("lm_head_f32")
     if head is None:
         head = params["lm_head"].to(x.dtype).to(torch.float32)
-    return gather(x.to(torch.float32) @ head, params.get("tp"),
-                  cfg.vocab_size)
+    x = x.to(torch.float32)
+    if model is not None and head.shape[-1] != cfg.vocab_size:
+        return copy_to(x, model) @ head
+    return gather(x @ head, params.get("tp"), cfg.vocab_size)
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig, **_):
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, model=None,
+            **_):
     """Whole-sequence logits: tokens (B, T) -> (logits (B, T, V) float32,
     aux 0.0).  Each layer's WKV recurrence is ``ops.rwkv6`` from a zero
     state (the CUDA kernel on the card).  The logits are rounded to the
     compute dtype before their float32 convert, as the JAX package's
     compiled forward does.  Each layer runs under the config's
     ``parallel.remat`` (``layers.remat``; "dots" is "full" here, as in the
-    reference), which changes no value or gradient."""
-    x = _embed(params, tokens, cfg)
-    layer = remat(lambda x, p: _block(p, x, cfg)[0], cfg.parallel.remat,
-                  policy=False)
+    reference), which changes no value or gradient.
+
+    ``model`` (a training grid's "model" group of more than one rank;
+    ``params`` the rank's blocks, whole on "data"): each layer is
+    :func:`_tp_block`, the embedding and the head vocabulary-parallel where
+    the rules cut them, and the logits the rank's vocabulary block."""
+    if model is not None and model.size == 1:
+        model = None
+    x = _embed(params, tokens, cfg, model)
+    if model is None:
+        body = lambda x, p: _block(p, x, cfg)[0]      # noqa: E731
+    else:
+        body = lambda x, p: _tp_block(p, x, cfg, model)  # noqa: E731
+    layer = remat(body, cfg.parallel.remat, policy=False)
     at = layer_views(params["blocks"])
     for i in range(params["blocks"]["ln_tm"].shape[0]):
         x = layer(x, at(i))
-    logits = _head(params, x, cfg)
+    logits = (_head(params, x, cfg) if model is None
+              else _head(params, x, cfg, model))
     return logits.to(x.dtype).to(torch.float32), 0.0
 
 

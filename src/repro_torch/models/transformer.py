@@ -27,12 +27,14 @@ the dense ``decode_step`` only (the JAX package serves it through
 On a training grid (``forward(layout=)``, ``distributed/sharding.py::
 Layout``) the params are a rank's blocks: each layer gathers its FSDP
 blocks over "data" inside the remat'd group (``Layout.gather_fsdp``), and
-over "model" the dense text configs run Megatron's cuts
-(``layers.tp_attn_apply``, ``layers.tp_swiglu``, the vocabulary-parallel
-``layers.vocab_embed`` and head); the residual stream is whole on every
-model rank and the logits come out cut on the vocabulary.  Under data
-parallelism a MoE FFN routes the whole batch's rows (all-gathered), so its
-capacity, drops and ``aux`` are the one-device program's.
+over "model" every config runs Megatron's cuts (``layers.tp_attn_apply``,
+a VLM's cross blocks through it with the frontend as the K/V source,
+``layers.tp_swiglu``, the vocabulary-parallel ``layers.vocab_embed`` and
+head) and a MoE config expert parallelism (``moe.moe_apply(model=)``);
+the residual stream is whole on every model rank and the logits come out
+cut on the vocabulary.  Under data parallelism a MoE FFN routes the whole
+batch's rows (all-gathered), so its capacity, drops and ``aux`` are the
+one-device program's.
 """
 from __future__ import annotations
 
@@ -281,16 +283,18 @@ def _residual_ffn(pj, x, a, cfg: ModelConfig, need_aux: bool = False,
     after ``wo``), the FFN's pre-norm on the unrounded float32 sum
     (:func:`_block_tail`), the FFN and its residual add: (x, its float32
     sum before rounding, the MoE ``aux`` or None).  ``grid`` (training):
-    the dense FFN over its "model" group, a MoE FFN over the "data"
-    group's rows."""
+    the dense FFN over its "model" group; a MoE FFN over the "data"
+    group's rows (gathered, so every data rank routes the whole batch)
+    with its experts cut over "model" (``moe.moe_apply(model=)``)."""
     s = x.to(torch.float32) + a.to(torch.float32)
     x = s.to(x.dtype)
     y = L.rmsnorm(s, pj["ln_mlp"], cfg.norm_eps).to(x.dtype)
     aux = None
-    if cfg.moe and grid is not None and grid.data.size > 1:
+    if cfg.moe and grid is not None:
         B = y.shape[0]
         ffn, aux = moe_mod.moe_apply(pj["moe"], gather_sum(y, grid.data, 0),
-                                     cfg.moe, need_aux=need_aux)
+                                     cfg.moe, need_aux=need_aux,
+                                     model=grid.model)
         ffn = ffn.narrow(0, grid.data.rank * B, B)
     elif cfg.moe:
         ffn, aux = moe_mod.moe_apply(pj["moe"], y, cfg.moe,
@@ -326,7 +330,8 @@ def _cross_kv(p, frontend: torch.Tensor, cfg: ModelConfig, tp=None):
                  for w in ("wk", "wv"))
 
 
-def _cross_apply(p, x, h, cross_kv, cfg: ModelConfig, tp=None):
+def _cross_apply(p, x, h, cross_kv, cfg: ModelConfig, tp=None, model=None,
+                 source=None):
     """The gated cross-attention block after a group: x (B, T, d) is the
     residual stream and ``h`` its float32 sum before rounding (the group's
     last layer's, :func:`_block_tail`), which the block's norm reads as the
@@ -337,13 +342,23 @@ def _cross_apply(p, x, h, cross_kv, cfg: ModelConfig, tp=None):
     Returns the new residual stream (the group's output, rounded).  Under
     tensor parallelism the rank attends its own heads over its cross K/V
     and the heads are gathered before the whole ``wo``, so the gated
-    residual runs on whole tensors."""
+    residual runs on whole tensors.
+
+    On a training grid (``model``, its group; ``cross_kv`` None) the
+    block is ``layers.tp_attn_apply`` with ``source``, the frontend in the
+    compute dtype: each rank projects its own query heads and its KV heads
+    of the frontend, and ``wo``'s row block sums the heads' output, so the
+    gated residual again runs on whole tensors, with both of its
+    roundings."""
     dtype = x.dtype
     xn = L.rmsnorm(h, p["ln"], cfg.norm_eps).to(dtype)
-    out = L.attn_apply(
-        p["attn"], xn, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-        positions=None, rope_theta=cfg.rope_theta, kv=cross_kv, tp=tp)
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+              head_dim=cfg.resolved_head_dim, positions=None,
+              rope_theta=cfg.rope_theta)
+    if model is not None:
+        out = L.tp_attn_apply(p["attn"], xn, model, source=source, **kw)
+    else:
+        out = L.attn_apply(p["attn"], xn, kv=cross_kv, tp=tp, **kw)
     return x + ref.tanh(p["gate"]).to(dtype) * out
 
 
@@ -725,7 +740,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             if layout is not None:
                 cp = layout.gather_fsdp(cp, layout.cuts["cross"], lead=1,
                                         dtype=dtype)
-            x = _cross_apply(cp, x, h, _cross_kv(cp, frontend, cfg), cfg)
+            if model is not None:
+                x = _cross_apply(cp, x, h, None, cfg, model=model,
+                                 source=frontend.to(dtype))
+            else:
+                x = _cross_apply(cp, x, h, _cross_kv(cp, frontend, cfg), cfg)
         return x, aux
 
     group = L.remat(group, cfg.parallel.remat)

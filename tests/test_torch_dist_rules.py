@@ -218,3 +218,28 @@ def test_gloo_ranks_on_a_card_start_with_pinned_buffer_settings(
     with runtime._rank_env("gloo", devices):
         assert (key in os.environ) == added
     assert key not in os.environ
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("name", ARCHS)
+def test_full_width_param_cuts_equal_param_pspecs(name, shape):
+    """The published widths (meta tensors and abstract shapes: nothing is
+    allocated), where ``_fit``'s shape check decides: hymba-1.5b's
+    vocabulary of 32,001 keeps its embedding and head whole at tp 2 while
+    its 25/5 heads' columns (1,600 and 320) are cut, seamless's 256,206
+    is cut, and a MoE config's experts are cut over "model"."""
+    cfg, tcfg = get_config(name), t_get_config(name)
+    jparams = jax.eval_shape(lambda: japi.init_params(cfg,
+                                                      jax.random.PRNGKey(0)))
+    tparams = api.init_params(tcfg, torch.Generator(), device="meta")
+    want = _jax_cuts(shd.param_pspecs(jparams, cfg, grid_mesh(shape)))
+    got = _flat(sharding.train_param_cuts(tparams, *shape, tcfg))
+    assert got == want
+    if name == "hymba-1.5b":
+        assert got["embed"][0] is None and got["lm_head"][1] is None
+        assert got["blocks/attn/wq"][0] is not None
+    if name == "seamless-m4t-medium":
+        assert got["embed"][0] == 0 and got["lm_head"][0] == 1
+    if tcfg.moe:
+        assert got["blocks/moe/w1"][0] == 2
+        assert got["blocks/moe/router"][0] is None

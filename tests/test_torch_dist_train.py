@@ -33,9 +33,8 @@ Bounds, each with the value measured when it was set:
   ``aux``, rwkv6 through ``RWKV6ScanFn``'s CPU path, hymba, the VLM, the
   encoder-decoder; the port's seeded params, float32 compute): the same
   bounds against the one-device step, ``aux`` within 1e-6 absolute
-  (measured: loss 1.7e-7, grad_norm 3.2e-7, aux 2.4e-7, params 1.8e-5);
-  a non-lm family, a MoE or a cross-attention config at tp 2 raises "not
-  ported yet".
+  (measured: loss 1.7e-7, grad_norm 3.2e-7, aux 2.4e-7, params 1.8e-5).
+  Their training at tp > 1 is ``test_torch_tp_train_families.py``'s.
 * checkpoints: a state saved at (2, 2) restores at (1, 1) bit for bit, and
   a one-device state restores at (2, 2) bit for bit.
 * the CLI at ``--dp 2 --tp 2``: the reference's log lines, a JSON last
@@ -51,7 +50,6 @@ import re
 import subprocess
 import sys
 import textwrap
-import types
 
 import numpy as np
 import pytest
@@ -64,7 +62,6 @@ from repro_torch.distributed import runtime
 from repro_torch.launch import train as train_cli
 from repro_torch.models import api
 from repro_torch.train import optimizer as topt
-from repro_torch.train import step as tstep
 from torch_dist_cases import (ARCH, OPT, numpy_batch, one_device, port_cfg,
                               train_rank)
 from torch_train_cases import (FAMILIES, assert_step_close, configs,
@@ -335,21 +332,11 @@ def test_remat_full_gives_the_same_step(setup):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_every_family_at_dp2_matches_the_one_device_step(setup, arch):
+    api.check_grid(port_cfg(arch), (2, 1))
     per_rank = _case(setup, arch)
     _check_ranks_agree(per_rank)
     one, _, _ = one_device(arch, F32, OPT, setup["cases"][arch]["batches"])
     _assert_close_to_one_device(one, per_rank[0]["hist"])
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "hymba-1.5b",
-                                  "seamless-m4t-medium",
-                                  "phi3.5-moe-42b-a6.6b",
-                                  "llama-3.2-vision-11b"])
-def test_tensor_parallel_training_refuses_the_other_configs(arch):
-    grid = types.SimpleNamespace(shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tstep.make_train_step(port_cfg(arch), topt.AdamWConfig(), grid)
-    api.check_grid(port_cfg(arch), (2, 1))
 
 
 def test_checkpoints_cross_grid_shapes(setup):

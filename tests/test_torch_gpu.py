@@ -23,6 +23,8 @@ in the same order), checked with ``torch.equal``; its f32 output is held to atol
 test's), its bf16 output to one bf16 ulp plus the f32 bound of two orders
 of its D-term sum over the k-dim (``ref.rwkv6_scan_order_bound``).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1148,3 +1150,119 @@ def test_grid_train_step_on_card(cuda):
     np.testing.assert_allclose(got["loss"], float(m["loss"]), rtol=1e-3)
     np.testing.assert_allclose(got["grad_norm"], float(m["grad_norm"]),
                                rtol=1e-2)
+
+
+# ----------------------------------------------------------------------------
+# tensor-parallel training: every family's rank shapes and a (1, 2) grid
+# ----------------------------------------------------------------------------
+# a (1, 2) rank's attention in chip_smoke.py's tp_train_path, (B, Hq, Hkv,
+# Tq, Tk, D) and options: phi3.5-moe's and the VLM's 16/4 heads of 128 (and
+# the VLM's cross block over 1,600 frontend tokens), seamless's 8/8 heads
+# of 64 (encoder, decoder, cross over 960 frames), hymba-1.5b's 25/5 heads
+# of 64 whole on every rank with its window of 1,024 at T 2,048
+TP_TRAIN_FLASH_SHAPES = [
+    ((4, 16, 4, 256, 256, 128), dict(causal=True)),
+    ((4, 16, 4, 256, 1600, 128), dict(causal=False)),
+    ((4, 8, 8, 960, 960, 64), dict(causal=False)),
+    ((4, 8, 8, 256, 256, 64), dict(causal=True)),
+    ((4, 8, 8, 256, 960, 64), dict(causal=False)),
+    ((2, 25, 5, 2048, 2048, 64), dict(causal=True, window=1024)),
+]
+
+
+@pytest.mark.parametrize("shape, opts", TP_TRAIN_FLASH_SHAPES)
+def test_flash_function_at_tp_train_rank_shapes(cuda, shape, opts):
+    """``FlashAttentionFn`` at a tp-train rank's shape: one launch, the
+    forward within the flash bound of the plain version, the gradients the
+    plain version's autograd bit for bit."""
+    B, Hq, Hkv, Tq, Tk, D = shape
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    out_k, g_k = autograd_grads(lambda *x: ops.attention(*x, **opts),
+                                (q, k, v), (dout,))
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert "FlashAttentionFn" in type(out_k[0].grad_fn).__name__
+    out_r, g_r = autograd_grads(lambda *x: ref.flash_attention(*x, **opts),
+                                (q, k, v), (dout,))
+    assert_within_bf16_ulp(out_k[0], out_r[0].detach().float().cpu(),
+                           atol=1e-5)
+    for a, b in zip(g_k, g_r):
+        assert torch.equal(a, b)
+
+
+def test_rwkv6_function_at_the_tp_train_rank_shape(cuda):
+    """``RWKV6ScanFn`` at rwkv6-7b's rank in tp_train_path (B 4, 32 of its 64
+    heads, T 256, bf16, the model's decays): one launch, the state and the
+    gradients the plain version's bit for bit, the output within the scan's
+    bf16 bound."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    shape = (4, 32, 256, 64)
+    r, k, v = (torch.randn(shape, generator=g, device=cuda) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.empty(shape, device=cuda).uniform_(
+        -8.0, -5.0, generator=g)))
+    r, k, v, w = (t.to(torch.bfloat16) for t in (r, k, v, w))
+    u = torch.randn((32, 64), generator=g, device=cuda) * 0.3
+    douts = (torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16),
+             torch.randn((4, 32, 64, 64), generator=g, device=cuda))
+    ops.reset_launch_counts()
+    out_k, g_k = autograd_grads(ops.rwkv6, (r, k, v, w, u), douts)
+    assert ops.launch_counts()["rwkv6_scan"] == 1
+    out_r, g_r = autograd_grads(ref.rwkv6_scan, (r, k, v, w, u), douts)
+    assert torch.equal(out_k[1], out_r[1])
+    assert_within_bf16_ulp(out_k[0], out_r[0].detach().float().cpu().numpy(),
+                           atol=ref.rwkv6_scan_order_bound(
+                               r, k, v, w, u).cpu().numpy())
+    for a, b in zip(g_k, g_r):
+        assert torch.equal(a, b)
+
+
+def test_tp_train_step_of_every_family_on_card(cuda):
+    """One train step of every family at tp 2 (the reduced configs of
+    ``torch_dist_cases.TP_FAMILIES``, bf16 compute, remat "none") on a (1,
+    2) grid of ranks sharing the card: every rank's metrics the same, the
+    flash and scan launches a rank as the family's forward makes them (one
+    flash per attention call, one scan per rwkv layer; none in the
+    backward), the loss within a relative 1e-3 and the grad norm within
+    1e-2 of the one-device step's on the card (the row cuts sum in other
+    orders)."""
+    from repro_torch.distributed import runtime
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import step as tstep
+    from torch_dist_cases import (OPT, TP_FAMILIES, card_family_step_rank,
+                                  numpy_batch, port_cfg)
+    names = ("rwkv6", "hymba", "seamless", "phi_moe", "vlm")
+    cases = {}
+    for name in names:
+        arch, over = TP_FAMILIES[name]
+        cfg = port_cfg(arch, **over)
+        fe = ((cfg.frontend_tokens, cfg.d_model) if cfg.frontend_tokens
+              else None)
+        cases[name] = (arch, over, numpy_batch(cfg.vocab_size, B=4, T=32,
+                                               frontend=fe))
+    ranks = runtime.spawn(card_family_step_rank, (1, 2), (cases,),
+                          backend="gloo", devices=["cuda:0"] * 2,
+                          timeout=300)
+    flash = {"rwkv6": 0, "hymba": 2, "seamless": 6, "phi_moe": 2, "vlm": 6}
+    for name in names:
+        arch, over, batch = cases[name]
+        cfg = port_cfg(arch, **over)
+        want = {"w4a8_matmul": 0, "paged_decode_attention": 0,
+                "flash_attention": flash[name],
+                "rwkv6_scan": cfg.num_layers if cfg.family == "rwkv" else 0}
+        for r in ranks:
+            assert r[name]["launches"] == want, (name, r[name])
+            assert r[name]["metrics"] == ranks[0][name]["metrics"]
+        cfg = port_cfg(arch, parallel=dataclasses.replace(
+            cfg.parallel, remat="none"), **over)
+        ocfg = topt.AdamWConfig(**OPT)
+        params = api.init_params(
+            cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        _, _, m = tstep.make_train_step(cfg, ocfg)(
+            params, topt.init_state(params, ocfg), batch)
+        got = ranks[0][name]["metrics"]
+        np.testing.assert_allclose(got["loss"], float(m["loss"]), rtol=1e-3)
+        np.testing.assert_allclose(got["grad_norm"], float(m["grad_norm"]),
+                                   rtol=1e-2)

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed import collectives, pipeline
 from repro_torch.models import api
 from repro_torch.train import optimizer as topt
@@ -24,7 +25,30 @@ PSUM_SHAPES = {"a": (3, 100), "b": (7,), "c": {"w": (64, 48)}}
 PIPE = dict(stages=4, microbatches=8, mb=4, width=32)
 
 
+# The configs of tensor-parallel training at tp 2: name -> (arch, overrides
+# of the reduced config, a MoE's (experts, top-k) among them).  rwkv6 at
+# d_model 128 (two heads of 64, one a rank; the reduced width has one);
+# qwen3-moe with 16 experts and top-8; and two configs where the group's
+# size divides no head count: hymba at 5/1 heads as hymba-1.5b's 25/5 (every
+# head on every rank) with a vocabulary of 257 (its 32,001 keeps the head
+# whole) and a d_model of 63 (the SSM branch whole on every rank), and
+# rwkv6 at its reduced width (one head: the whole layer on every rank).
+TP_FAMILIES = {
+    "rwkv6": ("rwkv6-7b", {"d_model": 128}),
+    "hymba": ("hymba-1.5b", {}),
+    "seamless": ("seamless-m4t-medium", {}),
+    "phi_moe": ("phi3.5-moe-42b-a6.6b", {}),
+    "vlm": ("llama-3.2-vision-11b", {}),
+    "qwen_moe": ("qwen3-moe-235b-a22b", {"moe": (16, 8)}),
+    "hymba_whole": ("hymba-1.5b", {"num_heads": 5, "num_kv_heads": 1,
+                                   "vocab_size": 257, "d_model": 63}),
+    "rwkv6_whole": ("rwkv6-7b", {}),
+}
+
+
 def port_cfg(arch=ARCH, **kw):
+    if isinstance(kw.get("moe"), tuple):
+        kw["moe"] = MoEConfig(*kw["moe"])
     return dataclasses.replace(get_config(arch).reduced(), **kw)
 
 
@@ -296,3 +320,30 @@ def card_step_rank(grid, batch):
     params, state, m = step(params, state, batch)
     return {"metrics": {k: float(v) for k, v in m.items()},
             "launches": ops.launch_counts()}
+
+
+def card_family_step_rank(grid, cases):
+    """One grid train step of each case ``name -> (arch, overrides, batch)``
+    (bf16 compute, remat "none") on this rank's card from the port's seeded
+    params (drawn on the card): its metrics and kernel launches."""
+    from repro_torch.core.device import exact_matmuls
+    from repro_torch.kernels import ops
+    dev = grid.device
+    exact_matmuls()
+    out = {}
+    for name, (arch, over, batch) in cases.items():
+        cfg = port_cfg(arch, **over)
+        cfg = port_cfg(arch, parallel=dataclasses.replace(
+            cfg.parallel, remat="none"), **over)
+        ocfg = topt.AdamWConfig(**OPT)
+        step = tstep.make_train_step(cfg, ocfg, grid)
+        whole = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev)
+        with torch.no_grad():
+            params = step.layout.shard_tree(whole)
+        state = topt.init_state(params, ocfg, layout=step.layout)
+        ops.reset_launch_counts()
+        params, state, m = step(params, state, batch)
+        out[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "launches": ops.launch_counts()}
+    return out
