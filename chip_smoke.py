@@ -27,7 +27,8 @@ fails before printing any result):
   w4a8       the W4A8 kernel on the codes packed two per byte
              (``pack_codes``) against the plain version on the int8 codes
              at every main-path (K, N) of tinyllama-1.1b for M in {1, 8},
-             llama2-7b's shapes and ragged shapes: bit-identical; one call
+             llama2-7b's shapes (also at M 4, examples_path (b)'s batch)
+             and ragged shapes: bit-identical; one call
              is one device kernel (torch.profiler over single calls)
   paged      the paged flash-decode kernel against the plain version at
              tinyllama's, llama2-7b's and gemma2-27b's attention shapes
@@ -229,6 +230,26 @@ fails before printing any result):
              the launches are pinned per step: 43 W4A8 per computed
              split-brain token step and 6 paged per decode step, 16 flash
              per llama2-7b prefill and 16 paged per decode step (16 layers)
+  examples_path  the port's examples run on the card through their own
+             ``run()`` (``examples/quickstart_torch.py`` and
+             ``examples/serve_splitbrain_torch.py``), after main_path's
+             engine is released: (a) the quickstart at main_path's
+             full-width tinyllama-1.1b (6 of 22 layers, seeded weights): LAQ
+             of the model, 8 ``decode_token`` steps from token 1, the
+             hardware report of the full-size model from the wq codes;
+             counts set to 0 just before and read just after: 43 W4A8
+             launches per token step and no other kernel, the wq codes made
+             on the card equal (``torch.equal``) to those made by the same
+             run on the CPU from the same weights, the report and the pruned
+             share equal to the CPU run's, the meter's bytes per token eq.
+             7-10's exactly, the tokens the CPU run's or parting first at a
+             near-tie (``pick_report``'s rule); (b) the serving example at
+             full-width llama2-7b (4 of 32 layers, EXAMPLES_SERVE), 4
+             prompts of 5 tokens, 12 new: 29 W4A8 launches per token step
+             of the LAQ ``generate()`` and per batch-4 ``decode_token``, none
+             in the float runs, the meter's bytes at batch 4 eq. 7-10's
+             exactly; the float fused-against-stepwise and float-against-W4A8
+             token agreements reported, as the JAX example prints them
   reference_hymba  reduced hymba-1.5b on the card and on the CPU from the
              same weights on a wrapping ring and on a paged pool, and
              forward: teacher-forced logits within two bf16 ulps (a
@@ -455,10 +476,11 @@ from repro_torch.serve.scheduler import (
 from repro_torch.serve.server import OnlineServer
 from repro_torch.serve.splitbrain_engine import (
     SplitBrainEngine, traffic_model_for)
+from repro_torch.train.optimizer import map_params
 from torch_cases import (autograd_grads, bf16_ulp_of, feature_prompts,
-                         pick_report, record_prefills, replay_prefills,
-                         rwkv_decay_bits_report, serve_staged,
-                         teacher_forced_logits)
+                         load_example, pick_report, record_prefills,
+                         replay_prefills, rwkv_decay_bits_report,
+                         serve_staged, teacher_forced_logits)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet (dense peaks below too)
@@ -733,6 +755,8 @@ def phase_w4a8(dev, shapes=None):
     cases = [(M, K, N) for (K, N) in shapes for M in (1, 8)]
     if shapes is not W4A8_TP:
         cases += [(5, 2048, 1003), (3, 100, 37), (13, 5632, 130)]
+        # examples_path (b): the serving example's batch of 4
+        cases += [(4, K, N) for (K, N) in W4A8_LLAMA2]
     worst, per_call = 0.0, {}
     for M, K, N in cases:
         args = w4a8_inputs(M, K, N, gen, dev)
@@ -1431,6 +1455,151 @@ def phase_main_path(dev, smi_line):
     emit(info)
     info["_tokens"] = first          # the fault-free tokens, for chaos_path
     return eng, info
+
+
+# ------------------------------------------------------------ examples_path
+EXAMPLES_TOKENS = 8                  # the quickstart's decode_token steps
+EXAMPLES_SERVE = dict(arch="llama2-7b", layers=4, batch=4, prompt=5, new=12)
+
+
+def examples_quickstart(dev, qs):
+    """(a): the quickstart's ``run()`` on the card and on the CPU from the
+    same seeded weights of main_path's tinyllama."""
+    cfg = main_cfg()
+    L = cfg.num_layers
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = qs.run(cfg, params, device=dev, n_tokens=EXAMPLES_TOKENS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {"w4a8_matmul": (7 * L + 1) * EXAMPLES_TOKENS,
+            "paged_decode_attention": 0, "flash_attention": 0,
+            "rwkv6_scan": 0}
+    check(counts == want, f"examples_path (a) launches {counts} != {want}")
+    t0 = time.perf_counter()
+    params = map_params(lambda t: t.cpu(), params)
+    cpu = qs.run(cfg, params, device="cpu", n_tokens=EXAMPLES_TOKENS)
+    cpu_s = time.perf_counter() - t0
+    del params
+    check(card["codes"].is_cuda and torch.equal(card["codes"].cpu(),
+                                                cpu["codes"]),
+          "examples_path (a): the wq codes made on the card differ from "
+          "the CPU's")
+    check(card["report"] == cpu["report"] and card["pruned"] == cpu["pruned"],
+          "examples_path (a): the report differs from the CPU's")
+    bpt = traffic_model_for(cfg).bytes_per_token()
+    check(card["measured_bytes_per_token"] == card["model_bytes_per_token"]
+          == bpt, f"examples_path (a): meter {card['measured_bytes_per_token']}"
+          f" B/token != eq. 7-10's {bpt}")
+    toks, cpu_toks = card["tokens"], cpu["tokens"]
+    check(all(0 <= t < cfg.vocab_size for t in toks), "token out of range")
+    # the first step where the picks part: the inputs up to it were the
+    # same on both devices, so the CPU's logits there judge the card's pick
+    n = next((i for i, (a, b) in enumerate(zip(toks, cpu_toks)) if a != b),
+             None)
+    upto = len(toks) if n is None else n + 1
+    rep = pick_report(cpu["logits"][:upto], card["logits"][:upto],
+                      toks[:upto])
+    check(n is None or rep["shortfall"] <= 2 * rep["max_abs_err"],
+          f"examples_path (a): the card's token {n} is not the CPU's and "
+          f"not a near-tie: {rep}")
+    rpt = card["report"]
+    return {"config": cfg.name, "layers": L, "d_model": cfg.d_model,
+            "tokens": toks, "tokens_identical_to_cpu": n is None,
+            "first_divergence": n, "pick_report": rep,
+            "launches": counts, "w4a8_per_token_step":
+                counts["w4a8_matmul"] / EXAMPLES_TOKENS,
+            "codes_equal_cpu": True, "wq_codes": card["codes"].numel(),
+            "pruned": card["pruned"], "report_equal_cpu": True,
+            "meter_bytes_per_token": card["measured_bytes_per_token"],
+            "model_bytes_per_token": bpt,
+            "report": {"arch": rpt["arch"],
+                       "ita_gates": rpt["gates"]["ita_gates"],
+                       "reduction_x": rpt["gates"]["reduction_x"],
+                       "ita_pj": rpt["energy"]["ita"]["total_pj"],
+                       "energy_x": rpt["energy"]["improvement_vs_int8"]["x"],
+                       "die_mm2": rpt["area"]["final_mm2"],
+                       "unit_cost": rpt["cost"]["unit_cost"]},
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def examples_serve(dev, sv):
+    """(b): the serving example's ``run()`` at llama2-7b's full width."""
+    spec = EXAMPLES_SERVE
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              num_layers=spec["layers"])
+    L = cfg.num_layers
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev)
+    prompts = np.random.default_rng(SEED).integers(
+        1, cfg.vocab_size, (spec["batch"], spec["prompt"])).astype(np.int32)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = sv.run(cfg, params, prompts, device=dev, max_new=spec["new"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    del params
+    steps = spec["prompt"] - 1 + spec["new"]
+    per_step = 7 * L + 1
+    parts = r["launches"]
+    check(not any(v for p in ("float_warmup", "float_fused", "float_stepwise")
+                  for v in parts[p].values()),
+          f"examples_path (b): a float run launched a kernel: {parts}")
+    want = {"w4a8_matmul": per_step * steps, "paged_decode_attention": 0,
+            "flash_attention": 0, "rwkv6_scan": 0}
+    check(parts["w4a8"] == want,
+          f"examples_path (b): LAQ generate() launches {parts['w4a8']} != "
+          f"{want}")
+    check(parts["w4a8_decode_token"]["w4a8_matmul"] == per_step
+          and sum(parts["w4a8_decode_token"].values()) == per_step,
+          f"examples_path (b): decode_token launches "
+          f"{parts['w4a8_decode_token']}")
+    check(sum(counts.values()) == sum(sum(p.values()) for p in parts.values()),
+          f"examples_path (b): launches outside the parts: {counts}")
+    bpt = traffic_model_for(cfg).bytes_per_token()
+    check(r["measured_bytes_per_token"] == r["model_bytes_per_token"] == bpt,
+          f"examples_path (b): meter {r['measured_bytes_per_token']} B/token "
+          f"at batch {spec['batch']} != eq. 7-10's {bpt}")
+    for name, toks in r["tokens"].items():
+        check(toks.shape == (spec["batch"], spec["new"])
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"examples_path (b): {name} tokens out of range or short")
+    return {"config": cfg.name, "layers": L, "d_model": cfg.d_model,
+            "batch": spec["batch"], "prompt_len": spec["prompt"],
+            "max_new": spec["new"], "token_steps": steps,
+            "launches": counts, "launches_by_part": parts,
+            "w4a8_per_token_step": parts["w4a8"]["w4a8_matmul"] / steps,
+            "meter_bytes_per_token": r["measured_bytes_per_token"],
+            "model_bytes_per_token": bpt,
+            "fused_stepwise_agreement": r["fused_stepwise_agreement"],
+            "float_w4a8_agreement": r["float_w4a8_agreement"],
+            "tokens_per_s": {k: r[k]["tokens_per_s"] for k in (
+                "float_fused", "float_stepwise", "w4a8")},
+            "seconds": seconds}
+
+
+def phase_examples_path(dev, smi_line):
+    t0 = time.perf_counter()
+    qs = load_example("quickstart_torch")
+    sv = load_example("serve_splitbrain_torch")
+    a = examples_quickstart(dev, qs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = examples_serve(dev, sv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    info = {"phase": "examples_path", "quickstart": a, "serve_splitbrain": b,
+            "launches": launches, "seconds": time.perf_counter() - t0,
+            "card": smi_line}
+    emit(info)
+    return info
 
 
 def serve_requests(vocab, n=16, max_new=32):
@@ -6567,6 +6736,7 @@ def main(argv=None) -> int:
     del eng                          # release tinyllama before llama2-7b
     gc.collect()
     torch.cuda.empty_cache()
+    examples_info = phase_examples_path(dev, smi)
     tp_info = phase_tp_path(dev, smi, main_info["_tokens"][:8])
     tp_rows = phase_times_tp(dev, tp_info)
     eng, serve_info = phase_serve_path(dev, smi)
@@ -6663,6 +6833,7 @@ def main(argv=None) -> int:
                                  for r in feat_info["runs"].values()),
             "features_splitbrain": split_info["launches"][k["name"]],
             "chaos_path": chaos_launches[k["name"]],
+            "examples_path": examples_info["launches"][k["name"]],
             "hymba_path": hymba_info["launches"][k["name"]],
             "moe_path": moe_launches[k["name"]],
             "vision_path": vision_launches[k["name"]],

@@ -13,12 +13,18 @@ path's dynamic range) or per tensor (the paper's static calibrated range).
 
 Every function is elementwise torch on whatever device its input lies on,
 and rounds exactly as the JAX package does (``torch.round`` rounds half to
-even like ``jnp.round``), so codes and scales are bit-identical to it.
+even like ``jnp.round``), so codes and scales are bit-identical to it.  A
+division by a constant divides by a tensor (:func:`_true_div`): PyTorch on
+CUDA turns a division by a Python number into a multiplication by its
+reciprocal, which misses the quotient's last bit on some inputs, and at
+tinyllama-1.1b's full width that moved LAQ codes on the card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
+
+import functools
 
 import torch
 
@@ -34,6 +40,7 @@ __all__ = [
     "dequantize",
     "quantize_activations_int8",
     "w4a8_matmul_ref",
+    "pruned_fraction",
 ]
 
 INT4_MIN, INT4_MAX = -7, 7  # symmetric grid keeps the CSD tables balanced
@@ -122,6 +129,19 @@ class QuantizedLeaf:
                 f", scales={tuple(self.scales.shape)})")
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(value: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def _true_div(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` for a float32 ``x``, correctly rounded on every device:
+    the divisor is a 0-d float32 tensor on ``x``'s device (made once per
+    device), which CUDA divides by, where a Python number would be
+    multiplied by its reciprocal."""
+    return x / _constant(float(value), x.device)
+
+
 def quantize_weights(
     w: torch.Tensor,
     *,
@@ -131,7 +151,7 @@ def quantize_weights(
 ) -> QuantizedLinear:
     """Quantize a (in, out) weight matrix to LAQ INT4 (on ``w``'s device)."""
     w = w.to(torch.float32)
-    scales = w.abs().amax(dim=0, keepdim=True) / INT4_MAX
+    scales = _true_div(w.abs().amax(dim=0, keepdim=True), INT4_MAX)
     scales = torch.clamp_min(scales, 1e-12)
     x = w / scales
 
@@ -181,7 +201,7 @@ def quantize_activations_int8(x: torch.Tensor, *, per_tensor: bool = False,
     """
     x = x.to(torch.float32)
     amax = x.abs().amax() if per_tensor else x.abs().amax(dim=-1, keepdim=True)
-    scale = amax * (1.0 / 127.0) if reciprocal else amax / 127.0
+    scale = amax * (1.0 / 127.0) if reciprocal else _true_div(amax, 127.0)
     if per_tensor:
         scale = scale.expand(x.shape[:-1] + (1,)).contiguous()
     scale = torch.clamp_min(scale, 1e-12)
@@ -208,3 +228,20 @@ def w4a8_matmul_ref(x: torch.Tensor, ql: QuantizedLinear,
     acc = int_matmul(qx.reshape(-1, shape[-1]), ql.codes)
     acc = acc.reshape(shape[:-1] + (ql.codes.shape[-1],))
     return (acc.to(torch.float32) * act_scale * ql.scales).to(dtype)
+
+
+def pruned_fraction(ql: QuantizedLinear) -> torch.Tensor:
+    """Share of ``ql``'s codes that LAQ pruned to zero: a float32 0-d tensor
+    on the codes' device.
+
+    The JAX package takes ``jnp.mean`` of the float32 zero mask, which XLA
+    compiles as the mask's float32 sum times the float32 reciprocal of the
+    element count (it rewrites the division by a constant).  The port
+    counts the zeros exactly in int64 and multiplies by that reciprocal, so
+    below 2^24 elements, where the float32 sum of ones is exact in any
+    order, the two are bit-identical (the tests show it there).  Above,
+    the port rounds the count once, and the JAX package's float32 sum may
+    round on the way."""
+    size = torch.tensor(float(ql.codes.numel()), dtype=torch.float32)
+    inv = (1.0 / size).to(ql.codes.device)       # the float32 reciprocal
+    return (ql.codes == 0).sum().to(torch.float32) * inv

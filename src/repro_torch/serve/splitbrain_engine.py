@@ -312,6 +312,11 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         return self._layer_sweep(pos, token, kv_attend, compiled=True)
 
     def _tokens(self, token) -> torch.Tensor:
+        """``token`` as an int32 tensor on the engine's device: a tensor
+        (``decode_token``'s own ``next_tok``, on any device) is moved, not
+        read through numpy."""
+        if torch.is_tensor(token):
+            return token.to(device=self.device, dtype=torch.int32)
         return torch.as_tensor(np.asarray(token, np.int32), device=self.device)
 
     # --------------------------------------------------------------- decoding

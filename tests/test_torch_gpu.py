@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import quant
 from repro_torch.core.device import exact_matmuls
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import flash_attention as kfa
@@ -41,7 +42,8 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, Request
 from repro_torch.serve.splitbrain_engine import SplitBrainEngine
 from torch_cases import (assert_within_bf16_ulp, autograd_grads,
-                         bf16_ulp_of, paged_case, pick_report, run_paged,
+                         bf16_ulp_of, load_example, paged_case,
+                         pick_report, run_paged,
                          rwkv_case, rwkv_decay_bits_report,
                          teacher_forced_logits, w4a8_case)
 
@@ -500,6 +502,79 @@ def test_splitbrain_generate_on_card_matches_cpu(cuda, quantize, fused,
             "w4a8_matmul": (7 * cfg.num_layers + 1) * steps if quantize
             else 0, "paged_decode_attention": 0, "flash_attention": 0,
             "rwkv6_scan": 0}
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 5632), (4096, 11008)])
+def test_laq_on_card_bit_identical_to_cpu(cuda, K, N):
+    """LAQ codes and scales, and the activation quantizer in both its
+    eager (true division) and compiled (reciprocal) forms, on the card and
+    on the CPU from the same inputs, at full-width shapes: bit for bit.
+    (Dividing by a Python number on CUDA multiplies by its reciprocal: at
+    tinyllama-1.1b's full width that moved codes, which reduced shapes
+    did not show.)"""
+    rng = np.random.default_rng(K + N)
+    w = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32) * 0.02)
+    x = torch.from_numpy(rng.normal(size=(64, K)).astype(np.float32))
+    cpu = quant.quantize_weights(w)
+    card = quant.quantize_weights(w.to(cuda))
+    assert torch.equal(card.codes.cpu(), cpu.codes)
+    assert torch.equal(card.scales.cpu(), cpu.scales)
+    for reciprocal in (False, True):
+        qc, sc = quant.quantize_activations_int8(x, reciprocal=reciprocal)
+        qd, sd = quant.quantize_activations_int8(x.to(cuda),
+                                                 reciprocal=reciprocal)
+        assert torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)
+
+
+def test_quickstart_example_on_card_matches_cpu(cuda):
+    """``examples/quickstart_torch.py``'s ``run()`` on the card and on the
+    CPU from the same weights (the example's reduced tinyllama): the same
+    wq codes, pruned share, tokens (each ``decode_token`` fed its own
+    ``next_tok``, on the card), meter and report; 7 W4A8 launches per layer
+    and one for the head per token step, no other kernel."""
+    qs = load_example("quickstart_torch")
+    cfg = get_config("tinyllama-1.1b").reduced(vocab_size=512)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu = qs.run(cfg, params, device="cpu")
+    ops.reset_launch_counts()
+    card = qs.run(cfg, params, device=cuda)
+    assert ops.launch_counts() == {
+        "w4a8_matmul": (7 * cfg.num_layers + 1) * 8,
+        "paged_decode_attention": 0, "flash_attention": 0, "rwkv6_scan": 0}
+    assert card["codes"].is_cuda
+    assert torch.equal(card["codes"].cpu(), cpu["codes"])
+    for key in ("pruned", "tokens", "measured_bytes_per_token",
+                "model_bytes_per_token", "report"):
+        assert card[key] == cpu[key], key
+    assert card["measured_bytes_per_token"] == card["model_bytes_per_token"]
+
+
+def test_serve_example_on_card_matches_cpu(cuda):
+    """``examples/serve_splitbrain_torch.py``'s ``run()`` on the card and on
+    the CPU (the example's reduced llama2-7b, 4 prompts of 5, 12 new): the
+    same tokens of every run and the same meter; W4A8 launches only in the
+    LAQ runs, 7 per layer and one for the head per token step."""
+    sv = load_example("serve_splitbrain_torch")
+    cfg = get_config("llama2-7b").reduced(vocab_size=512)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (4, 5)).astype(np.int32)
+    cpu = sv.run(cfg, params, prompts, device="cpu")
+    card = sv.run(cfg, params, prompts, device=cuda)
+    for run in ("float_fused", "float_stepwise", "w4a8"):
+        np.testing.assert_array_equal(card["tokens"][run], cpu["tokens"][run])
+    assert card["measured_bytes_per_token"] == cpu["measured_bytes_per_token"]
+    assert card["measured_bytes_per_token"] == card["model_bytes_per_token"]
+    per_step = 7 * cfg.num_layers + 1
+    parts = card["launches"]
+    assert parts["w4a8"]["w4a8_matmul"] == per_step * (4 + 12)
+    assert parts["w4a8_decode_token"]["w4a8_matmul"] == per_step
+    assert not any(v for name in ("float_warmup", "float_fused",
+                                  "float_stepwise")
+                   for v in parts[name].values())
+    assert all(parts[name][k] == 0 for name in parts
+               for k in ("paged_decode_attention", "flash_attention",
+                         "rwkv6_scan"))
 
 
 # gemma2-27b's attention at full width: 32 query heads over 16 KV heads of

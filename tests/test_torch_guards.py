@@ -30,7 +30,10 @@ FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|repro)(?:[.\s,]|$)")
 def test_static_scan_finds_no_jax_or_repro_import():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 20
-    bad = [f"{f.relative_to(PKG)}:{i}: {line.strip()}"
+    examples = sorted((PKG.parent.parent / "examples").glob("*_torch.py"))
+    assert len(examples) == 3
+    files += examples
+    bad = [f"{f.name}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
            if FORBIDDEN.match(line)]
@@ -40,8 +43,9 @@ def test_static_scan_finds_no_jax_or_repro_import():
 # the jax-free modules the port copies, the hymba family, the MoE FFN,
 # the encoder-decoder family with their configs, the tensor-parallel
 # package, the training path (data, optimizer, train step, checkpoints,
-# the training CLI) and distributed training (the grids, the pipeline):
-# they must be among the modules the scan imports
+# the training CLI), distributed training (the grids, the pipeline) and
+# the paper's cost and FPGA models: they must be among the modules the
+# scan imports
 NEW_MODULES = ("repro_torch.distributed.runtime",
                "repro_torch.distributed.sharding",
                "repro_torch.distributed.collectives",
@@ -56,15 +60,23 @@ NEW_MODULES = ("repro_torch.distributed.runtime",
                "repro_torch.data.pipeline", "repro_torch.train.optimizer",
                "repro_torch.train.step", "repro_torch.ckpt.manager",
                "repro_torch.launch.train", "repro_torch.launch.mesh",
-               "repro_torch.distributed.pipeline")
+               "repro_torch.distributed.pipeline",
+               "repro_torch.core.costmodel", "repro_torch.core.fpga")
+# the port's examples, loaded by path in the same process as the modules
+EXAMPLES = ("quickstart_torch", "serve_splitbrain_torch", "train_e2e_torch")
 
 
 def test_importing_every_module_loads_no_jax_or_repro():
+    examples = PKG.parent.parent / "examples"
     script = (
-        "import importlib, pkgutil, sys, repro_torch\n"
+        "import importlib, importlib.util, pkgutil, sys, repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        f"for name in {EXAMPLES!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        f"        name, {str(examples)!r} + '/' + name + '.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         f"missing = sorted(set({NEW_MODULES!r}) - set(sys.modules))\n"

@@ -4,10 +4,25 @@ check shared by the ``test_torch_*`` files and ``chip_smoke.py``.
 Imports neither JAX nor the JAX package, so the ``gpu`` tests that use it
 also run on a machine with only PyTorch.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from repro_torch.models import api
+
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module (the examples are scripts, not a
+    package)."""
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def w4a8_case(M, K, N, seed=0):
