@@ -138,7 +138,23 @@ fails before printing any result):
              deadline and the chaos plan TP_ONLINE, rank 1 sleeping 4 ms an
              iteration so that its own clock runs apart: the ranks' tokens,
              request states and recovery events equal (the group's loop
-             clock), every planned fault fired.  The ranks' kernel shapes
+             clock), every planned fault fired; (h) the sequence-cut dense
+             decode (parallel.decode_attn="shard_map"): llama2-7b at (b)'s
+             8 layers on a dense slot cache of 1,024 positions, a rank
+             holding every KV head of its 512 (its K/V bytes reported
+             beside (b)'s head-cut pool), 8 requests of 64-512 tokens with
+             16 new: 8 flash launches per prefill per rank and no paged
+             launch, the ranks' tokens equal, tokens against a tp 1 engine
+             with the knob served here (identical, or parting only at a
+             near-tie, reported); (i) the OnlineServer on (a)'s engine,
+             one server per rank, rank 0 the front end: six requests from
+             a client thread, streamed (one cancelled by the client after
+             two tokens, one past its deadline, one whose consumer callback
+             raises, one of a higher priority) and a decode step stalled
+             4.5 s tripping a 3 s watchdog once: 43 W4A8 launches per token
+             step per rank, streamed tokens equal to the results, the
+             ranks' tokens, states and recovery events equal, tokens equal
+             to a tp 1 OnlineServer's on the same requests.  The ranks' kernel shapes
              are also held to the plain versions in the kernel phases:
              w4a8 at (a)'s column blocks (W4A8_TP), paged at (a)'s, (b)'s
              and (d)'s head-cut pools (PAGED_TP_CASES), flash at (b)'s,
@@ -1798,6 +1814,7 @@ def tp_rank_serve(eng, reqs, warm_len):
             "meter_bytes_per_token": meter / tokens,
             "traffic_shards": eng.traffic_shards,
             "kv_shards": eng.cache_stats(sched.cache)["kv_shards"],
+            "cache_bytes": eng.cache_stats(sched.cache)["cache_bytes"],
             "wall_s": out["wall_s"], "decode_s": clock.decode_s,
             "admit_s": clock.admit_s,
             "decode_steps_per_s": steps / clock.decode_s,
@@ -1914,6 +1931,120 @@ TP_SB_GEN = (4, 16, 8)              # split-brain generate(): B, T0, new
 TP_ONLINE = dict(plan=dict(step_corrupt_at=4, step_corrupt_iters=2,
                            device_loss_at=10),
                  requests=4, new=8, sleep_s=0.004)
+
+
+# (h) the sequence-cut dense decode (parallel.decode_attn="shard_map"):
+# llama2-7b at (b)'s depth on a dense slot cache of 1,024 positions, a rank
+# holding every KV head of its 512; (i) the OnlineServer on (a)'s engine:
+# six requests from a client thread on rank 0, streamed (one the client
+# cancels after two tokens, one past its deadline, one whose consumer
+# callback raises at its second token, one of a higher priority), a decode
+# step stalled 4.5 s at iteration 3 tripping a 3 s watchdog once (a stall
+# of two windows or more would trip it again; the window is more than an
+# iteration's two re-prefills after the recovery take on a rank, about
+# 1.2 s: a shorter one tripped again at every iteration, each recovery
+# requeueing longer prefills)
+TP_SEQ = dict(max_len=1024, requests=8, prompt=(64, 513), new=16,
+              seed=SEED + 51)
+TP_SERVER = dict(slots=2, stall_at=3, stall_s=4.5, watchdog_s=3.0, new=8,
+                 seed=SEED + 52)
+
+
+def tp_seq_engine(dev, tp=None):
+    """(h)'s engine: llama2-7b at TP_LAYERS layers, full width, seeded bf16
+    weights, the knob on, the dense slot cache of TP_SEQ["max_len"]."""
+    cfg = dataclasses.replace(get_config("llama2-7b"), num_layers=TP_LAYERS)
+    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, decode_attn="shard_map"))
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             device=dev, dtype=torch.bfloat16)
+    eng = ServeEngine(cfg, params, max_len=TP_SEQ["max_len"], device=dev,
+                      tp=tp)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eng
+
+
+def tp_seq_requests(vocab):
+    rng = np.random.default_rng(TP_SEQ["seed"])
+    lo, hi = TP_SEQ["prompt"]
+    return [Request(uid=i, prompt=rng.integers(1, vocab, int(
+        rng.integers(lo, hi))).astype(np.int32), max_new=TP_SEQ["new"])
+        for i in range(TP_SEQ["requests"])]
+
+
+def tp_seq_run(eng):
+    """(h)'s requests under the scheduler with 8 slots after a warm-up, the
+    counts set to 0 just before and read just after: the run's figures and
+    its tokens by uid."""
+    sched = ContinuousBatchingScheduler(eng, max_slots=8)
+    sched.warmup(prompt_len=64, max_new=4)
+    clock = PhaseClock(eng)
+    reqs = tp_seq_requests(eng.cfg.vocab_size)
+    torch.cuda.synchronize()
+    eng.meter.reset()
+    ops.reset_launch_counts()
+    out = sched.run(reqs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    PhaseClock.detach(eng)
+    res = sorted(out["results"], key=lambda r: r.uid)
+    check(all(r.state == "DONE" and r.gen_len == TP_SEQ["new"] for r in res),
+          f"tp_path (h): not every request DONE in full: {out['by_state']}")
+    check(out["quarantines"] == 0, "tp_path (h): the sentinel flagged a step")
+    ntok = out["prefill_tokens"] + out["decoded_tokens"]
+    meter = eng.meter.measured_bytes()["total"]
+    check(meter == traffic_model_for(eng.cfg).bytes_per_token() * ntok,
+          f"tp_path (h): meter {meter} != eq. 7-10 x {ntok} tokens")
+    k0 = sched.cache["k"][0]
+    return {"requests": len(reqs), "prefills": clock.calls["prefill_slot"],
+            "decode_steps": out["steps"], "launches": counts,
+            "k_leaf_shape": list(k0.shape),
+            "cache_bytes": eng.cache_stats(sched.cache)["cache_bytes"],
+            "decode_s": clock.decode_s, "admit_s": clock.admit_s,
+            "decode_steps_per_s": out["steps"] / clock.decode_s,
+            "wall_s": out["wall_s"]}, [r.tokens.tolist() for r in res]
+
+
+def tp_rank_seq(group, dev):
+    """(h) on this rank: the engine, then :func:`tp_seq_run`."""
+    t0 = time.perf_counter()
+    eng = tp_seq_engine(dev, group)
+    setup_s = time.perf_counter() - t0
+    info, toks = tp_seq_run(eng)
+    del eng
+    return {**info, "setup_s": setup_s, "tokens": toks}
+
+
+def tp_server_spec(vocab):
+    """(i)'s scenario (``torch_tp_cases.online_scenario``'s spec): six
+    seeded prompts of 4-8 tokens."""
+    rng = np.random.default_rng(TP_SERVER["seed"])
+    P = [rng.integers(1, vocab, int(rng.integers(4, 9))).tolist()
+         for _ in range(6)]
+    n = TP_SERVER["new"]
+    return dict(slots=TP_SERVER["slots"], stall_at=TP_SERVER["stall_at"],
+                stall_s=TP_SERVER["stall_s"],
+                watchdog_s=TP_SERVER["watchdog_s"], requests=[
+                    (P[0], n, {}), (P[1], n, {"deadline_s": 0.0}),
+                    (P[2], 40, {"cancel_at": 2}), (P[3], n, {"raise_at": 2}),
+                    (P[4], n, {}), (P[5], n, {"priority": 1})])
+
+
+def tp_server_run(eng, group):
+    """(i) on ``eng`` (a rank of ``group``, or one device): the
+    OnlineServer scenario with the counts set to 0 just before and read
+    just after, and its seconds."""
+    from torch_tp_cases import online_scenario
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = online_scenario(eng, group, tp_server_spec(eng.cfg.vocab_size))
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def tp_part_cfg(spec):
@@ -2189,6 +2320,8 @@ def tp_rank(grid, smi_line, t_spawn):
     part("a_profile")
     res["g_generate"] = tp_rank_sb_generate(eng)
     part("g_generate")
+    res["i"] = tp_server_run(eng, group)
+    part("i")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2226,6 +2359,9 @@ def tp_rank(grid, smi_line, t_spawn):
     res["f"] = tp_rank_xattn(group, dev, TP_ENCDEC)
     free()
     part("f")
+    res["h"] = tp_rank_seq(group, dev)
+    free()
+    part("h")
     res["wall_s"] = time.perf_counter() - t_rank
     res["parts_s"] = parts
     res["parts_peak_memory_bytes"] = peaks
@@ -2309,9 +2445,11 @@ def phase_tp_path(dev, smi_line, clean=None):
         row = {"rank": r["rank"], "wall_s": r["wall_s"],
                "start_s": r["start_s"], "parts_s": r["parts_s"],
                "parts_peak_memory_bytes": r["parts_peak_memory_bytes"]}
-        for part in ("a", "b", "d", "e", "f"):
+        for part in ("a", "b", "d", "e", "f", "h"):
             row[part] = {k: v for k, v in r[part].items()
                          if k not in ("tokens", "picks", "dropped_per_call")}
+        row["i"] = {k: r["i"][k] for k in ("launches", "seconds", "stats",
+                                          "prefill_tokens", "decode_steps")}
         row["g_generate"] = {m: {k: v for k, v in g.items() if k != "tokens"}
                              for m, g in r["g_generate"].items()}
         row["c"] = r["c"]
@@ -2332,7 +2470,8 @@ def phase_tp_path(dev, smi_line, clean=None):
     emit(info)
     r0 = ranks[0]
     info["launches"] = {k: r0["a"]["launches"][k] + r0["b"]["launches"][k]
-                        + r0["d"]["launches"][k]
+                        + r0["d"]["launches"][k] + r0["h"]["launches"][k]
+                        + r0["i"]["launches"][k]
                         + sum(r0[p][m]["launches"][k]
                               for p, m in (("e", "fused"), ("e", "stepwise"),
                                            ("f", "fused"),
@@ -2446,11 +2585,15 @@ def tp_path_new_parts(ranks, dev):
                            quantize=True, device=dev)
     del params
     one = tp_rank_sb_generate(eng)
-    del eng
     for mode in ("fused", "eager"):
         check(r0["g_generate"][mode]["tokens"] == one[mode]["tokens"],
               f"tp_path (g): {mode} generate() tokens differ from tp 1's")
     tp1_s["g_generate"] = time.perf_counter() - t0
+    # (i) the OnlineServer against one device's, on the same engine
+    t0 = time.perf_counter()
+    out["i"] = tp_hold_server(ranks, tp_server_run(eng, None))
+    tp1_s["i"] = time.perf_counter() - t0
+    del eng
     # (d) qwen3-moe against tp 1, every decode step's logits kept
     t0 = time.perf_counter()
     gc.collect()
@@ -2524,6 +2667,12 @@ def tp_path_new_parts(ranks, dev):
         tp1_s[key] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
+    # (h) the sequence cut against one device's engine with the knob
+    t0 = time.perf_counter()
+    out["h"] = tp_hold_seq(ranks, dev)
+    tp1_s["h"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
     out["g"] = {"generate": {"config": main_cfg().name,
                              "tokens_identical_to_tp1": True,
                              "launches_per_token_step": 7 * L + 1},
@@ -2532,6 +2681,100 @@ def tp_path_new_parts(ranks, dev):
                     "iterations")},
                 "online_ranks_equal": True}
     return out, tp1_s
+
+
+def tp_hold_seq(ranks, dev):
+    """(h)'s pins per rank (TP_LAYERS flash launches per prefill, no paged
+    launch, every KV head of 512 of the 1,024 positions in a K/V leaf),
+    the ranks' tokens equal, and tp 1's engine with the knob on the same
+    requests: identical tokens, or the first differing pick a near-tie in
+    its logits (``tie_report``, as (b))."""
+    r0 = ranks[0]["h"]
+    for r in ranks:
+        h = r["h"]
+        want = {"w4a8_matmul": 0, "paged_decode_attention": 0,
+                "flash_attention": TP_LAYERS * h["prefills"],
+                "rwkv6_scan": 0}
+        check(h["launches"] == want, f"tp_path (h) rank {r['rank']}: "
+              f"launches {h['launches']} != {want}")
+        check(h["prefills"] == TP_SEQ["requests"],
+              f"tp_path (h): {h['prefills']} prefills")
+        check(h["k_leaf_shape"][-3:-1] == [32, TP_SEQ["max_len"] // TP],
+              f"tp_path (h): a rank's K leaf {h['k_leaf_shape']}")
+        check(h["tokens"] == r0["tokens"],
+              "tp_path (h): the ranks decoded different tokens")
+    eng = tp_seq_engine(dev)
+    info, one = tp_seq_run(eng)
+    ties = []
+    for r, want, got in zip(tp_seq_requests(eng.cfg.vocab_size), one,
+                            r0["tokens"]):
+        rep = tie_report(serve_logits_fn(eng), r.prompt, want, got)
+        if rep is not None:
+            rep["uid"] = r.uid
+            ties.append(rep)
+            check(rep["near_tie"], f"tp_path (h): request {r.uid} left the "
+                  f"tp 1 tokens at a pick that is no near-tie: {rep}")
+    del eng
+    return {"config": "llama2-7b", "layers": TP_LAYERS,
+            "decode_attn": "shard_map", "max_len": TP_SEQ["max_len"],
+            "tokens_identical_to_tp1": not ties, "first_divergences": ties,
+            "identical_requests": sum(a == b for a, b in
+                                      zip(one, r0["tokens"])),
+            "rank_k_leaf_shape": r0["k_leaf_shape"],
+            "rank_cache_bytes": r0["cache_bytes"],
+            "b_rank_cache_bytes_head_cut": ranks[0]["b"]["cache_bytes"],
+            "tp1_cache_bytes": info["cache_bytes"],
+            "flash_launches_per_prefill_per_rank": TP_LAYERS,
+            "tp1_decode_steps_per_s": info["decode_steps_per_s"]}
+
+
+def tp_hold_server(ranks, one):
+    """(i)'s checks: per rank 43 W4A8 launches per token step (the
+    scheduler's prefill tokens and decode steps) and MAIN_LAYERS paged
+    launches per decode step, no flash; the ranks' tokens, states,
+    recovery events and fired faults equal; rank 0's streamed tokens its
+    results; the states of the scenario; one watchdog recovery; and the
+    tokens of one device's OnlineServer (``one``) on the same requests (the
+    client's cancellation, uid 2, lands when it lands: a prefix)."""
+    L = MAIN_LAYERS
+    r0 = ranks[0]["i"]
+    for r in ranks:
+        i = r["i"]
+        steps = i["prefill_tokens"] + i["decode_steps"]
+        want = {"w4a8_matmul": (7 * L + 1) * steps,
+                "paged_decode_attention": L * i["decode_steps"],
+                "flash_attention": 0, "rwkv6_scan": 0}
+        check(i["launches"] == want, f"tp_path (i) rank {r['rank']}: "
+              f"launches {i['launches']} != {want}")
+        for key in ("tokens", "states", "events", "fired"):
+            check(i[key] == r0[key], f"tp_path (i): the ranks' {key} differ")
+    states = {0: "DONE", 1: "TIMEOUT", 2: "CANCELLED", 3: "CANCELLED",
+              4: "DONE", 5: "DONE"}
+    check(r0["states"] == states == one["states"]
+          and r0["handles"] == states,
+          f"tp_path (i): states {r0['states']} / {one['states']}")
+    check(all(r0["streamed"][u] == t for u, t in r0["tokens"].items()),
+          "tp_path (i): streamed tokens differ from the results")
+    recov = [e for e in r0["events"] if e["event"] == "recover"]
+    check(len(recov) == 1 and "watchdog" in recov[0]["reason"]
+          and r0["fired"] == ["step_stall"],
+          f"tp_path (i): recoveries {r0['events']}, faults {r0['fired']}")
+    for uid, toks in r0["tokens"].items():
+        ref_t = one["tokens"][uid]
+        n = min(len(toks), len(ref_t)) if uid == 2 else len(ref_t)
+        check(toks[:n] == ref_t[:n] and (uid == 2 or toks == ref_t),
+              f"tp_path (i): request {uid}'s tokens differ from tp 1's")
+    check(len(r0["tokens"][3]) == 2 and r0["tokens"][1] == [],
+          "tp_path (i): the raising consumer or the deadline")
+    return {"config": main_cfg().name, "layers": L,
+            "states": r0["states"], "events": r0["events"],
+            "stats": r0["stats"], "tokens_identical_to_tp1": True,
+            "ranks_equal": True,
+            "launches_per_token_step": 7 * L + 1,
+            "prefill_tokens": r0["prefill_tokens"],
+            "decode_steps": r0["decode_steps"],
+            "rank_seconds": [r["i"]["seconds"] for r in ranks],
+            "tp1_seconds": one["seconds"]}
 
 
 FEATURE_PAGE, FEATURE_LEN, FEATURE_CHUNK, FEATURE_SLOTS = 16, 1024, 64, 8

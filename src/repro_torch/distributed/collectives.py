@@ -19,7 +19,8 @@ group (:class:`~repro_torch.distributed.runtime.TPGroup`):
                                      log-sum-exp space (one all-reduce max,
                                      two all-reduce sums);
 ``distributed_decode_attention``     flash-decode over a dense cache cut on
-                                     the sequence, combined the same way.
+                                     the sequence, combined the same way
+                                     (one all-gather of the partials).
 
 A CUDA tensor takes the paged kernel, a CPU tensor its plain version, as in
 ``kernels/ops.py``.  The merges are the only float sums that cross ranks
@@ -121,7 +122,8 @@ def tp_paged_decode_attention_merge(q, k_pool, v_pool, page_table, cache_len,
     return (num / torch.clamp_min(den[..., None], 1e-30)).to(q.dtype)
 
 
-def distributed_decode_attention(q, k_cache, v_cache, valid, tp: TPGroup, *,
+def distributed_decode_attention(q, k_cache, v_cache, valid,
+                                 tp: Optional[TPGroup] = None, *,
                                  softcap: Optional[float] = None,
                                  scale: Optional[float] = None):
     """Flash-decode with the dense KV cache cut on the sequence: q (B, Hq, 1,
@@ -129,9 +131,18 @@ def distributed_decode_attention(q, k_cache, v_cache, valid, tp: TPGroup, *,
     block of positions; ``valid`` (B, S/tp) its mask.  Each rank computes a
     partial attention and its log-sum-exp statistics over its positions
     (p rounded to the cache dtype before the PV product, as the JAX
-    package's body does); an all-reduce max and two all-reduce sums of
-    O(B Hq D) combine them.  Returns (B, Hq, 1, D) in q's dtype, the same
-    on every rank."""
+    package's body does); one all-gather of every rank's max, sum and
+    partial output (O(B Hq D)) combines them, each rank summing the
+    corrected partials in rank order.  Returns (B, Hq, 1,
+    D) in q's dtype, the same on every rank.  ``tp`` None (or one rank) is
+    the body on one shard with no collective, which is what the JAX
+    package runs on a mesh whose sequence axis has one device.
+
+    The body follows the JAX package's compiled one: XLA's tanh and exp
+    (``ref.tanh``, ``ref.exp``), and the softcap's division as a
+    multiplication by the cap's reciprocal, which XLA makes of a division
+    by a constant (the same op on both devices: PyTorch on the card would
+    make that rewrite of a division by a Python number itself)."""
     B, Hq, _, D = q.shape
     Hkv = k_cache.shape[1]
     s = scale if scale is not None else D ** -0.5
@@ -139,17 +150,30 @@ def distributed_decode_attention(q, k_cache, v_cache, valid, tp: TPGroup, *,
     logits = torch.einsum("bhgd,bhkd->bhgk", qg,
                           k_cache.to(torch.float32)) * s
     if softcap is not None:
-        logits = softcap * torch.tanh(logits / softcap)
+        logits = softcap * ref.tanh(logits * (1.0 / softcap))
     logits = torch.where(valid[:, None, None, :], logits, ref.NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
+    p = ref.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).to(torch.float32),
                      v_cache.to(torch.float32))
-    m_g = tp.all_reduce(m.clone(), "max")
-    corr = torch.exp(m - m_g)
-    l_g = tp.all_reduce(l * corr, "sum")
-    o_g = tp.all_reduce(o * corr, "sum")
+    if tp is not None and tp.size > 1:
+        # one all-gather of every rank's (m, l, o); each rank combines them
+        # alike, the corrected partials summed in rank order (the JAX
+        # package's pmax, then psums of l * corr and o * corr)
+        parts = tp.all_gather(torch.cat([m, l, o], dim=-1))
+        m_g = parts[0][..., :1]
+        for t in parts[1:]:
+            m_g = torch.maximum(m_g, t[..., :1])
+        l_g = o_g = None
+        for t in parts:
+            corr = ref.exp(t[..., :1] - m_g)
+            lc, oc = t[..., 1:2] * corr, t[..., 2:] * corr
+            l_g, o_g = ((lc, oc) if l_g is None
+                        else (l_g + lc, o_g + oc))
+    else:
+        # one shard: the combine's correction is exp(0) = 1, exactly
+        l_g, o_g = l, o
     out = o_g / torch.clamp_min(l_g, 1e-30)
     return out.reshape(B, Hq, 1, D).to(q.dtype)
 

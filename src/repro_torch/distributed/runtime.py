@@ -35,6 +35,7 @@ import datetime
 import math
 import multiprocessing as mp
 import os
+import pickle
 import socket
 import time
 import traceback
@@ -151,6 +152,30 @@ class TPGroup:
             dist.broadcast(x, src=dist.get_global_rank(self.group, src),
                            group=self.group)
         return x
+
+    def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
+        """Rank ``src``'s ``obj`` (anything that pickles) on every rank: its
+        pickled length, then its bytes, in two broadcasts (on the card for
+        NCCL, else through host memory).  The other ranks pass nothing."""
+        if self.size == 1:
+            return obj
+        dev = self.device if self.backend == "nccl" else "cpu"
+        data = pickle.dumps(obj) if self.rank == src else b""
+        n = self.broadcast(torch.tensor([len(data)], dtype=torch.int64,
+                                        device=dev), src)
+        buf = (torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+               if self.rank == src
+               else torch.empty((int(n[0]),), dtype=torch.uint8, device=dev))
+        return pickle.loads(self.broadcast(buf, src).cpu().numpy().tobytes())
+
+    def abort(self) -> None:
+        """Tear this rank's group down after a failure: a peer blocked in a
+        collective of the group gets an error (gloo sees the closed
+        connection) instead of waiting out :data:`GROUP_TIMEOUT_S`.  The
+        group is unusable afterwards on every rank."""
+        if dist.is_initialized():
+            world = self.group is None or self.group == dist.group.WORLD
+            dist.destroy_process_group(None if world else self.group)
 
     def clock(self, source: Optional[Callable[[], float]] = None) -> float:
         """Rank 0's reading of ``source`` (default ``time.perf_counter``),

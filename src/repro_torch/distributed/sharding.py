@@ -21,7 +21,12 @@ the whole leaf.  The copied rules:
     bit-identical to the full product's columns;
   * slot caches (:func:`serve_cache_cuts`, ``_SERVE_CACHE_RULES``): K/V on
     their KV-head dim, rwkv's WKV state on heads, its token-shift carries
-    and hymba's SSM state on channels;
+    and hymba's SSM state on channels; under the sequence-cut dense decode
+    (``parallel.decode_attn="shard_map"``, :func:`seq_group`) the K/V
+    leaves that the family names instead on their sequence dim, as the JAX
+    package's ``distributed_decode_attention`` takes them (its cache rules
+    keep heads, and the ``shard_map`` reshards at each step; a rank here
+    keeps its block of positions);
   * page pools (:func:`pool_cuts`, ``_POOL_CACHE_RULES``): a paging leaf
     ``(..., num_pages, page_size, Hkv, hd)`` on Hkv, a quantized pool's
     per-page scales on their Hkv dim; :func:`pool_kv_cut` is the pool's
@@ -157,10 +162,43 @@ def param_cuts(params, tp: int):
     return _map_paths(cut, params)
 
 
-def serve_cache_cuts(cache, tp: int):
+def lse_decode(cfg) -> bool:
+    """Whether the dense decode takes the JAX package's log-sum-exp body
+    (``collectives.distributed_decode_attention``):
+    ``parallel.decode_attn`` is ``"shard_map"`` with a sequence axis, where
+    the reference's decode steps pass ``dist_axis``.  It does so on a mesh
+    of one device too."""
+    return (cfg.parallel.decode_attn == "shard_map"
+            and cfg.parallel.seq_axis is not None)
+
+
+def seq_group(cfg, tp: Optional[TPGroup]) -> Optional[TPGroup]:
+    """The group over which a dense K/V cache is cut on its sequence: ``tp``
+    (more than one rank) under :func:`lse_decode` with the model axis as
+    the sequence axis, the axis the JAX package's
+    ``distributed_decode_attention`` then cuts the sequence over; else None
+    (the caches keep the head cut)."""
+    par = cfg.parallel
+    if (size_of(tp) > 1 and lse_decode(cfg)
+            and par.seq_axis == par.model_axis):
+        return tp
+    return None
+
+
+def serve_cache_cuts(cache, tp: int, seq: Sequence[str] = ()):
     """Per leaf of a dense serve cache, the dim that ``tp`` ranks cut under
-    the serve cache rules (``serve_cache_pspecs``), or None."""
+    the serve cache rules (``serve_cache_pspecs``), or None.  A leaf named
+    in ``seq`` (its top-level key) is cut on its sequence dim, the one
+    before last, instead, which ``tp`` must divide."""
     def cut(path, leaf):
+        if tp > 1 and path.split("/")[0] in seq:
+            dim = leaf.dim() - 2
+            if leaf.shape[dim] % tp:
+                raise ValueError(
+                    f"cache leaf {path!r}: a sequence of {leaf.shape[dim]} "
+                    f"positions does not divide over {tp} ranks "
+                    f"(parallel.decode_attn='shard_map' cuts it)")
+            return dim
         spec = _match(_SERVE_CACHE_RULES, path)
         return None if spec is None else _fit(spec, leaf.shape, tp)
 
@@ -243,10 +281,28 @@ def rank_zeros(like, cuts, tp: Optional[TPGroup], device):
     return _map_paths(alloc, like)
 
 
-def rank_cache(like, tp: Optional[TPGroup], device):
+def rank_cache(like, tp: Optional[TPGroup], device, seq: Sequence[str] = ()):
     """This rank's zeroed dense serve cache: the whole cache's shapes
-    ``like`` cut by the serve cache rules (:func:`rank_zeros`)."""
-    return rank_zeros(like, serve_cache_cuts(like, size_of(tp)), tp, device)
+    ``like`` cut by the serve cache rules, the leaves named in ``seq`` on
+    their sequence (:func:`rank_zeros`)."""
+    return rank_zeros(like, serve_cache_cuts(like, size_of(tp), seq), tp,
+                      device)
+
+
+def seq_to_heads(x: torch.Tensor, tp: TPGroup, cut: bool) -> torch.Tensor:
+    """A K/V leaf ``(..., Hkv, S/tp, D)`` cut on its sequence as the rank's
+    head layout: every rank's block of positions gathered (an all-gather,
+    which moves bits), then, where ``cut``, the rank's block of KV heads."""
+    whole = torch.cat(tp.all_gather(x), dim=x.dim() - 2)
+    return shard(whole, x.dim() - 3, tp) if cut else whole
+
+
+def heads_to_seq(x: torch.Tensor, tp: TPGroup, cut: bool) -> torch.Tensor:
+    """The inverse of :func:`seq_to_heads`: a leaf in the rank's head layout
+    (its block of KV heads where ``cut``, else every head) as the rank's
+    block of positions over every head."""
+    whole = torch.cat(tp.all_gather(x), dim=x.dim() - 3) if cut else x
+    return shard(whole, x.dim() - 2, tp)
 
 
 # ----------------------------------------------------------------------------
@@ -309,6 +365,23 @@ def gather(x: torch.Tensor, tp: Optional[TPGroup], width: int,
     if tp is None or tp.size == 1 or x.shape[dim] == width:
         return x
     return torch.cat(tp.all_gather(x), dim=dim)
+
+
+def gather_heads(tp: Optional[TPGroup], *xs: torch.Tensor,
+                 widths: Sequence[int]) -> Tuple[torch.Tensor, ...]:
+    """:func:`gather` of several activations cut on their heads (dim 1), in
+    one all-gather: each ``x`` whole, ``widths`` its whole head counts.
+    Those already whole (one rank, or a head count the group does not
+    divide) come back as they are."""
+    if size_of(tp) == 1 or all(x.shape[1] == w for x, w in zip(xs, widths)):
+        return xs
+    parts = tp.all_gather(torch.cat(xs, dim=1))
+    out, off = [], 0
+    for x in xs:
+        n = x.shape[1]
+        out.append(torch.cat([p.narrow(1, off, n) for p in parts], dim=1))
+        off += n
+    return tuple(out)
 
 
 # ----------------------------------------------------------------------------

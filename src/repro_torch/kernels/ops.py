@@ -74,10 +74,27 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 def decode_attention(q, k_cache, v_cache, cache_len, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     lse: bool = False, seq=None) -> torch.Tensor:
     """Dense single-position attention (the dense decode step and the
     split-brain engine's token steps).  The JAX package has no Pallas
-    kernel for it either: plain PyTorch on every device."""
+    kernel for it either: plain PyTorch on every device.
+
+    ``lse`` (the config's ``parallel.decode_attn="shard_map"``, passed by
+    the dense decode steps that pass the JAX package's ``dist_axis``) with
+    no window: the JAX package's dispatch to its log-sum-exp body
+    (``collectives.distributed_decode_attention``), which it runs wherever
+    its mesh has the sequence axis, a mesh of one device included.
+    ``seq``: the group whose ranks hold the caches cut on the sequence,
+    rank r the positions ``[r S, (r + 1) S)`` for a local length S, and
+    ``cache_len`` the global lengths; None is one shard."""
+    if lse and window is None:
+        S = k_cache.shape[2]
+        start = 0 if seq is None else seq.rank * S
+        pos = start + torch.arange(S, device=q.device)
+        valid = pos[None, :] < cache_len.to(torch.int32)[:, None]
+        return collectives.distributed_decode_attention(
+            q, k_cache, v_cache, valid, seq, softcap=softcap, scale=scale)
     return ref.decode_attention(q, k_cache, v_cache, cache_len,
                                 window=window, softcap=softcap, scale=scale)
 

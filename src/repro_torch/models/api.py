@@ -158,15 +158,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, frontend=None,
     serve cache rules (``sharding.rank_cache``, the one source of a rank's
     layout), and the cross K/V are projected by the rank's own blocks of
     the serving ``params`` (the family's ``cross_cache``), never projected
-    whole and sliced.  ``generate()`` and the slot protocol both take their
-    caches from here."""
+    whole and sliced.  Under the sequence-cut dense decode
+    (``sharding.seq_group``) the leaves that the family names in its
+    ``SEQ_CUT`` are cut on their sequence instead of their heads: a rank
+    holds ``(..., Hkv, S / tp, hd)``, every KV head of its block of
+    positions, and an ``S`` that tp does not divide is refused.
+    ``generate()`` and the slot protocol both take their caches from
+    here."""
     mod = family_module(cfg)
     kw = ({} if frontend is None
           else {"frontend": frontend, "params": params})
     if sharding.size_of(tp) == 1:
         return mod.init_cache(cfg, batch, max_len, device=device, **kw)
     like = mod.init_cache(cfg, batch, max_len, device=torch.device("meta"))
-    cache = sharding.rank_cache(like, tp, device)
+    seq = (getattr(mod, "SEQ_CUT", ())
+           if sharding.seq_group(cfg, tp) is not None else ())
+    cache = sharding.rank_cache(like, tp, device, seq)
     if frontend is not None and params is not None:
         cache.update(mod.cross_cache(params, frontend, cfg))
     return cache
@@ -207,7 +214,8 @@ def prefill_bucketed(params, cache, tokens, true_len, cfg: ModelConfig):
     padding never reaches the state."""
     mod = family_module(cfg)
     n = int(true_len)
-    if hasattr(mod, "prefill") and mod.prefill_fits(cache, tokens.shape[1]):
+    if hasattr(mod, "prefill") and mod.prefill_fits(
+            cache, tokens.shape[1], cfg, params.get("tp")):
         # the block prefill writes positions 0..T-1: a fresh cache only
         assert int(cache["len"].max()) == 0, "prefill requires an empty cache"
         return mod.prefill(params, cache, tokens, cfg, true_len=n)

@@ -41,13 +41,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import copy_to
-from repro_torch.distributed.sharding import gather, head_cut
+from repro_torch.distributed.sharding import (gather, gather_heads, head_cut,
+                                              lse_decode, seq_group, shard)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 # Batch axis of each serve-cache entry: K/V (L, B, Hkv, S, hd), len (B,),
 # cross K/V (L, B, Hkv, Tx, hd).
 BATCH_AXES = {"k": 1, "v": 1, "len": 0, "cross_k": 1, "cross_v": 1}
+# the leaves that the sequence-cut dense decode cuts on their sequence
+# (``sharding.seq_group``): the self cache on positions, the cross K/V on
+# frames
+SEQ_CUT = ("k", "v", "cross_k", "cross_v")
 
 
 def _dtype(cfg: ModelConfig):
@@ -304,13 +309,19 @@ def cross_cache(params, frontend: torch.Tensor, cfg: ModelConfig
                 ) -> Dict[str, torch.Tensor]:
     """The encoder run once (:func:`encode`) and each decoder layer's cross
     K/V of its output, ``cross_k`` / ``cross_v`` (L, batch, Hkv, Tx, hd);
-    on a tensor-parallel rank (``params["tp"]``) its own KV heads."""
+    on a tensor-parallel rank (``params["tp"]``) its own KV heads, or under
+    the sequence-cut dense decode (``sharding.seq_group``) every head of its
+    block of frames."""
     enc = encode(params, frontend, cfg)
     tp = params.get("tp")
+    seq = seq_group(cfg, tp)
     out = {}
     for i in range(cfg.num_layers):
         for name, t in zip(("cross_k", "cross_v"), _cross_kv(
                 _layer(params["dec_blocks"], i), enc, cfg, tp)):
+            if seq is not None:
+                # every KV head of the rank's block of frames
+                t = shard(gather(t, tp, cfg.num_kv_heads, dim=1), 2, seq)
             if name not in out:
                 out[name] = torch.empty((cfg.num_layers,) + t.shape,
                                         dtype=t.dtype, device=t.device)
@@ -326,20 +337,31 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     or the ragged write; ``write`` (B,) bool freezes rows where it is
     False), self-attention over ``len + 1`` positions and cross-attention
     over every cached cross position, both through the plain
-    ``ops.decode_attention`` (the reference's choice too)."""
+    ``ops.decode_attention`` (the reference's choice too).
+
+    ``parallel.decode_attn="shard_map"``: both attentions take the
+    log-sum-exp body (``ops.decode_attention(lse=True)``), as the
+    reference's step does.  Under tensor parallelism the self cache and the
+    cross K/V are then cut on the sequence (``sharding.seq_group``): the
+    query and the new K/V are gathered over heads, the rank that holds
+    ``len`` writes it, and every head's output comes out whole on every
+    rank."""
     if "cross_k" not in cache:
         raise ValueError(
             f"{cfg.name}: the cache holds the encoder's cross K/V: build it "
             "with init_cache(..., frontend=, params=)")
     B = tokens.shape[0]
-    hd, Hq = cfg.resolved_head_dim, cfg.num_heads
+    hd, Hq, Hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     tp = params.get("tp")
     cut = _cut(cfg, tp)
+    seq = seq_group(cfg, tp)
+    n = 1 if seq is None else seq.size
+    lse = lse_decode(cfg)
     x = params["embed"][tokens.to(torch.int64)][:, None, :].to(_dtype(cfg))
     pos = cache["len"]
     positions = pos[:, None]
     aligned = cfg.parallel.aligned_decode
-    Tx = cache["cross_k"].shape[3]
+    Tx = cache["cross_k"].shape[3] * n
     cross_len = torch.full((B,), Tx, dtype=torch.int32, device=x.device)
 
     def heads_out(o, w):
@@ -350,18 +372,24 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     for i in range(cfg.num_layers):
         p = _layer(params["dec_blocks"], i)
         q, k, v = L.qkv_project(p["self"], _norm(x, p["ln_self"], cfg), Hq,
-                                cfg.num_kv_heads, hd, tp=tp)
+                                Hkv, hd, tp=tp)
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
         kc, vc = cache["k"][i], cache["v"][i]
-        L.cache_write(kc, k, pos, aligned, write)
-        L.cache_write(vc, v, pos, aligned, write)
-        o = ops.decode_attention(q, kc, vc, pos + 1)
+        if seq is None:
+            L.cache_write(kc, k, pos, aligned, write)
+            L.cache_write(vc, v, pos, aligned, write)
+        else:
+            q, k, v = gather_heads(tp, q, k, v, widths=(Hq, Hkv, Hkv))
+            L.seq_cache_write(kc, k, pos, seq, write)
+            L.seq_cache_write(vc, v, pos, seq, write)
+        o = ops.decode_attention(q, kc, vc, pos + 1, lse=lse, seq=seq)
         x, s = _residual(x, heads_out(o, p["self"]["wo"]))
         qx = L.project_heads(_norm(s, p["ln_cross"], cfg), p["cross"]["wq"],
-                             Hq, hd, tp, cut)
+                             Hq, hd, tp, cut and seq is None)
         o = ops.decode_attention(qx, cache["cross_k"][i],
-                                 cache["cross_v"][i], cross_len)
+                                 cache["cross_v"][i], cross_len, lse=lse,
+                                 seq=seq)
         x, s = _residual(x, heads_out(o, p["cross"]["wo"]))
         x = _mlp_tail(p, x, s, cfg, tp)
     logits = _logits(params, x[:, 0], cfg, rounded=False)

@@ -688,3 +688,53 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
         val = torch.where(write[:, None, None], val, cache[rows, :, idx, :])
     cache[rows, :, idx, :] = val
     return cache
+
+
+# ----------------------------------------------------------------------------
+# A dense cache cut on its sequence (parallel.decode_attn="shard_map" under
+# tensor parallelism): rank r of the group holds the positions [r S, (r + 1)
+# S) of every KV head, S its local length
+# ----------------------------------------------------------------------------
+def seq_cache_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                    tp, write: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write one token's K or V, ``new`` (B, Hkv, 1, D) every head, at the
+    global positions ``pos`` (B,) of a cache cut on its sequence, IN PLACE:
+    the rank that holds a row's position writes it, every other rank's
+    write is masked (it writes back the entry it holds; ``cache_write``'s
+    ragged form, one entry per row, no host sync).  Returns ``cache``."""
+    S = cache.shape[2]
+    local = pos.to(torch.int64) - tp.rank * S
+    own = (local >= 0) & (local < S)
+    if write is not None:
+        own &= write
+    return cache_write(cache, new, torch.clamp(local, 0, S - 1),
+                       aligned=False, write=own)
+
+
+def seq_cache_fill(cache: torch.Tensor, new: torch.Tensor, tp) -> None:
+    """A block prefill's K or V, ``new`` (B, Hkv, T, D) every head at the
+    positions 0..T-1, into a fresh cache cut on its sequence, IN PLACE: the
+    rank's own positions among them."""
+    S, T = cache.shape[2], new.shape[2]
+    start = tp.rank * S
+    n = min(max(T - start, 0), S)
+    if n:
+        cache[:, :, :n] = new[:, :, start:start + n].to(cache.dtype)
+
+
+def seq_cache_put(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
+                  tp) -> None:
+    """A prefill chunk's K or V, ``new`` (B, Hkv, W, D) every head at the
+    positions ``start[b] .. start[b] + W - 1``, into a cache cut on its
+    sequence, IN PLACE: each of the rank's positions that the chunk covers
+    takes its entry (a select over the rank's whole block, so no two writes
+    meet at one entry)."""
+    B, _, S, _ = cache.shape
+    W = new.shape[2]
+    g = tp.rank * S + torch.arange(S, device=cache.device)
+    j = g[None, :] - start.to(torch.int64)[:, None]              # (B, S)
+    mask = (j >= 0) & (j < W)
+    idx = torch.clamp(j, 0, W - 1)[:, None, :, None].expand(
+        B, new.shape[1], S, new.shape[3])
+    val = torch.gather(new.to(cache.dtype), 2, idx)
+    cache.copy_(torch.where(mask[:, None, :, None], val, cache))

@@ -45,7 +45,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import copy_to, gather_sum
-from repro_torch.distributed.sharding import gather, head_cut
+from repro_torch.distributed.sharding import (gather, gather_heads, head_cut,
+                                              lse_decode, seq_group,
+                                              seq_to_heads)
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -177,10 +179,18 @@ def serve_params(params, cfg: ModelConfig, device) -> Dict[str, Any]:
     return out
 
 
-def prefill_fits(cache, prompt_len: int) -> bool:
+def prefill_fits(cache, prompt_len: int, cfg: ModelConfig, tp=None) -> bool:
     """True when every KV leaf can hold the whole prompt, so that the block
-    :func:`prefill` can take it in one pass."""
-    return all(a.shape[4] >= prompt_len for a in cache["k"])
+    :func:`prefill` can take it in one pass (a leaf cut on its sequence
+    holds ``tp`` times its local length)."""
+    n = 1 if seq_group(cfg, tp) is None else tp.size
+    return all(a.shape[4] * n >= prompt_len for a in cache["k"])
+
+
+# the cache leaves that the sequence-cut dense decode cuts on their sequence
+# (``sharding.seq_group``): every self-attention K/V leaf; a VLM's cross K/V
+# are attended by the flash kernel and keep the head cut
+SEQ_CUT = ("k", "v")
 
 
 def _check_block_path(cfg: ModelConfig, cross_ok: bool = False) -> None:
@@ -509,20 +519,31 @@ def prefill(params, cache, tokens: torch.Tensor, cfg: ModelConfig,
     PLACE (one slice assignment) and runs causal self-attention over the
     prompt through ``ops.attention`` -- the flash kernel on the card.  A
     VLM runs its cross block after each group (:func:`_cross_apply`,
-    another flash launch over the cached cross K/V).
+    another flash launch over the cached cross K/V).  Under the
+    sequence-cut dense decode (``sharding.seq_group``) the rank still
+    attends its own heads, and its cache takes every head's K/V (gathered)
+    of its own positions.
     Requires every cache leaf to hold T positions and an empty cache
     (``api.prefill`` checks both)."""
     _check_block_path(cfg, cross_ok=True)
     B, T = tokens.shape
     tp = params.get("tp")
+    seq = seq_group(cfg, tp)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(T, device=x.device)
     h = None
     for spec, slot, at, pj in _layers(params, cfg):
         q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
                              cfg, tp)
-        cache["k"][slot][at][:, :, :T] = k
-        cache["v"][slot][at][:, :, :T] = v
+        if seq is None:
+            cache["k"][slot][at][:, :, :T] = k
+            cache["v"][slot][at][:, :, :T] = v
+        else:
+            # the rank attends its heads; its cache keeps every head of its
+            # own positions
+            kf, vf = gather_heads(tp, k, v, widths=(cfg.num_kv_heads,) * 2)
+            L.seq_cache_fill(cache["k"][slot][at], kf, seq)
+            L.seq_cache_fill(cache["v"][slot][at], vf, seq)
         o = ops.attention(q, k, v, causal=True, window=spec.window,
                           softcap=cfg.softcap)
         x, h = _block_tail(pj, x, o, cfg, tp)
@@ -546,9 +567,23 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``generate()``) or the ragged one (slot positions); ``write`` (B,) bool
     freezes the rows where it is False: their K/V and ``len`` keep their
     values and their logits are garbage to be ignored.  A VLM runs its
-    cross block after each group, the flash kernel at one query row."""
+    cross block after each group, the flash kernel at one query row.
+
+    ``parallel.decode_attn="shard_map"`` (``sharding.lse_decode``): a layer
+    without a window -- a linear cache, or a ring, which the JAX package
+    attends with no window over its effective length -- takes the
+    log-sum-exp body, as the reference's step does; a windowed layer whose
+    window exceeds its cache stays plain.  Under tensor parallelism the caches are then cut on
+    the sequence (``sharding.seq_group``): each rank gathers the step's
+    query and new K/V over heads (they arrive cut on heads, exact), the
+    rank that holds ``pos`` writes it, and the partials of every rank's
+    positions combine by log-sum-exp into every head's output, whole on
+    every rank; the plain windowed layer gathers its cache's positions."""
     _check_block_path(cfg, cross_ok=True)
     tp = params.get("tp")
+    seq = seq_group(cfg, tp)
+    lse = lse_decode(cfg)
+    n = 1 if seq is None else seq.size
     x = _embed_decode(params, tokens, cfg)
     pos = cache["len"]
     positions = pos[:, None]
@@ -558,17 +593,27 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
         kc, vc = cache["k"][slot][at], cache["v"][slot][at]
         q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
                              cfg, tp)
-        S = kc.shape[2]
+        S = kc.shape[2] * n
         ring = bool(spec.window) and spec.window <= S
         idx = pos % S if ring else torch.clamp(pos, max=S - 1)
-        L.cache_write(kc, k, idx, aligned, write)
-        L.cache_write(vc, v, idx, aligned, write)
+        if seq is None:
+            L.cache_write(kc, k, idx, aligned, write)
+            L.cache_write(vc, v, idx, aligned, write)
+        else:
+            q, k, v = gather_heads(tp, q, k, v, widths=(
+                cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+            L.seq_cache_write(kc, k, idx, seq, write)
+            L.seq_cache_write(vc, v, idx, seq, write)
         if ring:
             o = ops.decode_attention(q, kc, vc, torch.clamp(pos + 1, max=S),
-                                     softcap=cfg.softcap)
-        else:
+                                     softcap=cfg.softcap, lse=lse, seq=seq)
+        elif seq is None or spec.window is None:
             o = ops.decode_attention(q, kc, vc, pos + 1, window=spec.window,
-                                     softcap=cfg.softcap)
+                                     softcap=cfg.softcap, lse=lse, seq=seq)
+        else:
+            o = ops.decode_attention(q, seq_to_heads(kc, seq, False),
+                                     seq_to_heads(vc, seq, False), pos + 1,
+                                     window=spec.window, softcap=cfg.softcap)
         x, h = _block_tail(pj, x, o, cfg, tp)
         if _group_end(cfg, at, slot):
             cp, kv = _cross_at(params, cache, at[0])
@@ -595,10 +640,17 @@ def prefill_chunk(params, cache, tokens: torch.Tensor, true_len: int,
     Precondition (the caller's): every cache leaf is a linear buffer of the
     full ``max_len`` (a windowed ring takes ``api.prefill_chunk``'s
     per-token path), ``len`` is a multiple of W and W divides ``max_len``:
-    chunks arrive full width and back to back, only the last one padded."""
+    chunks arrive full width and back to back, only the last one padded.
+
+    Under the sequence-cut dense decode (``sharding.seq_group``) the chunk's
+    K/V (gathered over heads) go to the ranks that hold their positions,
+    and each rank attends its own heads over the whole cache, gathered from
+    every rank's positions for the chunk (``sharding.seq_to_heads``: the
+    same values as the head-cut cache, O(cache) moved per layer)."""
     _check_block_path(cfg)
     B, W = tokens.shape
     tp = params.get("tp")
+    seq = seq_group(cfg, tp)
     x = _embed(params, tokens, cfg)
     start = cache["len"]                                       # (B,)
     positions = start.to(torch.int64)[:, None] + torch.arange(
@@ -609,8 +661,17 @@ def prefill_chunk(params, cache, tokens: torch.Tensor, true_len: int,
         kc, vc = cache["k"][slot][at], cache["v"][slot][at]   # (B, Hkv, S, hd)
         q, k, v = _block_qkv(pj, _norm_input(x, h, at, slot), positions,
                              cfg, tp)
-        kc[rows, :, positions] = k.transpose(1, 2).to(kc.dtype)
-        vc[rows, :, positions] = v.transpose(1, 2).to(vc.dtype)
+        if seq is None:
+            kc[rows, :, positions] = k.transpose(1, 2).to(kc.dtype)
+            vc[rows, :, positions] = v.transpose(1, 2).to(vc.dtype)
+        else:
+            # the chunk's positions on the ranks that hold them, then the
+            # rank's heads over the whole cache for the chunk's attention
+            kf, vf = gather_heads(tp, k, v, widths=(cfg.num_kv_heads,) * 2)
+            L.seq_cache_put(kc, kf, start, seq)
+            L.seq_cache_put(vc, vf, start, seq)
+            cut = _head_cut(cfg, tp)
+            kc, vc = seq_to_heads(kc, seq, cut), seq_to_heads(vc, seq, cut)
         o = ops.chunk_attention(q, kc, vc, positions, window=spec.window,
                                 softcap=cfg.softcap)
         x, h = _block_tail(pj, x, o, cfg, tp)

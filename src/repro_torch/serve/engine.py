@@ -95,6 +95,15 @@ and is gathered, then cast.  The TrafficMeter replays eq.
                 an encoder-decoder's attention are cut on heads like the
                 self-attention.  A scheduler over a TP engine decides by
                 one loop clock for the group, rank 0's (``TPGroup.clock``).
+                Under ``parallel.decode_attn="shard_map"`` the dense K/V
+                leaves (``SEQ_CUT`` of the family) are cut on the sequence
+                instead (``sharding.seq_group``): a rank holds every KV
+                head of its block of positions, and the dense decode
+                combines the ranks' partials by log-sum-exp.  The page
+                pool keeps its head cut, so the gather discipline moves its
+                view to the sequence cut for the step and back, and a
+                request cache to the pool's layout at its insert; in-place
+                paging is refused under the knob, as in the reference.
 """
 from __future__ import annotations
 
@@ -145,6 +154,14 @@ class ServeEngine(pages_mod.PagedEngineMixin):
             sharding.shard_params(params, self.tp), cfg, self.device)
         if self.tp is not None:
             self.params["tp"] = self.tp
+        # the group over which the dense K/V caches are cut on their
+        # sequence (parallel.decode_attn="shard_map" at tp > 1), the leaves
+        # so cut, and whether the pool's layout cuts their KV heads
+        self._seq_leaves = getattr(family, "SEQ_CUT", ())
+        self._seq = (sharding.seq_group(cfg, self.tp) if self._seq_leaves
+                     else None)
+        self._kv_cut = (self.tp is not None
+                        and cfg.num_kv_heads % self.tp.size == 0)
         self.max_len = max_len
         self.fused = fused
         # the MoE FFN couples a call's rows: feed the reference's padding
@@ -224,6 +241,20 @@ class ServeEngine(pages_mod.PagedEngineMixin):
             return body
         width = slots_mod.bucket(body.shape[1])
         return np.pad(body, ((0, 0), (0, width - body.shape[1])))
+
+    def _relayout(self, tree, fn):
+        """``tree`` with its sequence-cut K/V leaves (``self._seq_leaves``)
+        passed through ``fn`` (``sharding.seq_to_heads`` or
+        ``heads_to_seq``): between the dense decode step's sequence layout
+        and the head layout of the page pool and its request caches."""
+        out = dict(tree)
+        for name in self._seq_leaves:
+            if name in tree:
+                e = tree[name]
+                conv = [fn(t, self._seq, self._kv_cut)
+                        for t in pages_mod._leaves(e)]
+                out[name] = conv if isinstance(e, list) else conv[0]
+        return out
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -352,7 +383,10 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         (and a reset host pager) with ``page_size``, else the dense
         ``(n_slots, ...)`` cache.  A VLM or encoder-decoder config is
         refused, as the JAX package refuses it: its requests carry a
-        frontend that the slot protocol has no place for."""
+        frontend that the slot protocol has no place for.  So is in-place
+        paging under ``parallel.decode_attn="shard_map"`` where paging
+        engages (the reference's refusal and message); a family that never
+        pages keeps its dense slot cache."""
         if self.cfg.frontend_tokens or self.cfg.cross_attn_every:
             raise ValueError(
                 "continuous batching covers the text-only families "
@@ -369,6 +403,15 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                     f"no cache leaf of this config scales with max_len, so "
                     f"there is no page pool to quantize")
             return self._rank_cache(n_slots, self.max_len)
+        if (self._paged_attn == "inplace"
+                and self.cfg.parallel.decode_attn == "shard_map"):
+            # the reference's refusal, where paging engages: the paged
+            # decode has no sequence-cut variant
+            raise ValueError(
+                "paged_attn='inplace' does not support "
+                "parallel.decode_attn='shard_map' (the page pool is not "
+                "sequence-sharded); serve this config with "
+                "paged_attn='gather' or the dense slot cache")
         pool = self._pager.reset(n_slots)
         pcache, kv_shards = pages_mod.make_rank_pool(
             like, ba, sa, pool.num_pages, self.page_size, self.device,
@@ -426,8 +469,20 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         will store, so the tokens that follow do not depend on whether a
         page came from this prefill or from the prefix cache."""
         if self._kv_dtype != "bf16":
-            pages_mod.fake_quant_tree(cache, int(cache["len"][0]), self._sa,
+            if self._seq is None:
+                pages_mod.fake_quant_tree(cache, int(cache["len"][0]),
+                                          self._sa, self.page_size,
+                                          self._kv_dtype)
+                return cache
+            # pages are quantized in the pool's head layout
+            heads = self._relayout(cache, sharding.seq_to_heads)
+            pages_mod.fake_quant_tree(heads, int(cache["len"][0]), self._sa,
                                       self.page_size, self._kv_dtype)
+            back = self._relayout(heads, sharding.heads_to_seq)
+            for name in self._seq_leaves:
+                for t, b in zip(pages_mod._leaves(cache[name]),
+                                pages_mod._leaves(back[name])):
+                    t.copy_(b)
         return cache
 
     def new_request_cache(self):
@@ -439,8 +494,11 @@ class ServeEngine(pages_mod.PagedEngineMixin):
         slot's matched prefix pages gathered (dequantized) from the pool,
         ``len = cached_len``; the tail chunks continue from there."""
         like = self._rank_cache(1, self.max_len, torch.device("meta"))
-        return self.paged_seed(cache, slot, cached_len, self._ba, self._sa,
+        seed = self.paged_seed(cache, slot, cached_len, self._ba, self._sa,
                                like)
+        # the pool's head layout as the request cache's sequence layout
+        return (seed if self._seq is None
+                else self._relayout(seed, sharding.heads_to_seq))
 
     def prefill_chunk_slot(self, cache, chunk: np.ndarray, true_w: int):
         """Advance a B=1 request cache by one right-padded prompt chunk, in
@@ -466,6 +524,8 @@ class ServeEngine(pages_mod.PagedEngineMixin):
             return slots_mod.insert_slot(batched_cache, slot_cache, slot,
                                          self._ba)
         n_tok = int(slot_cache["len"][0])
+        if self._seq is not None:
+            slot_cache = self._relayout(slot_cache, sharding.seq_to_heads)
         return self.paged_insert(batched_cache, slot_cache, slot,
                                  self._ba, self._sa, n_tok)
 
@@ -503,8 +563,27 @@ class ServeEngine(pages_mod.PagedEngineMixin):
                 # slot's one new token scattered back into its page
                 view = pages_mod.gather_tree(cache, table, self._ba, self._sa)
                 pos = view["len"].clone()
-                logits, view = api.decode_step(self.params, view, tok_d,
-                                               self._ragged_cfg, write=act_d)
+                if self._seq is None:
+                    logits, view = api.decode_step(
+                        self.params, view, tok_d, self._ragged_cfg,
+                        write=act_d)
+                else:
+                    # the step on the view in its sequence layout, then
+                    # back: the rings are the pool's own leaves
+                    seq_view = self._relayout(view, sharding.heads_to_seq)
+                    logits, seq_view = api.decode_step(
+                        self.params, seq_view, tok_d, self._ragged_cfg,
+                        write=act_d)
+                    back = self._relayout(seq_view, sharding.seq_to_heads)
+                    for name in self._seq_leaves:
+                        for t, b, s_ax in zip(
+                                pages_mod._leaves(view[name]),
+                                pages_mod._leaves(back[name]),
+                                pages_mod._leaf_axes(self._sa[name],
+                                                     view[name])):
+                            if s_ax < 0:
+                                t.copy_(b)
+                    view = back
                 pages_mod.scatter_token_tree(cache, view, table, pos, act_d,
                                              self._ba, self._sa)
             self._pager.post_decode(act)
@@ -522,14 +601,8 @@ class ServeEngine(pages_mod.PagedEngineMixin):
 
 def check_tp(cfg: ModelConfig, tp, device) -> None:
     """Tensor-parallel serving covers every config of the registry on the
-    rank's own device; the sequence-cut dense decode
-    (``parallel.decode_attn="shard_map"``, which no config sets) is not
-    ported to TP yet (ROADMAP.md)."""
-    if cfg.parallel.decode_attn == "shard_map":
-        raise ValueError(
-            f"{cfg.name}: parallel.decode_attn='shard_map' (a dense cache "
-            f"cut on the sequence) is not ported to tensor-parallel serving "
-            f"yet (ROADMAP.md); the engine's caches are cut on heads")
+    rank's own device, the sequence-cut dense decode
+    (``parallel.decode_attn="shard_map"``) included."""
     dev = torch.device(device)
     if dev.type != tp.device.type or dev.index not in (None,
                                                        tp.device.index):

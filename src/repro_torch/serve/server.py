@@ -33,6 +33,28 @@ Deadlines are wall-clock-relative at submit time (``deadline_s=2.0`` means
 Rejections (validation failures, mid-flight prefill failures) resolve the
 handle with a ``REJECTED`` result carrying the reason, so every submitted
 request terminates exactly once — nothing hangs.
+
+Tensor-parallel ranks (a scheduler over an engine with ``tp``, a
+``TPGroup`` of more than one rank): every rank builds its own
+``OnlineServer`` over its own scheduler, inside the function that
+``runtime.spawn`` runs, and starts and stops it as on one device.  Rank 0
+is the front end: ``submit()``, ``cancel()``, the handles, streaming and
+the watchdog live there, and ``submit()`` / ``cancel()`` raise on the other
+ranks.  Before every iteration rank 0 broadcasts one packet
+(``TPGroup.broadcast_object``): the operations it drained (submissions
+with their uid, prompt, ``max_new``, priority and relative deadline, and
+cancellations), the cancellations its scheduler took from a throwing
+stream callback (a callback runs on rank 0 only), the watchdog's recovery
+flag and whether to stop; every rank applies the same packet, then steps,
+or parks (rank 0 waits for work, the others for the next packet), or
+stops.  The scheduler's loop clock is the group's (``TPGroup.clock``, a
+collective), so a deadline is put on it where every rank applies the
+submission, and a rejection's finish time is read on every rank; the
+watchdog thread only flags, and the recovery runs at the same iteration on
+every rank.  A loop error on any rank tears the group down
+(``TPGroup.abort``): the others' next collective fails, rank 0's handles
+resolve REJECTED, and ``stop()`` raises on every rank.  On a rank other
+than 0, ``stop()`` waits for rank 0's stop (its ``drain`` is rank 0's).
 """
 from __future__ import annotations
 
@@ -159,6 +181,10 @@ class OnlineServer:
         self._recover_streak = 0
         self._recover_wait = 0.0
         self._last_recover_t = 0.0
+        # tensor-parallel ranks: the group, and whether this is rank 0
+        tp = getattr(scheduler.engine, "tp", None)
+        self._tp = tp if tp is not None and tp.size > 1 else None
+        self._front = self._tp is None or self._tp.rank == 0
 
     # ------------------------------------------------------------ lifecycle
     def start(self, warmup: bool = False) -> "OnlineServer":
@@ -173,7 +199,7 @@ class OnlineServer:
         self._thread = threading.Thread(target=self._loop,
                                         name="serve-loop", daemon=True)
         self._thread.start()
-        if self.watchdog_s is not None:
+        if self.watchdog_s is not None and self._front:
             self._watchdog_thread = threading.Thread(
                 target=self._watchdog, name="serve-watchdog", daemon=True)
             self._watchdog_thread.start()
@@ -183,8 +209,15 @@ class OnlineServer:
              ) -> None:
         """Shut the loop down.  ``drain=True`` serves everything already
         submitted first; ``drain=False`` cancels all outstanding requests
-        (handles resolve CANCELLED)."""
+        (handles resolve CANCELLED).  On a tensor-parallel rank other than
+        0 it waits for rank 0's stop, whose ``drain`` holds."""
         if self._thread is None:
+            return
+        if not self._front:
+            self._thread.join(timeout)
+            self._thread = None
+            if self._loop_error is not None:
+                raise RuntimeError("serve loop died") from self._loop_error
             return
         if not drain:
             with self._lock:
@@ -214,7 +247,9 @@ class OnlineServer:
         (wall clock at submit); ``priority`` is the SLA class (higher wins
         admission and may preempt lower).  Returns immediately with a
         handle — validation happens on the loop thread, and a malformed
-        request resolves its handle as REJECTED rather than raising here."""
+        request resolves its handle as REJECTED rather than raising here.
+        Rank 0's alone on tensor-parallel ranks."""
+        self._check_front("submit")
         if self._thread is None or self._stop.is_set():
             raise ServerClosed("submit() on a stopped server")
         with self._lock:
@@ -227,30 +262,70 @@ class OnlineServer:
                        None if deadline_s is None else float(deadline_s)))
         return handle
 
+    def cancel(self, uid: int) -> None:
+        """Thread-safe cancellation of request ``uid`` (as
+        ``RequestHandle.cancel``).  Rank 0's alone on tensor-parallel
+        ranks."""
+        self._check_front("cancel")
+        self._enqueue(("cancel", int(uid)))
+
+    def _check_front(self, what: str) -> None:
+        if not self._front:
+            raise RuntimeError(
+                f"{what}() on tensor-parallel rank {self._tp.rank}: rank 0 "
+                f"is the front end, the other ranks follow its loop")
+
     def _enqueue(self, op: Tuple) -> None:
         with self._lock:
             self._ops.append(op)
         self._wake.set()
 
     # ------------------------------------------------------------- the loop
-    def _drain_ops(self) -> None:
+    def _next_packet(self) -> Tuple[List[Tuple], List[int], bool, bool]:
+        """This iteration's (operations, cancellations taken by the
+        scheduler from a throwing stream callback, recovery flag, stop):
+        drained from the queue on one device or rank 0, broadcast from rank
+        0 to every rank of a tensor-parallel group.  The stop flag is read
+        before the drain, so every operation enqueued before ``stop()``
+        rides this packet or an earlier one."""
+        packet = None
+        if self._front:
+            self._heartbeat = time.monotonic()
+            stop = self._stop.is_set()
+            with self._lock:
+                ops, self._ops = self._ops, []
+            recover, self._recover_flag = self._recover_flag, False
+            # a stream callback runs on rank 0 alone
+            cancels = (sorted(self.scheduler._cancels)
+                       if self._tp is not None else [])
+            packet = (ops, cancels, recover, stop)
+        if self._tp is None:
+            return packet
+        return self._tp.broadcast_object(packet)
+
+    def _apply_ops(self, ops: List[Tuple], cancels: List[int]) -> None:
+        """Apply one packet's operations in order, then its callback
+        cancellations.  A submission's arrival and deadline are read on the
+        scheduler's loop clock (a collective of a tensor-parallel group,
+        read alike on every rank); its stream is the handle's, on the rank
+        that holds it."""
         sched = self.scheduler
-        with self._lock:
-            ops, self._ops = self._ops, []
         for op in ops:
             if op[0] == "submit":
                 _, uid, prompt, max_new, priority, deadline_s = op
-                handle = self._handles[uid]
+                handle = self._handles.get(uid)
                 now = sched.clock()
                 req = Request(
                     uid=uid, prompt=prompt, max_new=max_new,
                     arrival_s=now, priority=priority,
                     deadline_s=None if deadline_s is None
                     else now + deadline_s,
-                    stream=handle._push_token)
+                    stream=None if handle is None else handle._push_token)
                 sched.submit(req)
             elif op[0] == "cancel":
                 sched.cancel(op[1])
+        for uid in cancels:
+            sched.cancel(uid)
 
     def _publish_terminal(self) -> None:
         sched = self.scheduler
@@ -259,12 +334,14 @@ class OnlineServer:
             if h is not None:
                 h._resolve(res)
         for rej in sched.poll_rejected():
+            # read on every rank: the loop clock may be a collective
+            now = sched.clock()
             h = self._handles.pop(rej.uid, None)
             if h is not None:
                 h._resolve(RequestResult(
                     uid=rej.uid, tokens=np.zeros((0,), np.int32),
                     gen_len=0, prompt_len=0, admitted_s=-1.0,
-                    finished_s=sched.clock(),
+                    finished_s=now,
                     state=RequestState.REJECTED.value))
                 h.reject_reason = rej.reason
 
@@ -291,14 +368,14 @@ class OnlineServer:
                 self._heartbeat = time.monotonic()   # rearm, don't re-trip
                 self._wake.set()
 
-    def _maybe_recover(self) -> None:
+    def _maybe_recover(self, flagged: bool) -> None:
         """Loop-thread half of the watchdog: apply the flagged recovery at
-        a safe point, with bounded exponential backoff between consecutive
-        recoveries.  A quiet period of 2x the watchdog window resets the
-        backoff streak."""
-        if not self._recover_flag:
+        a safe point (``flagged``: this iteration's packet says so, the
+        same on every rank), with bounded exponential backoff between
+        consecutive recoveries.  A quiet period of 2x the watchdog window
+        resets the backoff streak."""
+        if not flagged:
             return
-        self._recover_flag = False
         now = time.monotonic()
         if (self._recover_streak
                 and now - self._last_recover_t
@@ -331,24 +408,24 @@ class OnlineServer:
         sched = self.scheduler
         try:
             while True:
-                self._heartbeat = time.monotonic()
-                self._drain_ops()
-                self._maybe_recover()
+                ops, cancels, recover, stop = self._next_packet()
+                self._apply_ops(ops, cancels)
+                self._maybe_recover(recover)
                 if sched.has_work():
                     sched.step(realtime=False)
                     self._publish_terminal()
                     continue
                 self._publish_terminal()
-                if self._stop.is_set():
-                    with self._lock:
-                        pending_ops = bool(self._ops)
-                    if not pending_ops and not sched.has_work():
-                        break
-                    continue
-                self._wake.wait(self.idle_wait_s)
-                self._wake.clear()
+                if stop:
+                    break
+                if self._front:
+                    self._wake.wait(self.idle_wait_s)
+                    self._wake.clear()
         except BaseException as e:   # noqa: BLE001 — resolve waiters first
             self._loop_error = e
+            if self._tp is not None:
+                # the other ranks' next collective fails: the group ends
+                self._tp.abort()
             with self._lock:
                 handles = list(self._handles.values())
                 self._handles.clear()

@@ -1032,6 +1032,67 @@ def test_tp_paged_head_cut_and_merge_on_card(cuda):
         assert r["merge"], r
 
 
+# the sequence-cut dense decode's log-sum-exp body (parallel.decode_attn=
+# "shard_map"; plain PyTorch, no kernel) at llama2-7b's shape (32 heads of
+# 128, one per KV head) and gemma2-27b's global layers (32/16 heads of 128,
+# softcap 50), over a rank's 512 positions at tp 2 of a 1,024-token cache
+LSE_SHAPES = [dict(Hq=32, Hkv=32, D=128, softcap=None),
+              dict(Hq=32, Hkv=16, D=128, softcap=50.0)]
+LSE_BOUND = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", range(len(LSE_SHAPES)))
+def test_lse_decode_body_on_card_matches_cpu(cuda, case, dtype):
+    """The body on the card (cuBLAS's dots, the softcap's division as the
+    multiplication by the cap's reciprocal that XLA compiles, which is the
+    same op on both devices) against the CPU's (PyTorch's CPU dots), on
+    the same inputs, B 8 with lengths 0 to 512.  The logits' sum orders
+    differ, and where an f32 ulp of a weight p flips its rounding to bf16
+    (the body rounds p before the PV product) the output moves: the
+    largest difference read on the H100 was 5.2e-5 for f32 queries at
+    both shapes (the cases' first run, against a bound of 1e-5).  f32
+    queries are held to LSE_BOUND, about twice that, bf16 ones to one bf16
+    ulp of the CPU's output plus it.  Dropping p's rounding would move the
+    output by more than 10 x LSE_BOUND on these inputs (float64, asserted
+    first), so the bound sees the numerics that the body keeps."""
+    from repro_torch.distributed import collectives
+    g = LSE_SHAPES[case]
+    gen = torch.Generator().manual_seed(90 + case)
+    B, S = 8, 512
+    q = torch.randn((B, g["Hq"], 1, g["D"]), generator=gen).to(dtype)
+    k, v = (torch.randn((B, g["Hkv"], S, g["D"]), generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([0, 1, 37, 128, 255, 256, 400, 512])
+    valid = torch.arange(S)[None, :] < lens[:, None]
+    # what keeping p in f32 for the PV product would change, in float64
+    Hkv, G = g["Hkv"], g["Hq"] // g["Hkv"]
+    logits = torch.einsum("bhgd,bhkd->bhgk",
+                          q.double().reshape(B, Hkv, G, g["D"]),
+                          k.double()) * g["D"] ** -0.5
+    if g["softcap"]:
+        logits = g["softcap"] * torch.tanh(logits / g["softcap"])
+    logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    kept = torch.einsum("bhgk,bhkd->bhgd", p - p.to(torch.bfloat16).double(),
+                        v.double()) / p.sum(-1, keepdim=True)
+    assert float(kept.abs().max()) > 10 * LSE_BOUND
+    cpu = collectives.distributed_decode_attention(q, k, v, valid,
+                                                   softcap=g["softcap"])
+    card = collectives.distributed_decode_attention(
+        q.to(cuda), k.to(cuda), v.to(cuda), valid.to(cuda),
+        softcap=g["softcap"])
+    assert card.dtype == dtype and card.shape == cpu.shape
+    diff = (card.cpu().double() - cpu.double()).abs().numpy()
+    ulp = 0.0
+    if dtype == torch.bfloat16:
+        ulp = np.exp2(np.floor(np.log2(np.maximum(
+            np.abs(cpu.double().numpy()), 2.0 ** -126))) - 7)
+    print(f"{case} {dtype}: largest difference {diff.max():.3e}")
+    assert (diff <= ulp + LSE_BOUND).all(), float(diff.max())
+
+
 # the kernels at tensor-parallel ranks' shapes: qwen3-moe's head-cut pool
 # (32/2 heads of 64 on a 32-page table) and flash at qwen3-moe's bucketed
 # prefill (32/2 x 64), the VLM's prefill and cross blocks (16/4 x 128, a

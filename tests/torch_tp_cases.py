@@ -3,6 +3,8 @@
 group on the CPU (the card tests run them on ``cuda:0``).  Imports neither
 JAX nor the JAX package: the ranks are new processes, and the JAX side of
 each comparison runs in the test's own process."""
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -53,9 +55,13 @@ def slot_run(eng, steps=STEPS):
 
 def build_engine(spec, tp, device="cpu"):
     """An engine of ``spec`` = dict(arch, overrides, params (numpy tree, or
-    None for the port's seeded ones), splitbrain, kw) on ``device`` for the
-    group ``tp`` (None: one device)."""
+    None for the port's seeded ones), splitbrain, kw, and optionally
+    decode_attn, the config's ``parallel.decode_attn``) on ``device`` for
+    the group ``tp`` (None: one device)."""
     cfg = get_config(spec["arch"]).reduced(**spec.get("overrides", {}))
+    if spec.get("decode_attn"):
+        cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, decode_attn=spec["decode_attn"]))
     if spec.get("params") is None:        # the port's own seeded weights
         params = api.init_params(
             cfg, torch.Generator(device=device).manual_seed(0), device)
@@ -335,3 +341,228 @@ def vlm_card_rank(grid, layers, B, T0, new):
     out = eng.generate(prompts, max_new=new, frontend=fe)
     torch.cuda.synchronize()
     return out["tokens"], ops.launch_counts()
+
+
+# ----------------------------------------------------------------------------
+# The sequence-cut dense decode (parallel.decode_attn="shard_map")
+# ----------------------------------------------------------------------------
+def seq_decode_run(eng, run, tp):
+    """One run of ``tests/test_torch_seq_decode.py`` on ``eng`` at ``tp``:
+    ``kind`` "generate" (fused, and stepwise where ``run["stepwise"]``
+    names tp, on ``run["prompts"]``, with its ``frontend`` for encdec) or
+    "sched" (the scheduler over ``run["prompts"]``, ``run["chunk"]`` its
+    prefill chunk).  Returns {mode: tokens as lists}."""
+    if run["kind"] == "generate":
+        fe = run.get("frontend")
+        fe = None if fe is None else torch.from_numpy(fe)
+        modes = (True, False) if tp in run["stepwise"] else (True,)
+        return {str(f): eng.generate(run["prompts"], max_new=run["new"],
+                                     frontend=fe, fused=f)["tokens"].tolist()
+                for f in modes}
+    return {"sched": scheduler_run(eng, run["prompts"], max_new=run["new"],
+                                   chunk=run.get("chunk"))[0]}
+
+
+def seq_decode_rank(grid, specs, cases, tp):
+    """The runs of the sequence-cut decode that run at ``tp`` (each run's
+    ``tp``) on this rank (grid None: one device), each case an engine of
+    ``specs[case["spec"]]`` with the case's options serving its runs in
+    turn: {name: ({run index: tokens}, the rank's shapes of a fresh dense
+    cache)}."""
+    torch.set_num_threads(1)
+    group = grid.model if grid is not None else None
+    out = {}
+    for name, case in cases.items():
+        runs = {i: r for i, r in enumerate(case["runs"]) if tp in r["tp"]}
+        if not runs:
+            continue
+        eng = build_engine(dict(specs[case["spec"]], kw=case["kw"]), group)
+        fe = case["runs"][0].get("frontend")
+        fe = None if fe is None else torch.from_numpy(fe)
+        like = api.init_cache(eng.cfg, 2 if fe is None else fe.shape[0],
+                              eng.max_len, frontend=fe,
+                              params=None if fe is None else eng.params,
+                              device="cpu", tp=group)
+        out[name] = ({str(i): seq_decode_run(eng, r, tp)
+                      for i, r in runs.items()},
+                     _shapes(like))
+    return out
+
+
+# ----------------------------------------------------------------------------
+# The OnlineServer on tensor-parallel ranks
+# ----------------------------------------------------------------------------
+class _Raises:
+    """A request's stream that passes each token on to ``stream`` (the
+    handle's) and then raises at its ``at``-th token: a consumer that is
+    gone, which the scheduler cancels."""
+
+    def __init__(self, stream, at):
+        self.stream, self.at, self.seen = stream, at, 0
+
+    def __call__(self, tok):
+        self.stream(tok)
+        self.seen += 1
+        if self.seen >= self.at:
+            raise ValueError("the consumer is gone")
+
+
+def _raising_streams(sched, raise_at):
+    """Make ``sched.submit`` give request ``uid``'s stream a consumer that
+    raises at its ``raise_at[uid]``-th token (where the request has a
+    stream: on rank 0, which holds the handles)."""
+    submit = sched.submit
+
+    def planted(req):
+        if req.uid in raise_at and req.stream is not None:
+            req.stream = _Raises(req.stream, raise_at[req.uid])
+        return submit(req)
+
+    sched.submit = planted
+
+
+def _kept_results(sched):
+    """Make ``sched.poll`` also keep what it returns (on every rank: a rank
+    other than 0 holds no handles); returns that list."""
+    kept, poll = [], sched.poll
+
+    def keep():
+        out = poll()
+        kept.extend(out)
+        return out
+
+    sched.poll = keep
+    return kept
+
+
+def online_scenario(eng, group, spec):
+    """The OnlineServer on ``eng`` (rank 0 of ``group`` the front end, or
+    one device), as a user writes it: rank 0 submits ``spec["requests"]``
+    (prompt, max_new, extras: ``deadline_s``, ``priority``, ``cancel_at``
+    -- the client cancels after that many streamed tokens --, ``raise_at``
+    -- its stream raises at that token, as a gone consumer's) from a client
+    thread, one consumer thread per request reading its stream; a
+    ``step_stall`` of ``spec["stall_s"]`` at iteration ``spec["stall_at"]``
+    trips a ``spec["watchdog_s"]`` watchdog.  Returns the tokens, states
+    and gen_len by uid (every rank's scheduler results), the recovery
+    events without their seconds, the fired faults, rank 0's streamed
+    tokens by uid and its handles' states, the server's stats, and the
+    scheduler's prefill tokens and decode steps."""
+    import threading
+    from repro_torch.serve.faults import FaultInjector, FaultPlan
+    from repro_torch.serve.server import OnlineServer
+    inj = FaultInjector(FaultPlan(step_stall_at=spec["stall_at"],
+                                  step_stall_s=spec["stall_s"]), seed=0)
+    sched = ContinuousBatchingScheduler(eng, max_slots=spec["slots"],
+                                        faults=inj)
+    kept = _kept_results(sched)
+    # uids are given in submission order, from 0
+    _raising_streams(sched, {uid: extra["raise_at"] for uid, (_, _, extra)
+                             in enumerate(spec["requests"])
+                             if "raise_at" in extra})
+    srv = OnlineServer(sched, watchdog_s=spec["watchdog_s"])
+    streamed, handles = {}, {}
+    front = group is None or group.rank == 0
+    with srv:
+        if front:
+            def consume(h, cancel_at):
+                toks = []
+                for tok in h.stream():
+                    toks.append(int(tok))
+                    if cancel_at is not None and len(toks) == cancel_at:
+                        h.cancel()
+                streamed[h.uid] = toks
+
+            def client():
+                threads = []
+                for prompt, max_new, extra in spec["requests"]:
+                    h = srv.submit(
+                        np.asarray(prompt, np.int32), max_new=max_new,
+                        priority=extra.get("priority", 0),
+                        deadline_s=extra.get("deadline_s"))
+                    handles[h.uid] = h
+                    t = threading.Thread(target=consume,
+                                         args=(h, extra.get("cancel_at")))
+                    t.start()
+                    threads.append(t)
+                for t in threads:
+                    t.join()
+
+            c = threading.Thread(target=client)
+            c.start()
+            c.join()
+            for h in handles.values():
+                h.result(timeout=120)
+    res = sorted(kept, key=lambda r: r.uid)
+    return {"tokens": {r.uid: r.tokens.tolist() for r in res},
+            "states": {r.uid: r.state for r in res},
+            "events": [{k: v for k, v in e.items() if k != "recovery_s"}
+                       for e in sched.recovery_log],
+            "fired": [e[0] for e in inj.events],
+            "streamed": streamed,
+            "handles": {u: h.result().state for u, h in handles.items()},
+            "stats": {k: v for k, v in srv.stats().items()
+                      if k in ("watchdog_trips", "recoveries",
+                               "outstanding")},
+            "prefill_tokens": sched._prefill_tokens,
+            "decode_steps": sched._decode_steps}
+
+
+def online_stop_nodrain(eng, group, prompts, max_new):
+    """``stop(drain=False)`` right after rank 0 submits ``prompts``: every
+    rank's loop ends; rank 0 returns its handles' states."""
+    from repro_torch.serve.server import OnlineServer
+    srv = OnlineServer(ContinuousBatchingScheduler(eng, max_slots=2)).start()
+    handles = []
+    if group is None or group.rank == 0:
+        handles = [srv.submit(np.asarray(p, np.int32), max_new=max_new)
+                   for p in prompts]
+    srv.stop(drain=False)
+    return [h.result(timeout=60).state for h in handles]
+
+
+def online_loop_error(eng, group, prompts, fail_rank, fail_at):
+    """A loop error on rank ``fail_rank`` (its engine's ``fail_at``-th decode
+    step raises): what ``stop()`` raised on this rank, and rank 0's
+    handles' states.  Tears the group down: run it last."""
+    from repro_torch.serve.server import OnlineServer
+    srv = OnlineServer(ContinuousBatchingScheduler(eng, max_slots=2))
+    if group.rank == fail_rank:
+        step, calls = eng.decode_slots, [0]
+
+        def decode_slots(*a, **k):
+            calls[0] += 1
+            if calls[0] == fail_at:
+                raise RuntimeError("a device step failed on this rank")
+            return step(*a, **k)
+        eng.decode_slots = decode_slots
+    srv.start()
+    handles = []
+    if group.rank == 0:
+        handles = [srv.submit(np.asarray(p, np.int32), max_new=8)
+                   for p in prompts]
+    states = [h.result(timeout=120).state for h in handles]
+    try:
+        srv.stop()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    return {"raised": raised, "states": states}
+
+
+def online_rank(grid, specs, scenario, nodrain, error):
+    """One rank of ``tests/test_torch_tp_online.py`` (grid None: one
+    device): per engine spec, :func:`online_scenario` and
+    :func:`online_stop_nodrain`; then, with ``error`` (ranks only),
+    :func:`online_loop_error` on the first spec's engine."""
+    torch.set_num_threads(1)
+    group = grid.model if grid is not None else None
+    out = {}
+    for name, spec in specs.items():
+        eng = build_engine(spec, group)
+        out[name] = {"scenario": online_scenario(eng, group, scenario),
+                     "nodrain": online_stop_nodrain(eng, group, *nodrain)}
+    if error is not None and group is not None:
+        eng = build_engine(next(iter(specs.values())), group)
+        out["error"] = online_loop_error(eng, group, *error)
+    return out
