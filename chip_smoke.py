@@ -445,6 +445,37 @@ fails before printing any result):
              one profiled step (its kernels) and the peak memory.  Then the kernels at the ranks' shapes (bound,
              plain, SDPA with a window mask for hymba)
 
+  dryrun_path  the dry run (``launch/dryrun.py``) checked on the card:
+             (a) stablelm-1.6b's train step at full depth, B 8 x T 512,
+             remat none (train_path's shape), (b) its prefill
+             (``api.forward``) at B 1 x T 4,096, (c) its decode step at B 8
+             over a 4,096-position cache under ``--variant opt`` (LAQ
+             W4A8 weights packed where they are built, the LSE decode
+             body), (d) rwkv6-7b's prefill at 2 of its 32 layers, B 1 x T
+             512: each traced on meta at grid (1, 1), then built from
+             seeded weights on the card and run (a warm-up, then 3 timed
+             runs, counts set to 0 just before each and read just after):
+             every kernel's launches equal the trace's ``kernel_calls``
+             exactly, the rank's argument bytes (params, state, cache,
+             inputs) equal the trace's exactly, the card's temporaries
+             (``max_memory_allocated`` over the step from a reset, minus
+             what was allocated before the step) within DRYRUN_TEMP_RTOL
+             of the trace's high-water mark, and, in a run of this phase
+             alone, the raw peak within DRYRUN_PEAK_RTOL of the
+             prediction (arguments + temporaries); the median step time
+             is reported against the trace's ``t_bound`` and ``t_ideal``
+             at the H100's peaks (reported, not checked); three full
+             cells traced at (16, 16) one after another (granite-8b
+             train_4k, gemma2-27b prefill_32k, qwen3-moe decode_32k at
+             --variant opt; the host only), each with its report row and
+             trace seconds;
+             and the softcap probe: gemma2's ``logits /
+             50`` on the card against the CPU over float32 logits across
+             their range (a division by a Python number, which CUDA takes
+             as a product by the reciprocal, reported) and
+             ``ref._soft_cap`` (the divisor a 0-d tensor on the device:
+             bit-identical, checked)
+
 ``python3 chip_smoke.py --only moe`` runs the device and build phases and
 the MoE phases alone, and prints neither the kernels line nor the ok line;
 ``--only xattn`` does the same for the cross-attention phases (with the
@@ -453,7 +484,8 @@ w4a8, paged and flash phases' cases at its ranks' shapes; it then serves
 its tp 1 tokens of (a) itself); ``--only train`` for train_kernels,
 tp_train_grads, train_path, dist_train_path and tp_train_path (with the
 flash phase's cases at the train step's and the grids' rank shapes, and
-the rwkv phase's at tp_train_path's).
+the rwkv phase's at tp_train_path's); ``--only dryrun`` for dryrun_path
+(then the w4a8, flash and rwkv phases' cases at its shapes).
 
 The line before the last two is ``{"kernels": [...]}``, then the
 ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}``.
@@ -479,7 +511,7 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
 from repro_torch.configs import get_config
 from repro_torch.core.device import exact_matmuls
 from repro_torch.core.quant import QuantizedLinear
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, costs, ops, ref
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import w4a8_matmul as kw
@@ -499,10 +531,12 @@ from torch_cases import (autograd_grads, bf16_ulp_of, feature_prompts,
                          serve_staged, teacher_forced_logits)
 
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet (dense peaks below too)
-INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
-F32_FLOPS_PER_S = 67e12            # float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+# the H100 SXM data sheet's dense peaks, and the kernels' work formulas,
+# live in the package (kernels/costs.py), which the dry run reads too
+HBM_BYTES_PER_S = costs.HBM_BYTES_PER_S
+INT8_OPS_PER_S = costs.INT8_OPS_PER_S
+F32_FLOPS_PER_S = costs.F32_FLOPS_PER_S
+BF16_FLOPS_PER_S = costs.BF16_FLOPS_PER_S
 W4A8_SRC = ("src/repro_torch/csrc/w4a8_matmul.cu",
             "src/repro/kernels/w4a8_matmul.py:30")
 PAGED_SRC = ("src/repro_torch/csrc/paged_attention.cu",
@@ -731,6 +765,9 @@ W4A8_LLAMA2 = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
 # tp_path (a)'s column blocks on each of its two ranks: tinyllama's wq,
 # wk / wv, w1 / w3 and head at (K, N / 2); wo and w2 stay whole
 W4A8_TP = [(2048, 1024), (2048, 128), (2048, 2816), (2048, 16000)]
+# dryrun_path (c)'s LAQ LM head: stablelm-1.6b's (d, vocab); its layers'
+# shapes are W4A8_SHAPES'
+W4A8_DRYRUN = [(2048, 100352)]
 
 
 def w4a8_inputs(M, K, N, gen, dev):
@@ -767,9 +804,9 @@ def phase_w4a8(dev, shapes=None):
     (K, N) of ``shapes`` (default: every path's) with M 1 and 8."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     if shapes is None:
-        shapes = W4A8_SHAPES + W4A8_LLAMA2 + W4A8_TP
+        shapes = W4A8_SHAPES + W4A8_LLAMA2 + W4A8_TP + W4A8_DRYRUN
     cases = [(M, K, N) for (K, N) in shapes for M in (1, 8)]
-    if shapes is not W4A8_TP:
+    if shapes not in (W4A8_TP, W4A8_DRYRUN):
         cases += [(5, 2048, 1003), (3, 100, 37), (13, 5632, 130)]
         # examples_path (b): the serving example's batch of 4
         cases += [(4, K, N) for (K, N) in W4A8_LLAMA2]
@@ -985,7 +1022,7 @@ def phase_flash(dev, cases=None):
               dict(causal=True, window=4096, softcap=50.0))]
     if cases is None:
         cases = (llama + other + XATTN_FLASH_CASES + FLASH_TP_CASES
-                 + [TRAIN_FLASH_CASE, DIST_FLASH_CASE]
+                 + [TRAIN_FLASH_CASE, DIST_FLASH_CASE, DRYRUN_FLASH_CASE]
                  + tp_train_flash_cases())
     worst, rows = 0.0, []
     for name, shape, opts in cases:
@@ -1052,7 +1089,7 @@ def phase_rwkv(dev, cases=None):
                  + [("rwkv6-7b, B 1", (1, H, 100, D), bf, "model")]
                  + [("B 1, odd H", shape, bf, "model")
                     for shape in ((1, 3, 37, 16), (1, 5, 512, 32))]
-                 + [TP_TRAIN_SCAN_CASE])
+                 + [TP_TRAIN_SCAN_CASE, DRYRUN_SCAN_CASE])
     worst, rows = 0.0, []
     for name, shape, dt, decay in cases:
         r, k, v, w, u = rwkv_inputs(gen, dev, *shape, dt, decay)
@@ -1828,8 +1865,7 @@ def tp_paged_bound_ms(geom, hkv):
     written once, at the HBM rate."""
     rows = sum(geom["lens"])
     q_heads = geom["Hq"] * hkv // geom["Hkv"]
-    nbytes = (2 * rows * hkv * geom["D"] * 2
-              + 2 * geom["B"] * q_heads * geom["D"] * 2)
+    nbytes, _ = costs.paged(geom["B"], q_heads, hkv, geom["D"], rows)
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -3372,8 +3408,9 @@ def w4a8_bound_ms(launches, code_bytes=0.5) -> float:
     nbytes = ops_ = 0
     for (qx, xs), w in launches:
         (M, K), N = qx.shape, w.codes.shape[1]
-        nbytes += code_bytes * K * N + 4 * N + M * K + 4 * M + 2 * M * N
-        ops_ += 2 * M * K * N
+        b, o = costs.w4a8(M, K, N, code_bytes)
+        nbytes += b
+        ops_ += o
     return max(nbytes / HBM_BYTES_PER_S, ops_ / INT8_OPS_PER_S) * 1e3
 
 
@@ -3593,10 +3630,8 @@ def paged_step_times(gen, dev, L, Hq, Hkv, D, P, lens, detail, name,
     # pool), q in, out, the table and the lengths; operations: q.k and p.v
     # in f32
     live_pages = sum(-(-n // ps) for n in lens)
-    kv_bytes = (2 * toks * Hkv * D * 2 if kv is None
-                else 2 * toks * Hkv * D + 2 * live_pages * Hkv * 4)
-    nbytes = L * (kv_bytes + 2 * B * Hq * D * 2 + B * P * 4 + B * 4)
-    flops = L * 2 * 2 * toks * Hq * D
+    b, f = costs.paged(B, Hq, Hkv, D, toks, P, live_pages, kv is not None)
+    nbytes, flops = L * b, L * f
     dense = [dense_view(c) for c in cases]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_ms = yardstick_ms(lambda: [sdpa(q, k, v, attn_mask=m,
@@ -3664,18 +3699,11 @@ def flash_bound(launches, causal=True, windows=None):
     nbytes = flops = 0
     for (q, k, _), w in zip(launches, windows or [None] * len(launches)):
         B, Hq, Tq, D = q.shape
-        Hkv, Tk = k.shape[1], k.shape[2]
-        nbytes += q.element_size() * (2 * B * Hq * Tq + 2 * B * Hkv * Tk) * D
-        if not causal:
-            pairs = Tq * Tk
-        elif w is None or w >= Tq:
-            pairs = Tq * (Tq + 1) // 2
-        else:
-            pairs = w * (w + 1) // 2 + (Tq - w) * w
-        flops += 4 * B * Hq * D * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                        else "operations")
+        b, f = costs.flash(B, Hq, k.shape[1], Tq, k.shape[2], D,
+                           q.element_size(), causal, w)
+        nbytes += b
+        flops += f
+    return costs.bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
 
 
 def phase_times_serve(dev, serve_info):
@@ -3812,11 +3840,8 @@ def rwkv_bound(B, H, T, D, itemsize, launches=1):
     written once, and the 5 D^2 f32 operations per (b, h, t) that the
     function needs: 3 D^2 for the update w S + k v, 2 D^2 for sum_i r_i
     S_ij (the bonus term v_j sum_i r_i u_i k_i is O(D), left out)."""
-    nbytes = launches * (5 * B * H * T * D * itemsize + 4 * B * H * D * D)
-    flops = launches * 5 * D * D * B * H * T
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                        else "operations")
+    b, f = costs.rwkv(B, H, T, D, itemsize)
+    return costs.bound_ms(launches * b, launches * f, F32_FLOPS_PER_S)
 
 
 def phase_times_rwkv(dev, rwkv_info):
@@ -6916,6 +6941,208 @@ def phase_times_tp_train(dev, info):
     return rows
 
 
+# ------------------------------------------------------------- dryrun_path
+DRYRUN_CAL = (
+    ("a", "stablelm-1.6b", None, ("train", 512, 8), "baseline"),
+    ("b", "stablelm-1.6b", None, ("prefill", 4096, 1), "baseline"),
+    ("c", "stablelm-1.6b", None, ("decode", 4096, 8), "opt"),
+    ("d", "rwkv6-7b", 2, ("prefill", 512, 1), "baseline"),
+)
+DRYRUN_FULL = (("granite-8b", "train_4k", "baseline"),
+               ("gemma2-27b", "prefill_32k", "baseline"),
+               ("qwen3-moe-235b-a22b", "decode_32k", "opt"))
+# the kernels' checks at the shapes that (b) and (d) launch them at
+# ((a)'s flash shape is TRAIN_FLASH_CASE, (c)'s W4A8 ones W4A8_SHAPES and
+# W4A8_DRYRUN)
+DRYRUN_FLASH_CASE = ("stablelm-1.6b prefill", (1, 32, 32, 4096, 4096, 64),
+                     dict(causal=True))
+DRYRUN_SCAN_CASE = ("rwkv6-7b prefill, B 1", (1, 64, 512, 64),
+                    torch.bfloat16, "model")
+# the temporaries (the card's peak over the step minus what was allocated
+# just before it) against the trace's: within 4e-6 in every run so far;
+# the raw peak against the prediction (arguments + temporaries) is held
+# only in a run of this phase alone (`--only dryrun`), where the process
+# holds no more than cuBLAS's 64 MiB of workspaces besides the step's
+# arguments (0.16-1.2 % of these peaks); at the end of the whole script
+# it holds 840 MB from earlier phases, and the raw peak is reported
+DRYRUN_PEAK_RTOL = 0.02
+DRYRUN_TEMP_RTOL = 1e-4
+DRYRUN_TIMED = 3
+SOFTCAP_PROBE = 2 ** 24        # float32 logits across their range
+
+
+def dryrun_cal_config(arch, layers, shape, variant):
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if shape.kind == "train":
+        # train_path's remat: the training CLI forces "none"
+        cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, remat="none"))
+    cfg = dryrun.apply_variant(cfg, shape, variant)
+    return dryrun.adapt_parallel(cfg, shape, dryrun.grid_shape((1, 1)))
+
+
+def dryrun_calibrate(dev, run):
+    """One calibration run: the meta trace at grid (1, 1), then the same
+    step built on the card from seeded weights: launches and argument
+    bytes against the trace's, the predicted peak against
+    ``max_memory_allocated``, the median time against the roofline."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import op_analysis as oa
+    name, arch, layers, (kind, T, B), variant = run
+    shape = ShapeConfig(f"cal_{name}", T, B, kind)
+    cfg = dryrun_cal_config(arch, layers, shape, variant)
+    t0 = time.perf_counter()
+    rec = dryrun.trace(cfg, shape, (1, 1))
+    t_trace = time.perf_counter() - t0
+    roof = dryrun.roofline(rec["totals"], 1, cfg, shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(dev).manual_seed(SEED + 40)
+    step = dryrun.build_step(cfg, shape, oa.stand_in_grid((1, 1), dev), dev,
+                             gen)
+    out = step.run()                          # warm-up
+    torch.cuda.synchronize()
+    ms, peaks, bases, launches = [], [], [], []
+    for _ in range(DRYRUN_TIMED):
+        out = None
+        gc.collect()
+        torch.cuda.synchronize()
+        bases.append(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step.run()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        peaks.append(torch.cuda.max_memory_allocated())
+        launches.append(ops.launch_counts())
+    out = None
+    want = {k: int(rec["kernel_calls"].get(k, 0)) for k in ops.KERNELS}
+    predicted = rec["memory"]["argument_size_in_bytes"] + \
+        rec["memory"]["temp_size_in_bytes"]
+    med = float(np.median(ms))
+    info = {
+        "run": name, "config": cfg.name, "layers": cfg.num_layers,
+        "kind": kind, "B": B, "T": T, "variant": variant,
+        "trace_s": rec["trace_s"], "trace_wall_s": t_trace,
+        "kernel_calls_meta": want, "launches_card": launches,
+        "argument_bytes_meta": rec["memory"]["argument_size_in_bytes"],
+        "argument_bytes_card": step.argument_bytes,
+        "temp_bytes_meta": rec["memory"]["temp_size_in_bytes"],
+        "predicted_peak_bytes": predicted,
+        "card_peak_bytes": peaks, "card_allocated_before_bytes": bases,
+        "peak_rel_err": [(p - predicted) / p for p in peaks],
+        "temp_rel_err": [(p - b - rec["memory"]["temp_size_in_bytes"])
+                         / max(p - b, 1) for p, b in zip(peaks, bases)],
+        "host_reads": rec["host_reads"],
+        "ms": ms, "median_ms": med,
+        "t_bound_ms": roof.t_bound * 1e3, "t_ideal_ms": roof.t_ideal * 1e3,
+        "bottleneck": roof.bottleneck,
+        "t_compute_ms": roof.t_compute * 1e3,
+        "t_memory_ms": roof.t_memory * 1e3,
+        "below_bound": med < roof.t_bound * 1e3 / 1.05,
+        "flops_meta": rec["totals"]["flops_per_chip"],
+        "bytes_meta": rec["totals"]["mem_bytes_per_chip"],
+        "top_bytes_by_kind": dict(sorted(
+            rec["totals"]["mem_by_kind"].items(), key=lambda kv: -kv[1])[:6])}
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def dryrun_softcap_probe(dev):
+    """gemma2's softcap division on the card and on the CPU over float32
+    logits spread across their range (every 2^32 / SOFTCAP_PROBE-th bit
+    pattern, the non-finite ones dropped): the plain ``logits / cap``
+    (reported) and ``ref._soft_cap`` (checked bit for bit)."""
+    cap = get_config("gemma2-27b").softcap
+    bits = torch.arange(SOFTCAP_PROBE, dtype=torch.int64) * (
+        2 ** 32 // SOFTCAP_PROBE) - 2 ** 31
+    x = bits.to(torch.int32).view(torch.float32)
+    x = x[torch.isfinite(x)]
+    xd = x.to(dev)
+    div = int(((xd / cap).cpu().view(torch.int32)
+               != (x / cap).view(torch.int32)).sum())
+    capped = int(((ref._soft_cap(xd, cap).cpu().view(torch.int32))
+                  != ref._soft_cap(x, cap).view(torch.int32)).sum())
+    return {"logits": int(x.numel()), "cap": cap,
+            "div_by_python_number_differs": div,
+            "soft_cap_differs": capped}
+
+
+def dryrun_full_traces():
+    """DRYRUN_FULL's cells, traced one after another on the host (nothing
+    on the card): each cell's report row, its trace's seconds and what it
+    predicts."""
+    from repro_torch.launch import dryrun, report
+    full = []
+    for arch, shape, variant in DRYRUN_FULL:
+        t0 = time.perf_counter()
+        res = dryrun.lower_cell(arch, shape, variant)
+        check(res["status"] == "ok",
+              f"dryrun_path: the trace of {arch} {shape} {variant}: {res}")
+        full.append({"cell": f"{arch} {shape} {variant}",
+                     "row": report.fmt_row(res), "trace_s": res["trace_s"],
+                     "build_s": res["build_s"],
+                     "wall_s": time.perf_counter() - t0,
+                     "memory": res["memory"],
+                     "kernel_calls": res["kernel_calls"]})
+    return full
+
+
+def phase_dryrun_path(dev, smi_line, alone=False):
+    """dryrun_path: DRYRUN_CAL's steps traced on meta and run on the card
+    (launches and argument bytes exact, the temporaries within
+    DRYRUN_TEMP_RTOL, the raw peak within DRYRUN_PEAK_RTOL when ``alone``),
+    the softcap probe, and DRYRUN_FULL's traces."""
+    t_phase = time.perf_counter()
+    runs, counts = [], {k: 0 for k in ops.KERNELS}
+    for run in DRYRUN_CAL:
+        info, launches = dryrun_calibrate(dev, run)
+        runs.append(info)
+        for c in launches:
+            for k, v in c.items():
+                counts[k] += v
+    probe = dryrun_softcap_probe(dev)
+    t_full = time.perf_counter()
+    full = dryrun_full_traces()
+    info = {"phase": "dryrun_path", "calibration": runs, "full": full,
+            "full_traces_s": time.perf_counter() - t_full,
+            "raw_peak_checked": alone,
+            "softcap": probe, "launches": counts,
+            "seconds": time.perf_counter() - t_phase, "card": smi_line}
+    emit(info)
+    for r in runs:
+        for c in r["launches_card"]:
+            check(c == r["kernel_calls_meta"],
+                  f"dryrun_path ({r['run']}) launches {c} != the trace's "
+                  f"{r['kernel_calls_meta']}")
+        check(r["argument_bytes_card"] == r["argument_bytes_meta"],
+              f"dryrun_path ({r['run']}) argument bytes "
+              f"{r['argument_bytes_card']} != the trace's "
+              f"{r['argument_bytes_meta']}")
+        check(all(abs(e) <= DRYRUN_TEMP_RTOL for e in r["temp_rel_err"]),
+              f"dryrun_path ({r['run']}) temporaries {r['temp_rel_err']} "
+              f"from the trace's {r['temp_bytes_meta']}: outside "
+              f"{DRYRUN_TEMP_RTOL}")
+        check(not alone or all(abs(e) <= DRYRUN_PEAK_RTOL
+                               for e in r["peak_rel_err"]),
+              f"dryrun_path ({r['run']}) peak {r['card_peak_bytes']} vs "
+              f"predicted {r['predicted_peak_bytes']}: outside "
+              f"{DRYRUN_PEAK_RTOL}")
+    check(probe["soft_cap_differs"] == 0,
+          f"ref._soft_cap differs between the card and the CPU: {probe}")
+    return info
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     # flex_attention's compiled kernels cache inside the checkout
@@ -6948,6 +7175,14 @@ def main(argv=None) -> int:
         run_xattn(dev, smi)
         emit({"subset": "xattn", "done": True})
         return 0
+    if argv == ["--only", "dryrun"]:
+        # the dry run's phase alone, then the kernels' checks at its shapes
+        phase_dryrun_path(dev, smi, alone=True)
+        phase_w4a8(dev, shapes=W4A8_DRYRUN)
+        phase_flash(dev, cases=[TRAIN_FLASH_CASE, DRYRUN_FLASH_CASE])
+        phase_rwkv(dev, cases=[DRYRUN_SCAN_CASE])
+        emit({"subset": "dryrun", "done": True})
+        return 0
     if argv == ["--only", "train"]:
         # the training phases alone, with the flash kernel's check at the
         # train step's shape
@@ -6962,7 +7197,7 @@ def main(argv=None) -> int:
         emit({"subset": "train", "done": True})
         return 0
     check(not argv, f"unknown arguments {argv} (only `--only moe`, "
-          "`--only xattn`, `--only tp` or `--only train`)")
+          "`--only xattn`, `--only tp`, `--only train` or `--only dryrun`)")
     phase_sanitizer()
     errs = {"w4a8_matmul": phase_w4a8(dev),
             "paged_decode_attention": phase_paged(dev),
@@ -7028,6 +7263,7 @@ def main(argv=None) -> int:
     dist_row = phase_times_dist(dev, dist_info)
     tp_train_info = phase_tp_train_path(dev, smi)
     tp_train_rows = phase_times_tp_train(dev, tp_train_info)
+    dryrun_info = phase_dryrun_path(dev, smi)
     emit({"gemma2_path_summary": {
         key: gemma2_info[key] for key in (
             "decode_steps_per_s", "decode_tokens_per_s",
@@ -7086,7 +7322,8 @@ def main(argv=None) -> int:
             "tp_path": tp_info["launches"][k["name"]],
             "train_path": train_info["launches"][k["name"]],
             "dist_train_path": dist_info["launches"][k["name"]],
-            "tp_train_path": tp_train_info["launches"][k["name"]]}
+            "tp_train_path": tp_train_info["launches"][k["name"]],
+            "dryrun_path": dryrun_info["launches"][k["name"]]}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     kernels[1]["llama2_decode"] = paged_llama2
     kernels[1]["llama2_decode_int8"] = paged_kv["int8"]

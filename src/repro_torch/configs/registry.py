@@ -42,6 +42,21 @@ CONFIGS: Dict[str, ModelConfig] = {
     "seamless-m4t-medium": _seamless_m4t_medium.CONFIG,
 }
 
+# the ten configs of the dry run's sweep (``launch/dryrun.py --all``), in
+# the JAX package's order
+ASSIGNED = [
+    "phi3.5-moe-42b-a6.6b",
+    "qwen3-moe-235b-a22b",
+    "stablelm-1.6b",
+    "minitron-8b",
+    "gemma2-27b",
+    "granite-8b",
+    "seamless-m4t-medium",
+    "hymba-1.5b",
+    "rwkv6-7b",
+    "llama-3.2-vision-11b",
+]
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in CONFIGS:

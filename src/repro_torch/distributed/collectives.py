@@ -53,11 +53,15 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.runtime import TPGroup
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, costs, ref
 from repro_torch.kernels import paged_attention as _pa
 
 
 def _paged(q, k_pool, v_pool, table, cache_len, plan=None, **kw):
+    if build.is_meta(q):
+        return costs.meta_paged(q, k_pool, table,
+                                quantized=kw.get("k_scale") is not None,
+                                return_lse=kw.get("return_lse", False))
     if build.is_cuda(q):
         return _pa.paged_decode_attention(q, k_pool, v_pool, table,
                                           cache_len, plan=plan, **kw)
@@ -165,12 +169,19 @@ def distributed_decode_attention(q, k_cache, v_cache, valid,
         m_g = parts[0][..., :1]
         for t in parts[1:]:
             m_g = torch.maximum(m_g, t[..., :1])
-        l_g = o_g = None
-        for t in parts:
+
+        def corrected(t):
             corr = ref.exp(t[..., :1] - m_g)
-            lc, oc = t[..., 1:2] * corr, t[..., 2:] * corr
-            l_g, o_g = ((lc, oc) if l_g is None
-                        else (l_g + lc, o_g + oc))
+            return t[..., 1:2] * corr, t[..., 2:] * corr
+        l_g, o_g = corrected(parts[0])
+        rest, n = parts[1:], 1
+        if build.is_meta(m_g):
+            # the dry run: the tp - 1 alike steps traced as one, weighted
+            rest, n = rest[:1], len(rest)
+        with costs.repeat(n):
+            for t in rest:
+                lc, oc = corrected(t)
+                l_g, o_g = l_g + lc, o_g + oc
     else:
         # one shard: the combine's correction is exp(0) = 1, exactly
         l_g, o_g = l, o

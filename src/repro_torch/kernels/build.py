@@ -41,6 +41,19 @@ def is_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def is_meta(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``meta`` tensor (shape and dtype only): the dry
+    run's, which the dispatcher counts instead of computing."""
+    return t.device.type == "meta"
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a plain op with a device-dependent form takes the card's
+    form for ``t``: on a CUDA device, or on ``meta``, which the dry run
+    counts as the card."""
+    return t.device.type in ("cuda", "meta")
+
+
 def wants_grad(*tensors) -> bool:
     """Whether grad mode is on and an operand (None: absent) requires grad."""
     return torch.is_grad_enabled() and any(

@@ -11,6 +11,16 @@ Training: in grad mode, where an operand requires grad, ``attention`` and
 backward); on the CPU the plain version is differentiated as it is.  The
 W4A8 and paged kernels serve inference only, and their wrappers raise on
 an operand that requires grad in grad mode.
+
+The dry run (``launch/dryrun.py``): a ``meta`` tensor goes to the op's
+count (``kernels/costs.py``'s ``meta_*``).  A kernel entry records the
+CUDA path's own work to the active tally and returns empty outputs of the
+kernel's shapes; the plain version is not traced.  In grad mode the
+backward is what the card's autograd Function runs, the plain version's
+gradient, traced on meta.  The plain ops that loop over time in Python
+(the sequential selective scan, the chunked WKV, the WKV scan with a
+state, and its plain gradient) count one traced iteration times their trip
+count, as ``hlo_analysis`` weights a ``while`` body by its trip count.
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ import torch
 
 from repro_torch.core.quant import QuantizedLeaf
 from repro_torch.distributed import collectives
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, costs, ref
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv_scan as _rwkv
@@ -51,6 +61,8 @@ def w4a8_matmul(qx: torch.Tensor, x_scale: torch.Tensor, codes: torch.Tensor,
     if build.is_cuda(qx):
         return _w4a8.w4a8_matmul(qx, x_scale, codes, w_scale, out_dtype,
                                  packed)
+    if build.is_meta(qx):
+        return costs.meta_w4a8(qx, x_scale, codes, w_scale, out_dtype)
     return ref.w4a8_matmul(qx, x_scale, codes, w_scale, out_dtype)
 
 
@@ -68,6 +80,9 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         if build.wants_grad(q, k, v):
             return _fa.FlashAttentionFn.apply(q, k, v, kw)
         return _fa.flash_attention(q, k, v, **kw)
+    if build.is_meta(q):
+        return costs.meta_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), kw)
     return ref.flash_attention(q, k, v, **kw)
 
 
@@ -157,6 +172,10 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, cache_len, *,
                 softcap=softcap, scale=scale)
     kw = dict(window=window, softcap=softcap, scale=scale, k_scale=k_scale,
               v_scale=v_scale, return_lse=return_lse)
+    if build.is_meta(q):
+        return costs.meta_paged(q, k_pool, page_table,
+                                quantized=k_scale is not None,
+                                return_lse=return_lse)
     if build.is_cuda(q):
         return _pa.paged_decode_attention(q, k_pool, v_pool, page_table,
                                           cache_len, **kw)
@@ -177,6 +196,10 @@ def rwkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None):
         if build.wants_grad(*args):
             return _rwkv.RWKV6ScanFn.apply(*args)
         return _rwkv.rwkv6_scan(*args)
+    if build.is_meta(r):
+        if state is None:
+            return costs.meta_rwkv6(*[t.contiguous() for t in (r, k, v, w, u)])
+        return costs.meta_loop("rwkv6_scan", r, k, v, w, u, state)
     return ref.rwkv6_scan(r, k, v, w, u, state)
 
 
@@ -184,6 +207,9 @@ def rwkv6_chunked(r, k, v, w, u, state: Optional[torch.Tensor] = None, *,
                   chunk: int = 64):
     """The chunked (matmul-form) WKV recurrence.  The JAX package has no
     Pallas kernel for it either: plain PyTorch on every device."""
+    if build.is_meta(r) and r.shape[2] > chunk:
+        return costs.meta_loop("rwkv6_chunked", r, k, v, w, u, state,
+                               chunk=chunk)
     return ref.rwkv6_scan_chunked(r, k, v, w, u, state, chunk=chunk)
 
 
@@ -195,4 +221,6 @@ def selective_scan(x, delta, A, B, C, state: Optional[torch.Tensor] = None,
     package has no kernel for it either: plain PyTorch on every device."""
     if algorithm == "associative" and x.shape[1] > 1:
         return ref.selective_scan_assoc(x, delta, A, B, C, state)
+    if build.is_meta(x) and x.shape[1] > 1:
+        return costs.meta_loop("selective_scan", x, delta, A, B, C, state)
     return ref.selective_scan(x, delta, A, B, C, state)

@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quant import int_matmul
+from repro_torch.core.quant import _true_div, int_matmul
 
 NEG_INF = -1e30
 
@@ -145,9 +145,13 @@ def _exp(x: torch.Tensor) -> torch.Tensor:
 
 
 def _soft_cap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """``cap * tanh(logits / cap)``, the division correctly rounded on
+    every device: the divisor is a 0-d float32 tensor on the logits'
+    device, which CUDA divides by, where a Python number would be
+    multiplied by its reciprocal (``core/quant.py::_true_div``)."""
     if cap is None:
         return logits
-    return cap * tanh(logits / cap)
+    return cap * tanh(_true_div(logits, cap))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

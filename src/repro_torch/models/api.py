@@ -266,7 +266,10 @@ def quantize_model(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     Norm scales and embeddings stay in float.  Stacked (layer-leading)
     weights are quantized one (K, N) matrix at a time, on the weights'
     device, so at full width no more than one matrix's float temporaries
-    exist at once; per-(layer, channel) scales are kept.
+    exist at once; per-(layer, channel) scales are kept.  The W4A8
+    kernel reads the codes packed (:func:`pack_model`, made once where
+    the serving weights are built, after any tensor-parallel cut).  On
+    ``meta`` (the dry run) the leaves are shapes only.
     """
     ita = cfg.ita
 
@@ -278,6 +281,11 @@ def quantize_model(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     def quantize_entry(key: str, w):
         if key not in _QUANT_KEYS or not torch.is_tensor(w) or w.dim() < 2:
             return w
+        if w.is_meta:                  # the dry run: shapes only
+            return quant.QuantizedLinear(
+                codes=torch.empty(w.shape, dtype=torch.int8, device=w.device),
+                scales=torch.empty(w.shape[:-2] + w.shape[-1:],
+                                   dtype=torch.float32, device=w.device))
         if w.dim() == 2:
             return q2d(w)
         lead, (K, N) = tuple(w.shape[:-2]), tuple(w.shape[-2:])
@@ -302,6 +310,46 @@ def quantize_model(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
         return node
 
     return walk(params)
+
+
+def pack_model(tree):
+    """Every QuantizedLinear of ``tree`` with its codes also packed for the
+    W4A8 kernel (once; stacked layers in one call; a leaf already packed
+    is kept)."""
+    if isinstance(tree, dict):
+        return {k: pack_model(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [pack_model(v) for v in tree]
+    if isinstance(tree, quant.QuantizedLinear):
+        return tree.with_packed()
+    return tree
+
+
+# ----------------------------------------------------------------------------
+# Dry-run input specs (meta tensors; zero allocation)
+# ----------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, Any]:
+    """Model inputs for one step of ``shape`` (a ``ShapeConfig``), as empty
+    ``meta`` tensors: the JAX package's ``ShapeDtypeStruct`` specs, key for
+    key.  ``tokens`` (B, T) int32 for train and prefill, with ``labels``
+    (B, T) for train, or (B,) for decode (one new token against a T-long
+    cache); ``frontend`` (B, frontend_tokens, d) in ``cfg.dtype`` for a
+    config that takes one."""
+    B, T = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    specs: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        specs["tokens"] = torch.empty((B, T), dtype=torch.int32, device=meta)
+        if shape.kind == "train":
+            specs["labels"] = torch.empty((B, T), dtype=torch.int32,
+                                          device=meta)
+    else:
+        specs["tokens"] = torch.empty((B,), dtype=torch.int32, device=meta)
+    if cfg.frontend_tokens:
+        specs["frontend"] = torch.empty(
+            (B, cfg.frontend_tokens, cfg.d_model),
+            dtype=getattr(torch, cfg.dtype), device=meta)
+    return specs
 
 
 # ----------------------------------------------------------------------------

@@ -205,12 +205,16 @@ def _cut(cfg: ModelConfig, tp) -> bool:
     return head_cut(tp, cfg.num_heads, cfg.num_kv_heads)
 
 
-def _cross_kv(p, enc: torch.Tensor, cfg: ModelConfig, tp=None):
+def _cross_kv(p, enc: torch.Tensor, cfg: ModelConfig, tp=None,
+              reciprocal_scale: bool = True):
     """One decoder layer's cross K and V of the encoder output, each (B,
     Hkv, Tx, hd): on a tensor-parallel rank its own KV heads, projected by
-    its column blocks."""
+    its column blocks.
+    ``reciprocal_scale``: as :func:`layers.linear`'s (False where the JAX
+    package projects with eager ops: its cache's cross K/V)."""
     return tuple(L.project_heads(enc, p["cross"][w], cfg.num_kv_heads,
-                                 cfg.resolved_head_dim, tp, _cut(cfg, tp))
+                                 cfg.resolved_head_dim, tp, _cut(cfg, tp),
+                                 reciprocal_scale)
                  for w in ("wk", "wv"))
 
 
@@ -230,7 +234,8 @@ def _logits(params, x, cfg: ModelConfig, rounded: bool, model=None):
     if model is not None and head.shape[-1] != cfg.vocab_size:
         logits = copy_to(xn, model) @ head
     else:
-        logits = gather(xn @ head, params.get("tp"), cfg.vocab_size)
+        logits = gather(L.head_logits(xn, head, _dtype(cfg)),
+                        params.get("tp"), cfg.vocab_size)
     return logits.to(_dtype(cfg)).to(torch.float32) if rounded else logits
 
 
@@ -318,7 +323,8 @@ def cross_cache(params, frontend: torch.Tensor, cfg: ModelConfig
     out = {}
     for i in range(cfg.num_layers):
         for name, t in zip(("cross_k", "cross_v"), _cross_kv(
-                _layer(params["dec_blocks"], i), enc, cfg, tp)):
+                _layer(params["dec_blocks"], i), enc, cfg, tp,
+                reciprocal_scale=False)):
             if seq is not None:
                 # every KV head of the rank's block of frames
                 t = shard(gather(t, tp, cfg.num_kv_heads, dim=1), 2, seq)

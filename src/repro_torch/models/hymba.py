@@ -58,6 +58,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.core.quant import QuantizedLinear
 from repro_torch.distributed.collectives import copy_to, gather_from, gather_sum
 from repro_torch.distributed.sharding import gather, head_cut
 from repro_torch.kernels import ops, ref
@@ -312,12 +313,15 @@ def _logits_head(params, x: torch.Tensor, cfg: ModelConfig,
     x = L.rmsnorm(x, params["ln_final"], cfg.norm_eps)
     head = params.get("lm_head_f32")
     if head is None:
-        head = params["lm_head"].to(x.dtype).to(torch.float32)
+        head = params["lm_head"]
+        if not isinstance(head, QuantizedLinear):
+            head = head.to(x.dtype).to(torch.float32)
     x32 = x.to(torch.float32)
     if model is not None and head.shape[-1] != cfg.vocab_size:
         logits = copy_to(x32, model) @ head
     else:
-        logits = gather(x32 @ head, params.get("tp"), cfg.vocab_size)
+        logits = gather(L.head_logits(x32, head, x.dtype), params.get("tp"),
+                        cfg.vocab_size)
     return logits.to(x.dtype).to(torch.float32) if rounded else logits
 
 

@@ -37,14 +37,17 @@ def dense_init(in_dim: int, out_dim: int, generator: torch.Generator, *,
     return w.uniform_(-scale, scale, generator=generator)
 
 
-def linear(x: torch.Tensor, w, reciprocal_scale: bool = False
+def linear(x: torch.Tensor, w, reciprocal_scale: bool = True
            ) -> torch.Tensor:
     """Apply a linear map; ``w`` is a raw (in, out) tensor or a
     QuantizedLinear.  The quantized branch is the ITA device datapath: per-row
     INT8 activations times the hardwired INT4 codes through the W4A8 op
     (the CUDA kernel on the packed codes for a CUDA tensor, the plain
     version on the codes on the CPU); ``reciprocal_scale`` goes to the
-    activation quantizer (``quantize_activations_int8(reciprocal=)``)."""
+    activation quantizer (``quantize_activations_int8(reciprocal=)``):
+    True, the scale of the JAX package's compiled programs, which every
+    model's step follows; False, its eager ops' division (the split-brain
+    engine's eager loop)."""
     if isinstance(w, quant.QuantizedLinear):
         shape = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
@@ -54,6 +57,16 @@ def linear(x: torch.Tensor, w, reciprocal_scale: bool = False
                             packed=w.packed)
         return y.reshape(*shape, w.codes.shape[-1])
     return x @ w.to(x.dtype)
+
+
+def head_logits(x: torch.Tensor, head, dtype) -> torch.Tensor:
+    """The float32 LM-head product ``x @ head``; a LAQ-quantized head
+    (``ita.quantize_weights``: a QuantizedLinear) is the W4A8 product of
+    ``x`` in the compute ``dtype``, converted to float32, as the JAX
+    package's ``linear(x, head).astype(float32)``."""
+    if isinstance(head, quant.QuantizedLinear):
+        return linear(x.to(dtype), head).to(torch.float32)
+    return x @ head
 
 
 def in_width(w) -> int:
@@ -100,7 +113,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def swiglu(x: torch.Tensor, w1, w3, w2, reciprocal_scale: bool = False,
+def swiglu(x: torch.Tensor, w1, w3, w2, reciprocal_scale: bool = True,
            tp=None) -> torch.Tensor:
     """FFN(x) = W2 . (silu(W1 x) * (W3 x)) — eq. (4)/(5) of the paper.
 
@@ -117,7 +130,7 @@ def swiglu(x: torch.Tensor, w1, w3, w2, reciprocal_scale: bool = False,
 # GQA attention projections
 # ----------------------------------------------------------------------------
 def qkv_project(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
-                head_dim: int, reciprocal_scale: bool = False, tp=None):
+                head_dim: int, reciprocal_scale: bool = True, tp=None):
     """The ITA device phase of attention: static linear maps only.
     x (B, T, d) -> q (B, Hq, T, hd), k and v (B, Hkv, T, hd).
 
@@ -135,7 +148,7 @@ def qkv_project(p: dict, x: torch.Tensor, num_heads: int, num_kv_heads: int,
 
 
 def project_heads(x: torch.Tensor, w, n: int, head_dim: int, tp=None,
-                  cut: bool = False, reciprocal_scale: bool = False
+                  cut: bool = False, reciprocal_scale: bool = True
                   ) -> torch.Tensor:
     """x (B, T, d) through ``w`` into heads (B, heads, T, hd): ``n`` heads
     on one device; under tensor parallelism (``tp``) ``w`` is this rank's
@@ -343,14 +356,22 @@ def layer_views(tree, lead: int = 1) -> Callable:
     whose backward stacks the layers' gradients once; indexing a leaf per
     layer would add a full-size, zero-padded gradient per layer instead
     (quadratic in the depth).  The values are the same slices, and the
-    gradients the same sums."""
+    gradients the same sums.  A LAQ-quantized leaf (QuantizedLinear, which
+    serves inference only) is indexed per layer, its codes, scales and
+    packed codes together."""
     def split(t, n):
-        return t if n == 0 else [split(u, n - 1) for u in t.unbind(0)]
+        if n == 0:
+            return t
+        if isinstance(t, quant.QuantizedLinear):
+            return [split(t[i], n - 1) for i in range(t.codes.shape[0])]
+        return [split(u, n - 1) for u in t.unbind(0)]
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
-        return split(node, lead) if torch.is_tensor(node) else node
+        if torch.is_tensor(node) or isinstance(node, quant.QuantizedLinear):
+            return split(node, lead)
+        return node
 
     views = walk(tree)
 

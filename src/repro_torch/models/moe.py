@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import quant
 from repro_torch.distributed.collectives import copy_to, gather_from
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, costs, ops, ref
 
 
 def moe_init(d_model: int, d_ff: int, cfg: MoEConfig,
@@ -226,19 +226,28 @@ def _expert_matmul(eb: torch.Tensor, w) -> torch.Tensor:
     activations with the compiled program's reciprocal scale, exact int32
     products with the INT4 codes, ``acc * x_scale * w_scale`` rounded once;
     one ``ops.w4a8_matmul`` per expert (the kernel on its packed codes on
-    the card, the plain version on the CPU)."""
+    the card, the plain version on the CPU).  On ``meta`` (the dry run)
+    the E launches of one shape are traced as one, weighted by E, and the
+    stack reads E outputs of its shape."""
     if isinstance(w, quant.QuantizedLinear):
         E, C, d = eb.shape
         qx, xs = quant.quantize_activations_int8(eb.reshape(E * C, d),
                                                  reciprocal=True)
         qx, xs = qx.reshape(E, C, d), xs.reshape(E, C, 1)
+        if build.is_meta(eb):
+            with costs.repeat(E):
+                y = ops.w4a8_matmul(qx[0], xs[0], w.codes[0], w.scales[0],
+                                    out_dtype=eb.dtype)
+            rest = torch.empty((E - 1,) + tuple(y.shape), dtype=y.dtype,
+                               device=y.device)
+            return torch.stack([y, *rest.unbind(0)])
         return torch.stack([
             ops.w4a8_matmul(qx[e], xs[e], w.codes[e], w.scales[e],
                             out_dtype=eb.dtype,
                             packed=None if w.packed is None else w.packed[e])
             for e in range(E)])
     w = w.to(eb.dtype)
-    if build.is_cuda(eb):
+    if build.on_card(eb):
         return torch.bmm(eb, w)
     # XLA's batched dot sums each output in order over d, in float32, and
     # rounds once; torch's float32 bmm does so from two rows up (one row

@@ -57,11 +57,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import QuantizedLinear
 from repro_torch.distributed.collectives import copy_to, gather_from
 from repro_torch.distributed.sharding import gather, head_cut, local_width
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (cut_rmsnorm, dense_init, in_width,
-                                       layer_views, linear, own_slice, remat,
+from repro_torch.models.layers import (cut_rmsnorm, dense_init, head_logits,
+                                       in_width, layer_views, linear,
+                                       own_slice, remat,
                                        rmsnorm, row_linear, silu, store_rows,
                                        vocab_embed, whole_weight)
 
@@ -121,7 +123,9 @@ def _layers(params):
     the params' TP group, where they have one, as ``"tp"``)."""
     blocks = params["blocks"]
     extra = {"tp": params["tp"]} if "tp" in params else {}
-    for i in range(next(iter(blocks.values())).shape[0]):
+    # a float leaf's leading axis (a LAQ-quantized leaf has no shape)
+    depth = next(w for w in blocks.values() if torch.is_tensor(w)).shape[0]
+    for i in range(depth):
         yield i, {**{k: w[i] for k, w in blocks.items()}, **extra}
 
 
@@ -321,12 +325,16 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig,
     ``copy_to`` and the logits stay the rank's vocabulary block."""
     x = rmsnorm(x, params["ln_final"], cfg.norm_eps)
     head = params.get("lm_head_f32")
+    dtype = x.dtype
     if head is None:
-        head = params["lm_head"].to(x.dtype).to(torch.float32)
+        head = params["lm_head"]
+        if not isinstance(head, QuantizedLinear):
+            head = head.to(dtype).to(torch.float32)
     x = x.to(torch.float32)
     if model is not None and head.shape[-1] != cfg.vocab_size:
         return copy_to(x, model) @ head
-    return gather(x @ head, params.get("tp"), cfg.vocab_size)
+    return gather(head_logits(x, head, dtype), params.get("tp"),
+                  cfg.vocab_size)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, model=None,

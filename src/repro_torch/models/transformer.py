@@ -327,16 +327,20 @@ def _group_end(cfg: ModelConfig, at, slot) -> bool:
         at[1] * P + slot == group_layout(cfg)[1] - 1)
 
 
-def _cross_kv(p, frontend: torch.Tensor, cfg: ModelConfig, tp=None):
+def _cross_kv(p, frontend: torch.Tensor, cfg: ModelConfig, tp=None,
+              reciprocal_scale: bool = True):
     """Project stub modality embeddings (B, Tx, d) to one cross block's K and
     V, each (B, Hkv, Tx, hd) in the compute dtype (a device-phase op).
     Under tensor parallelism the rank's column blocks of ``wk`` / ``wv``
     give its own KV heads where the heads are cut (:func:`_head_cut`),
-    else they are gathered into every head."""
+    else they are gathered into every head.
+    ``reciprocal_scale``: as :func:`layers.linear`'s (False where the JAX
+    package projects with eager ops: its cache's cross K/V)."""
     x = frontend.to(getattr(torch, cfg.dtype))
     cut = _head_cut(cfg, tp)
     return tuple(L.project_heads(x, p["attn"][w], cfg.num_kv_heads,
-                                 cfg.resolved_head_dim, tp, cut)
+                                 cfg.resolved_head_dim, tp, cut,
+                                 reciprocal_scale)
                  for w in ("wk", "wv"))
 
 
@@ -450,7 +454,8 @@ def _logits_head(params, x: torch.Tensor, cfg: ModelConfig,
         logits = (head @ x.reshape(-1, x.shape[-1]).T).T.reshape(
             x.shape[:-1] + (head.shape[0],))
     else:
-        logits = gather(x @ head, params.get("tp"), cfg.vocab_size)
+        logits = gather(L.head_logits(x, head, dtype), params.get("tp"),
+                        cfg.vocab_size)
     if rounded:
         logits = logits.to(dtype).to(torch.float32)
     if cfg.final_softcap:
@@ -501,7 +506,8 @@ def cross_cache(params, frontend: torch.Tensor, cfg: ModelConfig
     out = {}
     for g in range(group_layout(cfg)[0]):
         for name, t in zip(("cross_k", "cross_v"), _cross_kv(
-                _cross_params(params, g), frontend, cfg, tp)):
+                _cross_params(params, g), frontend, cfg, tp,
+                reciprocal_scale=False)):
             if name not in out:
                 out[name] = torch.empty((group_layout(cfg)[0],) + t.shape,
                                         dtype=t.dtype, device=t.device)

@@ -100,16 +100,6 @@ def _stack_layers(tree, num_layers: int):
     return tree.reshape((num_layers,) + tree.shape[2:])
 
 
-def _pack(tree):
-    """Every QuantizedLinear of the tree with its codes also packed for the
-    W4A8 kernel (once, at construction; stacked layers in one call)."""
-    if isinstance(tree, dict):
-        return {k: _pack(v) for k, v in tree.items()}
-    if isinstance(tree, QuantizedLinear):
-        return tree.with_packed()
-    return tree
-
-
 def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
@@ -172,7 +162,8 @@ class SplitBrainEngine(pages_mod.PagedEngineMixin):
         # the rank's column blocks (the whole tree on one device), packed
         shard = sharding.shard_params({"layers": stacked, "head": head},
                                       self.tp)
-        stacked, head = _pack(shard["layers"]), _pack(shard["head"])
+        stacked, head = (api.pack_model(shard["layers"]),
+                         api.pack_model(shard["head"]))
         # per-layer views, built once: the hot loop only indexes a list
         self._layers = [_layer(stacked, i) for i in range(cfg.num_layers)]
         self._embed = params["embed"]         # host-side float table

@@ -45,6 +45,8 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import build
+
 _F32 = np.float32
 
 
@@ -287,7 +289,7 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     card (IEEE ``sqrtf``; ``chip_smoke.py`` checks it), but an ulp off on
     some float32 inputs on the CPU, which goes through float64 (exact after
     the second rounding)."""
-    if x.is_cuda:
+    if build.on_card(x):
         return torch.sqrt(x)
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 

@@ -1402,3 +1402,48 @@ def test_tp_train_step_of_every_family_on_card(cuda):
         np.testing.assert_allclose(got["loss"], float(m["loss"]), rtol=1e-3)
         np.testing.assert_allclose(got["grad_norm"], float(m["grad_norm"]),
                                    rtol=1e-2)
+
+
+# ---------------------------------------------------------------- dry run
+def test_dryrun_prefill_trace_matches_the_card(cuda):
+    """The dry run's calibration (b) at a reduced width: stablelm-1.6b's
+    prefill (``api.forward`` under the (1, 1) training layout) traced on
+    meta, then built from seeded weights on the card and run: each
+    kernel's launches equal the trace's ``kernel_calls`` and the rank's
+    argument bytes (params and inputs) equal the trace's, exactly."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import op_analysis as oa
+    shape = ShapeConfig("cal_b", 256, 1, "prefill")
+    cfg = dryrun.adapt_parallel(
+        get_config("stablelm-1.6b").reduced(num_layers=3, d_model=256,
+                                            num_heads=4, head_dim=64),
+        shape, dryrun.grid_shape((1, 1)))
+    rec = dryrun.trace(cfg, shape, (1, 1))
+    assert rec["kernel_calls"] == {"flash_attention": 3}
+    step = dryrun.build_step(cfg, shape, oa.stand_in_grid((1, 1), cuda),
+                             cuda, torch.Generator(cuda).manual_seed(0))
+    ops.reset_launch_counts()
+    logits = step.run()
+    torch.cuda.synchronize()
+    want = {k: int(rec["kernel_calls"].get(k, 0)) for k in ops.KERNELS}
+    assert ops.launch_counts() == want
+    assert step.argument_bytes == rec["memory"]["argument_size_in_bytes"]
+    assert tuple(logits.shape) == (1, 256, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_soft_cap_on_card_bit_identical_to_cpu(cuda):
+    """``ref._soft_cap`` at gemma2-27b's softcap (50) over float32 logits
+    spread across their whole range (every 256th bit pattern, the
+    non-finite ones dropped): the card's bits equal the CPU's, which the
+    CPU parity tests hold against the JAX package (a division by a 0-d
+    tensor; a division by the Python number is a product by its
+    reciprocal on the card)."""
+    cap = get_config("gemma2-27b").softcap
+    bits = torch.arange(2 ** 24, dtype=torch.int64) * 256 - 2 ** 31
+    x = bits.to(torch.int32).view(torch.float32)
+    x = x[torch.isfinite(x)]
+    got = ref._soft_cap(x.to(cuda), cap).cpu()
+    assert torch.equal(got.view(torch.int32),
+                       ref._soft_cap(x, cap).view(torch.int32))

@@ -44,8 +44,9 @@ def test_static_scan_finds_no_jax_or_repro_import():
 # the encoder-decoder family with their configs, the tensor-parallel
 # package, the training path (data, optimizer, train step, checkpoints,
 # the training CLI), distributed training (the grids, the pipeline) and
-# the paper's cost and FPGA models: they must be among the modules the
-# scan imports
+# the paper's cost and FPGA models, and the dry run (the kernels' work
+# formulas, the meta-device tally, the CLI, its reanalysis and report):
+# they must be among the modules the scan imports
 NEW_MODULES = ("repro_torch.distributed.runtime",
                "repro_torch.distributed.sharding",
                "repro_torch.distributed.collectives",
@@ -61,7 +62,10 @@ NEW_MODULES = ("repro_torch.distributed.runtime",
                "repro_torch.train.step", "repro_torch.ckpt.manager",
                "repro_torch.launch.train", "repro_torch.launch.mesh",
                "repro_torch.distributed.pipeline",
-               "repro_torch.core.costmodel", "repro_torch.core.fpga")
+               "repro_torch.core.costmodel", "repro_torch.core.fpga",
+               "repro_torch.kernels.costs", "repro_torch.launch.op_analysis",
+               "repro_torch.launch.dryrun", "repro_torch.launch.reanalyze",
+               "repro_torch.launch.report")
 # the port's examples, loaded by path in the same process as the modules
 EXAMPLES = ("quickstart_torch", "serve_splitbrain_torch", "train_e2e_torch")
 

@@ -215,6 +215,6 @@ def test_rebuilding_a_quantized_layer_keeps_its_packed_codes():
     stacked = sbe._stack_layers({"w": ql}, 6)["w"]
     assert tuple(stacked.packed.shape) == (6,) + kw.packed_shape(64, 16)
     assert torch.equal(stacked[4].packed, ql[1, 1].packed)
-    assert sbe._pack({"w": stacked})["w"].packed is stacked.packed
+    assert api.pack_model({"w": stacked})["w"].packed is stacked.packed
     back = api.params_from_numpy({"w": ql}, "cpu")["w"]
     assert torch.equal(back.packed, ql.packed)
